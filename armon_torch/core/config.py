@@ -1,0 +1,72 @@
+"""Static solver configuration (`armon_tpu/core/config.py`).
+
+The frozen half of `ArmonParameters`: scheme selection, grid geometry and
+dtype. Kernel variants are chosen from it, so equal configurations run
+identical code.
+"""
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+
+from ..models.cases import TestCase
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    # dtype / geometry
+    dtype: np.dtype                      # np.float64 or np.float32
+    nghost: int                          # ghost cells per side (>= stencil sum)
+    n_global: Tuple[int, int]            # (nx, ny) global real cells
+    n_local: Tuple[int, int]             # (nx, ny) real cells per device
+    domain_size: Tuple[float, float]     # (sx, sy)
+    origin: Tuple[float, float]          # (ox, oy)
+
+    # physics / scheme
+    test: TestCase
+    riemann: str = "GAD"                 # "Godunov" | "GAD"
+    limiter: str = "minmod"              # "no_limiter" | "minmod" | "superbee"
+    projection: str = "euler_2nd"        # "euler" | "euler_2nd"
+    splitting: str = "Sequential"        # "Sequential" | "Godunov" | "Strang" | "X_only" | "Y_only"
+
+    # time stepping
+    cfl: float = 0.95
+    maxtime: float = 0.20
+    maxcycle: int = 500_000
+    Dt: float = 0.0
+    cst_dt: bool = False
+    dt_on_even_cycles: bool = False
+
+    # Parsed and validated for parity with the JAX package; every grid runs
+    # the per-sweep kernels until the whole-cycle and multi-cycle kernels
+    # are ported (ROADMAP queue B5/B6).
+    pair_threshold: int = 2048
+    temporal_blocking: int = 8
+
+    # f32 approximate-reciprocal divides in the CUDA kernels (one Newton
+    # step for primary divides, raw for correction factors). f64 and the
+    # CPU reference path always divide exactly.
+    fast_math: bool = True
+
+    @property
+    def dx(self) -> float:
+        """Cell size along X: domain_size/global_grid (src/solver_state.jl:341)."""
+        return self.domain_size[0] / self.n_global[0]
+
+    @property
+    def dy(self) -> float:
+        return self.domain_size[1] / self.n_global[1]
+
+    def cell_size(self, axis) -> float:
+        return (self.dx, self.dy)[int(axis)]
+
+    @property
+    def local_shape(self) -> Tuple[int, int]:
+        """(rows, cols) of a padded block: (ny+2g, nx+2g)."""
+        g = self.nghost
+        return (self.n_local[1] + 2 * g, self.n_local[0] + 2 * g)
+
+    @property
+    def gamma(self) -> float:
+        return self.test.specific_heat_ratio

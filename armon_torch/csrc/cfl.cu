@@ -1,0 +1,116 @@
+// K3 `cfl_finish`: the cross-block half of the CFL reduction plus one step
+// of the dt recurrence, on the device.
+//
+// Replaces `_dt_from_tiles` (armon_tpu/ops/pallas/sweep.py:968), whose
+// cross-tile maximum the TPU accumulated in a revisited VMEM block, and the
+// dt update the TPU's `_multicycle_kernel` runs in-kernel
+// (sweep.py:1950-1967, bitwise `core/timestep.dt_update`).
+//
+// Bound on this card: launch latency. It reads 2 x n_partials values
+// (~70 K at 8192^2) and writes a few scalars: ~0.5 MB, well under a
+// microsecond of HBM time. One block of 1024 threads strides over the
+// partials, reduces in shared memory, and one thread runs the scalar
+// recurrence, so the loop never reads a scalar back to the host.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace armon {
+
+struct CflArgs {
+  const void* partials;   // (2, n_partials): max |u|+c, then max |v|+c
+  void* scal;             // T[4]: t, dt_prev, lm, dt_use
+  void* iscal;            // int32[4]: cycle, ok, run, next
+  long long n_partials;   // row stride of `partials`
+  long long nblocks;      // partials the last sweep wrote
+  int fold;               // fold the partials into lm (if the cycle ran)
+  int step;               // run the dt recurrence for the next cycle
+  int cst_dt, dt_on_even_cycles;
+  int maxcycle;
+  double dx, dy, cfl, maxtime, Dt, cap;  // all already rounded to T
+};
+
+constexpr int NT = 1024;
+
+template <typename T> __device__ __forceinline__ T jmax(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+template <typename T> __device__ __forceinline__ T jmin(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) cfl_finish_kernel(const CflArgs a) {
+  __shared__ T smx[NT], smy[NT];
+  T* scal = reinterpret_cast<T*>(a.scal);
+  int* iscal = reinterpret_cast<int*>(a.iscal);
+  const T* part = reinterpret_cast<const T*>(a.partials);
+  const int tid = threadIdx.x;
+  const bool fold = a.fold && iscal[2] != 0;  // the cycle that wrote them ran
+  if (fold) {
+    T mx = T(0), my = T(0);  // the TPU's zero-initialised max block
+    for (long long i = tid; i < a.nblocks; i += NT) {
+      mx = jmax(mx, part[i]);
+      my = jmax(my, part[a.n_partials + i]);
+    }
+    smx[tid] = mx;
+    smy[tid] = my;
+    __syncthreads();
+    for (int w = NT / 2; w > 0; w >>= 1) {
+      if (tid < w) {
+        smx[tid] = jmax(smx[tid], smx[tid + w]);
+        smy[tid] = jmax(smy[tid], smy[tid + w]);
+      }
+      __syncthreads();
+    }
+  }
+  if (tid != 0) return;
+  if (fold) scal[2] = jmin(T(a.dx) / smx[0], T(a.dy) / smy[0]);
+  if (!a.step) return;
+  const T maxtime = T(a.maxtime);
+  const T t = scal[0], dtp = scal[1], lm = scal[2];
+  const int cyc = iscal[0];
+  const bool run = t < maxtime && cyc < a.maxcycle && iscal[1] != 0;
+  if (run) {
+    T dt_use, dt_next;
+    bool ok;
+    if (a.cst_dt) {
+      dt_use = dt_next = T(a.Dt);
+      ok = true;
+    } else {
+      const bool first = dtp == T(0);
+      const T cand = first ? T(a.cfl) * lm : jmin(T(a.cfl) * lm, T(a.cap) * dtp);
+      dt_next = (a.dt_on_even_cycles && !(cyc % 2 == 0 || first)) ? dtp : cand;
+      dt_use = first ? dt_next : dtp;
+      ok = isfinite(dt_next) && dt_next > T(0);
+    }
+    scal[3] = dt_use;
+    scal[0] = t + dt_use;
+    scal[1] = dt_next;
+    iscal[0] = cyc + 1;
+    iscal[1] = ok ? 1 : 0;
+  }
+  iscal[2] = run ? 1 : 0;
+  iscal[3] = (scal[0] < maxtime && iscal[0] < a.maxcycle && iscal[1] != 0) ? 1 : 0;
+}
+
+}  // namespace armon
+
+extern "C" int armon_cfl_finish(int bits, const armon::CflArgs* a, void* stream) {
+  using armon::cfl_finish_kernel;
+  using armon::NT;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (a->nblocks > a->n_partials) return -3;
+  if (bits == 32)
+    cfl_finish_kernel<float><<<1, NT, 0, s>>>(*a);
+  else if (bits == 64)
+    cfl_finish_kernel<double><<<1, NT, 0, s>>>(*a);
+  else
+    return -1;
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* armon_error_string(int code) {
+  if (code < 0) return "argument rejected by the launcher";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,264 @@
+"""Build and bind the CUDA kernels of `armon_torch/csrc/`.
+
+Each source compiles with nvcc for `sm_90a` into a shared library with a
+plain C interface, loaded with ctypes. The sources are compiled in
+parallel (one nvcc each) on first use, into ``build/armon_torch/`` at the
+root of the checkout, under a name that hashes the sources and flags, so
+a changed source rebuilds and an unchanged one loads. A failed build or
+launch raises `SolverException`; nothing falls back to another path.
+
+`-fmad=false` keeps every multiply and add separately rounded, which is
+what makes exact mode bit-comparable with the plain PyTorch versions.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..utils.enums import Axis
+from ..utils.errors import solver_error
+from ..models.cases import Bizarrium
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "armon_torch")
+SOURCES = ("sweep_f32.cu", "sweep_f64.cu", "cfl.cu")
+HEADERS = ("sweep.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+# Filled by `load()`: build seconds (0 when every library was cached) and
+# the compiler's output per source (ptxas registers / spills).
+BUILD_INFO = {"seconds": None, "logs": {}}
+
+_LOCK = threading.Lock()
+_LIBS = None
+
+# Must match `armon::EosConst` in csrc/sweep.cuh.
+EOS_KEYS = ("GM", "GM1", "RHO0", "S", "SK", "Q", "R", "2Q", "3R", "6R",
+            "2S", "G0", "EPS0", "CV0T0", "C05K0R", "PK0C", "C05K0",
+            "CM05K0", "G0RHO0", "INVRHO0", "E1C", "E2C", "E3C", "PPC")
+
+
+class SweepArgs(ctypes.Structure):
+    """Mirror of `armon::SweepArgs` (csrc/sweep.cuh)."""
+    _fields_ = [
+        ("src", ctypes.c_void_p * 4), ("dst", ctypes.c_void_p * 4),
+        ("p", ctypes.c_void_p), ("partials", ctypes.c_void_p),
+        ("scal", ctypes.c_void_p), ("iscal", ctypes.c_void_p),
+        ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong),
+        ("n_partials", ctypes.c_longlong),
+        ("grid_x", ctypes.c_int), ("grid_y", ctypes.c_int),
+        ("g", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
+        ("riemann", ctypes.c_int), ("limiter", ctypes.c_int),
+        ("projection", ctypes.c_int), ("fill", ctypes.c_int),
+        ("emit", ctypes.c_int), ("fast", ctypes.c_int), ("biz", ctypes.c_int),
+        ("dt_factor", ctypes.c_double), ("dx", ctypes.c_double),
+        ("inv_dx", ctypes.c_double),
+        ("f_lo", ctypes.c_double * 4), ("f_hi", ctypes.c_double * 4),
+        ("k", ctypes.c_double * len(EOS_KEYS)),
+    ]
+
+
+class CflArgs(ctypes.Structure):
+    """Mirror of `armon::CflArgs` (csrc/cfl.cu)."""
+    _fields_ = [
+        ("partials", ctypes.c_void_p), ("scal", ctypes.c_void_p),
+        ("iscal", ctypes.c_void_p),
+        ("n_partials", ctypes.c_longlong), ("nblocks", ctypes.c_longlong),
+        ("fold", ctypes.c_int), ("step", ctypes.c_int),
+        ("cst_dt", ctypes.c_int), ("dt_on_even_cycles", ctypes.c_int),
+        ("maxcycle", ctypes.c_int),
+        ("dx", ctypes.c_double), ("dy", ctypes.c_double),
+        ("cfl", ctypes.c_double), ("maxtime", ctypes.c_double),
+        ("Dt", ctypes.c_double), ("cap", ctypes.c_double),
+    ]
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None:
+        from torch.utils.cpp_extension import CUDA_HOME
+        if CUDA_HOME:
+            cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+            path = cand if os.path.exists(cand) else None
+    if path is None:
+        solver_error("cpp", "nvcc not found: the CUDA kernels are built from "
+                            "armon_torch/csrc on first use and need the CUDA "
+                            "toolkit")
+    return path
+
+
+def _lib_path(src):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + (src,):
+        with open(os.path.join(SRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    stem = os.path.splitext(src)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def load():
+    """Build (if needed) and load every kernel library. Returns a dict of
+    ctypes libraries keyed by source stem."""
+    global _LIBS
+    with _LOCK:
+        if _LIBS is not None:
+            return _LIBS
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        t0 = time.perf_counter()
+        jobs = {}
+        for src in SOURCES:
+            out = _lib_path(src)
+            if os.path.exists(out):
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, src)]
+            jobs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         tmp, out)
+        failed = []
+        for src, (proc, tmp, out) in jobs.items():
+            log, _ = proc.communicate()
+            BUILD_INFO["logs"][src] = log
+            if proc.returncode != 0:
+                failed.append(f"{src} (nvcc exit {proc.returncode}):\n{log[-4000:]}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            solver_error("cpp", "kernel build failed: " + "\n".join(failed))
+        BUILD_INFO["seconds"] = time.perf_counter() - t0
+        libs = {}
+        for src in SOURCES:
+            libs[os.path.splitext(src)[0]] = ctypes.CDLL(_lib_path(src))
+        for bits in (32, 64):
+            fn = getattr(libs[f"sweep_f{bits}"], f"armon_sweep_f{bits}")
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(SweepArgs), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        fn = libs["cfl"].armon_cfl_finish
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(CflArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs["cfl"].armon_error_string.argtypes = [ctypes.c_int]
+        libs["cfl"].armon_error_string.restype = ctypes.c_char_p
+        _LIBS = libs
+        return libs
+
+
+def eos_constants(cfg):
+    """The EOS constants of `_eos_prc`, computed with the same numpy
+    expressions in dtype T (`ops/pallas/sweep.py:145-251`)."""
+    T = np.dtype(cfg.dtype).type
+    gm = T(cfg.gamma)
+    rho0 = T(10000.0); K0 = T(1e11); Cv0 = T(1000.0); T0 = T(300.0)
+    eps0 = T(0.0); G0 = T(1.5); s = T(1.5)
+    q = T(-42080895.0 / 14941154.0); r = T(727668333.0 / 149411540.0)
+    vals = {
+        "GM": gm, "GM1": gm - T(1.0),
+        "RHO0": rho0, "S": s, "SK": s / 3 - 2, "Q": q, "R": r,
+        "2Q": 2 * q, "3R": 3 * r, "6R": 6 * r, "2S": 2 * s, "G0": G0,
+        "EPS0": eps0, "CV0T0": Cv0 * T0, "C05K0R": 0.5 * (K0 / rho0),
+        "PK0C": -Cv0 * T0 * G0 * rho0, "C05K0": 0.5 * K0,
+        "CM05K0": -0.5 * K0, "G0RHO0": G0 * rho0,
+        "INVRHO0": T(1.0 / 10000.0),
+        "E1C": eps0 - Cv0 * T0 * (1 + G0), "E2C": Cv0 * T0 * G0 * rho0,
+        "E3C": T(0.5) * K0 / rho0, "PPC": -T(0.5) * K0 * rho0,
+    }
+    return [float(T(vals[key])) for key in EOS_KEYS]
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _require(t, dtype, device, numel, what):
+    """Validate a tensor whose pointer goes to a kernel."""
+    if (t.dtype != dtype or t.device != device or not t.is_contiguous()
+            or t.numel() < numel):
+        solver_error("config", f"{what} must be a contiguous {dtype} tensor "
+                               f"of >= {numel} elements on {device}; got "
+                               f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_status(rc, what):
+    if rc != 0:
+        msg = load()["cfl"].armon_error_string(rc).decode()
+        solver_error("cpp", f"{what} launch failed: code {rc} ({msg})")
+
+
+def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
+                 emit, fill):
+    """Launch K1 (axis X) or K2 (axis Y) on the current stream."""
+    from .sweep import grid_dims, mirror_factors, fast_math_on
+    libs = load()
+    T = np.dtype(cfg.dtype).type
+    rows, cols = src[0].shape
+    gx, gy = grid_dims(axis, (rows, cols))
+    dev = src[0].device
+    _require(scal, src[0].dtype, dev, 4, "scal")
+    _require(iscal, torch.int32, dev, 4, "iscal")
+    if emit:
+        _require(partials, src[0].dtype, dev, 2 * gx * gy, "CFL partials")
+        if partials.dim() != 2 or partials.shape[0] != 2:
+            solver_error("config", "CFL partials must have shape (2, n)")
+    f_lo, f_hi = mirror_factors(cfg, axis)
+    dx = T(cfg.cell_size(axis))
+    a = SweepArgs()
+    a.src[:] = [_ptr(t) for t in src]
+    a.dst[:] = [_ptr(t) for t in dst]
+    a.p = _ptr(p) if emit else None
+    a.partials = _ptr(partials) if emit else None
+    a.scal, a.iscal = _ptr(scal), _ptr(iscal)
+    a.rows, a.cols = rows, cols
+    a.n_partials = partials.shape[1] if emit else 0
+    a.grid_x, a.grid_y = gx, gy
+    a.g, a.nx, a.ny = cfg.nghost, cfg.n_local[0], cfg.n_local[1]
+    a.riemann = 1 if cfg.riemann == "GAD" else 0
+    a.limiter = ("no_limiter", "minmod", "superbee").index(cfg.limiter)
+    a.projection = 1 if cfg.projection == "euler_2nd" else 0
+    a.fill, a.emit = int(fill), int(emit)
+    a.fast = int(fast_math_on(cfg, src[0].device))
+    a.biz = int(isinstance(cfg.test, Bizarrium))
+    a.dt_factor = float(T(factor))
+    a.dx = float(dx)
+    a.inv_dx = float(T(1.0) / dx)
+    a.f_lo[:] = list(f_lo)
+    a.f_hi[:] = list(f_hi)
+    a.k[:] = eos_constants(cfg)
+    bits = 8 * np.dtype(cfg.dtype).itemsize
+    fn = getattr(libs[f"sweep_f{bits}"], f"armon_sweep_f{bits}")
+    stream = torch.cuda.current_stream(src[0].device).cuda_stream
+    rc = fn(0 if axis is Axis.X else 1, ctypes.byref(a), stream)
+    _check_status(rc, "x_sweep" if axis is Axis.X else "y_sweep")
+
+
+def launch_cfl_finish(cfg, partials, nblocks, scal, iscal, fold, step):
+    """Launch K3 on the current stream."""
+    libs = load()
+    T = np.dtype(cfg.dtype).type
+    _require(scal, partials.dtype, partials.device, 4, "scal")
+    _require(iscal, torch.int32, partials.device, 4, "iscal")
+    _require(partials, partials.dtype, partials.device, 2 * nblocks, "CFL partials")
+    if partials.dim() != 2 or partials.shape[0] != 2:
+        solver_error("config", "CFL partials must have shape (2, n)")
+    a = CflArgs()
+    a.partials, a.scal, a.iscal = _ptr(partials), _ptr(scal), _ptr(iscal)
+    a.n_partials = partials.shape[1]
+    a.nblocks = nblocks
+    a.fold, a.step = int(fold), int(step)
+    a.cst_dt, a.dt_on_even_cycles = int(cfg.cst_dt), int(cfg.dt_on_even_cycles)
+    a.maxcycle = int(cfg.maxcycle)
+    a.dx, a.dy = float(T(cfg.dx)), float(T(cfg.dy))
+    a.cfl, a.maxtime = float(T(cfg.cfl)), float(T(cfg.maxtime))
+    a.Dt, a.cap = float(T(cfg.Dt)), float(T(1.05))
+    stream = torch.cuda.current_stream(scal.device).cuda_stream
+    rc = libs["cfl"].armon_cfl_finish(8 * np.dtype(cfg.dtype).itemsize,
+                                      ctypes.byref(a), stream)
+    _check_status(rc, "cfl_finish")

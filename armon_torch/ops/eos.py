@@ -1,0 +1,92 @@
+"""Equations of state (`armon_tpu/ops/eos.py`, `src/kernels.jl:4-55`).
+
+Plain tensor code, used by the cycle-0 EOS of the initial state. Constants
+are rounded to the working dtype T before any arithmetic, and every
+operation runs in the order the JAX package writes it, so the two agree
+bit for bit. Divisions by a constant go through a tensor of dtype T:
+PyTorch turns `tensor / python_scalar` into a multiply by the reciprocal on
+the card, and `python_scalar / tensor` into one everywhere.
+"""
+
+import numpy as np
+import torch
+
+from ..models.cases import Bizarrium
+
+
+def ieee_sqrt(x):
+    """Correctly rounded square root. PyTorch's vectorized CPU kernel is
+    not (it differs from IEEE by an ulp on ~0.7% of inputs); numpy's is,
+    as the card's `torch.sqrt` and the CUDA kernels' `sqrt` are."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def scalar_like(like, value):
+    """`value` as a 0-dim tensor of `like`'s dtype and device."""
+    return torch.tensor(float(value), dtype=like.dtype, device=like.device)
+
+
+def perfect_gas_eos(gamma, rho, u, v, E, dtype):
+    """p = (gamma-1)*rho*e, c = sqrt(gamma*p/rho), g = (1+gamma)/2
+    (`src/kernels.jl:4-13`). Returns (p, c, g)."""
+    T = np.dtype(dtype).type
+    gm = T(gamma)
+    e = E - 0.5 * (u * u + v * v)
+    p = float(gm - T(1.0)) * rho * e
+    c = ieee_sqrt(float(gm) * p / rho)
+    g = torch.full_like(rho, float((T(1.0) + gm) / T(2.0)))
+    return p, c, g
+
+
+def bizarrium_eos(rho, u, v, E, dtype):
+    """Stiffened non-convex EOS (`src/kernels.jl:16-55`). Returns (p, c, g)."""
+    T = np.dtype(dtype).type
+    rho0 = T(10000.0)
+    K0 = T(1e11)
+    Cv0 = T(1000.0)
+    T0 = T(300.0)
+    eps0 = T(0.0)
+    G0 = T(1.5)
+    s = T(1.5)
+    # Ratios evaluated in Float64 then converted to T (`src/kernels.jl:33-34`).
+    q = T(-42080895.0 / 14941154.0)
+    r = T(727668333.0 / 149411540.0)
+    f = float
+
+    x = rho / scalar_like(rho, rho0) - 1
+    G = f(G0) * (1 - scalar_like(rho, rho0) / rho)
+    x2 = x * x
+    x3 = x * x2
+    xp1 = 1 + x
+    den = 1 - f(s) * x
+
+    f0 = (1 + f(s / 3 - 2) * x + f(q) * x2 + f(r) * x3) / den
+    f1 = (f(s / 3 - 2) + f(2 * q) * x + f(3 * r) * x2 + f(s) * f0) / den
+    f2 = (f(2 * q) + f(6 * r) * x + f(2 * s) * f1) / den
+    f3 = (f(6 * r) + f(3 * s) * f2) / den
+
+    epsk0 = f(eps0) - f(Cv0 * T0) * (1 + G) + f(0.5 * (K0 / rho0)) * x2 * f0
+    pk0 = f(-Cv0 * T0 * G0 * rho0) + f(0.5 * K0) * x * (xp1 * xp1) * (2 * f0 + x * f1)
+    pk0prime = f(-0.5 * K0) * (xp1 * (xp1 * xp1)) * f(rho0) * (
+        2 * (1 + 3 * x) * f0 + 2 * x * (2 + 3 * x) * f1 + x2 * xp1 * f2)
+    xp12 = xp1 * xp1
+    pk0second = f(0.5 * K0) * (xp12 * xp12) * f(rho0 ** 2) * (
+        12 * (1 + 2 * x) * f0 + 6 * (1 + 6 * x + 6 * x2) * f1
+        + 6 * x * xp1 * (1 + 2 * x) * f2 + x2 * xp12 * f3)
+
+    e = E - 0.5 * (u * u + v * v)
+    p = pk0 + f(G0 * rho0) * (e - epsk0)
+    c = ieee_sqrt(f(G0 * rho0) * (p - pk0) - pk0prime) / rho
+    g = scalar_like(rho, 0.5) / (rho * (rho * rho) * (c * c)) * (
+        pk0second + f((G0 * rho0) ** 2) * (p - pk0))
+    return p, c, g
+
+
+def update_eos(cfg, rho, u, v, E):
+    """Dispatch by test case (`src/kernels.jl:151-166`) over the whole
+    padded array. Returns (p, c, g)."""
+    if isinstance(cfg.test, Bizarrium):
+        return bizarrium_eos(rho, u, v, E, cfg.dtype)
+    return perfect_gas_eos(cfg.gamma, rho, u, v, E, cfg.dtype)

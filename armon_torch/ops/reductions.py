@@ -1,0 +1,88 @@
+"""Global reductions: CFL time step and conservation variables
+(`armon_tpu/ops/reductions.py`, `src/reductions.jl`).
+
+The real domain is the static slice ``[g:-g, g:-g]`` of the padded arrays.
+Max and min are exact, so the CFL minimum is the same in any reduction
+order; the conservation sums feed tolerance checks only.
+"""
+
+import numpy as np
+import torch
+
+
+def real_slice(cfg):
+    g = cfg.nghost
+    return (slice(g, -g), slice(g, -g))
+
+
+def cfl_limit(cfg, mx, my):
+    """min(dx/mx, dy/my) with dx, dy rounded to T: the second half of the
+    restructured CFL reduction (`ops/pallas/sweep.py:968-975`). NaN in
+    either maximum propagates to the result."""
+    T = np.dtype(cfg.dtype).type
+    dx = torch.tensor(float(T(cfg.dx)), dtype=mx.dtype, device=mx.device)
+    dy = torch.tensor(float(T(cfg.dy)), dtype=mx.dtype, device=mx.device)
+    return torch.minimum(dx / mx, dy / my)
+
+
+def dt_cfl_min(cfg, u, v, c):
+    """Minimum CFL-stable dt over the real cells (`src/reductions.jl:14-20`)
+    as min(dx/max(|u|+c), dy/max(|v|+c)): bitwise the per-cell form, since
+    IEEE division is monotone in the denominator (see the JAX package's
+    `dt_cfl_min`). Returns a 0-dim tensor."""
+    r = real_slice(cfg)
+    c = c[r]
+    mx = torch.amax(torch.abs(u[r]) + c)
+    my = torch.amax(torch.abs(v[r]) + c)
+    return cfl_limit(cfg, mx, my)
+
+
+def _ff_sum(x):
+    """Compensated (Knuth 2Sum) sum of a 2D tensor: a vector 2Sum scan over
+    the columns keeps one (hi, lo) pair per row, then a scalar 2Sum scan
+    combines the row sums. f64-grade accuracy in pure f32; the (hi, lo)
+    pair is combined on the host in f64 (`conservation_scalar`)."""
+    def two_sum(hi, lo, b):
+        t = hi + b
+        bp = t - hi
+        err = (hi - (t - bp)) + (b - bp)
+        return t, lo + err
+
+    hi = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    lo = torch.zeros_like(hi)
+    for i in range(x.shape[1]):
+        hi, lo = two_sum(hi, lo, x[:, i])
+    # The scalar scan in the same dtype on the host: numpy scalars round
+    # every operation to T exactly as the device would.
+    T = np.float64 if x.dtype == torch.float64 else np.float32
+    h = l = T(0.0)
+    for b in hi.cpu().numpy():
+        t = h + b
+        bp = t - h
+        err = (h - (t - bp)) + (b - bp)
+        h, l = t, l + err
+    return np.array([h, l + T(lo.sum().item())], dtype=T)
+
+
+def conservation_vars(cfg, rho, E):
+    """(total mass, total energy) over real cells
+    (`src/reductions.jl:202-216,254-258`). f64: ds-scaled scalars. f32:
+    unscaled compensated (hi, lo) pairs; combine with
+    `conservation_scalar`."""
+    T = np.dtype(cfg.dtype).type
+    r = real_slice(cfg)
+    rho = rho[r]
+    rhoE = rho * E[r]
+    if np.dtype(cfg.dtype).itemsize == 4:
+        return _ff_sum(rho), _ff_sum(rhoE)
+    ds = float(T(cfg.dx) * T(cfg.dy))
+    return torch.sum(rho) * ds, torch.sum(rhoE) * ds
+
+
+def conservation_scalar(cfg, v) -> float:
+    """Host f64 value of a `conservation_vars` output: a compensated
+    (hi, lo) pair is combined and scaled by the cell area in f64."""
+    a = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v, np.float64)
+    if a.ndim >= 1 and a.shape[-1] == 2:
+        return float((a[..., 0] + a[..., 1]).sum() * (cfg.dx * cfg.dy))
+    return float(a)

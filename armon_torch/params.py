@@ -1,0 +1,371 @@
+"""User-facing solver parameters (`armon_tpu/params.py`).
+
+The same keyword cascade as the JAX package: each init step consumes its
+options, and any leftover raises an error naming the unknown options
+(`src/parameters.jl:359-372`). Options whose route in the JAX package is
+not ported yet raise a `SolverException` that names the ROADMAP item which
+brings them; none is accepted and ignored.
+
+PyTorch additions:
+- ``device``: where the tensors live and the kernels run, ``"cuda"`` by
+  default. ``"cpu"`` runs every kernel's plain PyTorch version in exact
+  arithmetic (the tests use it). ``"cuda"`` without a card raises.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from .utils.errors import solver_error
+from .models.cases import test_from_name, TestCase, _REGISTRY
+from .core.config import SolverConfig
+from .core.state import State
+
+
+_DTYPE_NAMES = {
+    "float64": np.float64, "Float64": np.float64, "f64": np.float64,
+    "float32": np.float32, "Float32": np.float32, "f32": np.float32,
+}
+
+# ROADMAP items that bring the routes this package does not run yet.
+_IO = "ROADMAP queue A item 6 (I/O)"
+_DRIVERS = "ROADMAP queue A item 8 (other drivers + restart)"
+_OBSERVABILITY = "ROADMAP queue A item 9 (observability)"
+_MULTI_GPU = "ROADMAP queue A item 10 (multi-GPU)"
+_OP_PATH = "ROADMAP queue A item 3 (torch op path)"
+
+
+def _stencil_width_riemann(scheme: str) -> int:
+    # src/riemann_schemes.jl:17-18
+    return {"Godunov": 1, "GAD": 2}[scheme]
+
+
+def _stencil_width_projection(projection: str) -> int:
+    # src/projection_schemes.jl:11-12
+    return {"euler": 1, "euler_2nd": 2}[projection]
+
+
+def _not_ported(option, item):
+    solver_error("config", f"option '{option}' is not available in "
+                           f"armon_torch yet: it comes with {item}")
+
+
+def resolve_device(name) -> torch.device:
+    """The torch.device for the `device` option. A CUDA device with no card
+    present is an error, never a silent move to the CPU."""
+    try:
+        dev = torch.device(name)
+    except (RuntimeError, TypeError) as e:
+        solver_error("config", f"Unknown device: {name!r} ({e})")
+    if dev.type not in ("cuda", "cpu"):
+        solver_error("config", f"Unsupported device type: '{dev.type}' "
+                               f"(armon_torch runs on 'cuda' or 'cpu')")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        solver_error("config", "device 'cuda' requested but no CUDA card is "
+                               "available (pass device='cpu' to run the "
+                               "plain PyTorch path)")
+    return dev
+
+
+class ArmonParameters:
+    """Validating front-end. ``ArmonParameters(**options)`` then
+    ``armon(params)``."""
+
+    def __init__(self, **options):
+        opts = dict(options)
+
+        # --- data type + grid (src/parameters.jl:348-353)
+        data_type = opts.pop("data_type", np.float64)
+        if isinstance(data_type, str):
+            data_type = _DTYPE_NAMES.get(data_type)
+        if isinstance(data_type, type) and data_type is float:
+            data_type = np.float64
+        if data_type not in (np.float64, np.float32):
+            solver_error("config", f"Unsupported data_type: {options.get('data_type')}")
+        self.data_type = np.dtype(data_type)
+
+        N = tuple(opts.pop("N", (10, 10)))
+        if len(N) != 2 or any(n <= 0 for n in N):
+            solver_error("config", f"Invalid grid size N: {N}")
+        self.N = N  # global real cells (nx, ny)
+
+        self._init_scheme(opts)
+        self._init_test(opts)
+        self._init_mesh(opts)
+        self._init_device(opts)
+        self._init_profiling(opts)
+        self._init_indexing(opts)
+        self._init_output(opts)
+
+        if opts:
+            bad = ", ".join(f"'{k}'" for k in opts)
+            raise TypeError(f"{len(opts)} unconsumed options:\n{bad}")
+
+        self.initial_mass = 0.0
+        self.initial_energy = 0.0
+        self._config = None
+
+    # ------------------------------------------------------------------ init
+    def _init_scheme(self, o):
+        """src/parameters.jl:577-630"""
+        self.scheme = str(o.pop("scheme", "GAD"))
+        if self.scheme not in ("Godunov", "GAD"):
+            solver_error("config", f"Unknown scheme: '{self.scheme}'")
+        self.projection = str(o.pop("projection", "euler_2nd"))
+        if self.projection not in ("euler", "euler_2nd"):
+            solver_error("config", f"Unknown projection scheme: '{self.projection}'")
+        self.riemann_limiter = str(o.pop("riemann_limiter", "minmod"))
+        if self.riemann_limiter not in ("no_limiter", "minmod", "superbee"):
+            solver_error("config", f"Unknown limiter name: '{self.riemann_limiter}'")
+        self.axis_splitting = str(o.pop("axis_splitting", "Sequential"))
+        if self.axis_splitting == "SequentialSym":
+            self.axis_splitting = "Godunov"
+        if self.axis_splitting not in ("Sequential", "Godunov", "Strang", "X_only", "Y_only"):
+            solver_error("config", f"Unknown splitting method: '{self.axis_splitting}'")
+
+        self.nghost = int(o.pop("nghost", 4))
+        # A real cell's output depends on ghosts up to depth
+        # stencil(riemann) + stencil(projection): the SUM, not the Julia
+        # reference's product rule (`src/parameters.jl:609-613`), which
+        # under-counts at first-order projections.
+        min_nghost = (_stencil_width_riemann(self.scheme)
+                      + _stencil_width_projection(self.projection))
+        if self.nghost < min_nghost:
+            solver_error("config",
+                         f"Not enough ghost cells for the scheme: at least "
+                         f"{min_nghost} are needed (stencil sum; the "
+                         f"reference's product rule under-counts), got "
+                         f"{self.nghost}")
+
+        self.cst_dt = bool(o.pop("cst_dt", False))
+        self.Dt = float(o.pop("Dt", 0.0))
+        self.dt_on_even_cycles = bool(o.pop("dt_on_even_cycles", False))
+        if self.cst_dt and self.Dt == 0:
+            solver_error("config", "Dt == 0 with constant step enabled")
+
+    def _init_test(self, o):
+        """src/parameters.jl:632-670"""
+        test = o.pop("test", "Sod")
+        domain_size = o.pop("domain_size", None)
+        origin = o.pop("origin", None)
+        cfl = float(o.pop("cfl", 0.0))
+        maxtime = float(o.pop("maxtime", 0.0))
+        # Clamped to int32, the device cycle counter's type.
+        self.maxcycle = min(int(o.pop("maxcycle", 500_000)), 2**31 - 1)
+
+        if isinstance(test, TestCase):
+            self.test = test
+        else:
+            cls = _REGISTRY.get(str(test))
+            if cls is None:
+                solver_error("config", f"Unknown test case: '{test}'")
+            ds = tuple(domain_size) if domain_size is not None else cls.default_domain_size
+            self.test = test_from_name(test, ds[0] / self.N[0],
+                                       ds[1] / self.N[1], self.data_type)
+
+        tcls = type(self.test)
+        self.domain_size = tuple(map(float, domain_size)) if domain_size is not None \
+            else tuple(map(float, tcls.default_domain_size))
+        self.origin = tuple(map(float, origin)) if origin is not None \
+            else tuple(map(float, tcls.default_domain_origin))
+
+        # cfl/maxtime default to the test's values (src/parameters.jl:666-667)
+        self.cfl = cfl if cfl != 0 else self.test.default_CFL
+        self.maxtime = maxtime if maxtime != 0 else self.test.default_max_time
+
+    def _init_mesh(self, o):
+        """src/parameters.jl:408-467. One device only in this package."""
+        self.use_MPI = bool(o.pop("use_MPI", False))
+        self.P = tuple(o.pop("P", (1, 1)))
+        self.reorder_grid = bool(o.pop("reorder_grid", True))
+        self.gpu_aware = bool(o.pop("gpu_aware", True))
+        if len(self.P) != 2 or any(p <= 0 for p in self.P):
+            solver_error("config", f"Invalid process grid P: {self.P}")
+        if self.P != (1, 1):
+            _not_ported(f"P={self.P}", _MULTI_GPU)
+        for key in ("global_comm", "devices", "coordinator_address",
+                    "num_processes", "process_id"):
+            if o.pop(key, None) is not None:
+                _not_ported(key, _MULTI_GPU)
+
+    def _init_device(self, o):
+        """src/parameters.jl:470-530. Threading/SIMD/NUMA/cache-blocking are
+        x86 machinery with no GPU counterpart; accepted as no-ops for
+        configuration compatibility, as the JAX package does."""
+        self.device = resolve_device(o.pop("device", "cuda"))
+        self.use_gpu = bool(o.pop("use_gpu", False))
+        if o.pop("use_kokkos", False):
+            solver_error("config", "use_kokkos is not supported: the native "
+                                   "kernels are hand-written CUDA")
+        self.use_threading = bool(o.pop("use_threading", True))
+        self.use_simd = bool(o.pop("use_simd", True))
+        self.use_cache_blocking = bool(o.pop("use_cache_blocking", True))
+        self.async_cycle = bool(o.pop("async_cycle", False))
+        self.block_size = o.pop("block_size", None)
+        if self.block_size is not None:
+            solver_error("config", "block_size has no effect on the CUDA "
+                                   "kernels' fixed launch shapes; leave it "
+                                   "unset")
+        self.use_two_step_reduction = bool(o.pop("use_two_step_reduction", False))
+        self.workload_distribution = o.pop("workload_distribution", "simple")
+        o.pop("distrib_params", None)
+        self.numa_aware = bool(o.pop("numa_aware", False))
+        self.lock_memory = bool(o.pop("lock_memory", False))
+        self.busy_wait_limit = int(o.pop("busy_wait_limit", 100))
+        # Every accepted tier selects the hand-written kernels; "pallas" is
+        # accepted so option dicts written for the JAX package run as-is.
+        self.kernel_tier = str(o.pop("kernel_tier", "auto"))
+        if self.kernel_tier in ("jnp", "torch"):
+            _not_ported(f"kernel_tier='{self.kernel_tier}'", _OP_PATH)
+        if self.kernel_tier not in ("auto", "cuda", "pallas"):
+            solver_error("config", f"Unknown kernel_tier: '{self.kernel_tier}'")
+        # use_fast_math (src/generic_kernel.jl:3, default true): f32 CUDA
+        # kernels divide through an approximate reciprocal. False = IEEE.
+        self.use_fast_math = bool(o.pop("use_fast_math", True))
+        # Parsed and validated for parity; every grid runs per-sweep until
+        # the whole-cycle / multi-cycle kernels land (ROADMAP queue B5/B6).
+        self.pair_threshold = int(o.pop(
+            "pair_threshold", os.environ.get("ARMON_PAIR_THRESHOLD", 2048)))
+        self.temporal_blocking = int(o.pop(
+            "temporal_blocking", os.environ.get("ARMON_TEMPORAL_K", 8)))
+
+    def _init_profiling(self, o):
+        """src/parameters.jl:532-575"""
+        prof = o.pop("profiling", [])
+        prof = [prof] if isinstance(prof, str) else list(prof)
+        if prof:
+            _not_ported("profiling", _OBSERVABILITY)
+        self.profiling = prof
+        self.measure_time = bool(o.pop("measure_time", True))
+        self.time_async = bool(o.pop("time_async", True))
+        if o.pop("log_blocks", False):
+            _not_ported("log_blocks", _OBSERVABILITY)
+        self.log_blocks = False
+        o.pop("estimated_blk_log_size", None)
+
+    def _init_indexing(self, o):
+        """src/parameters.jl:673-697 on a single device."""
+        self.global_grid = self.N
+        self.n_local = self.N
+
+    def _init_output(self, o):
+        """src/parameters.jl:700-728. `silent` defaults to 2 here: levels
+        0 and 1 need the per-cycle driver, which is not ported yet."""
+        self.silent = int(o.pop("silent", 2))
+        if self.silent <= 1:
+            _not_ported(f"silent={self.silent}", _DRIVERS)
+        self.output_dir = str(o.pop("output_dir", "."))
+        self.output_file = str(o.pop("output_file", "output"))
+        for key in ("write_output", "write_ghosts", "write_slices"):
+            if o.pop(key, False):
+                _not_ported(key, _IO)
+        self.write_output = self.write_ghosts = self.write_slices = False
+        p = o.pop("output_precision", None)
+        self.output_precision = int(p) if p is not None else \
+            (17 if self.data_type.itemsize == 8 else 9)
+        for key in ("animation_step", "checkpoint_step"):
+            if int(o.pop(key, 0)) != 0:
+                _not_ported(key, _DRIVERS)
+        self.animation_step = self.checkpoint_step = 0
+        for key in ("compare", "is_ref"):
+            if o.pop(key, False):
+                _not_ported(key, _DRIVERS)
+        self.compare = self.is_ref = False
+        self.comparison_tolerance = float(o.pop("comparison_tolerance", 1e-10))
+        self.check_result = bool(o.pop("check_result", False))
+        self.return_data = bool(o.pop("return_data", False))
+
+    # ------------------------------------------------------------- derived
+    @property
+    def config(self) -> SolverConfig:
+        if self._config is None:
+            self._config = SolverConfig(
+                dtype=self.data_type,
+                nghost=self.nghost,
+                n_global=self.global_grid,
+                n_local=self.n_local,
+                domain_size=self.domain_size,
+                origin=self.origin,
+                test=self.test,
+                riemann=self.scheme,
+                limiter=self.riemann_limiter,
+                projection=self.projection,
+                splitting=self.axis_splitting,
+                cfl=self.cfl,
+                maxtime=self.maxtime,
+                maxcycle=self.maxcycle,
+                Dt=self.Dt,
+                cst_dt=self.cst_dt,
+                dt_on_even_cycles=self.dt_on_even_cycles,
+                fast_math=self.use_fast_math,
+                pair_threshold=self.pair_threshold,
+                temporal_blocking=self.temporal_blocking,
+            )
+        return self._config
+
+    def memory_required(self) -> dict:
+        """Device bytes of the port's buffers (`src/blocking/block_grid.jl:
+        598-709` analog). The time loop holds two sets of rho/u/v/E (the
+        sweeps write out of place, ping-pong) plus p: 9 fields, and the
+        per-block CFL partials. `return_data` rebuilds the 11-field State
+        after the loop, once the second field set is freed."""
+        g = self.nghost
+        nx, ny = self.n_local
+        rows, cols = ny + 2 * g, nx + 2 * g
+        itemsize = self.data_type.itemsize
+        field = rows * cols * itemsize
+        loop = 9 * field
+        state = len(State._fields) * field
+        return {
+            "per_device_field_bytes": field,
+            "per_device_loop_bytes": loop,
+            "per_device_state_bytes": state,
+            "per_device_total_bytes": loop,
+            "total_bytes": loop,
+        }
+
+    def __repr__(self):
+        return (f"ArmonParameters(test={self.test!r}, N={self.N}, "
+                f"dtype={self.data_type.name}, scheme={self.scheme}, "
+                f"projection={self.projection}, limiter={self.riemann_limiter}, "
+                f"splitting={self.axis_splitting}, device={self.device})")
+
+    def describe(self) -> str:
+        """Multi-line parameter block (`src/parameters.jl:826-900`)."""
+        mem = self.memory_required()
+        dt_line = (f"constant at {self.Dt}" if self.cst_dt else
+                   "initialized automatically, updated " +
+                   ("only at even cycles" if self.dt_on_even_cycles
+                    else "every cycle"))
+        fast = self.use_fast_math and self.data_type.itemsize == 4 \
+            and self.device.type == "cuda"
+        lines = [
+            "Armon (PyTorch/CUDA) parameters:",
+            f" - test:       {self.test!r}",
+            f" - grid:       {self.N[0]}x{self.N[1]} cells "
+            f"(+{self.nghost} ghosts), domain {self.domain_size} "
+            f"from {self.origin}",
+            f" - data type:  {self.data_type.name}",
+            f" - scheme:     {self.scheme}"
+            + (f" + {self.riemann_limiter} limiter"
+               if self.scheme == "GAD" else ""),
+            f" - projection: {self.projection}",
+            f" - splitting:  {self.axis_splitting}",
+            f" - time step:  {dt_line}; CFL={self.cfl}",
+            f" - stops at:   t={self.maxtime} or {self.maxcycle} cycles",
+            f" - device:     {self.device}, per-sweep kernels, "
+            + ("fast-math divides" if fast else "IEEE divides"),
+            f" - memory:     {mem['per_device_total_bytes'] / 1e6:.1f} MB "
+            f"in the time loop",
+        ]
+        return "\n".join(lines)
+
+
+def data_type(params: ArmonParameters):
+    """Reference API parity (`src/Armon.jl:15`)."""
+    return params.data_type.type
+
+
+def memory_required(params: ArmonParameters):
+    return params.memory_required()

@@ -1,0 +1,142 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card. Every test here needs a CUDA card and the CUDA toolkit; without
+them each one skips (decided inside the test, never at import).
+
+Tolerances: exact mode (f64, and f32 without fast math) is built with
+-fmad=false and IEEE divides, like the plain versions, so it must agree
+bit for bit on real cells; f32 fast math (approximate reciprocals) within
+1e-4 of the field's scale."""
+
+import pytest
+import torch
+
+import armon_torch
+from armon_torch.core.solver import make_init_fused
+from armon_torch.core.step import make_time_loop_lean
+from armon_torch.ops import sweep as K
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _advanced(test, dtype, fast, n=96, cycles=4, **scheme):
+    params = armon_torch.ArmonParameters(test=test, N=(n, n), data_type=dtype,
+                                         use_fast_math=fast, maxcycle=cycles,
+                                         silent=5, device="cuda", **scheme)
+    fs, seed = make_init_fused(params)()
+    res = make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0, float(seed))
+    return params.config, res
+
+
+@pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
+                                        ("float32", True)],
+                         ids=["f64", "f32-exact", "f32-fast"])
+@pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
+def test_sweeps_match_plain(card, test, dtype, fast):
+    cfg, res = _advanced(test, dtype, fast)
+    g = cfg.nghost
+    r = (slice(g, -g), slice(g, -g))
+    src = tuple(res.carry[:4])
+    dt = 0.5 * res.dt_last
+    for sweep, axis in ((K.x_sweep, armon_torch.Axis.X),
+                        (K.y_sweep, armon_torch.Axis.Y)):
+        dst = tuple(torch.empty_like(a) for a in src)
+        p = torch.empty_like(src[0])
+        nb = K.n_partials(axis, src[0].shape, card)
+        partials = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
+        scal, iscal = K.new_scalars(cfg.dtype, card)
+        scal[K.SC_DTUSE] = dt
+        iscal[K.IS_RUN] = 1
+        sweep(cfg, src, dst, p, partials, scal, iscal, 1.0, True)
+        ref = K.sweep_plain(cfg, axis, *src, scal[K.SC_DTUSE] * 1.0)
+        for a, b in zip(dst + (p,), ref[:5]):
+            if fast:
+                scale = b[r].abs().max()
+                assert (a[r] - b[r]).abs().max() <= 1e-4 * scale
+            else:
+                assert torch.equal(a[r], b[r])
+        mx, my = K.cfl_partial_plain(cfg, ref[1], ref[2], ref[5])
+        tol = 1e-4 if fast else 0.0
+        assert abs(partials[0].max() - mx) <= tol * mx
+        assert abs(partials[1].max() - my) <= tol * my
+        s2, i2 = scal.clone(), iscal.clone()
+        K.cfl_finish(cfg, partials, nb, scal, iscal)
+        K.cfl_finish_plain(cfg, partials, nb, s2, i2)
+        assert torch.equal(scal, s2) and torch.equal(iscal, i2)
+
+
+@pytest.mark.parametrize("scheme", [
+    dict(scheme="GAD", riemann_limiter="superbee"),
+    dict(scheme="GAD", riemann_limiter="no_limiter", projection="euler"),
+    dict(scheme="Godunov", projection="euler"),
+    dict(scheme="Godunov", projection="euler_2nd", nghost=3),
+], ids=lambda d: "-".join(str(v) for v in d.values()))
+def test_scheme_switches_match_plain(card, scheme):
+    """The runtime scheme switches of the shared device body, f64 exact."""
+    cfg, res = _advanced("Sod_circ", "float64", False, **scheme)
+    g = cfg.nghost
+    r = (slice(g, -g), slice(g, -g))
+    src = tuple(res.carry[:4])
+    for sweep, axis in ((K.x_sweep, armon_torch.Axis.X),
+                        (K.y_sweep, armon_torch.Axis.Y)):
+        dst = tuple(torch.empty_like(a) for a in src)
+        p = torch.empty_like(src[0])
+        nb = K.n_partials(axis, src[0].shape, card)
+        partials = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
+        scal, iscal = K.new_scalars(cfg.dtype, card)
+        scal[K.SC_DTUSE] = 0.5 * res.dt_last
+        iscal[K.IS_RUN] = 1
+        sweep(cfg, src, dst, p, partials, scal, iscal, 1.0, True)
+        ref = K.sweep_plain(cfg, axis, *src, scal[K.SC_DTUSE] * 1.0)
+        for a, b in zip(dst + (p,), ref[:5]):
+            assert torch.equal(a[r], b[r])
+
+
+def test_stop_check_interval_on_card(card):
+    params = armon_torch.ArmonParameters(test="Sod_circ", N=(32, 32),
+                                         silent=5, device="cuda")
+    out = []
+    for every in (1, 8):
+        fs, seed = make_init_fused(params)()
+        out.append(make_time_loop_lean(params.config)(
+            fs, 0.0, 0, 0.0, float(seed), check_every=every))
+    assert out[0].cycles % 8 != 0
+    assert (out[0].t, out[0].cycles, out[0].lm) == (out[1].t, out[1].cycles, out[1].lm)
+    for a, b in zip(out[0].carry, out[1].carry):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,N", [("float64", (64, 64)), ("float32", (64, 64)),
+                                     ("float64", (40, 2)), ("float64", (2, 40))],
+                         ids=["f64", "f32", "f64-40x2", "f64-2x40"])
+def test_card_run_matches_cpu_run(card, dtype, N):
+    """Exact mode on the card reproduces the CPU (plain) run bit for bit,
+    also on grids thinner than the ghost band (double mirror fill)."""
+    opts = dict(test="Sod_circ", N=N, data_type=dtype, maxcycle=20,
+                use_fast_math=False, silent=5, return_data=True)
+    a = armon_torch.armon(armon_torch.ArmonParameters(device="cuda", **opts))
+    b = armon_torch.armon(armon_torch.ArmonParameters(device="cpu", **opts))
+    assert (a.cycles, a.final_time, a.last_dt) == (b.cycles, b.final_time, b.last_dt)
+    g = 4
+    for name in ("rho", "u", "v", "E", "p"):
+        x = getattr(a.data, name).cpu()[g:-g, g:-g]
+        y = getattr(b.data, name)[g:-g, g:-g]
+        assert torch.equal(x, y), name
+
+
+def test_launch_counts(card):
+    K.reset_launches()
+    params = armon_torch.ArmonParameters(test="Sod", N=(64, 64), maxcycle=5,
+                                         silent=5, device="cuda")
+    stats = armon_torch.armon(params)
+    assert stats.cycles == 5
+    # Cycles run in batches of the stop-check interval; the ones past the
+    # end still launch (and pass through).
+    assert K.LAUNCHES["x_sweep"] == K.LAUNCHES["y_sweep"] == 8
+    assert K.LAUNCHES["cfl_finish"] == 9
