@@ -2,8 +2,9 @@
 NVIDIA Hopper card.
 
 The port of `armon_tpu` (the JAX/Pallas package, kept beside it as the
-reference). Plain tensor code is PyTorch; the per-sweep kernels are
-hand-written CUDA (`armon_torch/csrc/`), built with nvcc on first use.
+reference). Plain tensor code is PyTorch; the kernels (per-sweep,
+whole-cycle and K-cycles) are hand-written CUDA (`armon_torch/csrc/`),
+built with nvcc on first use.
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, which runs every kernel's plain PyTorch version.
 

@@ -38,9 +38,10 @@ class SolverConfig:
     cst_dt: bool = False
     dt_on_even_cycles: bool = False
 
-    # Parsed and validated for parity with the JAX package; every grid runs
-    # the per-sweep kernels until the whole-cycle and multi-cycle kernels
-    # are ported (ROADMAP queue B5/B6).
+    # Routing, as in the JAX package (`ops/routing.py`): grids up to
+    # `pair_threshold` run the whole-cycle kernel K4 (<= 0: never), and
+    # single-tile grids run `temporal_blocking` cycles per K5 launch (<= 1:
+    # never). Both defaults were set on the TPU (ROADMAP A7).
     pair_threshold: int = 2048
     temporal_blocking: int = 8
 

@@ -1,9 +1,10 @@
 """Solver entry point: `armon(params) -> SolverStats`
 (`armon_tpu/core/solver.py:826-1048`, `src/solver.jl:406-516`).
 
-The lean per-sweep path of the JAX package: `make_init_fused` (init, the
-cycle-0 EOS and the CFL seed, returning only the five carried fields), the
-lean time loop (`core/step.py`), the conservation check over the carry,
+The lean path of the JAX package: `make_init_fused` (init, the cycle-0 EOS
+and the CFL seed, returning only the five carried fields), the lean time
+loop (`core/step.py`, per-sweep, pair or multicycle route as the JAX
+package routes), the conservation check over the carry,
 and `make_rehydrate` when the caller asks for the full State.
 """
 
@@ -112,7 +113,7 @@ def _isapprox0(x, atol, rtol):
 
 def armon(params: ArmonParameters, checkpoint=None,
           restore_from=None) -> SolverStats:
-    """Main entry point (`src/solver.jl:406-516`), lean per-sweep path."""
+    """Main entry point (`src/solver.jl:406-516`), lean path."""
     if checkpoint is not None or restore_from is not None:
         solver_error("config", "checkpoint hooks and restore_from are not "
                                "available in armon_torch yet: they come with "

@@ -4,7 +4,8 @@
 // Replaces `_dt_from_tiles` (armon_tpu/ops/pallas/sweep.py:968), whose
 // cross-tile maximum the TPU accumulated in a revisited VMEM block, and the
 // dt update the TPU's `_multicycle_kernel` runs in-kernel
-// (sweep.py:1950-1967, bitwise `core/timestep.dt_update`).
+// (sweep.py:1950-1967, bitwise `core/timestep.dt_update`; the recurrence
+// itself is `dt_step` in common.cuh, shared with K5).
 //
 // Bound on this card: launch latency. It reads 2 x n_partials values
 // (~70 K at 8192^2) and writes a few scalars: ~0.5 MB, well under a
@@ -12,8 +13,7 @@
 // partials, reduces in shared memory, and one thread runs the scalar
 // recurrence, so the loop never reads a scalar back to the host.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace armon {
 
@@ -22,22 +22,14 @@ struct CflArgs {
   void* scal;             // T[4]: t, dt_prev, lm, dt_use
   void* iscal;            // int32[4]: cycle, ok, run, next
   long long n_partials;   // row stride of `partials`
-  long long nblocks;      // partials the last sweep wrote
+  long long nblocks;      // partials the last kernel wrote
   int fold;               // fold the partials into lm (if the cycle ran)
   int step;               // run the dt recurrence for the next cycle
-  int cst_dt, dt_on_even_cycles;
-  int maxcycle;
-  double dx, dy, cfl, maxtime, Dt, cap;  // all already rounded to T
+  DtParams dt;
+  double dx, dy;          // rounded to T
 };
 
 constexpr int NT = 1024;
-
-template <typename T> __device__ __forceinline__ T jmax(T a, T b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
-template <typename T> __device__ __forceinline__ T jmin(T a, T b) {
-  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(NT) cfl_finish_kernel(const CflArgs a) {
@@ -67,31 +59,19 @@ __global__ void __launch_bounds__(NT) cfl_finish_kernel(const CflArgs a) {
   if (tid != 0) return;
   if (fold) scal[2] = jmin(T(a.dx) / smx[0], T(a.dy) / smy[0]);
   if (!a.step) return;
-  const T maxtime = T(a.maxtime);
-  const T t = scal[0], dtp = scal[1], lm = scal[2];
+  const T t = scal[0];
   const int cyc = iscal[0];
-  const bool run = t < maxtime && cyc < a.maxcycle && iscal[1] != 0;
+  const bool run = runs(a.dt, t, cyc, iscal[1] != 0);
   if (run) {
-    T dt_use, dt_next;
-    bool ok;
-    if (a.cst_dt) {
-      dt_use = dt_next = T(a.Dt);
-      ok = true;
-    } else {
-      const bool first = dtp == T(0);
-      const T cand = first ? T(a.cfl) * lm : jmin(T(a.cfl) * lm, T(a.cap) * dtp);
-      dt_next = (a.dt_on_even_cycles && !(cyc % 2 == 0 || first)) ? dtp : cand;
-      dt_use = first ? dt_next : dtp;
-      ok = isfinite(dt_next) && dt_next > T(0);
-    }
-    scal[3] = dt_use;
-    scal[0] = t + dt_use;
-    scal[1] = dt_next;
+    const DtStep<T> r = dt_step(a.dt, scal[2], scal[1], cyc);
+    scal[3] = r.dt_use;
+    scal[0] = t + r.dt_use;
+    scal[1] = r.dt_next;
     iscal[0] = cyc + 1;
-    iscal[1] = ok ? 1 : 0;
+    iscal[1] = r.ok ? 1 : 0;
   }
   iscal[2] = run ? 1 : 0;
-  iscal[3] = (scal[0] < maxtime && iscal[0] < a.maxcycle && iscal[1] != 0) ? 1 : 0;
+  iscal[3] = runs(a.dt, scal[0], iscal[0], iscal[1] != 0) ? 1 : 0;
 }
 
 }  // namespace armon
@@ -111,6 +91,11 @@ extern "C" int armon_cfl_finish(int bits, const armon::CflArgs* a, void* stream)
 }
 
 extern "C" const char* armon_error_string(int code) {
+  switch (code) {
+    case -4: return "the grid does not fit co-resident on the card (cooperative launch)";
+    case -5: return "the card does not support cooperative launches";
+    default: break;
+  }
   if (code < 0) return "argument rejected by the launcher";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,0 +1,8 @@
+// f64 instances of K4 `cycle` (exact divides).
+// Kernel body and design notes: cycle.cuh.
+#include "cycle.cuh"
+
+extern "C" int armon_cycle_f64(const armon::CycleArgs* a, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return armon::dispatch_cycle<double, false>(a, s);
+}

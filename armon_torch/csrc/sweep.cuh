@@ -1,5 +1,6 @@
-// Per-sweep hydro kernels for Hopper (sm_90a): the shared device body and
-// the X/Y sweep kernel template.
+// Per-sweep hydro kernels for Hopper (sm_90a): the shared device body
+// `sweep_body` (also run by the whole-cycle kernels of cycle.cuh) and the
+// X/Y sweep kernel template.
 //
 // Replaces the TPU kernels `_x_sweep_kernel` and `_y_sweep_kernel` of
 // armon_tpu/ops/pallas/sweep.py (with their body `_sweep_math`, the
@@ -31,9 +32,9 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace armon {
 
@@ -74,19 +75,6 @@ struct SweepArgs {
   double f_lo[4], f_hi[4];  // mirror factors of (rho, u, v, E)
   double k[K_COUNT];
 };
-
-// NaN-propagating max/min, as jnp.maximum / jnp.minimum (fmax/fmin drop
-// NaN, which would let a diverged cell yield a finite dt).
-template <typename T> __device__ __forceinline__ T jmax(T a, T b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
-template <typename T> __device__ __forceinline__ T jmin(T a, T b) {
-  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
-}
-// jnp.sign: +-1, and x itself for +-0 and NaN.
-template <typename T> __device__ __forceinline__ T jsign(T x) {
-  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
-}
 
 // Division primitives (`_make_div`, `_make_div_correction`, `_div_shared`).
 template <typename T, bool FAST> struct Div {
@@ -194,13 +182,194 @@ __device__ __forceinline__ void eos_prc(const double* kk, T rho, T ua, T uo, T E
   rc = rho * c;
 }
 
+// Mirror ghost fill along one axis as an index map: position k of an axis
+// with g ghosts and n_real real cells reads position `mirror(k, ...)`
+// times the factors folded into fac (low side then high side, as the
+// sequential fill does, so a grid thinner than the ghost band reflects
+// twice). The factors are +-1, so folding those of two axes in either
+// order is exact.
+template <typename T>
+__device__ __forceinline__ long long mirror(long long k, int g, int n_real,
+                                            const double* f_lo, const double* f_hi,
+                                            T fac[4]) {
+  if (k < g) {
+    k = 2LL * g - 1 - k;
+    for (int f = 0; f < 4; ++f) fac[f] = fac[f] * T(f_lo[f]);
+  } else if (k >= g + n_real) {
+    k = 2LL * g + 2LL * n_real - 1 - k;
+    for (int f = 0; f < 4; ++f) fac[f] = fac[f] * T(f_hi[f]);
+    if (k < g) {
+      k = 2LL * g - 1 - k;
+      for (int f = 0; f < 4; ++f) fac[f] = fac[f] * T(f_lo[f]);
+    }
+  }
+  return k;
+}
+
+// `_sweep_math` at one position of a line, the one port of it that every
+// kernel runs. The calling thread owns position k and reads the stage
+// values of k-1 and k+1 through shared memory S (9 rows of NS values):
+// `tm` / `tp` are those neighbours' slots, i.e. the thread's own slot minus
+// / plus the line's stride in S, clamped at the line's ends (the outer
+// HALO positions of a line are read but never valid). Every thread of the
+// block must call it: it holds barriers. In: the axis velocity `ua`, the
+// other one `uo`. Out: the swept (rho, ua, uo, E) and the pre-sweep p and
+// c (c only when need_c, or always in exact mode).
+template <typename T, bool FAST, bool BIZ, int NS>
+__device__ __forceinline__ void sweep_body(
+    T* S, int tid, int tm, int tp, const double* kk, int riemann, int lim,
+    int projection, T dt, T dx, T inv_dx, bool need_c,
+    T rho, T ua, T uo, T E,
+    T& rho_o, T& ua_o, T& uo_o, T& E_o, T& p, T& c) {
+  typedef Div<T, FAST> D;
+  auto sv = [S](int j, int i) -> T& { return S[j * NS + i]; };
+
+  // ---- stage 1: EOS of the input state
+  T rc, rr = T(0);
+  c = T(0);
+  eos_prc<T, FAST, BIZ>(kk, rho, ua, uo, E, need_c, p, rc, c, rr);
+  const T dm = rho * dx;
+  sv(0, tid) = dm;
+  sv(1, tid) = ua;
+  sv(2, tid) = p;
+  sv(3, tid) = rc;
+  __syncthreads();
+
+  // ---- stage 2: Godunov solve at the k-1/2 interface (`_godunov`)
+  const T dm_l = sv(0, tm), u_m = sv(1, tm), p_m = sv(2, tm), rc_l = sv(3, tm);
+  const T rc_sum = rc_l + rc;
+  T us_i, ps_i;
+  {
+    typename D::Over over(rc_sum);
+    us_i = over(rc_l * u_m + rc * ua + (p_m - p));
+    ps_i = over(rc * p_m + rc_l * p + rc_l * rc * (u_m - ua));
+  }
+  const T e_u = us_i - u_m, e_p = ps_i - p_m;
+  const T d_u = ua - us_i, d_p = p - ps_i;
+  T theta = T(0);
+  if (riemann == 1) {
+    if (FAST) {
+      theta = T(0.5) * (T(1) - rc_sum * D::divc(dt, dm_l + dm));
+    } else {
+      const T Dm = (dm_l + dm) / T(2);
+      theta = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
+    }
+  }
+  sv(4, tid) = e_u;
+  sv(5, tid) = e_p;
+  sv(6, tid) = d_u;
+  sv(7, tid) = d_p;
+  __syncthreads();
+
+  // ---- stage 3: GAD limiter blend (src/riemann_schemes.jl:55-104)
+  T ustar = us_i, pstar = ps_i;
+  if (riemann == 1) {
+    const T eps = T(1e-6);
+    const T r_um = limiter(lim, D::divc(sv(4, tp), e_u + eps));
+    const T r_pm = limiter(lim, D::divc(sv(5, tp), e_p + eps));
+    const T r_up = limiter(lim, D::divc(sv(6, tm), d_u + eps));
+    const T r_pp = limiter(lim, D::divc(sv(7, tm), d_p + eps));
+    ustar = us_i + theta * (r_up * d_u - r_um * e_u);
+    pstar = ps_i + theta * (r_pp * d_p - r_pm * e_p);
+  }
+  sv(0, tid) = ustar;
+  sv(1, tid) = pstar;
+  __syncthreads();
+
+  // ---- stage 4: Lagrangian cell update (src/kernels.jl:58-68)
+  const T us_p = sv(0, tp), ps_p = sv(1, tp);
+  const T dX = dx + dt * (us_p - ustar);
+  const T rho1 = D::div(dm, dX);
+  const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * rr : D::div(dt, dm);
+  const T ua1 = ua + dt_dm * (pstar - ps_p);
+  const T E1 = E + dt_dm * (pstar * ustar - ps_p * us_p);
+  const T disp = dt * ustar;
+  const bool up = disp > T(0);
+  const T dxe = up ? (dt * sv(0, tm) - dx) : (dx + dt * sv(0, tp));
+  T q[4] = {rho1, rho1 * ua1, rho1 * uo, rho1 * E1};
+  sv(4, tid) = dX;
+  for (int j = 0; j < 4; ++j) sv(5 + j, tid) = q[j];
+  __syncthreads();
+
+  // ---- stage 5: upwind values and limited slopes (slope_shift form)
+  const bool second = projection == 1;
+  const T dXm = sv(4, tm), dXp = sv(4, tp);
+  const T dxl = up ? dXm : dX;
+  T qi[4];
+  {
+    const T r_m = D::divc(T(2) * dX, dX + dXm);
+    const T r_p = D::divc(T(2) * dX, dX + dXp);
+    for (int j = 0; j < 4; ++j) {
+      const T qm = sv(5 + j, tm), qp = sv(5 + j, tp);
+      qi[j] = up ? qm : q[j];
+      const T du_p = r_p * (qp - q[j]);
+      const T du_m = r_m * (q[j] - qm);
+      const T sgn = jsign(du_p);
+      q[j] = sgn * jmax(T(0), jmin(fabs(du_p), sgn * du_m));  // slope at k
+    }
+  }
+  // S[0..3] were last read in stage 4, before its barrier.
+  for (int j = 0; j < 4; ++j) sv(j, tid) = second ? q[j] : disp * qi[j];
+  __syncthreads();
+
+  // ---- stage 6: advection fluxes (src/projection_schemes.jl:62-124)
+  T adv[4];
+  if (second) {
+    const T lf = D::divc(dxe, T(2) * dxl);
+    for (int j = 0; j < 4; ++j) {
+      const T sl = up ? sv(j, tm) : sv(j, tid);
+      adv[j] = disp * (qi[j] - sl * lf);
+    }
+  } else {
+    for (int j = 0; j < 4; ++j) adv[j] = sv(j, tid);
+  }
+  // S[4..8] were last read in stage 5, before its barrier.
+  for (int j = 0; j < 4; ++j) sv(4 + j, tid) = adv[j];
+  __syncthreads();
+
+  // ---- stage 7: projection (src/projection_schemes.jl:23-41). S[0..3]
+  // were last read in stage 6, so a caller may reuse them right after.
+  T tmp[4];
+  {
+    const T dXr = dX * rho1;
+    const T num[4] = {dXr, dXr * ua1, dXr * uo, dXr * E1};
+    for (int j = 0; j < 4; ++j) {
+      const T v = num[j] - (sv(4 + j, tp) - adv[j]);
+      tmp[j] = FAST ? v * inv_dx : v / dx;
+    }
+  }
+  rho_o = tmp[0];
+  {
+    typename D::Over over_rho(tmp[0]);
+    ua_o = over_rho(tmp[1]);
+    uo_o = over_rho(tmp[2]);
+    E_o = over_rho(tmp[3]);
+  }
+}
+
+// Block-wide NaN-propagating maxima of (mx, my) through S rows 0 and 1
+// (NS a power of two, S[0..1] free): the results land in S[0] and S[NS].
+// Every thread of the block must call it.
+template <typename T, int NS>
+__device__ __forceinline__ void block_max2(T* S, int tid, T mx, T my) {
+  S[tid] = mx;
+  S[NS + tid] = my;
+  __syncthreads();
+  for (int w = NS / 2; w > 0; w >>= 1) {
+    if (tid < w) {
+      S[tid] = jmax(S[tid], S[tid + w]);
+      S[NS + tid] = jmax(S[NS + tid], S[NS + tid + w]);
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T, int AXIS, bool FAST, bool BIZ>
 __global__ void __launch_bounds__(Geom<AXIS>::TILE * Geom<AXIS>::LINES)
 sweep_kernel(const SweepArgs a) {
   constexpr int P = Geom<AXIS>::TILE;
   constexpr int C = Geom<AXIS>::LINES;
   constexpr int NT = P * C;
-  typedef Div<T, FAST> D;
   __shared__ T S[9][NT];
 
   const int lane = AXIS == 0 ? 0 : threadIdx.x;
@@ -236,25 +405,11 @@ sweep_kernel(const SweepArgs a) {
     return;
   }
   const T dt = reinterpret_cast<const T*>(a.scal)[3] * T(a.dt_factor);
-  const T dx = T(a.dx);
 
-  // ---- stage 1: load with the mirror ghost fill along the axis (low side
-  // then high side, as the sequential fill does), EOS of the input state.
+  // Load with the mirror ghost fill along the axis.
   long long ks = k;
   T fac[4] = {T(1), T(1), T(1), T(1)};
-  if (a.fill) {
-    if (ks < g) {
-      ks = 2LL * g - 1 - ks;
-      for (int f = 0; f < 4; ++f) fac[f] = T(a.f_lo[f]);
-    } else if (ks >= g + n_real) {
-      ks = 2LL * g + 2LL * n_real - 1 - ks;
-      for (int f = 0; f < 4; ++f) fac[f] = T(a.f_hi[f]);
-      if (ks < g) {
-        ks = 2LL * g - 1 - ks;
-        for (int f = 0; f < 4; ++f) fac[f] = fac[f] * T(a.f_lo[f]);
-      }
-    }
-  }
+  if (a.fill) ks = mirror(ks, g, n_real, a.f_lo, a.f_hi, fac);
   ks = ks < 0 ? 0 : (ks >= n_along ? n_along - 1 : ks);  // array edge: dead outputs only
   const long long idx = at(ks);
   const T rho = src[0][idx] * fac[0];
@@ -264,130 +419,15 @@ sweep_kernel(const SweepArgs a) {
   const T ua = AXIS == 0 ? u_in : v_in;  // velocity along the axis
   const T uo = AXIS == 0 ? v_in : u_in;  // the other one
 
-  T p, rc, c = T(0), rr = T(0);
-  eos_prc<T, FAST, BIZ>(a.k, rho, ua, uo, E, a.emit != 0, p, rc, c, rr);
-  const T dm = rho * dx;
-  S[0][tid] = dm;
-  S[1][tid] = ua;
-  S[2][tid] = p;
-  S[3][tid] = rc;
-  __syncthreads();
-
-  // ---- stage 2: Godunov solve at the k-1/2 interface (`_godunov`)
-  const T dm_l = S[0][tm], u_m = S[1][tm], p_m = S[2][tm], rc_l = S[3][tm];
-  const T rc_sum = rc_l + rc;
-  T us_i, ps_i;
-  {
-    typename D::Over over(rc_sum);
-    us_i = over(rc_l * u_m + rc * ua + (p_m - p));
-    ps_i = over(rc * p_m + rc_l * p + rc_l * rc * (u_m - ua));
-  }
-  const T e_u = us_i - u_m, e_p = ps_i - p_m;
-  const T d_u = ua - us_i, d_p = p - ps_i;
-  T theta = T(0);
-  if (a.riemann == 1) {
-    if (FAST) {
-      theta = T(0.5) * (T(1) - rc_sum * D::divc(dt, dm_l + dm));
-    } else {
-      const T Dm = (dm_l + dm) / T(2);
-      theta = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
-    }
-  }
-  S[4][tid] = e_u;
-  S[5][tid] = e_p;
-  S[6][tid] = d_u;
-  S[7][tid] = d_p;
-  __syncthreads();
-
-  // ---- stage 3: GAD limiter blend (src/riemann_schemes.jl:55-104)
-  T ustar = us_i, pstar = ps_i;
-  if (a.riemann == 1) {
-    const T eps = T(1e-6);
-    const int lim = a.limiter;
-    const T r_um = limiter(lim, D::divc(S[4][tp], e_u + eps));
-    const T r_pm = limiter(lim, D::divc(S[5][tp], e_p + eps));
-    const T r_up = limiter(lim, D::divc(S[6][tm], d_u + eps));
-    const T r_pp = limiter(lim, D::divc(S[7][tm], d_p + eps));
-    ustar = us_i + theta * (r_up * d_u - r_um * e_u);
-    pstar = ps_i + theta * (r_pp * d_p - r_pm * e_p);
-  }
-  S[0][tid] = ustar;
-  S[1][tid] = pstar;
-  __syncthreads();
-
-  // ---- stage 4: Lagrangian cell update (src/kernels.jl:58-68)
-  const T us_p = S[0][tp], ps_p = S[1][tp];
-  const T dX = dx + dt * (us_p - ustar);
-  const T rho1 = D::div(dm, dX);
-  const T dt_dm = (FAST && BIZ) ? (dt * T(a.inv_dx)) * rr : D::div(dt, dm);
-  const T ua1 = ua + dt_dm * (pstar - ps_p);
-  const T E1 = E + dt_dm * (pstar * ustar - ps_p * us_p);
-  const T disp = dt * ustar;
-  const bool up = disp > T(0);
-  const T dxe = up ? (dt * S[0][tm] - dx) : (dx + dt * S[0][tp]);
-  T q[4] = {rho1, rho1 * ua1, rho1 * uo, rho1 * E1};
-  S[4][tid] = dX;
-  for (int j = 0; j < 4; ++j) S[5 + j][tid] = q[j];
-  __syncthreads();
-
-  // ---- stage 5: upwind values and limited slopes (slope_shift form)
-  const bool second = a.projection == 1;
-  const T dXm = S[4][tm], dXp = S[4][tp];
-  const T dxl = up ? dXm : dX;
-  T qi[4];
-  {
-    const T r_m = D::divc(T(2) * dX, dX + dXm);
-    const T r_p = D::divc(T(2) * dX, dX + dXp);
-    for (int j = 0; j < 4; ++j) {
-      const T qm = S[5 + j][tm], qp = S[5 + j][tp];
-      qi[j] = up ? qm : q[j];
-      const T du_p = r_p * (qp - q[j]);
-      const T du_m = r_m * (q[j] - qm);
-      const T sgn = jsign(du_p);
-      q[j] = sgn * jmax(T(0), jmin(fabs(du_p), sgn * du_m));  // slope at k
-    }
-  }
-  // S[0..3] were last read in stage 4, before its barrier.
-  for (int j = 0; j < 4; ++j) S[j][tid] = second ? q[j] : disp * qi[j];
-  __syncthreads();
-
-  // ---- stage 6: advection fluxes (src/projection_schemes.jl:62-124)
-  T adv[4];
-  if (second) {
-    const T lf = D::divc(dxe, T(2) * dxl);
-    for (int j = 0; j < 4; ++j) {
-      const T sl = up ? S[j][tm] : S[j][tid];
-      adv[j] = disp * (qi[j] - sl * lf);
-    }
-  } else {
-    for (int j = 0; j < 4; ++j) adv[j] = S[j][tid];
-  }
-  // S[4..8] were last read in stage 5, before its barrier.
-  for (int j = 0; j < 4; ++j) S[4 + j][tid] = adv[j];
-  __syncthreads();
-
-  // ---- stage 7: projection (src/projection_schemes.jl:23-41)
-  T tmp[4];
-  {
-    const T dXr = dX * rho1;
-    const T num[4] = {dXr, dXr * ua1, dXr * uo, dXr * E1};
-    for (int j = 0; j < 4; ++j) {
-      const T v = num[j] - (S[4 + j][tp] - adv[j]);
-      tmp[j] = FAST ? v * T(a.inv_dx) : v / dx;
-    }
-  }
-  T ua2, uo2, E2;
-  {
-    typename D::Over over_rho(tmp[0]);
-    ua2 = over_rho(tmp[1]);
-    uo2 = over_rho(tmp[2]);
-    E2 = over_rho(tmp[3]);
-  }
+  T rho2, ua2, uo2, E2, p, c;
+  sweep_body<T, FAST, BIZ, NT>(&S[0][0], tid, tm, tp, a.k, a.riemann, a.limiter,
+                               a.projection, dt, T(a.dx), T(a.inv_dx), a.emit != 0,
+                               rho, ua, uo, E, rho2, ua2, uo2, E2, p, c);
   const T ux2 = AXIS == 0 ? ua2 : uo2;
   const T uy2 = AXIS == 0 ? uo2 : ua2;
   if (out) {
     const long long o = at(k);
-    reinterpret_cast<T*>(a.dst[0])[o] = tmp[0];
+    reinterpret_cast<T*>(a.dst[0])[o] = rho2;
     reinterpret_cast<T*>(a.dst[1])[o] = ux2;
     reinterpret_cast<T*>(a.dst[2])[o] = uy2;
     reinterpret_cast<T*>(a.dst[3])[o] = E2;
@@ -398,18 +438,8 @@ sweep_kernel(const SweepArgs a) {
   // ---- CFL partials (`_dt_tile_min`): max of |u|+c and |v|+c over this
   // block's real output cells, post-sweep velocities with the pre-sweep c.
   const bool real = out && k >= g && k < g + n_real && across >= g && across < g + n_cross;
-  T mx = real ? fabs(ux2) + c : T(0);
-  T my = real ? fabs(uy2) + c : T(0);
-  S[0][tid] = mx;  // S[0..3] were last read in stage 6
-  S[1][tid] = my;
-  __syncthreads();
-  for (int w = NT / 2; w > 0; w >>= 1) {
-    if (tid < w) {
-      S[0][tid] = jmax(S[0][tid], S[0][tid + w]);
-      S[1][tid] = jmax(S[1][tid], S[1][tid + w]);
-    }
-    __syncthreads();
-  }
+  block_max2<T, NT>(&S[0][0], tid, real ? fabs(ux2) + c : T(0),
+                    real ? fabs(uy2) + c : T(0));
   if (tid == 0) {
     const long long b = (long long)blockIdx.y * gridDim.x + blockIdx.x;
     T* part = reinterpret_cast<T*>(a.partials);

@@ -1,7 +1,10 @@
 """Build and bind the CUDA kernels of `armon_torch/csrc/`.
 
 Each source compiles with nvcc for `sm_90a` into a shared library with a
-plain C interface, loaded with ctypes. The sources are compiled in
+plain C interface, loaded with ctypes: the per-sweep kernels K1/K2
+(`sweep_f*.cu`), K3 (`cfl.cu`), the whole-cycle kernel K4 (`cycle_f*.cu`)
+and the K-cycles kernel K5 (`multicycle_f*.cu`, a cooperative launch).
+The sources are compiled in
 parallel (one nvcc each) on first use, into ``build/armon_torch/`` at the
 root of the checkout, under a name that hashes the sources and flags, so
 a changed source rebuilds and an unchanged one loads. A failed build or
@@ -29,8 +32,9 @@ from ..models.cases import Bizarrium
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "armon_torch")
-SOURCES = ("sweep_f32.cu", "sweep_f64.cu", "cfl.cu")
-HEADERS = ("sweep.cuh",)
+SOURCES = ("sweep_f32.cu", "sweep_f64.cu", "cfl.cu", "cycle_f32.cu",
+           "cycle_f64.cu", "multicycle_f32.cu", "multicycle_f64.cu")
+HEADERS = ("common.cuh", "sweep.cuh", "cycle.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -68,6 +72,16 @@ class SweepArgs(ctypes.Structure):
     ]
 
 
+class DtParams(ctypes.Structure):
+    """Mirror of `armon::DtParams` (csrc/common.cuh)."""
+    _fields_ = [
+        ("cst_dt", ctypes.c_int), ("dt_on_even_cycles", ctypes.c_int),
+        ("maxcycle", ctypes.c_int),
+        ("cfl", ctypes.c_double), ("maxtime", ctypes.c_double),
+        ("Dt", ctypes.c_double), ("cap", ctypes.c_double),
+    ]
+
+
 class CflArgs(ctypes.Structure):
     """Mirror of `armon::CflArgs` (csrc/cfl.cu)."""
     _fields_ = [
@@ -75,11 +89,41 @@ class CflArgs(ctypes.Structure):
         ("iscal", ctypes.c_void_p),
         ("n_partials", ctypes.c_longlong), ("nblocks", ctypes.c_longlong),
         ("fold", ctypes.c_int), ("step", ctypes.c_int),
-        ("cst_dt", ctypes.c_int), ("dt_on_even_cycles", ctypes.c_int),
-        ("maxcycle", ctypes.c_int),
+        ("dt", DtParams),
         ("dx", ctypes.c_double), ("dy", ctypes.c_double),
-        ("cfl", ctypes.c_double), ("maxtime", ctypes.c_double),
-        ("Dt", ctypes.c_double), ("cap", ctypes.c_double),
+    ]
+
+
+class CycleArgs(ctypes.Structure):
+    """Mirror of `armon::CycleArgs` (csrc/cycle.cuh)."""
+    _fields_ = [
+        ("src", ctypes.c_void_p * 4), ("dst", ctypes.c_void_p * 4),
+        ("p", ctypes.c_void_p), ("partials", ctypes.c_void_p),
+        ("scal", ctypes.c_void_p), ("iscal", ctypes.c_void_p),
+        ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong),
+        ("n_partials", ctypes.c_longlong),
+        ("grid_x", ctypes.c_int), ("grid_y", ctypes.c_int),
+        ("g", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
+        ("riemann", ctypes.c_int), ("limiter", ctypes.c_int),
+        ("projection", ctypes.c_int), ("emit", ctypes.c_int),
+        ("fast", ctypes.c_int), ("biz", ctypes.c_int),
+        ("x_first", ctypes.c_int),
+        ("fx", ctypes.c_double), ("fy", ctypes.c_double),
+        ("dx", ctypes.c_double), ("dy", ctypes.c_double),
+        ("inv_dx", ctypes.c_double), ("inv_dy", ctypes.c_double),
+        ("fx_lo", ctypes.c_double * 4), ("fx_hi", ctypes.c_double * 4),
+        ("fy_lo", ctypes.c_double * 4), ("fy_hi", ctypes.c_double * 4),
+        ("k", ctypes.c_double * len(EOS_KEYS)),
+    ]
+
+
+class MultiArgs(ctypes.Structure):
+    """Mirror of `armon::MultiArgs` (csrc/cycle.cuh)."""
+    _fields_ = [
+        ("c", CycleArgs), ("ncycles", ctypes.c_int),
+        ("x_first", ctypes.c_int * 2),
+        ("fx", ctypes.c_double * 2), ("fy", ctypes.c_double * 2),
+        ("dt", DtParams),
     ]
 
 
@@ -146,6 +190,11 @@ def load():
         fn = libs["cfl"].armon_cfl_finish
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(CflArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        for bits in (32, 64):
+            for stem, args in (("cycle", CycleArgs), ("multicycle", MultiArgs)):
+                fn = getattr(libs[f"{stem}_f{bits}"], f"armon_{stem}_f{bits}")
+                fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+                fn.restype = ctypes.c_int
         libs["cfl"].armon_error_string.argtypes = [ctypes.c_int]
         libs["cfl"].armon_error_string.restype = ctypes.c_char_p
         _LIBS = libs
@@ -193,17 +242,35 @@ def _check_status(rc, what):
         solver_error("cpp", f"{what} launch failed: code {rc} ({msg})")
 
 
-def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
-                 emit, fill):
-    """Launch K1 (axis X) or K2 (axis Y) on the current stream."""
-    from .sweep import grid_dims, mirror_factors, fast_math_on
-    libs = load()
-    T = np.dtype(cfg.dtype).type
-    rows, cols = src[0].shape
-    gx, gy = grid_dims(axis, (rows, cols))
+def _set_common(a, cfg, src, dst, scal, iscal, grid):
+    """The fields `SweepArgs` and `CycleArgs` share: operands, geometry,
+    scheme switches and EOS constants."""
+    from .sweep import fast_math_on
     dev = src[0].device
     _require(scal, src[0].dtype, dev, 4, "scal")
     _require(iscal, torch.int32, dev, 4, "iscal")
+    a.src[:] = [_ptr(t) for t in src]
+    a.dst[:] = [_ptr(t) for t in dst]
+    a.scal, a.iscal = _ptr(scal), _ptr(iscal)
+    a.rows, a.cols = src[0].shape
+    a.grid_x, a.grid_y = grid
+    a.g, a.nx, a.ny = cfg.nghost, cfg.n_local[0], cfg.n_local[1]
+    a.riemann = 1 if cfg.riemann == "GAD" else 0
+    a.limiter = ("no_limiter", "minmod", "superbee").index(cfg.limiter)
+    a.projection = 1 if cfg.projection == "euler_2nd" else 0
+    a.fast = int(fast_math_on(cfg, dev))
+    a.biz = int(isinstance(cfg.test, Bizarrium))
+    a.k[:] = eos_constants(cfg)
+
+
+def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
+                 emit, fill):
+    """Launch K1 (axis X) or K2 (axis Y) on the current stream."""
+    from .sweep import grid_dims, mirror_factors
+    libs = load()
+    T = np.dtype(cfg.dtype).type
+    gx, gy = grid_dims(axis, src[0].shape)
+    dev = src[0].device
     if emit:
         _require(partials, src[0].dtype, dev, 2 * gx * gy, "CFL partials")
         if partials.dim() != 2 or partials.shape[0] != 2:
@@ -211,32 +278,32 @@ def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
     f_lo, f_hi = mirror_factors(cfg, axis)
     dx = T(cfg.cell_size(axis))
     a = SweepArgs()
-    a.src[:] = [_ptr(t) for t in src]
-    a.dst[:] = [_ptr(t) for t in dst]
+    _set_common(a, cfg, src, dst, scal, iscal, (gx, gy))
     a.p = _ptr(p) if emit else None
     a.partials = _ptr(partials) if emit else None
-    a.scal, a.iscal = _ptr(scal), _ptr(iscal)
-    a.rows, a.cols = rows, cols
     a.n_partials = partials.shape[1] if emit else 0
-    a.grid_x, a.grid_y = gx, gy
-    a.g, a.nx, a.ny = cfg.nghost, cfg.n_local[0], cfg.n_local[1]
-    a.riemann = 1 if cfg.riemann == "GAD" else 0
-    a.limiter = ("no_limiter", "minmod", "superbee").index(cfg.limiter)
-    a.projection = 1 if cfg.projection == "euler_2nd" else 0
     a.fill, a.emit = int(fill), int(emit)
-    a.fast = int(fast_math_on(cfg, src[0].device))
-    a.biz = int(isinstance(cfg.test, Bizarrium))
     a.dt_factor = float(T(factor))
     a.dx = float(dx)
     a.inv_dx = float(T(1.0) / dx)
     a.f_lo[:] = list(f_lo)
     a.f_hi[:] = list(f_hi)
-    a.k[:] = eos_constants(cfg)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"sweep_f{bits}"], f"armon_sweep_f{bits}")
     stream = torch.cuda.current_stream(src[0].device).cuda_stream
     rc = fn(0 if axis is Axis.X else 1, ctypes.byref(a), stream)
     _check_status(rc, "x_sweep" if axis is Axis.X else "y_sweep")
+
+
+def _dt_params(cfg):
+    """The dt recurrence's scalars, rounded to T (`DtParams`)."""
+    T = np.dtype(cfg.dtype).type
+    d = DtParams()
+    d.cst_dt, d.dt_on_even_cycles = int(cfg.cst_dt), int(cfg.dt_on_even_cycles)
+    d.maxcycle = int(cfg.maxcycle)
+    d.cfl, d.maxtime = float(T(cfg.cfl)), float(T(cfg.maxtime))
+    d.Dt, d.cap = float(T(cfg.Dt)), float(T(1.05))
+    return d
 
 
 def launch_cfl_finish(cfg, partials, nblocks, scal, iscal, fold, step):
@@ -253,12 +320,73 @@ def launch_cfl_finish(cfg, partials, nblocks, scal, iscal, fold, step):
     a.n_partials = partials.shape[1]
     a.nblocks = nblocks
     a.fold, a.step = int(fold), int(step)
-    a.cst_dt, a.dt_on_even_cycles = int(cfg.cst_dt), int(cfg.dt_on_even_cycles)
-    a.maxcycle = int(cfg.maxcycle)
+    a.dt = _dt_params(cfg)
     a.dx, a.dy = float(T(cfg.dx)), float(T(cfg.dy))
-    a.cfl, a.maxtime = float(T(cfg.cfl)), float(T(cfg.maxtime))
-    a.Dt, a.cap = float(T(cfg.Dt)), float(T(1.05))
     stream = torch.cuda.current_stream(scal.device).cuda_stream
     rc = libs["cfl"].armon_cfl_finish(8 * np.dtype(cfg.dtype).itemsize,
                                       ctypes.byref(a), stream)
     _check_status(rc, "cfl_finish")
+
+
+def _cycle_args(cfg, tile, src, dst, p, partials, scal, iscal, n_partials):
+    """`CycleArgs` of a K4 or K5 launch over tiles of edge `tile`."""
+    from .cycle import tile_grid
+    from .sweep import mirror_factors
+    T = np.dtype(cfg.dtype).type
+    gx, gy = tile_grid(tile, src[0].shape)
+    if n_partials:  # (..., n_partials) with n_partials >= one per block
+        _require(partials, src[0].dtype, src[0].device,
+                 partials.numel() // n_partials * gx * gy, "CFL partials")
+    a = CycleArgs()
+    _set_common(a, cfg, src, dst, scal, iscal, (gx, gy))
+    a.p = _ptr(p)
+    a.partials = _ptr(partials) if n_partials else None
+    a.n_partials = n_partials
+    dx, dy = T(cfg.dx), T(cfg.dy)
+    a.dx, a.dy = float(dx), float(dy)
+    a.inv_dx, a.inv_dy = float(T(1.0) / dx), float(T(1.0) / dy)
+    f_lo, f_hi = mirror_factors(cfg, Axis.X)
+    a.fx_lo[:], a.fx_hi[:] = list(f_lo), list(f_hi)
+    f_lo, f_hi = mirror_factors(cfg, Axis.Y)
+    a.fy_lo[:], a.fy_hi[:] = list(f_lo), list(f_hi)
+    return a
+
+
+def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
+                 emit):
+    """Launch K4 on the current stream."""
+    from .cycle import CYCLE_TILE
+    libs = load()
+    T = np.dtype(cfg.dtype).type
+    if emit and (partials.dim() != 2 or partials.shape[0] != 2):
+        solver_error("config", "CFL partials must have shape (2, n)")
+    a = _cycle_args(cfg, CYCLE_TILE, src, dst, p, partials, scal, iscal,
+                    partials.shape[1] if emit else 0)
+    a.emit, a.x_first = int(emit), int(x_first)
+    a.fx, a.fy = float(T(fx)), float(T(fy))
+    bits = 8 * np.dtype(cfg.dtype).itemsize
+    fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_f{bits}")
+    rc = fn(ctypes.byref(a), torch.cuda.current_stream(src[0].device).cuda_stream)
+    _check_status(rc, "cycle")
+
+
+def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
+                      scal, iscal):
+    """Launch K5 on the current stream (a cooperative launch)."""
+    from .cycle import MULTI_TILE
+    libs = load()
+    T = np.dtype(cfg.dtype).type
+    if partials.dim() != 3 or partials.shape[:2] != (2, 2):
+        solver_error("config", "K5's CFL partials must have shape (2, 2, n)")
+    m = MultiArgs()
+    m.c = _cycle_args(cfg, MULTI_TILE, src, dst, p, partials, scal, iscal,
+                      partials.shape[2])
+    m.ncycles = int(ncycles)
+    m.x_first[:] = [int(xf) for xf, _, _ in parity_pairs]
+    m.fx[:] = [float(T(fx)) for _, fx, _ in parity_pairs]
+    m.fy[:] = [float(T(fy)) for _, _, fy in parity_pairs]
+    m.dt = _dt_params(cfg)
+    bits = 8 * np.dtype(cfg.dtype).itemsize
+    fn = getattr(libs[f"multicycle_f{bits}"], f"armon_multicycle_f{bits}")
+    rc = fn(ctypes.byref(m), torch.cuda.current_stream(src[0].device).cuda_stream)
+    _check_status(rc, "multicycle")

@@ -1,0 +1,159 @@
+"""The whole-cycle kernels: plain PyTorch versions and wrappers.
+
+Counterpart of `fused_cycle` and `fused_multicycle`
+(`armon_tpu/ops/pallas/sweep.py:1717,2027`). Two hand-written CUDA kernels
+(`armon_torch/csrc/cycle.cuh`) replace the TPU's:
+
+- ``cycle`` (K4) replaces `_cycle_kernel` (`sweep.py:1571`): both sweeps
+  of one cycle in one launch, both ghost fills in-kernel, the stale p and
+  the CFL partials that K3 folds;
+- ``multicycle`` (K5) replaces `_multicycle_kernel` (`sweep.py:1905`):
+  up to K cycles in one cooperative launch, with K3's dt recurrence, the
+  CFL fold and the stop predicate in-kernel.
+
+Both write out of place, like K1/K2, and use the device loop scalars of
+`ops/sweep.py` (``scal`` = [t, dt_prev, lm, dt_use], ``iscal`` = [cycle,
+ok, run, next]). Each wrapper runs its plain version for CPU tensors and
+launches its kernel (or raises) for CUDA tensors; it never falls back.
+"""
+
+import numpy as np
+import torch
+
+from ..utils.enums import Axis
+from ..utils.errors import solver_error
+from ..core.state import torch_dtype
+from . import sweep as S
+from .sweep import (LAUNCHES, IS_RUN, IS_CYCLE, SC_DTUSE, HALO,
+                    mirror_fill_plain, sweep_plain, cfl_partial_plain,
+                    cfl_finish_plain)
+
+# Window edge of a block, shared with csrc/cycle.cuh (CYCLE_L, MULTI_L): a
+# block writes a (TILE - 2 HALO)^2 output tile.
+CYCLE_TILE = 64
+MULTI_TILE = 32
+
+
+def tile_grid(tile, shape):
+    """(grid_x, grid_y) of a K4 / K5 launch over a padded (rows, cols)
+    array."""
+    rows, cols = shape
+    r = tile - 2 * HALO
+    return -(-cols // r), -(-rows // r)
+
+
+def n_partials(shape, device, tile=CYCLE_TILE) -> int:
+    """CFL partial maxima a K4 (or K5) launch writes: one per block on the
+    card, one for the whole array in the plain version."""
+    if torch.device(device).type != "cuda":
+        return 1
+    gx, gy = tile_grid(tile, shape)
+    return gx * gy
+
+
+def parity_pairs(pairs):
+    """(even-cycle, odd-cycle) (x_first, fx, fy) of a `temporal_pairs`
+    schedule, which starts on an even cycle."""
+    return pairs[0], pairs[1 % len(pairs)]
+
+
+# ---------------------------------------------------------- plain versions
+
+def cycle_plain(cfg, x_first, rho, u, v, E, dtx, dty):
+    """One cycle in plain PyTorch: both mirror fills of the pre-cycle state
+    (Y then X), then the two sweeps without fills, then the CFL maxima of
+    the result. `dtx`, `dty` are 0-dim tensors. Returns (rho, u, v, E,
+    p_stale, max |u|+c, max |v|+c)."""
+    fields = mirror_fill_plain(cfg, Axis.X,
+                               mirror_fill_plain(cfg, Axis.Y, (rho, u, v, E)))
+    a1, d1, a2, d2 = ((Axis.X, dtx, Axis.Y, dty) if x_first
+                      else (Axis.Y, dty, Axis.X, dtx))
+    out = sweep_plain(cfg, a1, *fields, d1, fill=False)
+    out = sweep_plain(cfg, a2, *out[:4], d2, fill=False)
+    mx, my = cfl_partial_plain(cfg, out[1], out[2], out[5])
+    return out[:5] + (mx, my)
+
+
+def _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
+                      iscal, emit):
+    if not int(iscal[IS_RUN]):
+        for s, d in zip(src, dst):
+            d.copy_(s)
+        return
+    T = np.dtype(cfg.dtype).type
+    dt = scal[SC_DTUSE]
+    out = cycle_plain(cfg, x_first, *src, dt * float(T(fx)),
+                      dt * float(T(fy)))
+    for d, o in zip(dst, out[:4]):
+        d.copy_(o)
+    if emit:
+        p.copy_(out[4])
+        partials[0, 0] = out[5]
+        partials[1, 0] = out[6]
+
+
+def multicycle_plain(cfg, pairs, ncycles, src, dst, p, scal, iscal):
+    """Plain version of K5: `ncycles` cycles, each K3's step (the fold of
+    the previous cycle's maxima, the run predicate, the dt recurrence)
+    then `cycle_plain` with the (x_first, fx, fy) of the cycle's parity,
+    or a copy when the cycle does not run; the fields ping-pong between
+    `src` and `dst`, and a final fold leaves lm the CFL minimum of the
+    last state."""
+    part = torch.zeros((2, 1), dtype=src[0].dtype, device=src[0].device)
+    even_odd = parity_pairs(pairs)
+    for k in range(ncycles):
+        cfl_finish_plain(cfg, part, 1, scal, iscal, fold=k > 0, step=True)
+        a, b = (src, dst) if k % 2 == 0 else (dst, src)
+        cyc = int(iscal[IS_CYCLE]) - 1  # the cycle this step started
+        xf, fx, fy = even_odd[cyc % 2]
+        _cycle_plain_into(cfg, xf, fx, fy, a, b, p, part, scal, iscal, True)
+    cfl_finish_plain(cfg, part, 1, scal, iscal, fold=True, step=False)
+
+
+# ---------------------------------------------------------------- wrappers
+
+def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit):
+    """K4: one X/Y pair of sweeps of (rho, u, v, E) `src` into `dst`, X
+    first when `x_first`, with dt = scal[dt_use] * fx along X and * fy
+    along Y; copied through when iscal[run] is 0. With `emit` (the cycle's
+    last launch) it also writes the stale p and the CFL partial maxima.
+    Replaces `_cycle_kernel` (`sweep.py:1571`)."""
+    device = src[0].device
+    S._check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
+             src[0].shape, device)
+    if device.type == "cuda":
+        from . import _build
+        _build.launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials,
+                            scal, iscal, emit)
+        LAUNCHES["cycle"] += 1
+        return
+    _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
+                      iscal, emit)
+
+
+def new_multicycle_partials(shape, dtype, device):
+    """K5's CFL partials: two cycle parities of (2, n) maxima."""
+    nb = n_partials(shape, device, MULTI_TILE)
+    return torch.zeros((2, 2, nb), dtype=torch_dtype(dtype), device=device)
+
+
+def multicycle(cfg, pairs, src, dst, p, partials, scal, iscal):
+    """K5: len(pairs) cycles of (rho, u, v, E) in one launch (`pairs` from
+    `temporal_pairs`), each with the dt recurrence, both fills, both
+    sweeps, the stale p and the CFL fold; a cycle whose (t < maxtime) &
+    (cycle < maxcycle) & ok predicate fails changes nothing. The fields
+    ping-pong, so the carry ends in `src` for an even count and in `dst`
+    for an odd one, whatever number of cycles ran. `partials` is
+    `new_multicycle_partials`' scratch. Replaces `_multicycle_kernel`
+    (`sweep.py:1905`)."""
+    device = src[0].device
+    if not pairs:
+        solver_error("config", "multicycle needs at least one cycle")
+    S._check(cfg, tuple(src) + tuple(dst) + (p,), src[0].shape, device)
+    if device.type == "cuda":
+        from . import _build
+        _build.launch_multicycle(cfg, parity_pairs(pairs), len(pairs), src,
+                                 dst, p, partials, scal, iscal)
+        LAUNCHES["multicycle"] += 1
+        return
+    multicycle_plain(cfg, pairs, len(pairs), src, dst, p, scal, iscal)

@@ -50,9 +50,10 @@ HALO = 4
 X_TILE, X_LINES = 256, 1
 Y_TILE, Y_LINES = 32, 16
 
-# Launches made on the card, by kernel. Counted where the wrapper launches,
-# and nowhere else.
-LAUNCHES = {"x_sweep": 0, "y_sweep": 0, "cfl_finish": 0}
+# Launches made on the card, by kernel (K4/K5's wrappers are in
+# `ops/cycle.py`). Counted where the wrapper launches, and nowhere else.
+LAUNCHES = {"x_sweep": 0, "y_sweep": 0, "cfl_finish": 0, "cycle": 0,
+            "multicycle": 0}
 
 
 def reset_launches():

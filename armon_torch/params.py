@@ -223,8 +223,8 @@ class ArmonParameters:
         # use_fast_math (src/generic_kernel.jl:3, default true): f32 CUDA
         # kernels divide through an approximate reciprocal. False = IEEE.
         self.use_fast_math = bool(o.pop("use_fast_math", True))
-        # Parsed and validated for parity; every grid runs per-sweep until
-        # the whole-cycle / multi-cycle kernels land (ROADMAP queue B5/B6).
+        # Route selection (`ops/routing.py`): pair_threshold=0 forces the
+        # per-sweep kernels, temporal_blocking=1 turns off the K5 route.
         self.pair_threshold = int(o.pop(
             "pair_threshold", os.environ.get("ARMON_PAIR_THRESHOLD", 2048)))
         self.temporal_blocking = int(o.pop(
@@ -338,8 +338,14 @@ class ArmonParameters:
                    "initialized automatically, updated " +
                    ("only at even cycles" if self.dt_on_even_cycles
                     else "every cycle"))
+        from .ops.routing import route, temporal_pairs
         fast = self.use_fast_math and self.data_type.itemsize == 4 \
             and self.device.type == "cuda"
+        kernels = {"per_sweep": "per-sweep kernels",
+                   "pair": "whole-cycle kernel (pair route)",
+                   "multicycle": "multicycle kernel (K=%d)"
+                                 % len(temporal_pairs(self.config) or ())
+                   }[route(self.config)]
         lines = [
             "Armon (PyTorch/CUDA) parameters:",
             f" - test:       {self.test!r}",
@@ -354,7 +360,7 @@ class ArmonParameters:
             f" - splitting:  {self.axis_splitting}",
             f" - time step:  {dt_line}; CFL={self.cfl}",
             f" - stops at:   t={self.maxtime} or {self.maxcycle} cycles",
-            f" - device:     {self.device}, per-sweep kernels, "
+            f" - device:     {self.device}, {kernels}, "
             + ("fast-math divides" if fast else "IEEE divides"),
             f" - memory:     {mem['per_device_total_bytes'] / 1e6:.1f} MB "
             f"in the time loop",

@@ -1,23 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # every phase, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
+    python3 chip_smoke.py --phases 0,5    # the route crossovers only
 
 Phases, each printing one JSON line:
-  0. the card (nvidia-smi name and power limit) and the kernels' build time;
-  1. each kernel against its plain PyTorch version on the card, one X and
-     one Y sweep at 1024^2 after a few cycles, on Sod_circ and Bizarrium,
-     in f64, f32 exact and f32 fast math, plus the CFL minimum via K3;
-  2. the Julia goldens (Sod, Sod_y, Sod_circ at 100^2) through the kernels:
-     zero differences in f64 and f32 exact; the f32 fast-math count is
-     reported;
+  0. the card (nvidia-smi name and power limit), the kernels' build time
+     and ptxas's registers and spills per kernel instance;
+  1. the per-sweep kernels against their plain PyTorch versions on the
+     card, one X and one Y sweep at 1024^2 after a few cycles, on Sod_circ
+     and Bizarrium, in f64, f32 exact and f32 fast math, plus the CFL
+     minimum via K3;
+  2. the Julia goldens (Sod, Sod_y, Sod_circ at 100^2) through the
+     per-sweep kernels: zero differences in f64 and f32 exact; the f32
+     fast-math count is reported;
   3. the main path: Sod 8192^2 f32 fast math (GAD/minmod/euler_2nd, nghost
      4, Sequential), one warm-up run then 100 timed cycles through
-     `armon()`, with launch counts, kernel times from CUDA events, host
-     reads, conservation drift and peak memory; then every kernel against
-     its plain version at the main path's shapes;
-  4. the per-kernel summary line.
+     `armon()`, with launch counts (K4/K5 must stay at 0), kernel times
+     from CUDA events, host reads, conservation drift and peak memory; then
+     every kernel against its plain version at the main path's shapes;
+  4. the small-grid routes: K4 against its plain version at 1024^2 (both
+     sweep orders) and K5 at 100^2 (one 8-cycle launch from a mid-run
+     state, across maxcycle, dt_on_even_cycles, cst_dt), bit for bit in
+     exact mode; per-sweep, pair and multicycle runs bit for bit against
+     each other; the goldens through the pair and multicycle routes; timed
+     runs through `armon()` of Sedov 2000^2 (pair, then per-sweep) and Sod
+     100^2 (multicycle, then pair); K4 and K5 on those runs' final states,
+     bit for bit against their plain versions in f32 exact and f64, within
+     the fast-math gate in f32 fast math, and timed;
+  5. (only when asked for) route crossovers, data for retuning
+     `pair_threshold` and `temporal_blocking` on this card: per-sweep
+     against pair at 256^2-8192^2, K1/K2/K4 times at 8192^2, pair against
+     multicycle on small grids;
+  6. the per-kernel summary line (all five kernels).
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Without a CUDA card, or without the `armon_torch` package next
@@ -47,9 +63,21 @@ SWEEP_FLOPS_PER_CELL = 162
 MAIN_N = 8192
 MAIN_CYCLES = 100
 
+# Route pins (`armon_torch/ops/routing.py`).
+PER_SWEEP = dict(pair_threshold=0, temporal_blocking=1)
+PAIR = dict(temporal_blocking=1)
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def bound_ms(nbytes, nflops, dtype="float32"):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    HBM rate and the flops over the peak rate of the type."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = nflops / PEAK_FLOPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def card_line():
@@ -98,27 +126,43 @@ def _ordered(torch, a):
     return torch.where(i < 0, -(2 ** 31) - i, i)
 
 
+def _ptxas_summary(log):
+    """["<kernel instance>: <registers>, <spills>", ...] from `ptxas -v`'s
+    output (mangled names without the namespace prefix)."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[-1].strip()
+            name = name.replace("_ZN5armon", "")
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            regs = ln.split("Used")[-1].split(",")[0].strip()
+            out.append(f"{name}: {regs}, {spill}")
+            name, spill = None, ""
+    return out
+
+
 def phase0(torch):
     from armon_torch.ops import _build
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    regs = {src: [ln.strip() for ln in log.splitlines()
-                  if "registers" in ln or "spill" in ln][:8]
+    regs = {src: _ptxas_summary(log)
             for src, log in _build.BUILD_INFO["logs"].items()}
     emit({"phase": 0, "card": card_line(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": regs})
 
 
 def _state_after(torch, test, n, dtype, fast, cycles):
-    """The port's carry after `cycles` cycles (through the kernels) and the
-    dt of the next cycle."""
+    """The port's carry after `cycles` cycles (through the per-sweep
+    kernels) and the dt of the next cycle."""
     from armon_torch import ArmonParameters
     from armon_torch.core.solver import make_init_fused
     from armon_torch.core.step import make_time_loop_lean
     params = ArmonParameters(test=test, N=(n, n), data_type=dtype,
                              use_fast_math=fast, maxcycle=cycles, silent=5,
-                             device="cuda")
+                             device="cuda", **PER_SWEEP)
     cfg = params.config
     fs, seed = make_init_fused(params)()
     res = make_time_loop_lean(cfg)(fs, 0.0, 0, 0.0, float(seed))
@@ -221,7 +265,10 @@ def _read_golden(path, dtype):
     return np.dtype(dtype).type(dt_s), int(cyc_s), data
 
 
-def phase2(torch):
+def _goldens(torch, route):
+    """Sod, Sod_y and Sod_circ at 100^2 through `armon()` on one route:
+    zero differences required in f64 and f32 exact; the f32 fast-math
+    count is reported."""
     import numpy as np
     from armon_torch import ArmonParameters, armon
     from armon_torch.interop import to_numpy
@@ -236,7 +283,8 @@ def phase2(torch):
                 test=test, N=(100, 100), data_type=dtype, scheme="GAD",
                 projection="euler_2nd", riemann_limiter="minmod", nghost=4,
                 maxcycle=1000, silent=5, measure_time=False,
-                return_data=True, use_fast_math=fast, device="cuda")
+                return_data=True, use_fast_math=fast, device="cuda",
+                **route)
             stats = armon(params)
             st = to_numpy(stats.data)
             g = params.nghost
@@ -252,7 +300,12 @@ def phase2(torch):
                          "cycles": stats.cycles, "ref_cycles": ref_cycles,
                          "diffs": diffs})
             if not fast and (diffs or stats.cycles != ref_cycles):
-                raise AssertionError(f"golden {test} {dtype}: {rows[-1]}")
+                raise AssertionError(f"golden {test} {dtype} {route}: {rows[-1]}")
+    return rows
+
+
+def phase2(torch):
+    rows = _goldens(torch, PER_SWEEP)
     emit({"phase": 2, "goldens": rows})
     return rows
 
@@ -289,6 +342,8 @@ def phase3(torch):
     for name in ("x_sweep", "y_sweep", "cfl_finish"):
         if launches[name] == 0:
             raise AssertionError(f"main path never launched {name}")
+    if launches["cycle"] or launches["multicycle"]:
+        raise AssertionError(f"8192^2 left the per-sweep route: {launches}")
     if mass_drift > 1e-6 or energy_drift > 1e-6:
         raise AssertionError(f"conservation drift {mass_drift} {energy_drift}")
     cells = MAIN_N * MAIN_N
@@ -315,12 +370,6 @@ def phase3(torch):
     iscal[K.IS_RUN] = 1
     field_bytes = st.rho.numel() * st.rho.element_size()
     flops = SWEEP_FLOPS_PER_CELL * st.rho.numel()
-    peak_flops = PEAK_FLOPS["float32"]
-
-    def bound(nbytes, nflops):
-        tb = nbytes / HBM_BYTES_PER_S * 1e3
-        tf = nflops / peak_flops * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
 
     saved = dict(K.LAUNCHES)
     x_ms = time_ms(torch, lambda: K.x_sweep(cfg, fs_src, dst, p, partials, scal,
@@ -358,7 +407,7 @@ def phase3(torch):
             ("cfl_finish", "armon_torch/csrc/cfl.cu",
              "armon_tpu/ops/pallas/sweep.py:968", k3_ms, k3p_ms,
              part_bytes + 64, 4 * nby, amax_ms, None)):
-        b_ms, b_by = bound(nbytes, nflops)
+        b_ms, b_by = bound_ms(nbytes, nflops)
         err = max(d[0] for d in diffs.values()) if diffs else \
             (0.0 if checks["Y"]["k3_equal"] else float("inf"))
         kernels.append({"name": name, "route": "cuda", "source": src_file,
@@ -372,10 +421,464 @@ def phase3(torch):
     return kernels
 
 
+# ------------------------------------------------------- small-grid routes
+
+SMALL_OPTS = dict(data_type="float32", scheme="GAD", projection="euler_2nd",
+                  riemann_limiter="minmod", nghost=4, use_fast_math=True,
+                  maxtime=1e30, silent=5, device="cuda")
+SEDOV_N, SEDOV_CYCLES = 2000, 1000  # BASELINE config 3
+SOD_N, SOD_CYCLES = 100, 4000       # BASELINE config 1
+
+
+def _loop_from_init(params):
+    from armon_torch.core.solver import make_init_fused
+    from armon_torch.core.step import make_time_loop_lean
+    fs, seed = make_init_fused(params)()
+    return make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0, float(seed))
+
+
+def _gate_fields(torch, got, ref, g, fast, what):
+    """Real cells of each pair: bit for bit in exact mode, within 1e-4 of
+    the field's scale in fast math. Returns the max abs difference."""
+    r = (slice(g, -g), slice(g, -g))
+    err = 0.0
+    for a, b in zip(got, ref):
+        d = float((a[r] - b[r]).abs().max())
+        err = max(err, d)
+        ok = (d <= 1e-4 * float(b[r].abs().max())) if fast \
+            else torch.equal(a[r], b[r])
+        if not ok:
+            raise AssertionError(f"{what}: max abs diff {d}")
+    return err
+
+
+def _k4_vs_plain(torch, cfg, src, dt, x_first, fast, what,
+                 factors=(0.5, 1.0)):
+    """One emitting K4 launch against `cycle_plain` on the same inputs, and
+    K3 on its partials against K3's plain version. `factors` are the dt
+    factors of the first and the second sweep (Strang's pair by default).
+    Returns the max abs difference of the fields."""
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    dev = src[0].device
+    dst = tuple(torch.empty_like(a) for a in src)
+    p = torch.empty_like(src[0])
+    nb = C.n_partials(src[0].shape, dev)
+    partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
+    scal, iscal = K.new_scalars(cfg.dtype, dev)
+    scal[K.SC_DTUSE] = dt
+    iscal[K.IS_RUN] = 1
+    fx, fy = factors if x_first else factors[::-1]
+    C.cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, True)
+    dt_t = scal[K.SC_DTUSE]
+    ref = C.cycle_plain(cfg, x_first, *src, dt_t * fx, dt_t * fy)
+    torch.cuda.synchronize()
+    err = _gate_fields(torch, dst + (p,), ref[:5], cfg.nghost, fast, what)
+    for got, want in ((partials[0].max(), ref[5]), (partials[1].max(), ref[6])):
+        if abs(float(got) - float(want)) > (1e-4 * float(want) if fast else 0.0):
+            raise AssertionError(f"{what}: CFL max {float(got)} vs {float(want)}")
+    s2, i2 = scal.clone(), iscal.clone()
+    K.cfl_finish(cfg, partials, nb, scal, iscal)
+    K.cfl_finish_plain(cfg, partials, nb, s2, i2)
+    if not (torch.equal(scal, s2) and torch.equal(iscal, i2)):
+        raise AssertionError(f"{what}: K3 on K4's partials")
+    return err
+
+
+def _k5_inputs(torch, cfg, src, p, sc):
+    """Fresh copies of K5's operands: [fields, second buffer set, stale p,
+    scal, iscal], the loop scalars from `sc` (t, cycle, dt_prev, lm)."""
+    from armon_torch.ops import sweep as K
+    scal, iscal = K.new_scalars(cfg.dtype, src[0].device, **sc)
+    return [tuple(a.clone() for a in src), tuple(torch.empty_like(a) for a in src),
+            p.clone(), scal, iscal]
+
+
+def _k5_check(torch, cfg, pairs, src, p, sc, fast, what):
+    """One K5 launch against `multicycle_plain` on copies of the same
+    inputs: fields, p and every loop scalar, bit for bit in exact mode.
+    Returns (max abs diff, the cycle counter after the launch)."""
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    a, b = _k5_inputs(torch, cfg, src, p, sc), _k5_inputs(torch, cfg, src, p, sc)
+    C.multicycle(cfg, pairs, a[0], a[1], a[2],
+                 C.new_multicycle_partials(src[0].shape, cfg.dtype, src[0].device),
+                 a[3], a[4])
+    C.multicycle_plain(cfg, pairs, len(pairs), *b)
+    torch.cuda.synchronize()
+    k = len(pairs) % 2  # the buffer set the carry ends in
+    err = _gate_fields(torch, a[k] + (a[2],), b[k] + (b[2],), cfg.nghost,
+                       fast, what)
+    if not torch.equal(a[4], b[4]):
+        raise AssertionError(f"{what}: loop ints {a[4].tolist()} vs {b[4].tolist()}")
+    if fast:
+        rel = float(((a[3] - b[3]).abs() / b[3].abs().clamp_min(1e-30)).max())
+        if rel > 1e-4:
+            raise AssertionError(f"{what}: loop scalars off by {rel}")
+    elif not torch.equal(a[3], b[3]):
+        raise AssertionError(f"{what}: loop scalars {a[3].tolist()} vs {b[3].tolist()}")
+    return err, int(a[4][K.IS_CYCLE])
+
+
+def _k5_vs_plain(torch, params, warm, what):
+    """One K5 launch from the state after `warm` per-sweep cycles against
+    `multicycle_plain` on the same inputs (`_k5_check`). Returns (max abs
+    diff, cycles run)."""
+    import numpy as np
+    from armon_torch import ArmonParameters
+    from armon_torch.ops.routing import temporal_pairs
+    cfg = params.config
+    fast = params.use_fast_math and cfg.dtype == np.float32
+    opts = {k: getattr(params, k) for k in ("N", "data_type", "use_fast_math",
+                                             "axis_splitting", "cst_dt", "Dt",
+                                             "dt_on_even_cycles")}
+    res = _loop_from_init(ArmonParameters(
+        test=params.test, maxcycle=warm, silent=5, device="cuda", **opts,
+        **PER_SWEEP))
+    sc = dict(t=res.t, cycle=res.cycles, dt_prev=res.dt_last, lm=res.lm)
+    err, cyc = _k5_check(torch, cfg, temporal_pairs(cfg), tuple(res.carry[:4]),
+                         res.carry.p, sc, fast, what)
+    return err, cyc - res.cycles
+
+
+def _routes_bitwise(torch, test, n, dtype, routes, cycles=20):
+    """The same run on each route: equal bits on real cells and equal t,
+    cycles, dt and lm (exact mode)."""
+    from armon_torch import ArmonParameters
+    from armon_torch.ops.routing import route as route_of
+    out, names = [], []
+    for route in routes:
+        params = ArmonParameters(test=test, N=(n, n), data_type=dtype,
+                                 use_fast_math=False, maxcycle=cycles,
+                                 silent=5, device="cuda", **route)
+        names.append(route_of(params.config))
+        out.append(_loop_from_init(params))
+    g = 4
+    for name, res in zip(names[1:], out[1:]):
+        base = out[0]
+        same = (res.t, res.cycles, res.dt_last, res.lm) == \
+            (base.t, base.cycles, base.dt_last, base.lm) and all(
+                torch.equal(a[g:-g, g:-g], b[g:-g, g:-g])
+                for a, b in zip(res.carry, base.carry))
+        if not same:
+            raise AssertionError(f"route {name} differs from {names[0]} at "
+                                 f"{test} {n}^2 {dtype}")
+    return names
+
+
+def _timed(torch, test, n, cycles, **route):
+    """A warm-up run, then `cycles` timed cycles through `armon()` (f32
+    fast math, maxtime=1e30), with the launch counts of the timed run."""
+    import numpy as np
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops.routing import route as route_of
+    opts = dict(test=test, N=(n, n), **SMALL_OPTS, **route)
+    armon(ArmonParameters(maxcycle=16, **opts))
+    torch.cuda.synchronize()
+    params = ArmonParameters(maxcycle=cycles, return_data=True, **opts)
+    K.reset_launches()
+    stats = armon(params)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    if stats.cycles != cycles or not np.isfinite(float(stats.data.rho.sum())):
+        raise AssertionError(f"{test} {n}^2 {route}: {stats.cycles} cycles")
+    return {"test": test, "N": n, "route": route_of(params.config),
+            "options": route, "cycles": stats.cycles,
+            "solve_s": stats.solve_time,
+            "cells_per_s": n * n * stats.cycles / stats.solve_time,
+            "host_reads": stats.host_reads, "launches": launches}, params, stats
+
+
+def phase4(torch):
+    """The small-grid routes: K4/K5 against their plain versions, the
+    routes against each other, the goldens, and timed runs of BASELINE
+    configs 3 and 1; returns the kernels-line entries of K4 and K5."""
+    from armon_torch import ArmonParameters
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    from armon_torch.core.state import FusedCarry
+    from armon_torch.ops.routing import temporal_pairs
+    out = {"phase": 4}
+    modes = (("float64", False), ("float32", False), ("float32", True))
+
+    # (a) each kernel against its plain version
+    k4 = []
+    for test in ("Sod_circ", "Bizarrium"):
+        for dtype, fast in modes:
+            params, fs, dt = _state_after(torch, test, 1024, dtype, fast, 3)
+            for x_first in (True, False):
+                err = _k4_vs_plain(torch, params.config, tuple(fs[:4]), dt,
+                                   x_first, fast,
+                                   f"K4 {test} {dtype} fast={fast} x_first={x_first}")
+                k4.append({"test": test, "dtype": dtype, "fast": fast,
+                           "x_first": x_first, "max_abs_err": err})
+    out["k4_vs_plain"] = k4
+    k5 = []
+    for test, extra in (("Sod", {}), ("Sod_circ", dict(axis_splitting="Godunov")),
+                        ("Sod", dict(maxcycle=13)),
+                        ("Sod_circ", dict(dt_on_even_cycles=True)),
+                        ("Sod", dict(cst_dt=True, Dt=1e-3))):
+        for dtype, fast in modes:
+            params = ArmonParameters(test=test, N=(100, 100), data_type=dtype,
+                                     use_fast_math=fast, silent=5,
+                                     device="cuda", **{"maxcycle": 100, **extra})
+            what = f"K5 {test} {extra} {dtype} fast={fast}"
+            err, ran = _k5_vs_plain(torch, params, 10, what)
+            k5.append({"test": test, "options": extra, "dtype": dtype,
+                       "fast": fast, "cycles_run": ran, "max_abs_err": err})
+    out["k5_vs_plain"] = k5
+
+    # (b) the routes against each other, exact mode
+    out["routes_bitwise"] = [
+        {"N": n, "dtype": dtype,
+         "routes": _routes_bitwise(torch, "Sod_circ", n, dtype, routes)}
+        for n, routes in ((100, (PER_SWEEP, PAIR, {})), (1024, (PER_SWEEP, PAIR)))
+        for dtype in ("float64", "float32")]
+
+    # (c) the goldens through the two new routes (per-sweep: phase 2)
+    out["goldens"] = {"pair": _goldens(torch, PAIR), "multicycle": _goldens(torch, {})}
+
+    # (d) timed runs through armon()
+    runs = []
+    sedov, sedov_params, sedov_stats = _timed(torch, "Sedov", SEDOV_N, SEDOV_CYCLES)
+    runs.append(sedov)
+    runs.append(_timed(torch, "Sedov", SEDOV_N, SEDOV_CYCLES, pair_threshold=0)[0])
+    sod, sod_params, sod_stats = _timed(torch, "Sod", SOD_N, SOD_CYCLES)
+    runs.append(sod)
+    runs.append(_timed(torch, "Sod", SOD_N, SOD_CYCLES, temporal_blocking=1)[0])
+    la, lb, lc, ld = (r["launches"] for r in runs)
+    if not (la["cycle"] and not la["x_sweep"] and not la["y_sweep"]
+            and not la["multicycle"]):
+        raise AssertionError(f"Sedov {SEDOV_N}^2 default route: {la}")
+    if not (lb["x_sweep"] and lb["y_sweep"] and not lb["cycle"]):
+        raise AssertionError(f"Sedov {SEDOV_N}^2 pair_threshold=0: {lb}")
+    if not (lc["multicycle"] and not lc["cycle"] and not lc["x_sweep"]):
+        raise AssertionError(f"Sod {SOD_N}^2 default route: {lc}")
+    if not (ld["cycle"] and ld["cfl_finish"] and not ld["multicycle"]):
+        raise AssertionError(f"Sod {SOD_N}^2 temporal_blocking=1: {ld}")
+    out["timed"] = runs
+
+    # Kernels at their paths' shapes: checks against the plain versions
+    # on each timed run's final state, bit for bit in f32 exact and f64
+    # (those max abs differences go to the kernels line) and within the
+    # fast-math gate as timed; then times (CUDA events), plain versions'
+    # times and bounds. These launches are not counted as the paths'.
+    saved = dict(K.LAUNCHES)
+    kernels = []
+
+    def exact_cfgs(test, n, **extra):
+        return [(dtype, ArmonParameters(
+            test=test, N=(n, n), **{**SMALL_OPTS, "data_type": dtype,
+                                    "use_fast_math": False, **extra}).config)
+                for dtype in ("float32", "float64")]
+
+    # K4 at Sedov 2000^2 (Sequential: X then Y, the full dt each).
+    cfg = sedov_params.config
+    st = sedov_stats.data
+    src = (st.rho, st.u, st.v, st.E)
+    dev = st.rho.device
+    k4_err = 0.0
+    for dtype, ecfg in exact_cfgs("Sedov", SEDOV_N):
+        k4_err = max(k4_err, _k4_vs_plain(
+            torch, ecfg, tuple(a.to(getattr(torch, dtype)) for a in src),
+            sedov_stats.last_dt, True, False,
+            f"K4 at Sedov {SEDOV_N}^2 {dtype} exact", factors=(1.0, 1.0)))
+    k4_fast = _k4_vs_plain(torch, cfg, src, sedov_stats.last_dt, True, True,
+                           f"K4 at Sedov {SEDOV_N}^2 fast math",
+                           factors=(1.0, 1.0))
+    dst = tuple(torch.empty_like(a) for a in src)
+    p = torch.empty_like(st.rho)
+    nb = C.n_partials(st.rho.shape, dev)
+    partials = torch.zeros((2, nb), dtype=st.rho.dtype, device=dev)
+    scal, iscal = K.new_scalars(cfg.dtype, dev)
+    scal[K.SC_DTUSE] = sedov_stats.last_dt
+    iscal[K.IS_RUN] = 1
+    k4_ms = time_ms(torch, lambda: C.cycle(cfg, True, 1.0, 1.0, src, dst, p,
+                                           partials, scal, iscal, True), reps=20)
+    dt_t = scal[K.SC_DTUSE]
+    k4p_ms = time_ms(torch, lambda: C.cycle_plain(cfg, True, *src, dt_t, dt_t),
+                     reps=3)
+    fb = st.rho.numel() * st.rho.element_size()
+    b_ms, b_by = bound_ms(9 * fb + 2 * nb * st.rho.element_size(),
+                          2 * SWEEP_FLOPS_PER_CELL * st.rho.numel())
+    kernels.append({"name": "cycle", "route": "cuda",
+                    "source": "armon_torch/csrc/cycle.cuh",
+                    "replaces": "armon_tpu/ops/pallas/sweep.py:1571",
+                    "launches": la["cycle"], "max_abs_err": k4_err,
+                    "ms": k4_ms, "plain_ms": k4p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+    # K5 at Sod 100^2, one launch of K cycles from the timed run's final
+    # state (maxcycle lifted so every cycle runs).
+    params = ArmonParameters(test="Sod", N=(SOD_N, SOD_N), maxcycle=1 << 23,
+                             **SMALL_OPTS)
+    cfg = params.config
+    pairs = temporal_pairs(cfg)
+    st = sod_stats.data
+    fs = FusedCarry(st.rho, st.u, st.v, st.E, st.p)
+    sc = dict(t=sod_stats.final_time, cycle=sod_stats.cycles,
+              dt_prev=sod_stats.last_dt, lm=sod_params._final_local_min)
+    k5_err = 0.0
+    for dtype, ecfg in exact_cfgs("Sod", SOD_N, maxcycle=1 << 23):
+        tdt = getattr(torch, dtype)
+        err, cyc = _k5_check(torch, ecfg, temporal_pairs(ecfg),
+                             tuple(a.to(tdt) for a in fs[:4]), fs.p.to(tdt),
+                             sc, False, f"K5 at Sod {SOD_N}^2 {dtype} exact")
+        if cyc != sod_stats.cycles + len(pairs):
+            raise AssertionError(f"K5 {dtype} exact did not run every cycle")
+        k5_err = max(k5_err, err)
+    k5_fast, cyc = _k5_check(torch, cfg, pairs, tuple(fs[:4]), fs.p, sc, True,
+                             f"K5 at Sod {SOD_N}^2 fast math")
+    if cyc != sod_stats.cycles + len(pairs):
+        raise AssertionError("K5 fast math did not run every cycle")
+    a = _k5_inputs(torch, cfg, tuple(fs[:4]), fs.p, sc)
+    b = _k5_inputs(torch, cfg, tuple(fs[:4]), fs.p, sc)
+    part = C.new_multicycle_partials(st.rho.shape, cfg.dtype, dev)
+    k5_ms = time_ms(torch, lambda: C.multicycle(cfg, pairs, a[0], a[1], a[2],
+                                                part, a[3], a[4]), reps=20)
+    k5p_ms = time_ms(torch, lambda: C.multicycle_plain(cfg, pairs, len(pairs),
+                                                       *b), reps=2)
+    fb = st.rho.numel() * st.rho.element_size()
+    b_ms, b_by = bound_ms(10 * fb, 2 * SWEEP_FLOPS_PER_CELL * st.rho.numel()
+                          * len(pairs))
+    kernels.append({"name": "multicycle", "route": "cuda",
+                    "source": "armon_torch/csrc/cycle.cuh",
+                    "replaces": "armon_tpu/ops/pallas/sweep.py:1905",
+                    "launches": lc["multicycle"], "max_abs_err": k5_err,
+                    "ms": k5_ms, "plain_ms": k5p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+    out["fast_math_max_abs_err"] = {"cycle": k4_fast, "multicycle": k5_fast}
+    K.LAUNCHES.update(saved)
+    out["kernel_ms"] = {"cycle": k4_ms, "multicycle": k5_ms,
+                        "multicycle_per_cycle": k5_ms / len(pairs)}
+    emit(out)
+    return kernels
+
+
+# ------------------------------------------------------- route crossovers
+
+def _loop_rate(torch, params, loop, cycles):
+    """cells/s of `cycles` cycles of a lean loop from the initial state
+    (host clock to a host read), after a warm-up on the same shapes."""
+    from armon_torch.core.solver import make_init_fused
+    fs, seed = make_init_fused(params)()
+    loop(fs, 0.0, 0, 0.0, float(seed))  # warm-up (maxcycle bounds it)
+    fs, seed = make_init_fused(params)()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = loop(fs, 0.0, 0, 0.0, float(seed))
+    dt = time.perf_counter() - t0
+    n = params.N[0] * params.N[1]
+    return n * res.cycles / dt, res.cycles
+
+
+def _k5_rate(torch, params, pairs):
+    """cells/s of K5 launches of len(pairs) cycles from the initial state
+    to maxcycle, with one host read of the stop flag per launch as the
+    lean loop's multicycle branch makes them, but on any grid whose tiles
+    fit co-resident (past the routing's cap); after a warm-up run."""
+    from armon_torch.core.solver import make_init_fused
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    cfg = params.config
+
+    def run():
+        fs, seed = make_init_fused(params)()
+        cur = tuple(fs[:4])
+        nxt = tuple(torch.empty_like(a) for a in cur)
+        part = C.new_multicycle_partials(fs.rho.shape, cfg.dtype, fs.rho.device)
+        scal, iscal = K.new_scalars(cfg.dtype, fs.rho.device, lm=float(seed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        running = True
+        while running:
+            C.multicycle(cfg, pairs, cur, nxt, fs.p, part, scal, iscal)
+            if len(pairs) % 2:
+                cur, nxt = nxt, cur
+            running = bool(iscal[K.IS_NEXT].item())
+        return time.perf_counter() - t0, int(iscal[K.IS_CYCLE])
+
+    run()
+    dt, cycles = run()
+    return params.N[0] * params.N[1] * cycles / dt
+
+
+def phase5(torch):
+    """Route crossovers, for retuning `pair_threshold` and
+    `temporal_blocking` on this card (no default changes here). Sod f32
+    fast math: per-sweep against pair at 256^2-8192^2 (alternating
+    per, pair, pair, per), kernel times of K1, K2 and K4 at 8192^2, and
+    pair against multicycle (K=8) on small grids, K5 driven past the
+    routing's 256 KiB cap up to 360^2, the largest grid whose tiles fit
+    co-resident on the H100."""
+    from armon_torch import ArmonParameters
+    from armon_torch.core.step import make_time_loop_lean
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    from armon_torch.utils.enums import Axis
+    out = {"phase": 5, "card": card_line()}
+    rows = []
+    for n in (256, 512, 1024, 2048, 4096, 8192):
+        cycles = max(40, min(400, int(4e9 // (n * n))))
+        rates = {"per_sweep": [], "pair": []}
+        for name in ("per_sweep", "pair", "pair", "per_sweep"):
+            route = PER_SWEEP if name == "per_sweep" else \
+                dict(pair_threshold=n, temporal_blocking=1)
+            params = ArmonParameters(test="Sod", N=(n, n), maxcycle=cycles,
+                                     **SMALL_OPTS, **route)
+            rates[name].append(_loop_rate(torch, params,
+                                          make_time_loop_lean(params.config),
+                                          cycles)[0])
+        rows.append({"N": n, "cycles": cycles, **rates})
+    out["pair_vs_per_sweep"] = rows
+
+    # Kernel times at 8192^2 on one state (CUDA events).
+    params = ArmonParameters(test="Sod", N=(8192, 8192), maxcycle=4,
+                             **SMALL_OPTS, **PER_SWEEP)
+    cfg = params.config
+    res = _loop_from_init(params)
+    src = tuple(res.carry[:4])
+    dev = src[0].device
+    dst = tuple(torch.empty_like(a) for a in src)
+    p = torch.empty_like(src[0])
+    nb = max(C.n_partials(src[0].shape, dev),
+             K.n_partials(Axis.X, src[0].shape, dev),
+             K.n_partials(Axis.Y, src[0].shape, dev))
+    partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
+    scal, iscal = K.new_scalars(cfg.dtype, dev)
+    scal[K.SC_DTUSE] = res.dt_last
+    iscal[K.IS_RUN] = 1
+    out["kernel_ms_8192"] = {
+        "x_sweep": time_ms(torch, lambda: K.x_sweep(
+            cfg, src, dst, p, partials, scal, iscal, 1.0, False), reps=20),
+        "y_sweep": time_ms(torch, lambda: K.y_sweep(
+            cfg, src, dst, p, partials, scal, iscal, 1.0, True), reps=20),
+        "cycle": time_ms(torch, lambda: C.cycle(
+            cfg, True, 1.0, 1.0, src, dst, p, partials, scal, iscal, True),
+            reps=20)}
+
+    rows = []
+    pairs = ((True, 1.0, 1.0),) * 8  # Sequential, K = 8
+    for n in (64, 128, 240, 256, 360):
+        cycles = 400
+        params = ArmonParameters(test="Sod", N=(n, n), maxcycle=cycles,
+                                 **SMALL_OPTS, temporal_blocking=1)
+        row = {"N": n, "cycles": cycles, "pair": [], "multicycle": []}
+        for name in ("pair", "multicycle", "multicycle", "pair"):
+            row[name].append(
+                _loop_rate(torch, params, make_time_loop_lean(params.config),
+                           cycles)[0] if name == "pair"
+                else _k5_rate(torch, params, pairs))
+        rows.append(row)
+    out["multicycle_vs_pair"] = rows
+    emit(out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4",
-                    help="comma-separated phases to run (default: all)")
+    ap.add_argument("--phases", default="0,1,2,3,4,6",
+                    help="comma-separated phases to run (default: all but "
+                         "the crossovers, 5)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -395,8 +898,12 @@ def main(argv=None):
         phase1(torch)
     if 2 in phases:
         phase2(torch)
-    kernels = phase3(torch) if 3 in phases else None
-    if 4 in phases and kernels is not None:
+    kernels = phase3(torch) if 3 in phases else []
+    if 4 in phases:
+        kernels += phase4(torch)
+    if 5 in phases:
+        phase5(torch)
+    if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

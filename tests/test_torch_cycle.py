@@ -1,0 +1,203 @@
+"""The port's routing and its pair route (K4 `cycle`, plain version on the
+CPU) against the JAX package: the same options pick the same kernels, the
+pair route matches `armon_tpu.armon` on its pair route (interpret-mode
+Pallas `fused_cycle`), equals the port's per-sweep route bit for bit, and
+keeps the goldens.
+
+Tolerances: within the port, exact IEEE arithmetic on both routes, so bit
+for bit. Against the JAX package as in `test_torch_slice.py`: XLA contracts
+multiply-adds in its jitted program, so fields agree within 1e-13 of their
+scale after 10 cycles and t, dt within 4 eps.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import reference_params, ref_file, abs_tol, rel_tol
+
+import armon_tpu
+from armon_tpu.core import step as jstep
+from armon_tpu.io.output import read_reference_csv, compare_states
+import armon_torch
+from armon_torch.interop import to_numpy
+from armon_torch.core.solver import make_init_fused
+from armon_torch.core.step import make_time_loop_lean
+from armon_torch.ops import routing
+from armon_torch.ops import sweep as K
+from armon_torch.ops.cycle import cycle_plain
+from armon_torch.utils.enums import Axis
+
+PER_SWEEP = dict(pair_threshold=0, temporal_blocking=1)
+PAIR = dict(temporal_blocking=1)
+G = 4
+FIELDS = ("rho", "u", "v", "E", "p")
+
+
+def _configs(N, dtype, **opts):
+    kw = dict(test="Sod", N=N, data_type=dtype, silent=5, **opts)
+    return (armon_tpu.ArmonParameters(kernel_tier="pallas", **kw).config,
+            armon_torch.ArmonParameters(device="cpu", **kw).config)
+
+
+@pytest.mark.parametrize("N,dtype,extra", [
+    ((64, 64), np.float64, {}), ((100, 100), np.float32, {}),
+    ((2048, 100), np.float32, {}), ((2049, 10), np.float32, {}),
+    ((248, 120), np.float32, {}), ((248, 120), np.float64, {}),
+    ((40, 2), np.float64, {}), ((3, 5), np.float64, {}),
+    ((100, 100), np.float32, dict(maxcycle=1 << 24)),
+    ((100, 100), np.float64, dict(nghost=9)),
+    ((12, 12), np.float64, dict(nghost=6)),
+], ids=["64", "100-f32", "2048x100", "2049x10", "248x120-f32",
+        "248x120-f64", "40x2", "3x5", "maxcycle-2^24", "g9", "12-g6"])
+def test_routing_matches_jax(N, dtype, extra):
+    """`pair_routing_on` and `temporal_pairs` of the port equal the JAX
+    package's for every splitting, threshold and K tried."""
+    for splitting in ("Sequential", "Godunov", "Strang", "X_only"):
+        for threshold in (0, 100, 2048):
+            for tb in (0, 1, 3, 8):
+                jcfg, tcfg = _configs(N, dtype, axis_splitting=splitting,
+                                      pair_threshold=threshold,
+                                      temporal_blocking=tb, **extra)
+                key = (splitting, threshold, tb)
+                assert routing.pair_routing_on(tcfg) == \
+                    jstep.pair_routing_on(jcfg), key
+                assert routing.temporal_pairs(tcfg) == \
+                    jstep.temporal_pairs(jcfg), key
+
+
+def test_default_routes():
+    """With no option set the port routes as the JAX package does: 100^2
+    multicycle, 2000^2 pair, 8192^2 per-sweep."""
+    for n, want in ((100, "multicycle"), (2000, "pair"), (8192, "per_sweep")):
+        cfg = armon_torch.ArmonParameters(device="cpu", N=(n, n),
+                                          data_type="float32").config
+        assert routing.route(cfg) == want
+
+
+RUNS = [
+    ("Sod_circ", dict(axis_splitting="Sequential")),
+    ("Sod_circ", dict(axis_splitting="Godunov")),
+    ("Sod_circ", dict(axis_splitting="Strang")),
+    ("Bizarrium", dict()),
+]
+
+
+@pytest.mark.parametrize("test,extra", RUNS,
+                         ids=["sequential", "godunov", "strang", "bizarrium"])
+def test_pair_route_matches_jax(test, extra):
+    """10 cycles at 64^2 f64 against `armon_tpu.armon` on its pair route."""
+    opts = dict(test=test, N=(64, 64), data_type=np.float64, maxcycle=10,
+                silent=5, measure_time=False, return_data=True, **extra)
+    js = armon_tpu.armon(armon_tpu.ArmonParameters(
+        kernel_tier="pallas", pair_threshold=2048, temporal_blocking=1,
+        **opts))
+    params = armon_torch.ArmonParameters(device="cpu", **PAIR, **opts)
+    assert routing.route(params.config) == "pair"
+    ts = armon_torch.armon(params)
+    eps = np.finfo(np.float64).eps
+    assert ts.cycles == js.cycles
+    assert abs(ts.final_time - js.final_time) <= 4 * eps * abs(js.final_time)
+    assert abs(ts.last_dt - js.last_dt) <= 4 * eps * abs(js.last_dt)
+    data = to_numpy(ts.data)
+    for name in FIELDS:
+        a = np.asarray(getattr(js.data, name))[G:-G, G:-G]
+        b = getattr(data, name)[G:-G, G:-G]
+        scale = max(1.0, float(np.max(np.abs(a))))
+        assert np.max(np.abs(a - b)) <= 1e-13 * scale, name
+
+
+@pytest.mark.parametrize("x_first", [True, False], ids=["xy", "yx"])
+@pytest.mark.parametrize("test,N,dtype", [
+    ("Sod_circ", (48, 40), "float64"), ("Bizarrium", (48, 40), "float64"),
+    ("Sod_circ", (48, 40), "float32"), ("Sod_circ", (40, 3), "float64"),
+    ("Sod_circ", (3, 40), "float64")],
+    ids=["circ", "biz", "circ-f32", "40x3", "3x40"])
+def test_cycle_plain_equals_two_sweeps(test, N, dtype, x_first):
+    """K4's plain version (both fills from the pre-cycle state, then two
+    sweeps) equals two per-sweep sweeps with their own fills, bit for bit
+    on real cells, also on grids thinner than the ghost band."""
+    params = armon_torch.ArmonParameters(device="cpu", test=test, N=N,
+                                         data_type=dtype, maxcycle=3,
+                                         silent=5, **PER_SWEEP)
+    cfg = params.config
+    fs, seed = make_init_fused(params)()
+    res = make_time_loop_lean(cfg)(fs, 0.0, 0, 0.0, float(seed))
+    dt = torch.tensor(0.5 * res.dt_last, dtype=fs.rho.dtype)
+    src = tuple(res.carry[:4])
+    a1, a2 = (Axis.X, Axis.Y) if x_first else (Axis.Y, Axis.X)
+    d1, d2 = (dt * 0.5, dt) if x_first else (dt, dt * 0.5)
+    out = K.sweep_plain(cfg, a1, *src, d1)
+    out = K.sweep_plain(cfg, a2, *out[:4], d2)
+    ref = cycle_plain(cfg, x_first, *src, *((d1, d2) if x_first else (d2, d1)))
+    for a, b in zip(ref[:5], out[:5]):
+        assert torch.equal(a[G:-G, G:-G], b[G:-G, G:-G])
+    mx, my = K.cfl_partial_plain(cfg, out[1], out[2], out[5])
+    assert torch.equal(ref[5], mx) and torch.equal(ref[6], my)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("splitting", ["Sequential", "Godunov", "Strang"])
+def test_pair_route_equals_per_sweep_bitwise(splitting, dtype):
+    out = []
+    for route in (PER_SWEEP, PAIR):
+        params = armon_torch.ArmonParameters(
+            device="cpu", test="Bizarrium" if splitting == "Strang" else
+            "Sod_circ", N=(48, 40), data_type=dtype, maxcycle=15,
+            axis_splitting=splitting, silent=5, **route)
+        fs, seed = make_init_fused(params)()
+        out.append(make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0,
+                                                      float(seed)))
+    a, b = out
+    assert (a.t, a.cycles, a.dt_last, a.lm, a.ok) == \
+        (b.t, b.cycles, b.dt_last, b.lm, b.ok)
+    for x, y in zip(a.carry, b.carry):
+        assert torch.equal(x[G:-G, G:-G], y[G:-G, G:-G])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("test", ["Sod", "Sod_y", "Sod_circ"])
+def test_pair_route_goldens(test, dtype):
+    """Zero differences at the golden ladder through the pair route."""
+    params = armon_torch.ArmonParameters(
+        data_type=dtype, test=test, scheme="GAD", projection="euler_2nd",
+        riemann_limiter="minmod", nghost=4, N=(100, 100), maxcycle=1000,
+        silent=5, measure_time=False, device="cpu", return_data=True, **PAIR)
+    assert routing.route(params.config) == "pair"
+    stats = armon_torch.armon(params)
+    jcfg = reference_params(test, dtype).config
+    ref_dt, ref_cycles, ref = read_reference_csv(jcfg, ref_file(test, dtype))
+    atol, rtol = abs_tol(dtype), rel_tol(dtype)
+    assert stats.cycles == ref_cycles
+    assert abs(float(ref_dt) - stats.last_dt) <= max(atol, rtol * abs(float(ref_dt)))
+    cnt, max_diff, details = compare_states(jcfg, to_numpy(stats.data), ref,
+                                            atol=atol, rtol=rtol)
+    assert cnt == 0 and max_diff == 0, details
+
+
+def test_pair_route_stop_check_interval_is_bitwise_neutral():
+    params = armon_torch.ArmonParameters(device="cpu", test="Sod_circ",
+                                         N=(32, 32), axis_splitting="Strang",
+                                         silent=5, **PAIR)
+    res = []
+    for every in (1, 8):
+        fs, seed = make_init_fused(params)()
+        res.append(make_time_loop_lean(params.config)(
+            fs, 0.0, 0, 0.0, float(seed), check_every=every))
+    r1, r8 = res
+    assert r1.cycles % 8 != 0 and r8.host_reads < r1.host_reads
+    assert r1[1:6] == r8[1:6]
+    for a, b in zip(r1.carry, r8.carry):
+        assert torch.equal(a, b)
+
+
+def test_pair_route_divergence_aborts():
+    """cfl=3 blows the run up; the ok gate stops it with the time error
+    (`tests/test_pallas.py:372-386`)."""
+    params = armon_torch.ArmonParameters(
+        device="cpu", test="Sod", N=(64, 64), data_type=np.float64,
+        scheme="GAD", projection="euler_2nd", riemann_limiter="minmod",
+        nghost=4, maxcycle=200, silent=5, measure_time=False, cfl=3.0, **PAIR)
+    assert routing.route(params.config) == "pair"
+    with pytest.raises(armon_torch.SolverException, match="time"):
+        armon_torch.armon(params)

@@ -14,8 +14,13 @@ import armon_torch
 from armon_torch.core.solver import make_init_fused
 from armon_torch.core.step import make_time_loop_lean
 from armon_torch.ops import sweep as K
+from armon_torch.ops import cycle as C
+from armon_torch.ops.routing import temporal_pairs
 
 pytestmark = pytest.mark.gpu
+
+PER_SWEEP = dict(pair_threshold=0, temporal_blocking=1)
+PAIR = dict(temporal_blocking=1)
 
 
 @pytest.fixture
@@ -28,7 +33,8 @@ def card():
 def _advanced(test, dtype, fast, n=96, cycles=4, **scheme):
     params = armon_torch.ArmonParameters(test=test, N=(n, n), data_type=dtype,
                                          use_fast_math=fast, maxcycle=cycles,
-                                         silent=5, device="cuda", **scheme)
+                                         silent=5, device="cuda", **PER_SWEEP,
+                                         **scheme)
     fs, seed = make_init_fused(params)()
     res = make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0, float(seed))
     return params.config, res
@@ -98,9 +104,11 @@ def test_scheme_switches_match_plain(card, scheme):
             assert torch.equal(a[r], b[r])
 
 
-def test_stop_check_interval_on_card(card):
+@pytest.mark.parametrize("route", [PER_SWEEP, PAIR, {}],
+                         ids=["per-sweep", "pair", "multicycle"])
+def test_stop_check_interval_on_card(card, route):
     params = armon_torch.ArmonParameters(test="Sod_circ", N=(32, 32),
-                                         silent=5, device="cuda")
+                                         silent=5, device="cuda", **route)
     out = []
     for every in (1, 8):
         fs, seed = make_init_fused(params)()
@@ -112,14 +120,20 @@ def test_stop_check_interval_on_card(card):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype,N", [("float64", (64, 64)), ("float32", (64, 64)),
-                                     ("float64", (40, 2)), ("float64", (2, 40))],
-                         ids=["f64", "f32", "f64-40x2", "f64-2x40"])
-def test_card_run_matches_cpu_run(card, dtype, N):
+@pytest.mark.parametrize("dtype,N,route", [
+    ("float64", (64, 64), PER_SWEEP), ("float32", (64, 64), PER_SWEEP),
+    ("float64", (40, 2), PER_SWEEP), ("float64", (2, 40), PER_SWEEP),
+    ("float64", (64, 64), PAIR), ("float32", (64, 64), PAIR),
+    ("float64", (40, 2), PAIR), ("float64", (2, 40), PAIR),
+    ("float64", (64, 64), {}), ("float32", (64, 64), {})],
+    ids=["f64", "f32", "f64-40x2", "f64-2x40", "pair-f64", "pair-f32",
+         "pair-f64-40x2", "pair-f64-2x40", "multicycle-f64", "multicycle-f32"])
+def test_card_run_matches_cpu_run(card, dtype, N, route):
     """Exact mode on the card reproduces the CPU (plain) run bit for bit,
-    also on grids thinner than the ghost band (double mirror fill)."""
+    also on grids thinner than the ghost band (double mirror fill), on
+    each route."""
     opts = dict(test="Sod_circ", N=N, data_type=dtype, maxcycle=20,
-                use_fast_math=False, silent=5, return_data=True)
+                use_fast_math=False, silent=5, return_data=True, **route)
     a = armon_torch.armon(armon_torch.ArmonParameters(device="cuda", **opts))
     b = armon_torch.armon(armon_torch.ArmonParameters(device="cpu", **opts))
     assert (a.cycles, a.final_time, a.last_dt) == (b.cycles, b.final_time, b.last_dt)
@@ -133,10 +147,132 @@ def test_card_run_matches_cpu_run(card, dtype, N):
 def test_launch_counts(card):
     K.reset_launches()
     params = armon_torch.ArmonParameters(test="Sod", N=(64, 64), maxcycle=5,
-                                         silent=5, device="cuda")
+                                         silent=5, device="cuda", **PER_SWEEP)
     stats = armon_torch.armon(params)
     assert stats.cycles == 5
     # Cycles run in batches of the stop-check interval; the ones past the
     # end still launch (and pass through).
     assert K.LAUNCHES["x_sweep"] == K.LAUNCHES["y_sweep"] == 8
     assert K.LAUNCHES["cfl_finish"] == 9
+
+
+@pytest.mark.parametrize("splitting,route,expect", [
+    ("Sequential", PAIR, dict(cycle=8, cfl_finish=9)),
+    ("Strang", PAIR, dict(cycle=8, x_sweep=4, y_sweep=4, cfl_finish=9)),
+    ("Sequential", {}, dict(multicycle=1)),
+    ("X_only", {}, dict(x_sweep=8, cfl_finish=9))],
+    ids=["pair", "pair-strang", "multicycle", "x-only"])
+def test_route_launch_counts(card, splitting, route, expect):
+    """Each route launches its kernels and no other."""
+    K.reset_launches()
+    params = armon_torch.ArmonParameters(test="Sod", N=(64, 64), maxcycle=5,
+                                         axis_splitting=splitting, silent=5,
+                                         device="cuda", **route)
+    assert armon_torch.armon(params).cycles == 5
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), **expect}
+
+
+def _close(a, b, fast):
+    if fast:
+        return bool((a - b).abs().max() <= 1e-4 * b.abs().max())
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("x_first", [True, False], ids=["xy", "yx"])
+@pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
+                                        ("float32", True)],
+                         ids=["f64", "f32-exact", "f32-fast"])
+@pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
+def test_cycle_matches_plain(card, test, dtype, fast, x_first):
+    """K4 against `cycle_plain` on the same state: bit for bit in exact
+    mode (fields, p, CFL maxima and K3's fold), 1e-4 of scale in fast
+    math."""
+    cfg, res = _advanced(test, dtype, fast, n=200)
+    g = cfg.nghost
+    r = (slice(g, -g), slice(g, -g))
+    src = tuple(res.carry[:4])
+    dst = tuple(torch.empty_like(a) for a in src)
+    p = torch.empty_like(src[0])
+    nb = C.n_partials(src[0].shape, card)
+    partials = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
+    scal, iscal = K.new_scalars(cfg.dtype, card)
+    scal[K.SC_DTUSE] = 0.5 * res.dt_last
+    iscal[K.IS_RUN] = 1
+    C.cycle(cfg, x_first, 0.5, 1.0, src, dst, p, partials, scal, iscal, True)
+    dt = scal[K.SC_DTUSE]
+    ref = C.cycle_plain(cfg, x_first, *src, dt * 0.5, dt * 1.0)
+    for a, b in zip(dst + (p,), ref[:5]):
+        assert _close(a[r], b[r], fast)
+    tol = 1e-4 if fast else 0.0
+    assert abs(partials[0].max() - ref[5]) <= tol * ref[5]
+    assert abs(partials[1].max() - ref[6]) <= tol * ref[6]
+    s2, i2 = scal.clone(), iscal.clone()
+    K.cfl_finish(cfg, partials, nb, scal, iscal)
+    K.cfl_finish_plain(cfg, partials, nb, s2, i2)
+    assert torch.equal(scal, s2) and torch.equal(iscal, i2)
+
+
+MULTI_CASES = [
+    ("Sod", dict()),
+    ("Sod_circ", dict(axis_splitting="Godunov")),
+    ("Sod", dict(maxcycle=13)),                      # stops mid-launch
+    ("Sod_circ", dict(dt_on_even_cycles=True)),
+    ("Sod", dict(cst_dt=True, Dt=1e-3)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("test,extra", MULTI_CASES,
+                         ids=["sod", "circ-godunov", "maxcycle", "even-dt",
+                              "cst-dt"])
+def test_multicycle_matches_plain(card, test, extra, dtype):
+    """One K5 launch of 8 cycles from the state after 10 cycles against
+    `multicycle_plain`: fields, p and every loop scalar bit for bit."""
+    opts = dict(test=test, N=(100, 100), data_type=dtype, use_fast_math=False,
+                silent=5, device="cuda", **extra)
+    opts.setdefault("maxcycle", 100)
+    params = armon_torch.ArmonParameters(**opts)
+    cfg = params.config
+    pairs = temporal_pairs(cfg)
+    assert len(pairs) == 8
+    fs, seed = make_init_fused(params)()
+    warm = armon_torch.ArmonParameters(**{**opts, "maxcycle": 10, **PER_SWEEP})
+    res = make_time_loop_lean(warm.config)(fs, 0.0, 0, 0.0, float(seed))
+    src = tuple(a.clone() for a in res.carry[:4])
+    p = res.carry.p.clone()
+    scal, iscal = K.new_scalars(cfg.dtype, card, t=res.t, cycle=res.cycles,
+                                dt_prev=res.dt_last, lm=res.lm)
+    ins = [tuple(a.clone() for a in src), tuple(torch.empty_like(a) for a in src),
+           p.clone(), scal.clone(), iscal.clone()]
+    dst = tuple(torch.empty_like(a) for a in src)
+    C.multicycle(cfg, pairs, src, dst, p, C.new_multicycle_partials(
+        src[0].shape, cfg.dtype, card), scal, iscal)
+    C.multicycle_plain(cfg, pairs, len(pairs), *ins)
+    g = cfg.nghost
+    r = (slice(g, -g), slice(g, -g))
+    for a, b in zip(src + (p,), ins[0] + (ins[2],)):
+        assert torch.equal(a[r], b[r])
+    assert torch.equal(scal, ins[3]) and torch.equal(iscal, ins[4])
+    if "maxcycle" in extra:
+        assert int(iscal[K.IS_CYCLE]) == 13 and not int(iscal[K.IS_NEXT])
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N", [(100, 100), (300, 200)])
+def test_routes_agree_on_card(card, dtype, N):
+    """Per-sweep, pair and (where admitted) multicycle give the same bits
+    on real cells, and the same t, cycles, dt and lm, in exact mode."""
+    out = []
+    for route in (PER_SWEEP, PAIR, {}):
+        params = armon_torch.ArmonParameters(
+            test="Sod_circ", N=N, data_type=dtype, use_fast_math=False,
+            maxcycle=20, silent=5, device="cuda", **route)
+        fs, seed = make_init_fused(params)()
+        out.append(make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0,
+                                                      float(seed)))
+    g = 4
+    for res in out[1:]:
+        assert (res.t, res.cycles, res.dt_last, res.lm) == \
+            (out[0].t, out[0].cycles, out[0].dt_last, out[0].lm)
+        for a, b in zip(res.carry, out[0].carry):
+            assert torch.equal(a[g:-g, g:-g], b[g:-g, g:-g])

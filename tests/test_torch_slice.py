@@ -16,13 +16,17 @@ from armon_torch.core.solver import make_init_fused
 from armon_torch.core.step import make_time_loop_lean
 
 
+# Pins the port to its per-sweep kernels (K1/K2 + K3) at any grid size.
+PER_SWEEP = dict(pair_threshold=0, temporal_blocking=1)
+
+
 def _torch_reference_params(test, dtype, **overrides):
     """The golden-run configuration of `conftest.reference_params`, for the
-    port (which runs silent levels >= 2 only)."""
+    port (which runs silent levels >= 2 only), on the per-sweep route."""
     options = dict(data_type=dtype, test=test, scheme="GAD",
                    projection="euler_2nd", riemann_limiter="minmod",
                    nghost=4, N=(100, 100), maxcycle=1000, silent=5,
-                   measure_time=False, device="cpu")
+                   measure_time=False, device="cpu", **PER_SWEEP)
     options.update(overrides)
     return armon_torch.ArmonParameters(**options)
 
@@ -65,7 +69,8 @@ def test_run_matches_jax_per_sweep(test, extra):
                 silent=5, measure_time=False, return_data=True, **extra)
     js = armon_tpu.armon(armon_tpu.ArmonParameters(
         kernel_tier="pallas", pair_threshold=0, temporal_blocking=1, **opts))
-    ts = armon_torch.armon(armon_torch.ArmonParameters(device="cpu", **opts))
+    ts = armon_torch.armon(armon_torch.ArmonParameters(device="cpu",
+                                                       **PER_SWEEP, **opts))
     eps = np.finfo(np.float64).eps
     assert ts.cycles == js.cycles
     assert abs(ts.final_time - js.final_time) <= 4 * eps * abs(js.final_time)
@@ -85,7 +90,8 @@ def test_stop_check_interval_is_bitwise_neutral(splitting):
     same bits: cycles launched past the end pass everything through."""
     params = armon_torch.ArmonParameters(device="cpu", test="Sod_circ",
                                          N=(32, 32),
-                                         axis_splitting=splitting, silent=5)
+                                         axis_splitting=splitting, silent=5,
+                                         **PER_SWEEP)
     cfg = params.config
     results = []
     for every in (1, 8):
