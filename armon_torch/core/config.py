@@ -6,7 +6,7 @@ identical code.
 """
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -19,7 +19,7 @@ class SolverConfig:
     dtype: np.dtype                      # np.float64 or np.float32
     nghost: int                          # ghost cells per side (>= stencil sum)
     n_global: Tuple[int, int]            # (nx, ny) global real cells
-    n_local: Tuple[int, int]             # (nx, ny) real cells per device
+    n_local: Tuple[int, int]             # (nx, ny) real cells per shard
     domain_size: Tuple[float, float]     # (sx, sy)
     origin: Tuple[float, float]          # (ox, oy)
 
@@ -49,6 +49,26 @@ class SolverConfig:
     # step for primary divides, raw for correction factors). f64 and the
     # CPU reference path always divide exactly.
     fast_math: bool = True
+
+    # Domain decomposition: the shard grid (px, py); (1, 1) = one shard.
+    # Every shard is padded to n_local = ceil(N/P) real cells; the hi-edge
+    # shard along each axis owns the remainder n_edge, and the rest of its
+    # block is dead slack (`armon_tpu/core/config.py:45-55`).
+    proc_dims: Tuple[int, int] = (1, 1)
+    n_edge: Optional[Tuple[int, int]] = None
+
+    @property
+    def spmd(self) -> bool:
+        return self.proc_dims != (1, 1)
+
+    @property
+    def edge_cells(self) -> Tuple[int, int]:
+        """Real cells of the hi-edge shard along each axis."""
+        return self.n_edge if self.n_edge is not None else self.n_local
+
+    def uneven(self, axis) -> bool:
+        """Whether the split along `axis` leaves slack on the edge shard."""
+        return self.edge_cells[int(axis)] != self.n_local[int(axis)]
 
     @property
     def dx(self) -> float:

@@ -6,6 +6,11 @@ and the CFL seed, returning only the five carried fields), the lean time
 loop (`core/step.py`, per-sweep, pair or multicycle route as the JAX
 package routes), the conservation check over the carry,
 and `make_rehydrate` when the caller asks for the full State.
+
+Every step runs on each shard of the mesh (`parallel/mesh.py`; one shard
+holding the whole grid when P = (1, 1)): the carry is a list of
+FusedCarry, one per shard in the mesh's order, and `return_data` gathers
+the global State (`interop.gather_state`).
 """
 
 import time
@@ -20,7 +25,9 @@ from ..utils.errors import solver_error
 from ..params import ArmonParameters
 from ..ops.init import init_state
 from ..ops.eos import update_eos
-from ..ops.reductions import dt_cfl_min, conservation_vars, conservation_scalar
+from ..ops.reductions import (cfl_maxima, cfl_limit, conservation_vars,
+                              conservation_scalar)
+from ..parallel.mesh import Mesh
 from .state import State, FusedCarry
 from .step import make_time_loop_lean
 
@@ -48,15 +55,22 @@ class SolverStats:
                 f"{self.cell_count} cells)")
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(params):
+    for device in dict.fromkeys(params.devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
-def _initial_state(params):
-    """init_test + the cycle-0 EOS (`src/solver.jl:291-295`)."""
+def make_mesh(params):
+    """The shard grid of the run: one shard holding the whole grid off a
+    mesh."""
+    return Mesh(params.config, params.devices)
+
+
+def _initial_state(params, shard):
+    """init_test + the cycle-0 EOS (`src/solver.jl:291-295`) of one shard."""
     cfg = params.config
-    st = init_state(cfg, params.device)
+    st = init_state(cfg, shard.device, shard.global_pos)
     if cfg.maxcycle > 0:
         p, c, g = update_eos(cfg, st.rho, st.u, st.v, st.E)
         st = st._replace(p=p, c=c, g=g)
@@ -64,44 +78,60 @@ def _initial_state(params):
 
 
 def make_init_fused(params):
-    """() -> (FusedCarry, CFL seed): the initial state, its cycle-0 EOS and
-    the seed of the carried CFL minimum (`core/solver.py:149`). x, y, c, g
-    are dropped once the seed is formed."""
+    """() -> (carry, CFL seed): the initial state, its cycle-0 EOS and the
+    seed of the carried CFL minimum (`core/solver.py:149`). x, y, c, g are
+    dropped once the seed is formed. The carry is a list of FusedCarry, one
+    per shard in the mesh's order (one off a mesh), each shard initialised
+    at its global origin; the seed is formed on the first shard's device
+    from every shard's maxima: the minimum of the shards' dt (`pmin_dt`,
+    :173), bit for bit."""
     cfg = params.config
-    T = np.dtype(cfg.dtype).type
 
     def init():
-        st = _initial_state(params)
+        carry, mx, my = [], [], []
+        for shard in make_mesh(params):
+            st = _initial_state(params, shard)
+            carry.append(FusedCarry(st.rho, st.u, st.v, st.E, st.p))
+            if not cfg.cst_dt:
+                a, b = cfl_maxima(cfg, st.u, st.v, st.c, shard.n_real)
+                mx.append(a.to(params.device))
+                my.append(b.to(params.device))
         if cfg.cst_dt:
             seed = torch.tensor(float(np.finfo(cfg.dtype).max),
-                                dtype=st.rho.dtype, device=st.rho.device)
+                                dtype=carry[0].rho.dtype, device=params.device)
         else:
-            seed = dt_cfl_min(cfg, st.u, st.v, st.c)
-        return FusedCarry(st.rho, st.u, st.v, st.E, st.p), seed
+            seed = cfl_limit(cfg, torch.stack(mx).amax(), torch.stack(my).amax())
+        return carry, seed
 
     return init
 
 
 def make_rehydrate(params):
-    """(FusedCarry) -> State: re-runs the deterministic init + cycle-0 EOS
-    for the fields the loop never touches (x/y, ustar/pstar = 0, c/g of
-    the initial fields), as `core/solver.py:213` does."""
+    """(carry) -> a State per shard: re-runs the deterministic init +
+    cycle-0 EOS for the fields the loop never touches (x/y, ustar/pstar =
+    0, c/g of the initial fields), as `core/solver.py:213` does."""
     def rehydrate(fs):
-        st = _initial_state(params)
-        return st._replace(rho=fs.rho, u=fs.u, v=fs.v, E=fs.E, p=fs.p)
+        return [_initial_state(params, shard)._replace(
+                    rho=f.rho, u=f.u, v=f.v, E=f.E, p=f.p)
+                for shard, f in zip(make_mesh(params), fs)]
 
     return rehydrate
 
 
 def make_conservation_lean(params):
-    """(FusedCarry) -> (mass, energy) as host floats (`core/solver.py:247`):
-    rho and E are all it reads; f32 sums are compensated pairs combined in
-    f64 on the host."""
+    """(carry) -> (mass, energy) as host floats (`core/solver.py:247`):
+    rho and E are all it reads; f32 sums are compensated pairs, and a
+    mesh's shards (real cells only, the edge shards' slack left out) are
+    summed, in f64 on the host."""
     cfg = params.config
 
     def call(fs):
-        m, e = conservation_vars(cfg, fs.rho, fs.E)
-        return conservation_scalar(cfg, m), conservation_scalar(cfg, e)
+        ms, es = [], []
+        for shard, f in zip(make_mesh(params), fs):
+            m, e = conservation_vars(cfg, f.rho, f.E, shard.n_real)
+            ms.append(m)
+            es.append(e)
+        return conservation_scalar(cfg, ms), conservation_scalar(cfg, es)
 
     return call
 
@@ -120,14 +150,13 @@ def armon(params: ArmonParameters, checkpoint=None,
                                "ROADMAP queue A item 8 (other drivers + "
                                "restart)")
     cfg = params.config
-    device = params.device
     if params.silent < 3:
         print(params.describe())
 
     timer = {} if params.measure_time else None
     t_start = time.perf_counter()
     fs, local0 = make_init_fused(params)()
-    _sync(device)
+    _sync(params)
     if timer is not None:
         timer["init"] = time.perf_counter() - t_start
 
@@ -137,7 +166,8 @@ def armon(params: ArmonParameters, checkpoint=None,
 
     T = np.dtype(cfg.dtype).type
     solve_start = time.perf_counter()
-    res = make_time_loop_lean(cfg)(fs, T(0.0), 0, T(0.0), local0)
+    res = make_time_loop_lean(cfg, make_mesh(params))(fs, T(0.0), 0, T(0.0),
+                                                      local0)
     solve_time = time.perf_counter() - solve_start
     if timer is not None:
         timer["solver_cycle"] = solve_time
@@ -146,7 +176,10 @@ def armon(params: ArmonParameters, checkpoint=None,
     if not res.ok:
         solver_error("time", f"Invalid time step at cycle {res.cycles}")
 
-    state = make_rehydrate(params)(fs) if params.return_data else None
+    state = None
+    if params.return_data:
+        from ..interop import gather_state
+        state = gather_state(params, make_rehydrate(params)(fs))
 
     # Final conservation check (src/solver.jl:467-490)
     if params.check_result and params.test.is_conservative and res.cycles > 0:

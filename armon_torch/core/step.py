@@ -16,6 +16,23 @@ The cycle's last launch writes the stale p and the CFL partials for the
 next cycle. The loop carries only rho/u/v/E/p, plus a second rho/u/v/E set
 that the out-of-place kernels write into (ping-pong).
 
+On a mesh (`parallel/mesh.py`; `fused_sweep_step`, `fused_cycle_step`,
+`armon_tpu/core/step.py:147-250`) the per-sweep and pair routes run over
+every shard: before each launch along a sharded axis, every shard's ghost
+slabs are refilled from its neighbours' current fields (`halo_slabs`), then
+each shard's kernel runs with its own real extent, slab splice on the sides
+that face a neighbour and mirror on global borders, uneven splits
+included. One K3 folds every shard's CFL partials: x -> dx/x is monotone
+under IEEE rounding, so min(dx/max_s mx_s, dy/max_s my_s) is the JAX
+package's per-shard dt followed by `pmin_dt`, bit for bit, and a NaN in any
+shard fails the dt gate as `pmin_dt`'s NaN -> 0 does. The loop scalars live
+on the first shard's device; a shard on another device reads a copy made
+after each K3. Ordering across devices: PyTorch's copy between two cards
+waits for the work queued before it on both cards' current streams, and
+the work queued after it waits for the copy, so a slab copy follows the
+neighbour's previous sweep and precedes the sweep that reads it. On one
+device, the launch order of its stream is the only ordering needed.
+
 t, cycle, dt, the CFL minimum and ok never leave the device inside the
 loop. The host reads the stop predicate once every `check_every` cycles
 (`STOP_CHECK_EVERY` by default; on the multicycle route once every
@@ -35,6 +52,8 @@ from ..utils.enums import Axis
 from ..ops import sweep as K
 from ..ops import cycle as C
 from ..ops.routing import route, temporal_pairs
+from ..parallel.mesh import Mesh
+from ..parallel.halo import halo_slabs, new_slab_buffers
 from .splitting import split_schedules
 from .state import FusedCarry
 
@@ -42,7 +61,7 @@ STOP_CHECK_EVERY = 8
 
 
 class LoopResult(NamedTuple):
-    carry: FusedCarry
+    carry: object                # FusedCarry, or a list of them (one per shard)
     t: float
     cycles: int
     dt_last: float
@@ -51,51 +70,73 @@ class LoopResult(NamedTuple):
     host_reads: int
 
 
-def run_schedule(cfg, cur, nxt, p, partials, scal, iscal, schedule,
-                 pair=False):
-    """The launches of one cycle (`run_schedule_fused`): each reads `cur`
-    and writes `nxt`, then the two swap. With `pair`, an adjacent X/Y pair
-    of sweeps is one K4 launch in the schedule's order. Returns (cur, nxt,
-    partials written by the last launch)."""
-    shape = cur[0].shape
-    device = cur[0].device
+def run_schedule(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
+                 pair=False, slabs=None):
+    """The launches of one cycle (`run_schedule_fused`) on every shard of
+    `mesh`: each launch reads `cur[s]` and writes `nxt[s]`, then the two
+    swap. With `pair`, an adjacent X/Y pair of sweeps is one K4 launch in
+    the schedule's order. Before a launch along an axis in `slabs` (the
+    sharded ones), the shards' slab buffers `slabs[axis]` are refilled from
+    their neighbours' `cur`. The cycle's last launch, which writes nb CFL
+    partials per shard, writes shard s's into `parts[nb][s]`; `scalars[s]`
+    are the loop scalars on shard s's device. Returns (cur, nxt, nb)."""
+    slabs = slabs or {}
+    shape = cur[0][0].shape
+    device = cur[0][0].device
+    ops = next(iter(parts.values()))  # a launch that does not emit ignores them
     nb = 0
     i = 0
     while i < len(schedule):
-        if (pair and i + 1 < len(schedule)
-                and {schedule[i][0], schedule[i + 1][0]} == {Axis.X, Axis.Y}):
-            (a0, f0), (_, f1) = schedule[i], schedule[i + 1]
-            x_first = a0 is Axis.X
-            last = i + 2 == len(schedule)
-            C.cycle(cfg, x_first, f0 if x_first else f1,
-                    f1 if x_first else f0, cur, nxt, p, partials, scal, iscal,
-                    emit=last)
-            if last:
-                nb = C.n_partials(shape, device)
-            i += 2
-        else:
-            axis, factor = schedule[i]
-            last = i + 1 == len(schedule)
-            sweep = K.x_sweep if axis is Axis.X else K.y_sweep
-            sweep(cfg, cur, nxt, p, partials, scal, iscal, factor, emit=last)
-            if last:
-                nb = K.n_partials(axis, shape, device)
-            i += 1
+        is_pair = (pair and i + 1 < len(schedule)
+                   and {schedule[i][0], schedule[i + 1][0]} == {Axis.X, Axis.Y})
+        step = 2 if is_pair else 1
+        last = i + step == len(schedule)
+        axis = Axis.Y if is_pair else schedule[i][0]
+        if last:
+            nb = C.n_partials(shape, device) if is_pair \
+                else K.n_partials(axis, shape, device)
+            ops = parts[nb]
+        ghosts = halo_slabs(cfg, mesh, cur, axis, slabs[axis]) \
+            if axis in slabs else [K.MIRRORED] * len(mesh)
+        for s in mesh:
+            k = s.index
+            if is_pair:
+                (a0, f0), (_, f1) = schedule[i], schedule[i + 1]
+                x_first = a0 is Axis.X
+                C.cycle(cfg, x_first, f0 if x_first else f1,
+                        f1 if x_first else f0, cur[k], nxt[k], p[k], ops[k],
+                        *scalars[k], last, ghosts[k], s.n_real)
+            else:
+                sweep = K.x_sweep if axis is Axis.X else K.y_sweep
+                sweep(cfg, cur[k], nxt[k], p[k], ops[k], *scalars[k],
+                      schedule[i][1], last, ghosts[k], s.n_real)
         cur, nxt = nxt, cur
+        i += step
     return cur, nxt, nb
 
 
-def _result(cur, p, scal, iscal, reads):
+def _shard_list(fs):
+    """(the carry as a list of FusedCarry, whether it was one FusedCarry)."""
+    single = isinstance(fs, FusedCarry)
+    return ([fs] if single else list(fs)), single
+
+
+def _result(cur, p, scal, iscal, reads, single):
     s = scal.cpu().numpy()
     i = iscal.cpu().numpy()
-    return LoopResult(FusedCarry(*cur, p), float(s[K.SC_T]),
+    carry = [FusedCarry(*c, pp) for c, pp in zip(cur, p)]
+    return LoopResult(carry[0] if single else carry, float(s[K.SC_T]),
                       int(i[K.IS_CYCLE]), float(s[K.SC_DTPREV]),
                       float(s[K.SC_LM]), bool(i[K.IS_OK]), reads + 2)
 
 
-def make_time_loop_lean(cfg):
+def make_time_loop_lean(cfg, mesh=None):
     """The lean loop (`make_time_loop_lean`):
-    (fs, t0, cycle0, dt0, local0, check_every) -> LoopResult."""
+    (fs, t0, cycle0, dt0, local0, check_every) -> LoopResult. `fs` is a
+    list of FusedCarry, one per shard of `mesh` in its order, and so is the
+    result's carry; a caller that passes one FusedCarry gets one back.
+    Without a `mesh`, one shard holds the whole grid on the carry's
+    device."""
     T = np.dtype(cfg.dtype).type
     kind = route(cfg)
     if kind == "multicycle":
@@ -104,18 +145,38 @@ def make_time_loop_lean(cfg):
     even, odd = split_schedules(cfg.splitting)
 
     def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
-        device = fs.rho.device
-        shape = fs.rho.shape
-        cur = (fs.rho, fs.u, fs.v, fs.E)
-        nxt = tuple(torch.empty_like(a) for a in cur)
-        p = fs.p
-        nb_max = max(K.n_partials(Axis.X, shape, device),
-                     K.n_partials(Axis.Y, shape, device),
-                     C.n_partials(shape, device) if pair else 0)
-        partials = torch.zeros((2, nb_max), dtype=fs.rho.dtype, device=device)
-        scal, iscal = K.new_scalars(cfg.dtype, device, t=float(t0),
+        shards, single = _shard_list(fs)
+        m = mesh or Mesh(cfg, [shards[0].rho.device])
+        # Where each shard's tensors are ("cuda" places them on cuda:0).
+        devs = [f.rho.device for f in shards]
+        dev0 = devs[0]
+        shape = shards[0].rho.shape
+        dtype = shards[0].rho.dtype
+        cur = [tuple(f[:4]) for f in shards]
+        nxt = [tuple(torch.empty_like(a) for a in c) for c in cur]
+        p = [f.p for f in shards]
+        nbs = {K.n_partials(Axis.X, shape, dev0),
+               K.n_partials(Axis.Y, shape, dev0)}
+        if pair:
+            nbs.add(C.n_partials(shape, dev0))
+        # One K3 folds every shard's partials: for a last launch writing nb
+        # per shard, shard s writes columns [s*nb, (s+1)*nb) of `partials`,
+        # or, on another device, a buffer of its own copied in after the
+        # cycle. Each shard's operand is made once per nb.
+        partials = torch.zeros((2, len(m) * max(nbs)), dtype=dtype, device=dev0)
+        parts = {nb: [partials[:, k * nb:(k + 1) * nb] if d == dev0 else
+                      torch.zeros((2, nb), dtype=dtype, device=d)
+                      for k, d in enumerate(devs)]
+                 for nb in nbs}
+        remote = [k for k, d in enumerate(devs) if d != dev0]
+        scal, iscal = K.new_scalars(cfg.dtype, dev0, t=float(t0),
                                     cycle=int(cycle0), dt_prev=float(dt0),
                                     lm=float(local0))
+        copies = {d: (scal.to(d), iscal.to(d))
+                  for d in dict.fromkeys(devs) if d != dev0}
+        scalars = [copies.get(d, (scal, iscal)) for d in devs]
+        slabs = {axis: new_slab_buffers(cfg, m, cur, axis)
+                 for axis in (Axis.X, Axis.Y) if m.proc_dims[axis] > 1}
         cycle = int(cycle0)
         nb = 0
         reads = 0
@@ -123,16 +184,22 @@ def make_time_loop_lean(cfg):
         while running:
             for _ in range(check_every):
                 K.cfl_finish(cfg, partials, nb, scal, iscal, fold=True, step=True)
+                for sc, isc in copies.values():
+                    sc.copy_(scal)
+                    isc.copy_(iscal)
                 sched = even if cycle % 2 == 0 else odd
-                cur, nxt, nb = run_schedule(cfg, cur, nxt, p, partials, scal,
-                                            iscal, sched, pair)
+                cur, nxt, nb = run_schedule(cfg, m, cur, nxt, p, parts,
+                                            scalars, sched, pair, slabs)
+                for k in remote:
+                    partials[:, k * nb:(k + 1) * nb].copy_(parts[nb][k])
+                nb *= len(m)
                 cycle += 1
             running = bool(iscal[K.IS_NEXT].item())
             reads += 1
         # Fold the last cycle's partials: lm is the CFL minimum of the
         # final state, the carry a resumed run would start from.
         K.cfl_finish(cfg, partials, nb, scal, iscal, fold=True, step=False)
-        return _result(cur, p, scal, iscal, reads)
+        return _result(cur, p, scal, iscal, reads, single)
 
     return loop
 
@@ -140,11 +207,13 @@ def make_time_loop_lean(cfg):
 def _multicycle_loop(cfg, pairs):
     """The temporal-blocking branch of the lean loop (`make_time_loop_lean`'s
     `fused_multicycle` loop): K5 launches of len(pairs) cycles each, lm
-    kept folded in-kernel."""
+    kept folded in-kernel. It never runs on a mesh: the carry is one
+    shard."""
     T = np.dtype(cfg.dtype).type
     n = len(pairs)
 
     def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
+        (fs,), single = _shard_list(fs)
         device = fs.rho.device
         cur = (fs.rho, fs.u, fs.v, fs.E)
         nxt = tuple(torch.empty_like(a) for a in cur)
@@ -162,6 +231,6 @@ def _multicycle_loop(cfg, pairs):
                     cur, nxt = nxt, cur
             running = bool(iscal[K.IS_NEXT].item())
             reads += 1
-        return _result(cur, p, scal, iscal, reads)
+        return _result([cur], [p], scal, iscal, reads, single)
 
     return loop

@@ -3,7 +3,8 @@
 // one launch.
 //
 // K4 replaces `_cycle_kernel` (armon_tpu/ops/pallas/sweep.py:1571, called
-// by `fused_cycle` at :1830). K5 replaces `_multicycle_kernel` (:1905, with
+// by `fused_cycle` at :1830), its `slab_y` row splice (:1592-1620) for a
+// mesh sharded along Y included. K5 replaces `_multicycle_kernel` (:1905, with
 // `_mc_ext` :1883, called by `fused_multicycle` at :2046).
 //
 // Bound on this card. K4: memory. It reads rho/u/v/E once and writes them
@@ -18,7 +19,13 @@
 // the L x L window around it. The load fills both ghost bands from the
 // pre-cycle state, Y mirror and X mirror (the X sweep is row-local and
 // exactly odd in v, so this equals filling before each sweep bit for bit:
-// `_cycle_kernel`'s docstring). The first sweep runs on all L lines of the
+// `_cycle_kernel`'s docstring). On a shard of a mesh sharded along Y, a
+// side that faces a neighbour reads its ghost rows from the neighbour's
+// packed (4, g, cols) slab instead, and the X mirror maps the column
+// first, so a corner cell takes f_x times the neighbour's value, as the
+// TPU kernel's splice-then-mirror order gives. K4's first sweep runs on
+// those ghost rows too, so the corners reach real cells here and nowhere
+// else. The first sweep runs on all L lines of the
 // window, L/NL passes of NL lines with one thread per position; its
 // outputs on the R inner positions of each line stay in shared memory (F,
 // 4 fields x L lines x R), never in device memory. The second sweep runs
@@ -68,12 +75,15 @@ struct CycleArgs {
   const void* src[4];     // rho, u, v, E (input)
   void* dst[4];           // rho, u, v, E (output, distinct buffers)
   void* p;                // stale p (written when emit)
-  void* partials;         // CFL maxima: K4 (2, n_partials), K5 (2 parities, 2, n_partials)
+  void* partials;         // CFL maxima, rows n_partials apart: K4 2 rows, K5 2 parities x 2
   void* scal;             // T[4]: t, dt_prev, lm, dt_use (K5 reads and writes)
   void* iscal;            // int32[4]: cycle, ok, run, next
+  const void* slab_lo;    // (4, g, cols) Y ghost rows, when ymode_lo is SLAB (K4)
+  const void* slab_hi;    // the same for the high side
   long long rows, cols, n_partials;
   int grid_x, grid_y;
-  int g, nx, ny;
+  int g, nx, ny;          // nx, ny: this shard's real cells
+  int ymode_lo, ymode_hi;  // GhostMode of the Y sides (X: always mirror)
   int riemann, limiter, projection;
   int emit;               // K4: the cycle's last launch, stale p + CFL partials
   int fast, biz;
@@ -128,15 +138,25 @@ __device__ __forceinline__ void cycle_tile(const CycleArgs& a, Fields<const T> s
       long long gr = r0 - HALO + (ax ? line : pos);
       long long gc = c0 - HALO + (ax ? pos : line);
       T fac[4] = {T(1), T(1), T(1), T(1)};
-      gr = mirror(gr, g, a.ny, a.fy_lo, a.fy_hi, fac);
-      gc = mirror(gc, g, a.nx, a.fx_lo, a.fx_hi, fac);
-      gr = gr < 0 ? 0 : (gr >= rows ? rows - 1 : gr);  // array edge: dead outputs only
-      gc = gc < 0 ? 0 : (gc >= cols ? cols - 1 : gc);
-      const long long idx = gr * cols + gc;
-      const T rho = __ldcg(src.f[0] + idx) * fac[0];
-      const T u = __ldcg(src.f[1] + idx) * fac[1];
-      const T v = __ldcg(src.f[2] + idx) * fac[2];
-      const T E = __ldcg(src.f[3] + idx) * fac[3];
+      int side;
+      gc = ghost_src(gc, g, a.nx, GHOST_MIRROR, GHOST_MIRROR, a.fx_lo, a.fx_hi, fac, side);
+      gc = gc < 0 ? 0 : (gc >= cols ? cols - 1 : gc);  // array edge: dead outputs only
+      gr = ghost_src(gr, g, a.ny, a.ymode_lo, a.ymode_hi, a.fy_lo, a.fy_hi, fac, side);
+      const T* base[4];
+      long long idx;
+      if (side < 0) {
+        gr = gr < 0 ? 0 : (gr >= rows ? rows - 1 : gr);
+        idx = gr * cols + gc;
+        for (int f = 0; f < 4; ++f) base[f] = src.f[f];
+      } else {  // a neighbour's slab row, at the X-mirrored column
+        const T* sl = reinterpret_cast<const T*>(side ? a.slab_hi : a.slab_lo);
+        idx = gr * cols + gc;
+        for (int f = 0; f < 4; ++f) base[f] = sl + (long long)f * g * cols;
+      }
+      const T rho = __ldcg(base[0] + idx) * fac[0];
+      const T u = __ldcg(base[1] + idx) * fac[1];
+      const T v = __ldcg(base[2] + idx) * fac[2];
+      const T E = __ldcg(base[3] + idx) * fac[3];
       T r2, a2, o2, e2, p, c;
       sweep_body<T, FAST, BIZ, NT>(S, tid, tm, tp, a.k, a.riemann, a.limiter,
                                    a.projection, dt, dx, inv, false, rho,

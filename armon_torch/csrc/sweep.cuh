@@ -4,8 +4,9 @@
 //
 // Replaces the TPU kernels `_x_sweep_kernel` and `_y_sweep_kernel` of
 // armon_tpu/ops/pallas/sweep.py (with their body `_sweep_math`, the
-// in-kernel mirror fills `_bc_x_apply` / `_halo_cat_bc` and the CFL tile
-// reduction `_dt_tile_min`).
+// in-kernel mirror fills `_bc_x_apply` / `_halo_cat_bc`, the slab splices
+// of a domain-decomposed run `_bc_x_apply_slab` / `_halo_cat_slab`, and
+// the CFL tile reduction `_dt_tile_min`).
 //
 // Bound on this card: memory. A sweep reads rho/u/v/E once and writes them
 // once (plus the stale p on the cycle's last sweep): 32-36 bytes per cell
@@ -22,6 +23,14 @@
 // re-read halo); the intermediates (EOS, fluxes, slopes) never leave the
 // SM. Output goes to a second buffer set (out of place): GPU blocks run
 // concurrently, so the TPU's in-place update would race on the halo.
+//
+// Ghost bands are filled in the load, per side of the swept axis: mirror
+// (a global border), slab (a mesh neighbour's g real lines, packed by the
+// host into a (4, rows, g) X or (4, g, cols) Y buffer: the TPU kernels'
+// `slab_x` / `slab_y` variants, whose 128-lane padding and 8-row strips
+// are Mosaic layouts and do not carry over) or none (filled beforehand).
+// The mirror reflects about the shard's own n_real, so the hi-edge shard
+// of an uneven split needs no write-back of its band.
 //
 // Arithmetic follows `_sweep_math` operation by operation. Exact mode
 // (FAST=false: f64, and f32 without fast math) uses IEEE divides and sqrt,
@@ -52,20 +61,25 @@ enum EosConst {
   K_INVRHO0, K_E1C, K_E2C, K_E3C, K_PPC, K_COUNT
 };
 
+// Ghost source of one side of an axis (`ghost_mode`, ops/sweep.py).
+enum GhostMode { GHOST_NONE = 0, GHOST_MIRROR = 1, GHOST_SLAB = 2 };
+
 struct SweepArgs {
   const void* src[4];     // rho, u, v, E (input)
   void* dst[4];           // rho, u, v, E (output, distinct buffers)
   void* p;                // stale p (written when emit)
-  void* partials;         // (2, n_partials) CFL maxima (written when emit)
+  void* partials;         // CFL maxima, rows n_partials apart (written when emit)
   const void* scal;       // T[4]: t, dt_prev, lm, dt_use
   const void* iscal;      // int32[4]: cycle, ok, run, next
+  const void* slab_lo;    // (4, rows, g) X / (4, g, cols) Y, when mode_lo is SLAB
+  const void* slab_hi;    // the same for the high side
   long long rows, cols, n_partials;
   int grid_x, grid_y;
-  int g, nx, ny;
+  int g, nx, ny;          // nx, ny: this shard's real cells
   int riemann;            // 0 Godunov, 1 GAD
   int limiter;            // 0 no_limiter, 1 minmod, 2 superbee
   int projection;         // 0 euler, 1 euler_2nd
-  int fill;               // in-kernel mirror fill of the ghosts along the axis
+  int mode_lo, mode_hi;   // GhostMode of the low / high side of the axis
   int emit;               // last sweep of the cycle: stale p + CFL partials
   int fast;               // approximate-reciprocal divides (f32 only)
   int biz;                // Bizarrium EOS (else perfect gas)
@@ -182,23 +196,37 @@ __device__ __forceinline__ void eos_prc(const double* kk, T rho, T ua, T uo, T E
   rc = rho * c;
 }
 
-// Mirror ghost fill along one axis as an index map: position k of an axis
-// with g ghosts and n_real real cells reads position `mirror(k, ...)`
-// times the factors folded into fac (low side then high side, as the
-// sequential fill does, so a grid thinner than the ghost band reflects
-// twice). The factors are +-1, so folding those of two axes in either
-// order is exact.
+// The ghost fill along one axis as an index map. Position k of an axis
+// with g ghosts and n_real real cells reads the array at the returned
+// position times the factors folded into fac (`slab` = -1), or line
+// `returned` of the low (`slab` = 0) or high (1) side's slab. A mirror
+// band reflects about the real cells; the high side is resolved first, so
+// that a reflection landing in the low band (a grid thinner than the
+// band) resolves there again: the sequential low-then-high fill. The
+// factors are +-1, so folding those of two axes in either order is exact.
 template <typename T>
-__device__ __forceinline__ long long mirror(long long k, int g, int n_real,
-                                            const double* f_lo, const double* f_hi,
-                                            T fac[4]) {
+__device__ __forceinline__ long long ghost_src(long long k, int g, int n_real,
+                                               int mode_lo, int mode_hi,
+                                               const double* f_lo, const double* f_hi,
+                                               T fac[4], int& slab) {
+  slab = -1;
+  if (k >= g + n_real) {
+    if (mode_hi == GHOST_SLAB) {  // past the band: dead outputs only
+      slab = 1;
+      k -= g + n_real;
+      return k < g ? k : g - 1;
+    }
+    if (mode_hi == GHOST_MIRROR) {
+      k = 2LL * g + 2LL * n_real - 1 - k;
+      for (int f = 0; f < 4; ++f) fac[f] = fac[f] * T(f_hi[f]);
+    }
+  }
   if (k < g) {
-    k = 2LL * g - 1 - k;
-    for (int f = 0; f < 4; ++f) fac[f] = fac[f] * T(f_lo[f]);
-  } else if (k >= g + n_real) {
-    k = 2LL * g + 2LL * n_real - 1 - k;
-    for (int f = 0; f < 4; ++f) fac[f] = fac[f] * T(f_hi[f]);
-    if (k < g) {
+    if (mode_lo == GHOST_SLAB) {
+      slab = 0;
+      return k < 0 ? 0 : k;
+    }
+    if (mode_lo == GHOST_MIRROR) {
       k = 2LL * g - 1 - k;
       for (int f = 0; f < 4; ++f) fac[f] = fac[f] * T(f_lo[f]);
     }
@@ -406,16 +434,21 @@ sweep_kernel(const SweepArgs a) {
   }
   const T dt = reinterpret_cast<const T*>(a.scal)[3] * T(a.dt_factor);
 
-  // Load with the mirror ghost fill along the axis.
-  long long ks = k;
+  // Load with the ghost fill along the axis.
   T fac[4] = {T(1), T(1), T(1), T(1)};
-  if (a.fill) ks = mirror(ks, g, n_real, a.f_lo, a.f_hi, fac);
-  ks = ks < 0 ? 0 : (ks >= n_along ? n_along - 1 : ks);  // array edge: dead outputs only
-  const long long idx = at(ks);
-  const T rho = src[0][idx] * fac[0];
-  const T u_in = src[1][idx] * fac[1];
-  const T v_in = src[2][idx] * fac[2];
-  const T E = src[3][idx] * fac[3];
+  int side;
+  long long ks = ghost_src(k, g, n_real, a.mode_lo, a.mode_hi, a.f_lo, a.f_hi, fac, side);
+  T in[4];
+  if (side < 0) {
+    ks = ks < 0 ? 0 : (ks >= n_along ? n_along - 1 : ks);  // array edge: dead outputs only
+    const long long idx = at(ks);
+    for (int f = 0; f < 4; ++f) in[f] = src[f][idx] * fac[f];
+  } else {
+    const T* sl = reinterpret_cast<const T*>(side ? a.slab_hi : a.slab_lo);
+    const long long o = AXIS == 0 ? across_c * g + ks : ks * cols + across_c;
+    for (int f = 0; f < 4; ++f) in[f] = sl[f * g * n_across + o] * fac[f];
+  }
+  const T rho = in[0], u_in = in[1], v_in = in[2], E = in[3];
   const T ua = AXIS == 0 ? u_in : v_in;  // velocity along the axis
   const T uo = AXIS == 0 ? v_in : u_in;  // the other one
 

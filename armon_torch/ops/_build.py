@@ -15,6 +15,7 @@ what makes exact mode bit-comparable with the plain PyTorch versions.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,6 +29,7 @@ import torch
 from ..utils.enums import Axis
 from ..utils.errors import solver_error
 from ..models.cases import Bizarrium
+from .sweep import ghost_mode
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -58,12 +60,14 @@ class SweepArgs(ctypes.Structure):
         ("src", ctypes.c_void_p * 4), ("dst", ctypes.c_void_p * 4),
         ("p", ctypes.c_void_p), ("partials", ctypes.c_void_p),
         ("scal", ctypes.c_void_p), ("iscal", ctypes.c_void_p),
+        ("slab_lo", ctypes.c_void_p), ("slab_hi", ctypes.c_void_p),
         ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong),
         ("n_partials", ctypes.c_longlong),
         ("grid_x", ctypes.c_int), ("grid_y", ctypes.c_int),
         ("g", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
         ("riemann", ctypes.c_int), ("limiter", ctypes.c_int),
-        ("projection", ctypes.c_int), ("fill", ctypes.c_int),
+        ("projection", ctypes.c_int),
+        ("mode_lo", ctypes.c_int), ("mode_hi", ctypes.c_int),
         ("emit", ctypes.c_int), ("fast", ctypes.c_int), ("biz", ctypes.c_int),
         ("dt_factor", ctypes.c_double), ("dx", ctypes.c_double),
         ("inv_dx", ctypes.c_double),
@@ -100,10 +104,12 @@ class CycleArgs(ctypes.Structure):
         ("src", ctypes.c_void_p * 4), ("dst", ctypes.c_void_p * 4),
         ("p", ctypes.c_void_p), ("partials", ctypes.c_void_p),
         ("scal", ctypes.c_void_p), ("iscal", ctypes.c_void_p),
+        ("slab_lo", ctypes.c_void_p), ("slab_hi", ctypes.c_void_p),
         ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong),
         ("n_partials", ctypes.c_longlong),
         ("grid_x", ctypes.c_int), ("grid_y", ctypes.c_int),
         ("g", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
+        ("ymode_lo", ctypes.c_int), ("ymode_hi", ctypes.c_int),
         ("riemann", ctypes.c_int), ("limiter", ctypes.c_int),
         ("projection", ctypes.c_int), ("emit", ctypes.c_int),
         ("fast", ctypes.c_int), ("biz", ctypes.c_int),
@@ -203,9 +209,16 @@ def load():
 
 def eos_constants(cfg):
     """The EOS constants of `_eos_prc`, computed with the same numpy
-    expressions in dtype T (`ops/pallas/sweep.py:145-251`)."""
-    T = np.dtype(cfg.dtype).type
-    gm = T(cfg.gamma)
+    expressions in dtype T (`ops/pallas/sweep.py:145-251`), once per dtype
+    and gamma: every launch passes them, and computing them costs more
+    host time than the rest of a launch's arguments."""
+    return _eos_constants(np.dtype(cfg.dtype), float(cfg.gamma))
+
+
+@functools.lru_cache(maxsize=None)
+def _eos_constants(dtype, gamma):
+    T = dtype.type
+    gm = T(gamma)
     rho0 = T(10000.0); K0 = T(1e11); Cv0 = T(1000.0); T0 = T(300.0)
     eps0 = T(0.0); G0 = T(1.5); s = T(1.5)
     q = T(-42080895.0 / 14941154.0); r = T(727668333.0 / 149411540.0)
@@ -220,7 +233,7 @@ def eos_constants(cfg):
         "E1C": eps0 - Cv0 * T0 * (1 + G0), "E2C": Cv0 * T0 * G0 * rho0,
         "E3C": T(0.5) * K0 / rho0, "PPC": -T(0.5) * K0 * rho0,
     }
-    return [float(T(vals[key])) for key in EOS_KEYS]
+    return tuple(float(T(vals[key])) for key in EOS_KEYS)
 
 
 def _ptr(t):
@@ -236,15 +249,49 @@ def _require(t, dtype, device, numel, what):
                                f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _partials_stride(partials, dtype, device, nblocks):
+    """Validate a (2, n) CFL partials operand, possibly a column slice of a
+    wider buffer (every shard of a mesh writes its own slice), with room
+    for `nblocks`; returns its row stride."""
+    if (partials.dtype != dtype or partials.device != device
+            or partials.dim() != 2 or partials.shape[0] != 2
+            or partials.stride(1) != 1 or partials.shape[1] < nblocks):
+        solver_error("config", f"CFL partials must be a (2, >= {nblocks}) "
+                               f"{dtype} tensor on {device} with unit column "
+                               f"stride; got {partials.dtype} "
+                               f"{tuple(partials.shape)} stride "
+                               f"{partials.stride()} on {partials.device}")
+    return partials.stride(0)
+
+
+def _ghost_args(ghosts):
+    """(modes, pointers) of the (lo, hi) ghost sources of a launch."""
+    modes = [ghost_mode(s) for s in ghosts]
+    ptrs = [_ptr(s) if m == 2 else None for s, m in zip(ghosts, modes)]
+    return modes, ptrs
+
+
+def _launch(fn, device, *args):
+    """Call a library's launcher with the current stream of `device`. A
+    launch on another card than the current one (a mesh may place shards
+    on several) makes that card current for the call."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
+
+
 def _check_status(rc, what):
     if rc != 0:
         msg = load()["cfl"].armon_error_string(rc).decode()
         solver_error("cpp", f"{what} launch failed: code {rc} ({msg})")
 
 
-def _set_common(a, cfg, src, dst, scal, iscal, grid):
-    """The fields `SweepArgs` and `CycleArgs` share: operands, geometry,
-    scheme switches and EOS constants."""
+def _set_common(a, cfg, src, dst, scal, iscal, grid, n_real):
+    """The fields `SweepArgs` and `CycleArgs` share: operands, geometry
+    (`n_real`: the shard's real cells), scheme switches and EOS
+    constants."""
     from .sweep import fast_math_on
     dev = src[0].device
     _require(scal, src[0].dtype, dev, 4, "scal")
@@ -254,7 +301,7 @@ def _set_common(a, cfg, src, dst, scal, iscal, grid):
     a.scal, a.iscal = _ptr(scal), _ptr(iscal)
     a.rows, a.cols = src[0].shape
     a.grid_x, a.grid_y = grid
-    a.g, a.nx, a.ny = cfg.nghost, cfg.n_local[0], cfg.n_local[1]
+    a.g, a.nx, a.ny = cfg.nghost, n_real[0], n_real[1]
     a.riemann = 1 if cfg.riemann == "GAD" else 0
     a.limiter = ("no_limiter", "minmod", "superbee").index(cfg.limiter)
     a.projection = 1 if cfg.projection == "euler_2nd" else 0
@@ -264,25 +311,23 @@ def _set_common(a, cfg, src, dst, scal, iscal, grid):
 
 
 def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
-                 emit, fill):
+                 emit, ghosts, n_real):
     """Launch K1 (axis X) or K2 (axis Y) on the current stream."""
     from .sweep import grid_dims, mirror_factors
     libs = load()
     T = np.dtype(cfg.dtype).type
     gx, gy = grid_dims(axis, src[0].shape)
     dev = src[0].device
-    if emit:
-        _require(partials, src[0].dtype, dev, 2 * gx * gy, "CFL partials")
-        if partials.dim() != 2 or partials.shape[0] != 2:
-            solver_error("config", "CFL partials must have shape (2, n)")
     f_lo, f_hi = mirror_factors(cfg, axis)
     dx = T(cfg.cell_size(axis))
     a = SweepArgs()
-    _set_common(a, cfg, src, dst, scal, iscal, (gx, gy))
+    _set_common(a, cfg, src, dst, scal, iscal, (gx, gy), n_real)
     a.p = _ptr(p) if emit else None
     a.partials = _ptr(partials) if emit else None
-    a.n_partials = partials.shape[1] if emit else 0
-    a.fill, a.emit = int(fill), int(emit)
+    a.n_partials = _partials_stride(partials, src[0].dtype, dev, gx * gy) \
+        if emit else 0
+    (a.mode_lo, a.mode_hi), (a.slab_lo, a.slab_hi) = _ghost_args(ghosts)
+    a.emit = int(emit)
     a.dt_factor = float(T(factor))
     a.dx = float(dx)
     a.inv_dx = float(T(1.0) / dx)
@@ -290,8 +335,7 @@ def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
     a.f_hi[:] = list(f_hi)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"sweep_f{bits}"], f"armon_sweep_f{bits}")
-    stream = torch.cuda.current_stream(src[0].device).cuda_stream
-    rc = fn(0 if axis is Axis.X else 1, ctypes.byref(a), stream)
+    rc = _launch(fn, dev, 0 if axis is Axis.X else 1, ctypes.byref(a))
     _check_status(rc, "x_sweep" if axis is Axis.X else "y_sweep")
 
 
@@ -322,26 +366,28 @@ def launch_cfl_finish(cfg, partials, nblocks, scal, iscal, fold, step):
     a.fold, a.step = int(fold), int(step)
     a.dt = _dt_params(cfg)
     a.dx, a.dy = float(T(cfg.dx)), float(T(cfg.dy))
-    stream = torch.cuda.current_stream(scal.device).cuda_stream
-    rc = libs["cfl"].armon_cfl_finish(8 * np.dtype(cfg.dtype).itemsize,
-                                      ctypes.byref(a), stream)
+    rc = _launch(libs["cfl"].armon_cfl_finish, scal.device,
+                 8 * np.dtype(cfg.dtype).itemsize, ctypes.byref(a))
     _check_status(rc, "cfl_finish")
 
 
-def _cycle_args(cfg, tile, src, dst, p, partials, scal, iscal, n_partials):
-    """`CycleArgs` of a K4 or K5 launch over tiles of edge `tile`."""
+def _cycle_args(cfg, tile, src, dst, p, partials, scal, iscal, n_partials,
+                y_ghosts=None, n_real=None):
+    """`CycleArgs` of a K4 or K5 launch over tiles of edge `tile`;
+    `n_partials` is the partials' row stride (already validated), 0 when
+    nothing is emitted; the Y ghosts mirror unless `y_ghosts` says
+    otherwise."""
     from .cycle import tile_grid
-    from .sweep import mirror_factors
+    from .sweep import mirror_factors, MIRRORED
     T = np.dtype(cfg.dtype).type
     gx, gy = tile_grid(tile, src[0].shape)
-    if n_partials:  # (..., n_partials) with n_partials >= one per block
-        _require(partials, src[0].dtype, src[0].device,
-                 partials.numel() // n_partials * gx * gy, "CFL partials")
     a = CycleArgs()
-    _set_common(a, cfg, src, dst, scal, iscal, (gx, gy))
+    _set_common(a, cfg, src, dst, scal, iscal, (gx, gy), n_real or cfg.n_local)
     a.p = _ptr(p)
     a.partials = _ptr(partials) if n_partials else None
     a.n_partials = n_partials
+    (a.ymode_lo, a.ymode_hi), (a.slab_lo, a.slab_hi) = \
+        _ghost_args(y_ghosts or MIRRORED)
     dx, dy = T(cfg.dx), T(cfg.dy)
     a.dx, a.dy = float(dx), float(dy)
     a.inv_dx, a.inv_dy = float(T(1.0) / dx), float(T(1.0) / dy)
@@ -353,31 +399,35 @@ def _cycle_args(cfg, tile, src, dst, p, partials, scal, iscal, n_partials):
 
 
 def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
-                 emit):
+                 emit, y_ghosts, n_real):
     """Launch K4 on the current stream."""
-    from .cycle import CYCLE_TILE
+    from .cycle import CYCLE_TILE, tile_grid
     libs = load()
     T = np.dtype(cfg.dtype).type
-    if emit and (partials.dim() != 2 or partials.shape[0] != 2):
-        solver_error("config", "CFL partials must have shape (2, n)")
+    gx, gy = tile_grid(CYCLE_TILE, src[0].shape)
+    stride = _partials_stride(partials, src[0].dtype, src[0].device,
+                              gx * gy) if emit else 0
     a = _cycle_args(cfg, CYCLE_TILE, src, dst, p, partials, scal, iscal,
-                    partials.shape[1] if emit else 0)
+                    stride, y_ghosts, n_real)
     a.emit, a.x_first = int(emit), int(x_first)
     a.fx, a.fy = float(T(fx)), float(T(fy))
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_f{bits}")
-    rc = fn(ctypes.byref(a), torch.cuda.current_stream(src[0].device).cuda_stream)
+    rc = _launch(fn, src[0].device, ctypes.byref(a))
     _check_status(rc, "cycle")
 
 
 def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
                       scal, iscal):
     """Launch K5 on the current stream (a cooperative launch)."""
-    from .cycle import MULTI_TILE
+    from .cycle import MULTI_TILE, tile_grid
     libs = load()
     T = np.dtype(cfg.dtype).type
     if partials.dim() != 3 or partials.shape[:2] != (2, 2):
         solver_error("config", "K5's CFL partials must have shape (2, 2, n)")
+    gx, gy = tile_grid(MULTI_TILE, src[0].shape)
+    _require(partials, src[0].dtype, src[0].device, 4 * gx * gy,
+             "CFL partials")
     m = MultiArgs()
     m.c = _cycle_args(cfg, MULTI_TILE, src, dst, p, partials, scal, iscal,
                       partials.shape[2])
@@ -388,5 +438,5 @@ def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
     m.dt = _dt_params(cfg)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"multicycle_f{bits}"], f"armon_multicycle_f{bits}")
-    rc = fn(ctypes.byref(m), torch.cuda.current_stream(src[0].device).cuda_stream)
+    rc = _launch(fn, src[0].device, ctypes.byref(m))
     _check_status(rc, "multicycle")

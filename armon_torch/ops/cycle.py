@@ -6,7 +6,9 @@ Counterpart of `fused_cycle` and `fused_multicycle`
 
 - ``cycle`` (K4) replaces `_cycle_kernel` (`sweep.py:1571`): both sweeps
   of one cycle in one launch, both ghost fills in-kernel, the stale p and
-  the CFL partials that K3 folds;
+  the CFL partials that K3 folds. On a mesh sharded along Y its Y ghost
+  rows come from the neighbours' slabs (the `slab_y` splice of
+  `sweep.py:1592-1620`), and the X mirror applies after the splice;
 - ``multicycle`` (K5) replaces `_multicycle_kernel` (`sweep.py:1905`):
   up to K cycles in one cooperative launch, with K3's dt recurrence, the
   CFL fold and the stop predicate in-kernel.
@@ -24,9 +26,9 @@ from ..utils.enums import Axis
 from ..utils.errors import solver_error
 from ..core.state import torch_dtype
 from . import sweep as S
-from .sweep import (LAUNCHES, IS_RUN, IS_CYCLE, SC_DTUSE, HALO,
-                    mirror_fill_plain, sweep_plain, cfl_partial_plain,
-                    cfl_finish_plain)
+from .sweep import (LAUNCHES, IS_RUN, IS_CYCLE, SC_DTUSE, HALO, MIRRORED,
+                    fill_ghosts_plain, sweep_plain, cfl_partial_plain,
+                    cfl_finish_plain, check_ghosts)
 
 # Window edge of a block, shared with csrc/cycle.cuh (CYCLE_L, MULTI_L): a
 # block writes a (TILE - 2 HALO)^2 output tile.
@@ -59,23 +61,27 @@ def parity_pairs(pairs):
 
 # ---------------------------------------------------------- plain versions
 
-def cycle_plain(cfg, x_first, rho, u, v, E, dtx, dty):
-    """One cycle in plain PyTorch: both mirror fills of the pre-cycle state
-    (Y then X), then the two sweeps without fills, then the CFL maxima of
-    the result. `dtx`, `dty` are 0-dim tensors. Returns (rho, u, v, E,
-    p_stale, max |u|+c, max |v|+c)."""
-    fields = mirror_fill_plain(cfg, Axis.X,
-                               mirror_fill_plain(cfg, Axis.Y, (rho, u, v, E)))
+def cycle_plain(cfg, x_first, rho, u, v, E, dtx, dty, y_ghosts=MIRRORED,
+                n_real=None):
+    """One cycle in plain PyTorch: both ghost fills of the pre-cycle state,
+    Y from `y_ghosts` (mirror or a neighbour's slab per side) then the X
+    mirror over every row, slab rows included; then the two sweeps without
+    fills, then the CFL maxima of the `n_real` real cells of the result.
+    `dtx`, `dty` are 0-dim tensors. Returns (rho, u, v, E, p_stale,
+    max |u|+c, max |v|+c)."""
+    fields = fill_ghosts_plain(
+        cfg, Axis.X, fill_ghosts_plain(cfg, Axis.Y, (rho, u, v, E), n_real,
+                                       y_ghosts), n_real)
     a1, d1, a2, d2 = ((Axis.X, dtx, Axis.Y, dty) if x_first
                       else (Axis.Y, dty, Axis.X, dtx))
-    out = sweep_plain(cfg, a1, *fields, d1, fill=False)
-    out = sweep_plain(cfg, a2, *out[:4], d2, fill=False)
-    mx, my = cfl_partial_plain(cfg, out[1], out[2], out[5])
+    out = sweep_plain(cfg, a1, *fields, d1, (None, None))
+    out = sweep_plain(cfg, a2, *out[:4], d2, (None, None))
+    mx, my = cfl_partial_plain(cfg, out[1], out[2], out[5], n_real)
     return out[:5] + (mx, my)
 
 
 def _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
-                      iscal, emit):
+                      iscal, emit, y_ghosts=MIRRORED, n_real=None):
     if not int(iscal[IS_RUN]):
         for s, d in zip(src, dst):
             d.copy_(s)
@@ -83,7 +89,7 @@ def _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
     T = np.dtype(cfg.dtype).type
     dt = scal[SC_DTUSE]
     out = cycle_plain(cfg, x_first, *src, dt * float(T(fx)),
-                      dt * float(T(fy)))
+                      dt * float(T(fy)), y_ghosts, n_real)
     for d, o in zip(dst, out[:4]):
         d.copy_(o)
     if emit:
@@ -112,23 +118,28 @@ def multicycle_plain(cfg, pairs, ncycles, src, dst, p, scal, iscal):
 
 # ---------------------------------------------------------------- wrappers
 
-def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit):
+def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
+          y_ghosts=MIRRORED, n_real=None):
     """K4: one X/Y pair of sweeps of (rho, u, v, E) `src` into `dst`, X
     first when `x_first`, with dt = scal[dt_use] * fx along X and * fy
-    along Y; copied through when iscal[run] is 0. With `emit` (the cycle's
-    last launch) it also writes the stale p and the CFL partial maxima.
-    Replaces `_cycle_kernel` (`sweep.py:1571`)."""
+    along Y; copied through when iscal[run] is 0. Y ghost rows come from
+    `y_ghosts` (mirror, or a (4, g, cols) slab of the neighbour's rows),
+    X ghost columns from the mirror. With `emit` (the cycle's last launch)
+    it also writes the stale p and the CFL partial maxima of the `n_real`
+    real cells (`partials` as in `ops/sweep.x_sweep`). Replaces
+    `_cycle_kernel` (`sweep.py:1571`), its `slab_y` variant included."""
     device = src[0].device
     S._check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
              src[0].shape, device)
+    slab = check_ghosts(cfg, Axis.Y, y_ghosts, src[0].shape, device)
     if device.type == "cuda":
         from . import _build
         _build.launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials,
-                            scal, iscal, emit)
-        LAUNCHES["cycle"] += 1
+                            scal, iscal, emit, y_ghosts, n_real or cfg.n_local)
+        LAUNCHES["cycle_slab" if slab else "cycle"] += 1
         return
     _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
-                      iscal, emit)
+                      iscal, emit, y_ghosts, n_real)
 
 
 def new_multicycle_partials(shape, dtype, device):

@@ -1,18 +1,22 @@
 """Global reductions: CFL time step and conservation variables
 (`armon_tpu/ops/reductions.py`, `src/reductions.jl`).
 
-The real domain is the static slice ``[g:-g, g:-g]`` of the padded arrays.
-Max and min are exact, so the CFL minimum is the same in any reduction
-order; the conservation sums feed tolerance checks only.
+The real domain of a shard is the slice ``[g:g+ny, g:g+nx]`` of its padded
+block, (nx, ny) its real extent: `cfg.n_local`, or less on the hi-edge
+shard of an uneven split, whose dead slack is left out. Max and min are
+exact, so the CFL minimum is the same in any reduction order and over any
+split; the conservation sums feed tolerance checks only, and a mesh adds
+its shards' sums in f64 on the host (`conservation_scalar`).
 """
 
 import numpy as np
 import torch
 
 
-def real_slice(cfg):
+def real_slice(cfg, n_real=None):
     g = cfg.nghost
-    return (slice(g, -g), slice(g, -g))
+    nx, ny = n_real or cfg.n_local
+    return (slice(g, g + ny), slice(g, g + nx))
 
 
 def cfl_limit(cfg, mx, my):
@@ -25,16 +29,21 @@ def cfl_limit(cfg, mx, my):
     return torch.minimum(dx / mx, dy / my)
 
 
-def dt_cfl_min(cfg, u, v, c):
+def cfl_maxima(cfg, u, v, c, n_real=None):
+    """(max(|u|+c), max(|v|+c)) over the real cells, NaN propagating."""
+    r = real_slice(cfg, n_real)
+    c = c[r]
+    return torch.amax(torch.abs(u[r]) + c), torch.amax(torch.abs(v[r]) + c)
+
+
+def dt_cfl_min(cfg, u, v, c, n_real=None):
     """Minimum CFL-stable dt over the real cells (`src/reductions.jl:14-20`)
     as min(dx/max(|u|+c), dy/max(|v|+c)): bitwise the per-cell form, since
     IEEE division is monotone in the denominator (see the JAX package's
-    `dt_cfl_min`). Returns a 0-dim tensor."""
-    r = real_slice(cfg)
-    c = c[r]
-    mx = torch.amax(torch.abs(u[r]) + c)
-    my = torch.amax(torch.abs(v[r]) + c)
-    return cfl_limit(cfg, mx, my)
+    `dt_cfl_min`). On a mesh the shards' maxima are combined first, which
+    equals the minimum of the shards' dt (`pmin_dt`). Returns a 0-dim
+    tensor."""
+    return cfl_limit(cfg, *cfl_maxima(cfg, u, v, c, n_real))
 
 
 def _ff_sum(x):
@@ -64,13 +73,13 @@ def _ff_sum(x):
     return np.array([h, l + T(lo.sum().item())], dtype=T)
 
 
-def conservation_vars(cfg, rho, E):
+def conservation_vars(cfg, rho, E, n_real=None):
     """(total mass, total energy) over real cells
     (`src/reductions.jl:202-216,254-258`). f64: ds-scaled scalars. f32:
     unscaled compensated (hi, lo) pairs; combine with
     `conservation_scalar`."""
     T = np.dtype(cfg.dtype).type
-    r = real_slice(cfg)
+    r = real_slice(cfg, n_real)
     rho = rho[r]
     rhoE = rho * E[r]
     if np.dtype(cfg.dtype).itemsize == 4:
@@ -80,8 +89,11 @@ def conservation_vars(cfg, rho, E):
 
 
 def conservation_scalar(cfg, v) -> float:
-    """Host f64 value of a `conservation_vars` output: a compensated
-    (hi, lo) pair is combined and scaled by the cell area in f64."""
+    """Host f64 value of a `conservation_vars` output, or of a list of
+    them (one per shard, summed in f64): a compensated (hi, lo) pair is
+    combined and scaled by the cell area in f64."""
+    if isinstance(v, list):
+        return float(sum(conservation_scalar(cfg, x) for x in v))
     a = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v, np.float64)
     if a.ndim >= 1 and a.shape[-1] == 2:
         return float((a[..., 0] + a[..., 1]).sum() * (cfg.dx * cfg.dy))

@@ -4,13 +4,17 @@
 packages.
 
 - Per-sweep (K1 `x_sweep` / K2 `y_sweep` + K3): grids above
-  `pair_threshold`, `pair_threshold <= 0`, and one-axis splittings.
+  `pair_threshold`, `pair_threshold <= 0`, one-axis splittings, and every
+  mesh sharded along X.
 - Pair (K4 `cycle` + K3): ``max(n_local) <= pair_threshold`` (default
-  2048). Each adjacent X/Y pair of a cycle's schedule is one K4 launch; a
-  leftover sweep (Strang's trailing half sweep) stays K1/K2.
+  2048; a shard's extent on a mesh) and the mesh not sharded along X,
+  whose exchanged ghost columns only the per-sweep kernels splice. Each
+  adjacent X/Y pair of a cycle's schedule is one K4 launch; a leftover
+  sweep (Strang's trailing half sweep) stays K1/K2.
 - Multicycle (K5 `multicycle`): `temporal_pairs` is not None: K =
   `temporal_blocking` > 1 (default 8), exactly one X/Y pair per cycle in
-  both schedules (Sequential, Godunov), and `multicycle_geom_ok`. It takes
+  both schedules (Sequential, Godunov), and `multicycle_geom_ok`, which
+  refuses every mesh (no exchange can run inside a launch). It takes
   precedence over the pair route, as in the JAX package's lean loop.
 
 Every clause of the JAX package is kept, TPU-born ones included. Born of
@@ -20,8 +24,7 @@ the 256 KiB single-tile cap with its 128-lane padding, ``g <= 8`` and
 the f32 ``maxcycle < 2**24`` bound (the TPU kernel returns the cycle count
 as a float; the port's counter is an int32). ``nx >= g`` and ``ny >= g``
 (``rows >= 3g``) come from the JAX kernels' one-shot mirror fill; the
-port's fills reflect sequentially and need neither. On one GPU the mesh
-clauses reduce to nothing. Retuning `pair_threshold`, `temporal_blocking`
+port's fills reflect sequentially and need neither. Retuning `pair_threshold`, `temporal_blocking`
 and the cap for the H100 is later work, with measurements (PERF.md).
 
 Not carried over (Mosaic strip workarounds, ROADMAP A11):
@@ -37,9 +40,12 @@ from ..core.splitting import split_schedules
 
 
 def pair_routing_on(cfg) -> bool:
-    """`pair_routing_on` (`core/step.py:253`) on one device: the
-    `pair_threshold` crossover on the grid's extent."""
-    return cfg.pair_threshold > 0 and max(cfg.n_local) <= cfg.pair_threshold
+    """`pair_routing_on` (`core/step.py:253`): the `pair_threshold`
+    crossover on the shard's extent, and no mesh sharded along X."""
+    if not (cfg.pair_threshold > 0
+            and max(cfg.n_local) <= cfg.pair_threshold):
+        return False
+    return not (cfg.spmd and cfg.proc_dims[0] > 1)
 
 
 def inline_bc_x_ok(cfg) -> bool:
@@ -53,6 +59,8 @@ def multicycle_geom_ok(cfg, shape) -> bool:
     """`multicycle_geom_ok` (`sweep.py:1854`): whether the K-cycles kernel
     admits a padded (rows, cols) grid. See the module doc for which
     clauses the TPU imposed."""
+    if cfg.spmd:
+        return False
     g = cfg.nghost
     rows, cols = shape
     if g > 8 or rows < max(8, 3 * g) or not inline_bc_x_ok(cfg):

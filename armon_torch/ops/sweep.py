@@ -24,6 +24,15 @@ advances t, cycle, dt_prev and ok; ``next`` is the stop predicate for the
 cycle after. A sweep whose cycle does not run copies its inputs to its
 outputs, so cycles past the end change nothing.
 
+Each side of the swept axis takes its ghost band from one of three
+sources (`ghosts` = (low side, high side)): `MIRROR`, the in-kernel mirror
+fill of a global border (`_bc_x_apply`, `_halo_cat_bc`); a stacked
+(4, ...) slab of a mesh neighbour's real lines (`parallel/halo.py`), the
+splice of `_bc_x_apply_slab` / `_halo_cat_slab` that the TPU kernels
+compile for sharded axes; or None, a band filled beforehand. `n_real` is
+the shard's (nx, ny) real extent, `cfg.n_local` unless the hi-edge shard
+of an uneven split owns fewer cells.
+
 Each wrapper dispatches on the device of its tensors: on the CPU it runs
 the plain version below (exact IEEE arithmetic); on a CUDA tensor it
 launches its kernel or raises. It never falls back.
@@ -51,9 +60,16 @@ X_TILE, X_LINES = 256, 1
 Y_TILE, Y_LINES = 32, 16
 
 # Launches made on the card, by kernel (K4/K5's wrappers are in
-# `ops/cycle.py`). Counted where the wrapper launches, and nowhere else.
+# `ops/cycle.py`). Counted where the wrapper launches, and nowhere else; a
+# launch that splices a neighbour's slab on either side counts under the
+# kernel's slab variant.
 LAUNCHES = {"x_sweep": 0, "y_sweep": 0, "cfl_finish": 0, "cycle": 0,
-            "multicycle": 0}
+            "multicycle": 0, "x_sweep_slab": 0, "y_sweep_slab": 0,
+            "cycle_slab": 0}
+
+# Ghost sources of a side (see module doc).
+MIRROR = "mirror"
+MIRRORED = (MIRROR, MIRROR)
 
 
 def reset_launches():
@@ -243,45 +259,64 @@ def mirror_factors(cfg, axis):
     return (1.0, u_lo, v_lo, 1.0), (1.0, u_hi, v_hi, 1.0)
 
 
-def mirror_fill_plain(cfg, axis, fields):
-    """Mirror ghost fill of (rho, u, v, E) along `axis`, low side then high
-    side (`armon_tpu/ops/boundary.py`): ghost cell g-1-i takes real cell
-    g+i times the variable's ±1 factor. Returns new tensors."""
+def ghost_mode(side) -> int:
+    """0: band left as it is (None), 1: `MIRROR`, 2: a slab tensor."""
+    if side is None:
+        return 0
+    if isinstance(side, str):
+        if side != MIRROR:
+            solver_error("config", f"unknown ghost source {side!r}")
+        return 1
+    return 2
+
+
+def fill_ghosts_plain(cfg, axis, fields, n_real=None, ghosts=MIRRORED):
+    """The ghost bands of (rho, u, v, E) along `axis`, low side then high
+    side (`armon_tpu/ops/boundary.py`, `parallel/halo.py`): `MIRROR` gives
+    ghost cell g-1-i the real cell g+i times the variable's ±1 factor (the
+    high band sits after the shard's `n_real` real cells), a slab is copied
+    in, None leaves the band. Returns new tensors."""
     g = cfg.nghost
     d = axis.array_axis
-    f_lo, f_hi = mirror_factors(cfg, axis)
+    n = (n_real or cfg.n_local)[int(axis)]
+    modes = [ghost_mode(s) for s in ghosts]
     out = []
-    for a, fl, fh in zip(fields, f_lo, f_hi):
+    for k, (a, fl, fh) in enumerate(zip(fields, *mirror_factors(cfg, axis))):
         a = a.clone()
-        n = a.shape[d]
-        lo = torch.flip(a.narrow(d, g, g), (d,))
-        a.narrow(d, 0, g).copy_(lo if fl == 1.0 else lo * fl)
-        hi = torch.flip(a.narrow(d, n - 2 * g, g), (d,))
-        a.narrow(d, n - g, g).copy_(hi if fh == 1.0 else hi * fh)
+        for side, (mode, src, f, start) in enumerate(
+                zip(modes, ghosts, (fl, fh), (0, g + n))):
+            if mode == 1:
+                ref = torch.flip(a.narrow(d, n if side else g, g), (d,))
+                a.narrow(d, start, g).copy_(ref if f == 1.0 else ref * f)
+            elif mode == 2:
+                a.narrow(d, start, g).copy_(src[k])
         out.append(a)
     return out
 
 
-def cfl_partial_plain(cfg, u, v, c):
-    """(max(|u|+c), max(|v|+c)) over the real cells, floored at 0 like the
-    TPU's zero-initialised tile block (`_dt_tile_min`); NaN propagates."""
+def cfl_partial_plain(cfg, u, v, c, n_real=None):
+    """(max(|u|+c), max(|v|+c)) over the shard's real cells, floored at 0
+    like the TPU's zero-initialised tile block (`_dt_tile_min`); NaN
+    propagates."""
     g = cfg.nghost
-    r = (slice(g, -g), slice(g, -g))
+    nx, ny = n_real or cfg.n_local
+    r = (slice(g, g + ny), slice(g, g + nx))
     zero = torch.zeros((), dtype=u.dtype, device=u.device)
     mx = torch.maximum(zero, torch.amax(torch.abs(u[r]) + c[r]))
     my = torch.maximum(zero, torch.amax(torch.abs(v[r]) + c[r]))
     return mx, my
 
 
-def sweep_plain(cfg, axis, rho, u, v, E, dt, fill=True):
+def sweep_plain(cfg, axis, rho, u, v, E, dt, ghosts=MIRRORED, n_real=None):
     """One sweep in plain PyTorch. `dt` is a 0-dim tensor (already scaled
-    by the schedule's factor). With `fill`, the mirror ghost fill along the
-    axis runs first (the in-kernel fill of the TPU's `fused_sweep_ip`);
-    without it the ghost bands must be filled already (`fused_sweep`).
-    Returns (rho, u, v, E, p_stale, c_stale)."""
+    by the schedule's factor). The ghost bands along the axis are filled
+    first from `ghosts` (the in-kernel fills of the TPU's `fused_sweep_ip`:
+    mirror or slab splice; None for a band filled already, as `fused_sweep`
+    takes them). Returns (rho, u, v, E, p_stale, c_stale)."""
     T = np.dtype(cfg.dtype).type
-    if fill:
-        rho, u, v, E = mirror_fill_plain(cfg, axis, (rho, u, v, E))
+    if any(ghost_mode(s) for s in ghosts):
+        rho, u, v, E = fill_ghosts_plain(cfg, axis, (rho, u, v, E), n_real,
+                                         ghosts)
     d = axis.array_axis
     dx = scalar_like(rho, T(cfg.cell_size(axis)))
 
@@ -328,28 +363,42 @@ def cfl_finish_plain(cfg, partials, nblocks, scal, iscal, fold=True,
 
 # ---------------------------------------------------------------- wrappers
 
-def _check(cfg, tensors, shape, device):
+def _check(cfg, tensors, shape, device, what="sweep operand"):
     tdt = torch_dtype(cfg.dtype)
     for t in tensors:
         if t.dtype != tdt or tuple(t.shape) != tuple(shape) \
                 or t.device != device or not t.is_contiguous():
-            solver_error("config", f"sweep operand must be a contiguous "
+            solver_error("config", f"{what} must be a contiguous "
                                    f"{tdt} tensor of shape {tuple(shape)} on "
                                    f"{device}; got {t.dtype} "
                                    f"{tuple(t.shape)} on {t.device}")
 
 
+def check_ghosts(cfg, axis, ghosts, shape, device) -> bool:
+    """Validate the (lo, hi) ghost sources of a launch over a padded
+    (rows, cols) block; True when either side is a slab."""
+    slabs = [s for s in ghosts if ghost_mode(s) == 2]
+    if slabs:
+        rows, cols = shape
+        g = cfg.nghost
+        _check(cfg, slabs, (4, rows, g) if axis is Axis.X else (4, g, cols),
+               device, f"{axis.name} ghost slab")
+    return bool(slabs)
+
+
 def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
-           fill):
+           ghosts, n_real):
     rho = src[0]
     device = rho.device
     _check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
            rho.shape, device)
+    slab = check_ghosts(cfg, axis, ghosts, rho.shape, device)
     if device.type == "cuda":
         from . import _build
         _build.launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal,
-                            factor, emit, fill)
-        LAUNCHES["x_sweep" if axis is Axis.X else "y_sweep"] += 1
+                            factor, emit, ghosts, n_real or cfg.n_local)
+        name = "x_sweep" if axis is Axis.X else "y_sweep"
+        LAUNCHES[name + "_slab" if slab else name] += 1
         return
     if not int(iscal[IS_RUN]):
         for s, d in zip(src, dst):
@@ -357,29 +406,35 @@ def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
         return
     T = np.dtype(cfg.dtype).type
     dt = scal[SC_DTUSE] * float(T(factor))
-    out = sweep_plain(cfg, axis, *src, dt, fill=fill)
+    out = sweep_plain(cfg, axis, *src, dt, ghosts, n_real)
     for d, o in zip(dst, out[:4]):
         d.copy_(o)
     if emit:
         p.copy_(out[4])
-        mx, my = cfl_partial_plain(cfg, out[1], out[2], out[5])
+        mx, my = cfl_partial_plain(cfg, out[1], out[2], out[5], n_real)
         partials[0, 0] = mx
         partials[1, 0] = my
 
 
-def x_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit, fill=True):
+def x_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
+            ghosts=MIRRORED, n_real=None):
     """K1: one X sweep of (rho, u, v, E) `src` into `dst` with dt =
-    scal[dt_use] * factor, skipped (copied through) when iscal[run] is 0.
-    With `emit` (the cycle's last sweep) it also writes the stale p and the
-    CFL partial maxima. Replaces `_x_sweep_kernel` (`sweep.py:978`)."""
+    scal[dt_use] * factor, skipped (copied through) when iscal[run] is 0,
+    ghost columns from `ghosts` (see module doc). With `emit` (the cycle's
+    last sweep) it also writes the stale p and the CFL partial maxima of
+    the `n_real` real cells into `partials`, a (2, n) tensor or a column
+    slice of a wider one. Replaces `_x_sweep_kernel` (`sweep.py:978`),
+    its X slab variant (`_bc_x_apply_slab` :849) included."""
     _sweep(cfg, Axis.X, src, dst, p, partials, scal, iscal, factor, emit,
-           fill)
+           ghosts, n_real)
 
 
-def y_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit, fill=True):
-    """K2: the same along Y. Replaces `_y_sweep_kernel` (`sweep.py:1092`)."""
+def y_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
+            ghosts=MIRRORED, n_real=None):
+    """K2: the same along Y. Replaces `_y_sweep_kernel` (`sweep.py:1092`),
+    its Y slab variant (`_halo_cat_slab` :590) included."""
     _sweep(cfg, Axis.Y, src, dst, p, partials, scal, iscal, factor, emit,
-           fill)
+           ghosts, n_real)
 
 
 def cfl_finish(cfg, partials, nblocks, scal, iscal, fold=True, step=True):
@@ -413,6 +468,7 @@ def fused_sweep(cfg, axis, rho, u, v, E, dt, fill=False):
     iscal[IS_RUN] = 1
     src = tuple(a.contiguous() for a in (rho, u, v, E))
     (x_sweep if axis is Axis.X else y_sweep)(
-        cfg, src, dst, p, partials, scal, iscal, 1.0, True, fill)
+        cfg, src, dst, p, partials, scal, iscal, 1.0, True,
+        MIRRORED if fill else (None, None))
     cfl_finish(cfg, partials, nb, scal, iscal, fold=True, step=False)
     return dst + (p, scal[SC_LM])

@@ -10,6 +10,11 @@ PyTorch additions:
 - ``device``: where the tensors live and the kernels run, ``"cuda"`` by
   default. ``"cpu"`` runs every kernel's plain PyTorch version in exact
   arithmetic (the tests use it). ``"cuda"`` without a card raises.
+- ``devices``: with ``P=(px, py)``, the device of each shard, a list of
+  px*py torch devices in row-major (py, px) order. Repeats are allowed:
+  ``["cuda:0"] * 4`` runs a 2x2 mesh on one card. Without it, a mesh on
+  ``"cuda"`` puts its shards on cuda:0..n-1 and raises when the machine
+  has fewer cards; on ``"cpu"`` every shard is on the CPU.
 """
 
 import os
@@ -32,7 +37,7 @@ _DTYPE_NAMES = {
 _IO = "ROADMAP queue A item 6 (I/O)"
 _DRIVERS = "ROADMAP queue A item 8 (other drivers + restart)"
 _OBSERVABILITY = "ROADMAP queue A item 9 (observability)"
-_MULTI_GPU = "ROADMAP queue A item 10 (multi-GPU)"
+_MULTI_PROCESS = "ROADMAP queue A item 10b (multi-process runs)"
 _OP_PATH = "ROADMAP queue A item 3 (torch op path)"
 
 
@@ -175,25 +180,68 @@ class ArmonParameters:
         self.maxtime = maxtime if maxtime != 0 else self.test.default_max_time
 
     def _init_mesh(self, o):
-        """src/parameters.jl:408-467. One device only in this package."""
+        """src/parameters.jl:408-467 (`armon_tpu/params.py:194-229`): the
+        shard grid P = (px, py). One process drives every shard of the mesh;
+        runs over several processes are not ported yet."""
         self.use_MPI = bool(o.pop("use_MPI", False))
         self.P = tuple(o.pop("P", (1, 1)))
+        # The H100s of a host are joined all to all (NVLink switch), so no
+        # shard placement beats another: the given order is always kept.
         self.reorder_grid = bool(o.pop("reorder_grid", True))
         self.gpu_aware = bool(o.pop("gpu_aware", True))
-        if len(self.P) != 2 or any(p <= 0 for p in self.P):
+        if len(self.P) != 2 or any(int(p) != p or p <= 0 for p in self.P):
             solver_error("config", f"Invalid process grid P: {self.P}")
-        if self.P != (1, 1):
-            _not_ported(f"P={self.P}", _MULTI_GPU)
-        for key in ("global_comm", "devices", "coordinator_address",
-                    "num_processes", "process_id"):
+        self.P = (int(self.P[0]), int(self.P[1]))
+        for key in ("global_comm", "coordinator_address", "num_processes",
+                    "process_id"):
             if o.pop(key, None) is not None:
-                _not_ported(key, _MULTI_GPU)
+                _not_ported(key, _MULTI_PROCESS)
+        self._devices_option = o.pop("devices", None)
+
+    def _place_shards(self, device, devices):
+        """The device of each shard, in row-major (py, px) order."""
+        px, py = self.P
+        n = px * py
+        if devices is not None:
+            devs = [resolve_device(d) for d in devices]
+            if len(devs) < n:
+                solver_error("config", f"mesh {px}x{py} needs {n} devices, "
+                                       f"got {len(devs)}")
+            # A bare "cuda" is the current card, named so that the shards
+            # of a one-card mesh compare equal to their tensors' devices.
+            devs = [torch.device("cuda", torch.cuda.current_device())
+                    if d.type == "cuda" and d.index is None and n > 1 else d
+                    for d in devs[:n]]
+            if device is not None and resolve_device(device).type != devs[0].type:
+                solver_error("config", f"device={device!r} disagrees with "
+                                       f"devices={list(devices)!r}")
+        else:
+            dev = resolve_device("cuda" if device is None else device)
+            if dev.type == "cpu" or n == 1:
+                devs = [dev] * n
+            else:
+                first = dev.index or 0
+                have = torch.cuda.device_count()
+                if first + n > have:
+                    solver_error("config",
+                                 f"mesh {px}x{py} needs {n} CUDA cards from "
+                                 f"cuda:{first}, the machine has {have} (pass "
+                                 f"devices=['cuda:0'] * {n} to place every "
+                                 f"shard on one card)")
+                devs = [torch.device("cuda", first + i) for i in range(n)]
+        if len({d.type for d in devs}) > 1:
+            solver_error("config", f"a mesh cannot mix CPU and CUDA devices: "
+                                   f"{[str(d) for d in devs]}")
+        return tuple(devs)
 
     def _init_device(self, o):
         """src/parameters.jl:470-530. Threading/SIMD/NUMA/cache-blocking are
         x86 machinery with no GPU counterpart; accepted as no-ops for
         configuration compatibility, as the JAX package does."""
-        self.device = resolve_device(o.pop("device", "cuda"))
+        self.devices = self._place_shards(o.pop("device", None),
+                                          self._devices_option)
+        del self._devices_option
+        self.device = self.devices[0]
         self.use_gpu = bool(o.pop("use_gpu", False))
         if o.pop("use_kokkos", False):
             solver_error("config", "use_kokkos is not supported: the native "
@@ -245,9 +293,22 @@ class ArmonParameters:
         o.pop("estimated_blk_log_size", None)
 
     def _init_indexing(self, o):
-        """src/parameters.jl:673-697 on a single device."""
+        """src/parameters.jl:673-697 (`armon_tpu/params.py:294-322`): split
+        the global grid over the mesh. Every shard is padded to n_local =
+        ceil(N/P) real cells and the hi-edge shard owns the short remainder
+        n_edge; its slack cells are dead."""
         self.global_grid = self.N
-        self.n_local = self.N
+        px, py = self.P
+        nx, ny = self.global_grid
+        self.n_local = (-(-nx // px), -(-ny // py))
+        self.n_edge = (nx - (px - 1) * self.n_local[0],
+                       ny - (py - 1) * self.n_local[1])
+        if any(p > 1 and min(n, e) < self.nghost
+               for p, n, e in zip(self.P, self.n_local, self.n_edge)):
+            solver_error("config",
+                         f"domain {self.global_grid} is too small to be split "
+                         f"by {self.P} devices while keeping more than "
+                         f"{self.nghost} cells along each axis")
 
     def _init_output(self, o):
         """src/parameters.jl:700-728. `silent` defaults to 2 here: levels
@@ -285,6 +346,8 @@ class ArmonParameters:
                 nghost=self.nghost,
                 n_global=self.global_grid,
                 n_local=self.n_local,
+                proc_dims=self.P,
+                n_edge=self.n_edge,
                 domain_size=self.domain_size,
                 origin=self.origin,
                 test=self.test,
@@ -306,23 +369,33 @@ class ArmonParameters:
 
     def memory_required(self) -> dict:
         """Device bytes of the port's buffers (`src/blocking/block_grid.jl:
-        598-709` analog). The time loop holds two sets of rho/u/v/E (the
-        sweeps write out of place, ping-pong) plus p: 9 fields, and the
-        per-block CFL partials. `return_data` rebuilds the 11-field State
-        after the loop, once the second field set is freed."""
+        598-709` analog), on the device that holds the most. Each shard's
+        time loop holds two sets of rho/u/v/E (the sweeps write out of
+        place, ping-pong) plus p: 9 fields, the per-block CFL partials, and
+        a (4, g, cols) or (4, rows, g) ghost slab for each side that faces
+        a neighbour. `return_data` rebuilds the 11-field State after the
+        loop, once the second field set is freed. Field bytes are one
+        shard's; a device counts every shard placed on it."""
         g = self.nghost
         nx, ny = self.n_local
         rows, cols = ny + 2 * g, nx + 2 * g
         itemsize = self.data_type.itemsize
         field = rows * cols * itemsize
-        loop = 9 * field
-        state = len(State._fields) * field
+        px, py = self.P
+        loop, state = {}, {}
+        for iy in range(py):
+            for ix in range(px):
+                slabs = ((ix > 0) + (ix < px - 1)) * rows * g \
+                    + ((iy > 0) + (iy < py - 1)) * g * cols
+                dev = self.devices[iy * px + ix]
+                loop[dev] = loop.get(dev, 0) + 9 * field + 4 * slabs * itemsize
+                state[dev] = state.get(dev, 0) + len(State._fields) * field
         return {
             "per_device_field_bytes": field,
-            "per_device_loop_bytes": loop,
-            "per_device_state_bytes": state,
-            "per_device_total_bytes": loop,
-            "total_bytes": loop,
+            "per_device_loop_bytes": max(loop.values()),
+            "per_device_state_bytes": max(state.values()),
+            "per_device_total_bytes": max(loop.values()),
+            "total_bytes": sum(loop.values()),
         }
 
     def __repr__(self):
@@ -362,9 +435,15 @@ class ArmonParameters:
             f" - stops at:   t={self.maxtime} or {self.maxcycle} cycles",
             f" - device:     {self.device}, {kernels}, "
             + ("fast-math divides" if fast else "IEEE divides"),
-            f" - memory:     {mem['per_device_total_bytes'] / 1e6:.1f} MB "
-            f"in the time loop",
         ]
+        if self.P != (1, 1):
+            lines.append(
+                f" - mesh:       {self.P[0]}x{self.P[1]} shards of "
+                f"{self.n_local[0]}x{self.n_local[1]} cells (edge "
+                f"{self.n_edge[0]}x{self.n_edge[1]}) on "
+                f"{', '.join(str(d) for d in self.devices)}")
+        lines.append(f" - memory:     {mem['per_device_total_bytes'] / 1e6:.1f}"
+                     f" MB in the time loop, on the busiest device")
         return "\n".join(lines)
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4, 6 and 7, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
+    python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), the kernels' build time
@@ -33,7 +34,23 @@ Phases, each printing one JSON line:
      `pair_threshold` and `temporal_blocking` on this card: per-sweep
      against pair at 256^2-8192^2, K1/K2/K4 times at 8192^2, pair against
      multicycle on small grids;
-  6. the per-kernel summary line (all five kernels).
+  6. the per-kernel summary line (all eight kernels; printed last, after
+     phase 7);
+  7. domain-decomposed runs (P != (1, 1)), every shard on cuda:0: the slab
+     variants of K1/K2 (X/Y slabs, a 3x3 mesh of 1024^2 shards) and of K4
+     (Y slabs with the X mirror after the splice, corner cells, a 1x3
+     mesh, both sweep orders) against their plain versions on every shard
+     of a mid-run state; meshes against the one-device run bit for bit
+     (Sod_circ 1000^2 over 2x2, 1x2, 2x1, 4x1 and 3x2, N=(1000, 999) over
+     3x2, Sedov 2000^2 over 1x2 on the pair route) in f64 and f32 exact;
+     the goldens through a 2x2 mesh; timed runs through `armon()` of Sod
+     16384^2 over 2x2 (8192^2 shards, the main path's shape) and Sedov
+     2000^2 over 1x2 (pair route), with per-shard kernel times, the slab
+     copies' time, launches per cycle, conservation drift and peak memory;
+     the slab variants on those runs' final states (the first and the last
+     shard), bit for bit against their plain versions in f32 exact and
+     f64, within the fast-math gate as timed; and, where the machine has
+     four cards, the 2x2 check on cuda:0-3.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Without a CUDA card, or without the `armon_torch` package next
@@ -164,7 +181,7 @@ def _state_after(torch, test, n, dtype, fast, cycles):
                              use_fast_math=fast, maxcycle=cycles, silent=5,
                              device="cuda", **PER_SWEEP)
     cfg = params.config
-    fs, seed = make_init_fused(params)()
+    [fs], seed = make_init_fused(params)()
     res = make_time_loop_lean(cfg)(fs, 0.0, 0, 0.0, float(seed))
     import numpy as np
     T = np.dtype(dtype).type
@@ -418,7 +435,8 @@ def phase3(torch):
     main["kernel_ms"] = {"x_sweep": x_ms, "y_sweep": y_ms, "cfl_finish": k3_ms}
     main["checks"] = checks
     emit(main)
-    return kernels
+    return kernels + [{"cells_per_s": main["cells_per_s"],
+                       "kernel_ms": main["kernel_ms"]}]
 
 
 # ------------------------------------------------------- small-grid routes
@@ -430,10 +448,21 @@ SEDOV_N, SEDOV_CYCLES = 2000, 1000  # BASELINE config 3
 SOD_N, SOD_CYCLES = 100, 4000       # BASELINE config 1
 
 
+def _exact_cfgs(test, N, **extra):
+    """(dtype, config) in f32 and f64 exact mode (no fast math), the timed
+    runs' other options kept: the configs that hold a kernel bit for bit
+    against its plain version on a timed run's final state."""
+    from armon_torch import ArmonParameters
+    return [(dtype, ArmonParameters(
+        test=test, N=N, **{**SMALL_OPTS, "data_type": dtype,
+                           "use_fast_math": False, **extra}).config)
+            for dtype in ("float32", "float64")]
+
+
 def _loop_from_init(params):
     from armon_torch.core.solver import make_init_fused
     from armon_torch.core.step import make_time_loop_lean
-    fs, seed = make_init_fused(params)()
+    [fs], seed = make_init_fused(params)()
     return make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0, float(seed))
 
 
@@ -568,26 +597,44 @@ def _routes_bitwise(torch, test, n, dtype, routes, cycles=20):
 
 def _timed(torch, test, n, cycles, **route):
     """A warm-up run, then `cycles` timed cycles through `armon()` (f32
-    fast math, maxtime=1e30), with the launch counts of the timed run."""
+    fast math, maxtime=1e30), with the launch counts, host reads, peak
+    memory and conservation drift of the timed run. `route` may place a
+    mesh (`P`, `devices`)."""
     import numpy as np
     from armon_torch import ArmonParameters, armon
     from armon_torch.ops import sweep as K
+    from armon_torch.ops.reductions import conservation_vars, conservation_scalar
     from armon_torch.ops.routing import route as route_of
     opts = dict(test=test, N=(n, n), **SMALL_OPTS, **route)
     armon(ArmonParameters(maxcycle=16, **opts))
     torch.cuda.synchronize()
-    params = ArmonParameters(maxcycle=cycles, return_data=True, **opts)
+    torch.cuda.reset_peak_memory_stats()
+    params = ArmonParameters(maxcycle=cycles, check_result=True,
+                             return_data=True, **opts)
+    cfg = params.config
     K.reset_launches()
     stats = armon(params)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
-    if stats.cycles != cycles or not np.isfinite(float(stats.data.rho.sum())):
+    peak = torch.cuda.max_memory_allocated()
+    st = stats.data
+    if stats.cycles != cycles or not np.isfinite(float(st.rho.sum())):
         raise AssertionError(f"{test} {n}^2 {route}: {stats.cycles} cycles")
-    return {"test": test, "N": n, "route": route_of(params.config),
-            "options": route, "cycles": stats.cycles,
-            "solve_s": stats.solve_time,
-            "cells_per_s": n * n * stats.cycles / stats.solve_time,
-            "host_reads": stats.host_reads, "launches": launches}, params, stats
+    m, e = conservation_vars(cfg, st.rho, st.E, cfg.n_global)
+    cells = n * n
+    return {"test": test, "N": n, "route": route_of(cfg),
+            "options": {k: v for k, v in route.items() if k != "devices"},
+            "cycles": stats.cycles, "solve_s": stats.solve_time,
+            "cells_per_s": cells * stats.cycles / stats.solve_time,
+            "grind_ns": stats.solve_time / stats.cycles / cells * 1e9,
+            "cycle_ms": stats.solve_time / stats.cycles * 1e3,
+            "host_reads": stats.host_reads, "launches": launches,
+            "kernel_launches_per_cycle": sum(launches.values()) / stats.cycles,
+            "max_memory_allocated": peak,
+            "mass_drift": abs(conservation_scalar(cfg, m) - params.initial_mass)
+            / params.initial_mass,
+            "energy_drift": abs(conservation_scalar(cfg, e) - params.initial_energy)
+            / params.initial_energy}, params, stats
 
 
 def phase4(torch):
@@ -667,19 +714,13 @@ def phase4(torch):
     saved = dict(K.LAUNCHES)
     kernels = []
 
-    def exact_cfgs(test, n, **extra):
-        return [(dtype, ArmonParameters(
-            test=test, N=(n, n), **{**SMALL_OPTS, "data_type": dtype,
-                                    "use_fast_math": False, **extra}).config)
-                for dtype in ("float32", "float64")]
-
     # K4 at Sedov 2000^2 (Sequential: X then Y, the full dt each).
     cfg = sedov_params.config
     st = sedov_stats.data
     src = (st.rho, st.u, st.v, st.E)
     dev = st.rho.device
     k4_err = 0.0
-    for dtype, ecfg in exact_cfgs("Sedov", SEDOV_N):
+    for dtype, ecfg in _exact_cfgs("Sedov", (SEDOV_N, SEDOV_N)):
         k4_err = max(k4_err, _k4_vs_plain(
             torch, ecfg, tuple(a.to(getattr(torch, dtype)) for a in src),
             sedov_stats.last_dt, True, False,
@@ -719,7 +760,7 @@ def phase4(torch):
     sc = dict(t=sod_stats.final_time, cycle=sod_stats.cycles,
               dt_prev=sod_stats.last_dt, lm=sod_params._final_local_min)
     k5_err = 0.0
-    for dtype, ecfg in exact_cfgs("Sod", SOD_N, maxcycle=1 << 23):
+    for dtype, ecfg in _exact_cfgs("Sod", (SOD_N, SOD_N), maxcycle=1 << 23):
         tdt = getattr(torch, dtype)
         err, cyc = _k5_check(torch, ecfg, temporal_pairs(ecfg),
                              tuple(a.to(tdt) for a in fs[:4]), fs.p.to(tdt),
@@ -752,7 +793,9 @@ def phase4(torch):
     out["kernel_ms"] = {"cycle": k4_ms, "multicycle": k5_ms,
                         "multicycle_per_cycle": k5_ms / len(pairs)}
     emit(out)
-    return kernels
+    return kernels + [{"sedov_pair_cells_per_s": sedov["cells_per_s"],
+                       "sedov_pair_cycle_ms": sedov["solve_s"] / sedov["cycles"] * 1e3,
+                       "cycle_ms": k4_ms}]
 
 
 # ------------------------------------------------------- route crossovers
@@ -761,9 +804,9 @@ def _loop_rate(torch, params, loop, cycles):
     """cells/s of `cycles` cycles of a lean loop from the initial state
     (host clock to a host read), after a warm-up on the same shapes."""
     from armon_torch.core.solver import make_init_fused
-    fs, seed = make_init_fused(params)()
+    [fs], seed = make_init_fused(params)()
     loop(fs, 0.0, 0, 0.0, float(seed))  # warm-up (maxcycle bounds it)
-    fs, seed = make_init_fused(params)()
+    [fs], seed = make_init_fused(params)()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = loop(fs, 0.0, 0, 0.0, float(seed))
@@ -783,7 +826,7 @@ def _k5_rate(torch, params, pairs):
     cfg = params.config
 
     def run():
-        fs, seed = make_init_fused(params)()
+        [fs], seed = make_init_fused(params)()
         cur = tuple(fs[:4])
         nxt = tuple(torch.empty_like(a) for a in cur)
         part = C.new_multicycle_partials(fs.rho.shape, cfg.dtype, fs.rho.device)
@@ -874,9 +917,413 @@ def phase5(torch):
     emit(out)
 
 
+# ------------------------------------------------- domain-decomposed runs
+
+MESH_N, MESH_P, MESH_CYCLES = 16384, (2, 2), 100  # 8192^2 shards
+SEDOV_P = (1, 2)
+CHECK_SHARD = 1024   # the slab checks' shard edge
+AGREE_N, AGREE_CYCLES, SEDOV_AGREE_CYCLES = 1000, 20, 50
+
+
+def _one_card(P):
+    """Options that place every shard of a P mesh on cuda:0."""
+    return dict(P=P, devices=["cuda:0"] * (P[0] * P[1]))
+
+
+def _mesh_mid_state(torch, test, N, P, dtype, fast, cycles=3, **route):
+    """A one-card mesh after `cycles` cycles: (cfg, mesh, result, the dt
+    of the next cycle)."""
+    import numpy as np
+    from armon_torch import ArmonParameters
+    from armon_torch.core.solver import make_init_fused, make_mesh
+    from armon_torch.core.step import make_time_loop_lean
+    params = ArmonParameters(test=test, N=N, data_type=dtype,
+                             use_fast_math=fast, maxcycle=cycles, silent=5,
+                             **_one_card(P), **route)
+    cfg = params.config
+    mesh = make_mesh(params)
+    fs, seed = make_init_fused(params)()
+    res = make_time_loop_lean(cfg, mesh)(fs, 0.0, 0, 0.0, float(seed))
+    T = np.dtype(dtype).type
+    dt = min(T(cfg.cfl) * T(res.lm), T(1.05) * T(res.dt_last))
+    return cfg, mesh, res, float(dt)
+
+
+def _gate_mesh(torch, got, want, real, fast, what):
+    """Per field, every shard's real cells: bit for bit in exact mode,
+    within 1e-4 of the field's scale over the whole mesh in fast math.
+    Returns the max abs difference."""
+    err = 0.0
+    for k in range(len(got[0])):
+        scale = max(float(b[k][r].abs().max()) for b, r in zip(want, real))
+        for a, b, r in zip(got, want, real):
+            d = float((a[k][r] - b[k][r]).abs().max())
+            err = max(err, d)
+            ok = d <= 1e-4 * scale if fast else torch.equal(a[k][r], b[k][r])
+            if not ok:
+                raise AssertionError(f"{what}: field {k} max abs diff {d}")
+    return err
+
+
+def _cfl_gate(part, want, fast, what):
+    got = float(part.max())
+    if abs(got - float(want)) > (1e-4 * float(want) if fast else 0.0):
+        raise AssertionError(f"{what}: CFL max {got} vs {float(want)}")
+
+
+def _slab_sweep_checks(torch, cfg, mesh, cur, dt, fast, what, shards=None):
+    """K1 with X slabs and K2 with Y slabs (the neighbours' real lines on
+    the sides that face one, the mirror on global borders) on each of
+    `shards` (every shard of `mesh` by default), against `sweep_plain`
+    with the same ghosts: fields, p and the CFL partial maxima. `cur[s]`
+    is shard s's (rho, u, v, E). Returns the max abs difference per axis
+    name."""
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops.reductions import real_slice
+    from armon_torch.parallel.halo import halo_slabs
+    from armon_torch.utils.enums import Axis
+    err = {}
+    for axis, sweep in ((Axis.X, K.x_sweep), (Axis.Y, K.y_sweep)):
+        ghosts = halo_slabs(cfg, mesh, cur, axis)
+        got, want, real = [], [], []
+        for s in shards or mesh:
+            src = cur[s.index]
+            dev = src[0].device
+            dst = tuple(torch.empty_like(a) for a in src)
+            p = torch.empty_like(src[0])
+            nb = K.n_partials(axis, src[0].shape, dev)
+            partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
+            scal, iscal = K.new_scalars(cfg.dtype, dev)
+            scal[K.SC_DTUSE] = dt
+            iscal[K.IS_RUN] = 1
+            sweep(cfg, src, dst, p, partials, scal, iscal, 1.0, True,
+                  ghosts[s.index], s.n_real)
+            ref = K.sweep_plain(cfg, axis, *src, scal[K.SC_DTUSE] * 1.0,
+                                ghosts[s.index], s.n_real)
+            mx, my = K.cfl_partial_plain(cfg, ref[1], ref[2], ref[5], s.n_real)
+            torch.cuda.synchronize()
+            _cfl_gate(partials[0], mx, fast, f"{what} {axis.name} {s}")
+            _cfl_gate(partials[1], my, fast, f"{what} {axis.name} {s}")
+            got.append(dst + (p,))
+            want.append(ref[:5])
+            real.append(real_slice(cfg, s.n_real))
+        err[axis.name] = _gate_mesh(torch, got, want, real, fast,
+                                    f"{what} {axis.name}")
+    return err
+
+
+def _slab_cycle_checks(torch, cfg, mesh, cur, dt, fast, what, shards=None,
+                       factors=(0.5, 1.0)):
+    """K4 with Y slabs and the X mirror after the splice, both sweep
+    orders (`factors`: the dt factors of the first and the second sweep,
+    Strang's by default), on each of `shards` (every shard by default)
+    against `cycle_plain` with the same ghosts. Its first sweep runs on the
+    ghost rows, so the corner cells (f_x times a neighbour's value) reach
+    real cells here. Returns the max abs difference."""
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    from armon_torch.ops.reductions import real_slice
+    from armon_torch.parallel.halo import halo_slabs
+    from armon_torch.utils.enums import Axis
+    ghosts = halo_slabs(cfg, mesh, cur, Axis.Y)
+    err = 0.0
+    for x_first in (True, False):
+        fx, fy = factors if x_first else factors[::-1]
+        got, want, real = [], [], []
+        for s in shards or mesh:
+            src = cur[s.index]
+            dev = src[0].device
+            dst = tuple(torch.empty_like(a) for a in src)
+            p = torch.empty_like(src[0])
+            nb = C.n_partials(src[0].shape, dev)
+            partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
+            scal, iscal = K.new_scalars(cfg.dtype, dev)
+            scal[K.SC_DTUSE] = dt
+            iscal[K.IS_RUN] = 1
+            C.cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
+                    True, ghosts[s.index], s.n_real)
+            dt_t = scal[K.SC_DTUSE]
+            ref = C.cycle_plain(cfg, x_first, *src, dt_t * fx, dt_t * fy,
+                                ghosts[s.index], s.n_real)
+            torch.cuda.synchronize()
+            _cfl_gate(partials[0], ref[5], fast, f"{what} {s}")
+            _cfl_gate(partials[1], ref[6], fast, f"{what} {s}")
+            got.append(dst + (p,))
+            want.append(ref[:5])
+            real.append(real_slice(cfg, s.n_real))
+        err = max(err, _gate_mesh(torch, got, want, real, fast,
+                                  f"{what} x_first={x_first}"))
+    return err
+
+
+def _mesh_vs_single(torch, test, N, P, dtype, cycles, single, devices=None,
+                    **route):
+    """`armon()` on a mesh (one card unless `devices`) against the
+    one-device run `single` (a SolverStats with data): dt, t, cycles and
+    rho/u/v/E/p on real cells, bit for bit."""
+    from armon_torch import ArmonParameters, armon
+    place = _one_card(P) if devices is None else dict(P=P, devices=devices)
+    stats = armon(ArmonParameters(
+        test=test, N=N, data_type=dtype, use_fast_math=False,
+        maxcycle=cycles, silent=5, return_data=True, **place, **route))
+    same = (stats.cycles, stats.final_time, stats.last_dt) == \
+        (single.cycles, single.final_time, single.last_dt)
+    g = 4
+    for name in ("rho", "u", "v", "E", "p"):
+        a = getattr(stats.data, name)[g:-g, g:-g]
+        b = getattr(single.data, name)[g:-g, g:-g].to(a.device)
+        same = same and torch.equal(a, b)
+    if not same:
+        raise AssertionError(f"mesh {P} {test} {N} {dtype} {route} differs "
+                             f"from one device: {stats.cycles} cycles, dt "
+                             f"{stats.last_dt} vs {single.last_dt}")
+    return {"test": test, "N": list(N), "P": list(P), "dtype": dtype,
+            "cycles": stats.cycles, "dt": stats.last_dt, **route}
+
+
+def _single(torch, test, N, dtype, cycles, **route):
+    from armon_torch import ArmonParameters, armon
+    return armon(ArmonParameters(test=test, N=N, data_type=dtype,
+                                 use_fast_math=False, maxcycle=cycles,
+                                 silent=5, return_data=True, device="cuda",
+                                 **route))
+
+
+def _slab_pack_count(mesh, axis):
+    """Slab buffers refilled per sweep along `axis` (one per side that
+    faces a neighbour)."""
+    return sum(mesh.neighbour(s, axis, side) is not None
+               for s in mesh for side in (0, 1))
+
+
+def phase7(torch, rates):
+    """Domain-decomposed runs on one card (see the module doc); returns
+    the kernels-line entries of the three slab variants."""
+    from armon_torch.core.state import FusedCarry
+    from armon_torch.core.solver import make_mesh
+    from armon_torch.interop import scatter_state
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    from armon_torch.ops.routing import route as route_of
+    from armon_torch.parallel.halo import halo_slabs, new_slab_buffers
+    from armon_torch.utils.enums import Axis
+    out = {"phase": 7, "card": card_line()}
+    modes = (("float64", False), ("float32", False), ("float32", True))
+
+    # (1) the slab variants against their plain versions, 1024^2 shards
+    checks = []
+    for test in ("Sod_circ", "Bizarrium"):
+        for dtype, fast in modes:
+            n = 3 * CHECK_SHARD
+            cfg, mesh, res, dt = _mesh_mid_state(torch, test, (n, n),
+                                                 (3, 3), dtype, fast)
+            e1 = _slab_sweep_checks(torch, cfg, mesh,
+                                    [tuple(c[:4]) for c in res.carry], dt,
+                                    fast, f"K1/K2 slab {test} {dtype} fast={fast}")
+            cfg, mesh, res, dt = _mesh_mid_state(torch, test, (CHECK_SHARD, n),
+                                                 (1, 3), dtype, fast,
+                                                 temporal_blocking=1)
+            if route_of(cfg) != "pair":
+                raise AssertionError("the 1x3 mesh left the pair route")
+            e4 = _slab_cycle_checks(torch, cfg, mesh,
+                                    [tuple(c[:4]) for c in res.carry], dt,
+                                    fast, f"K4 slab {test} {dtype} fast={fast}")
+            checks.append({"test": test, "dtype": dtype, "fast": fast,
+                           "sweeps_max_abs_err": e1, "cycle_max_abs_err": e4})
+    out["slab_vs_plain"] = checks
+    emit(out)
+
+    # (2) meshes against the one-device run, bit for bit, exact mode
+    agree = []
+    for dtype in ("float64", "float32"):
+        n = AGREE_N
+        for N, meshes in (((n, n), ((2, 2), (1, 2), (2, 1), (4, 1), (3, 2))),
+                          ((n, n - 1), ((3, 2),))):
+            single = _single(torch, "Sod_circ", N, dtype, AGREE_CYCLES)
+            for P in meshes:
+                agree.append(_mesh_vs_single(torch, "Sod_circ", N, P, dtype,
+                                             AGREE_CYCLES, single))
+        N = (SEDOV_N, SEDOV_N)
+        single = _single(torch, "Sedov", N, dtype, SEDOV_AGREE_CYCLES)
+        agree.append(_mesh_vs_single(torch, "Sedov", N, SEDOV_P, dtype,
+                                     SEDOV_AGREE_CYCLES, single))
+    out = {"phase": 7, "mesh_vs_single": agree}
+
+    # (3) the goldens through a 2x2 mesh
+    out["goldens_2x2"] = _goldens(torch, _one_card((2, 2)))
+    emit(out)
+
+    # (4) timed runs. On each one's final state, at the timed shapes, every
+    # slab kernel against its plain version on the first shard (slabs on
+    # its high sides) and the last (slabs on its low sides): bit for bit in
+    # f32 exact and f64 (those max abs differences go to the kernels line),
+    # within the fast-math gate as timed. These launches, and the timing
+    # ones, are not counted as the path's.
+    sod, params, stats = _timed(torch, "Sod", MESH_N, MESH_CYCLES,
+                                **_one_card(MESH_P))
+    for name in ("x_sweep_slab", "y_sweep_slab", "cfl_finish"):
+        if not sod["launches"][name]:
+            raise AssertionError(f"the 2x2 mesh never launched {name}")
+    cfg = params.config
+    mesh = make_mesh(params)
+    st = stats.data
+    cur = [tuple(c[:4]) for c in
+           scatter_state(params, FusedCarry(st.rho, st.u, st.v, st.E, st.p))]
+    last_dt = stats.last_dt
+    del st, stats
+    ends = (mesh.shards[0], mesh.shards[-1])
+    s0 = mesh.shards[0]  # a slab on its high sides, the mirror on its low ones
+    src = cur[0]
+    shape, dev = src[0].shape, src[0].device
+    dst = tuple(torch.empty_like(a) for a in src)
+    p = torch.empty_like(src[0])
+    nbx, nby = K.n_partials(Axis.X, shape, dev), K.n_partials(Axis.Y, shape, dev)
+    partials = torch.zeros((2, len(mesh) * max(nbx, nby)), dtype=src[0].dtype,
+                           device=dev)
+    scal, iscal = K.new_scalars(cfg.dtype, dev)
+    scal[K.SC_DTUSE] = last_dt
+    iscal[K.IS_RUN] = 1
+    bufs = {a: new_slab_buffers(cfg, mesh, cur, a) for a in (Axis.X, Axis.Y)}
+    gx = halo_slabs(cfg, mesh, cur, Axis.X, bufs[Axis.X])[0]
+    gy = halo_slabs(cfg, mesh, cur, Axis.Y, bufs[Axis.Y])[0]
+    saved = dict(K.LAUNCHES)
+    ms = {
+        "x_sweep_slab": time_ms(torch, lambda: K.x_sweep(
+            cfg, src, dst, p, partials, scal, iscal, 1.0, False, gx, s0.n_real),
+            reps=20),
+        "y_sweep_slab": time_ms(torch, lambda: K.y_sweep(
+            cfg, src, dst, p, partials, scal, iscal, 1.0, True, gy, s0.n_real),
+            reps=20)}
+    s2, i2 = scal.clone(), iscal.clone()
+    ms["cfl_finish_4_shards"] = time_ms(torch, lambda: K.cfl_finish(
+        cfg, partials, len(mesh) * nby, s2, i2), reps=50)
+    ms["slab_copies_per_cycle"] = time_ms(torch, lambda: (
+        halo_slabs(cfg, mesh, cur, Axis.X, bufs[Axis.X]),
+        halo_slabs(cfg, mesh, cur, Axis.Y, bufs[Axis.Y])), reps=20)
+    dt_t = scal[K.SC_DTUSE] * 1.0
+    plain = {"x_sweep_slab": time_ms(torch, lambda: K.sweep_plain(
+                 cfg, Axis.X, *src, dt_t, gx, s0.n_real), reps=3),
+             "y_sweep_slab": time_ms(torch, lambda: K.sweep_plain(
+                 cfg, Axis.Y, *src, dt_t, gy, s0.n_real), reps=3)}
+    del dst, p, partials, bufs, gx, gy
+    sweep_err = {"X": 0.0, "Y": 0.0}
+    for dtype, ecfg in _exact_cfgs("Sod", (MESH_N, MESH_N), **_one_card(MESH_P)):
+        tdt = getattr(torch, dtype)
+        e = _slab_sweep_checks(
+            torch, ecfg, mesh, [tuple(a.to(tdt) for a in c) for c in cur],
+            last_dt, False, f"K1/K2 slab at Sod {MESH_N}^2 {dtype} exact", ends)
+        sweep_err = {k: max(sweep_err[k], e[k]) for k in e}
+    sod["slab_vs_plain"] = {
+        "shards": [s.index for s in ends], "exact_max_abs_err": sweep_err,
+        "fast_math_max_abs_err": _slab_sweep_checks(
+            torch, cfg, mesh, cur, last_dt, True,
+            f"K1/K2 slab at Sod {MESH_N}^2 fast math", ends)}
+    K.LAUNCHES.update(saved)
+    sod["kernel_ms_per_shard"] = ms
+    sod["slab_packs_per_cycle"] = sum(_slab_pack_count(mesh, a)
+                                      for a in (Axis.X, Axis.Y))
+    sod["single_device_8192_cells_per_s"] = rates.get("main", {}).get("cells_per_s")
+    fb = src[0].numel() * src[0].element_size()
+    rows, cols = shape
+    g = cfg.nghost
+    isz = src[0].element_size()
+    flops = SWEEP_FLOPS_PER_CELL * src[0].numel()
+    kernels = []
+    for name, replaces, nbytes, err in (
+            ("x_sweep_slab", "armon_tpu/ops/pallas/sweep.py:1008", 8 * fb
+             + 4 * rows * g * isz, sweep_err["X"]),
+            ("y_sweep_slab", "armon_tpu/ops/pallas/sweep.py:1118", 9 * fb
+             + 4 * g * cols * isz + 2 * nby * isz, sweep_err["Y"])):
+        b_ms, b_by = bound_ms(nbytes, flops)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "armon_torch/csrc/sweep.cuh",
+                        "replaces": replaces, "launches": sod["launches"][name],
+                        "max_abs_err": err, "ms": ms[name],
+                        "plain_ms": plain[name], "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None})
+    del cur, src
+    emit({"phase": 7, "timed_main_mesh": sod})
+
+    sedov, params, stats = _timed(torch, "Sedov", SEDOV_N, SEDOV_CYCLES,
+                                  **_one_card(SEDOV_P))
+    if sedov["route"] != "pair" or not sedov["launches"]["cycle_slab"]:
+        raise AssertionError(f"Sedov over {SEDOV_P}: {sedov['launches']}")
+    cfg = params.config
+    mesh = make_mesh(params)
+    st = stats.data
+    cur = [tuple(c[:4]) for c in
+           scatter_state(params, FusedCarry(st.rho, st.u, st.v, st.E, st.p))]
+    src = cur[0]
+    dev = src[0].device
+    ghosts = halo_slabs(cfg, mesh, cur, Axis.Y)[0]
+    dst = tuple(torch.empty_like(a) for a in src)
+    p = torch.empty_like(src[0])
+    nb = C.n_partials(src[0].shape, dev)
+    partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
+    scal, iscal = K.new_scalars(cfg.dtype, dev)
+    scal[K.SC_DTUSE] = stats.last_dt
+    iscal[K.IS_RUN] = 1
+    saved = dict(K.LAUNCHES)
+    k4_ms = time_ms(torch, lambda: C.cycle(cfg, True, 1.0, 1.0, src, dst, p,
+                                           partials, scal, iscal, True,
+                                           ghosts, mesh.shards[0].n_real),
+                    reps=20)
+    dt_t = scal[K.SC_DTUSE]
+    k4p_ms = time_ms(torch, lambda: C.cycle_plain(cfg, True, *src, dt_t, dt_t,
+                                                  ghosts, mesh.shards[0].n_real),
+                     reps=3)
+    ends = (mesh.shards[0], mesh.shards[-1])  # Y slabs above, below
+    cycle_err = 0.0
+    for dtype, ecfg in _exact_cfgs("Sedov", (SEDOV_N, SEDOV_N), **_one_card(SEDOV_P)):
+        tdt = getattr(torch, dtype)
+        cycle_err = max(cycle_err, _slab_cycle_checks(
+            torch, ecfg, mesh, [tuple(a.to(tdt) for a in c) for c in cur],
+            stats.last_dt, False, f"K4 slab at Sedov {SEDOV_N}^2 {dtype} exact",
+            ends, factors=(1.0, 1.0)))
+    sedov["slab_vs_plain"] = {
+        "shards": [s.index for s in ends], "exact_max_abs_err": cycle_err,
+        "fast_math_max_abs_err": _slab_cycle_checks(
+            torch, cfg, mesh, cur, stats.last_dt, True,
+            f"K4 slab at Sedov {SEDOV_N}^2 fast math", ends, factors=(1.0, 1.0))}
+    K.LAUNCHES.update(saved)
+    sedov["kernel_ms_per_shard"] = {"cycle_slab": k4_ms}
+    sedov["slab_packs_per_cycle"] = _slab_pack_count(mesh, Axis.Y)
+    sedov["single_device"] = rates.get("small")
+    emit({"phase": 7, "timed_sedov_mesh": sedov})
+    fb = src[0].numel() * src[0].element_size()
+    b_ms, b_by = bound_ms(9 * fb + 4 * cfg.nghost * src[0].shape[1]
+                          * src[0].element_size() + 2 * nb * src[0].element_size(),
+                          2 * SWEEP_FLOPS_PER_CELL * src[0].numel())
+    kernels.append({"name": "cycle_slab", "route": "cuda",
+                    "source": "armon_torch/csrc/cycle.cuh",
+                    "replaces": "armon_tpu/ops/pallas/sweep.py:1592",
+                    "launches": sedov["launches"]["cycle_slab"],
+                    "max_abs_err": cycle_err, "ms": k4_ms, "plain_ms": k4p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "corner_cells_checked": "both shards of the timed 1x2 "
+                                            "mesh and a 1x3 mesh of 1024^2 "
+                                            "shards: Y slabs, X mirror after "
+                                            "the splice, both sweep orders"})
+
+    # (5) four cards, where the machine has them
+    if torch.cuda.device_count() >= 4:
+        four = []
+        N = (AGREE_N, AGREE_N)
+        for dtype in ("float64", "float32"):
+            single = _single(torch, "Sod_circ", N, dtype, AGREE_CYCLES)
+            four.append(_mesh_vs_single(
+                torch, "Sod_circ", N, (2, 2), dtype, AGREE_CYCLES, single,
+                devices=[f"cuda:{i}" for i in range(4)]))
+        emit({"phase": 7, "four_cards": four})
+    else:
+        emit({"phase": 7, "four_cards": "not run: the machine has "
+                                        f"{torch.cuda.device_count()} card(s)"})
+    return kernels
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     args = ap.parse_args(argv)
@@ -899,10 +1346,15 @@ def main(argv=None):
     if 2 in phases:
         phase2(torch)
     kernels = phase3(torch) if 3 in phases else []
+    rates = {"main": kernels.pop()} if kernels else {}
     if 4 in phases:
-        kernels += phase4(torch)
+        k4 = phase4(torch)
+        rates["small"] = k4.pop()
+        kernels += k4
     if 5 in phases:
         phase5(torch)
+    if 7 in phases:
+        kernels += phase7(torch, rates)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})

@@ -121,7 +121,7 @@ def test_cycle_plain_equals_two_sweeps(test, N, dtype, x_first):
                                          data_type=dtype, maxcycle=3,
                                          silent=5, **PER_SWEEP)
     cfg = params.config
-    fs, seed = make_init_fused(params)()
+    [fs], seed = make_init_fused(params)()
     res = make_time_loop_lean(cfg)(fs, 0.0, 0, 0.0, float(seed))
     dt = torch.tensor(0.5 * res.dt_last, dtype=fs.rho.dtype)
     src = tuple(res.carry[:4])
@@ -145,7 +145,7 @@ def test_pair_route_equals_per_sweep_bitwise(splitting, dtype):
             device="cpu", test="Bizarrium" if splitting == "Strang" else
             "Sod_circ", N=(48, 40), data_type=dtype, maxcycle=15,
             axis_splitting=splitting, silent=5, **route)
-        fs, seed = make_init_fused(params)()
+        [fs], seed = make_init_fused(params)()
         out.append(make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0,
                                                       float(seed)))
     a, b = out
@@ -181,7 +181,7 @@ def test_pair_route_stop_check_interval_is_bitwise_neutral():
                                          silent=5, **PAIR)
     res = []
     for every in (1, 8):
-        fs, seed = make_init_fused(params)()
+        [fs], seed = make_init_fused(params)()
         res.append(make_time_loop_lean(params.config)(
             fs, 0.0, 0, 0.0, float(seed), check_every=every))
     r1, r8 = res

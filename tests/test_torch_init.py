@@ -45,7 +45,7 @@ def _ulps(a, b):
 def test_init_fused_matches_jax(test, dtype):
     jp, tp = _params(test, dtype)
     jfs, jseed = jax_init_fused(jp)()
-    tfs, tseed = make_init_fused(tp)()
+    [tfs], tseed = make_init_fused(tp)()
     tfs = to_numpy(tfs)
     for name in ("rho", "u", "v", "E", "p"):
         a = np.asarray(getattr(jfs, name))
@@ -66,8 +66,8 @@ def test_rehydrated_state_matches_jax(test):
     """All 11 fields of the initial State (x/y, c/g of the cycle-0 EOS)."""
     jp, tp = _params(test, np.float64)
     js = jax_update_eos(jp.config, make_init(jp)())
-    tfs, _ = make_init_fused(tp)()
-    ts = to_numpy(make_rehydrate(tp)(tfs))
+    [tfs], _ = make_init_fused(tp)()
+    ts = to_numpy(make_rehydrate(tp)([tfs])[0])
     for name in armon_torch.State._fields:
         assert _ulps(np.asarray(getattr(js, name)), getattr(ts, name)) <= 1, name
 

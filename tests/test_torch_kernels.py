@@ -15,7 +15,10 @@ from armon_torch.core.solver import make_init_fused
 from armon_torch.core.step import make_time_loop_lean
 from armon_torch.ops import sweep as K
 from armon_torch.ops import cycle as C
-from armon_torch.ops.routing import temporal_pairs
+from armon_torch.ops.routing import temporal_pairs, route as route_of
+from armon_torch.ops.reductions import real_slice
+from armon_torch.core.solver import make_mesh
+from armon_torch.parallel.halo import halo_slabs
 
 pytestmark = pytest.mark.gpu
 
@@ -35,7 +38,7 @@ def _advanced(test, dtype, fast, n=96, cycles=4, **scheme):
                                          use_fast_math=fast, maxcycle=cycles,
                                          silent=5, device="cuda", **PER_SWEEP,
                                          **scheme)
-    fs, seed = make_init_fused(params)()
+    [fs], seed = make_init_fused(params)()
     res = make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0, float(seed))
     return params.config, res
 
@@ -111,7 +114,7 @@ def test_stop_check_interval_on_card(card, route):
                                          silent=5, device="cuda", **route)
     out = []
     for every in (1, 8):
-        fs, seed = make_init_fused(params)()
+        [fs], seed = make_init_fused(params)()
         out.append(make_time_loop_lean(params.config)(
             fs, 0.0, 0, 0.0, float(seed), check_every=every))
     assert out[0].cycles % 8 != 0
@@ -235,7 +238,7 @@ def test_multicycle_matches_plain(card, test, extra, dtype):
     cfg = params.config
     pairs = temporal_pairs(cfg)
     assert len(pairs) == 8
-    fs, seed = make_init_fused(params)()
+    [fs], seed = make_init_fused(params)()
     warm = armon_torch.ArmonParameters(**{**opts, "maxcycle": 10, **PER_SWEEP})
     res = make_time_loop_lean(warm.config)(fs, 0.0, 0, 0.0, float(seed))
     src = tuple(a.clone() for a in res.carry[:4])
@@ -267,7 +270,7 @@ def test_routes_agree_on_card(card, dtype, N):
         params = armon_torch.ArmonParameters(
             test="Sod_circ", N=N, data_type=dtype, use_fast_math=False,
             maxcycle=20, silent=5, device="cuda", **route)
-        fs, seed = make_init_fused(params)()
+        [fs], seed = make_init_fused(params)()
         out.append(make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0,
                                                       float(seed)))
     g = 4
@@ -276,3 +279,157 @@ def test_routes_agree_on_card(card, dtype, N):
             (out[0].t, out[0].cycles, out[0].dt_last, out[0].lm)
         for a, b in zip(res.carry, out[0].carry):
             assert torch.equal(a[g:-g, g:-g], b[g:-g, g:-g])
+
+
+# ------------------------------------------------- domain-decomposed runs
+
+def _mesh_state(test, dtype, fast, P, N, cycles=4, **route):
+    """A mesh of P shards on one card after `cycles` cycles."""
+    params = armon_torch.ArmonParameters(
+        test=test, N=N, data_type=dtype, use_fast_math=fast, maxcycle=cycles,
+        silent=5, P=P, devices=["cuda:0"] * (P[0] * P[1]), **route)
+    mesh = make_mesh(params)
+    fs, seed = make_init_fused(params)()
+    res = make_time_loop_lean(params.config, mesh)(fs, 0.0, 0, 0.0,
+                                                   float(seed))
+    return params.config, mesh, res
+
+
+def _close_on_mesh(checks, fast):
+    """`checks`: (kernel fields, plain fields, real slice) per shard. Bit
+    for bit in exact mode; in fast math within 1e-4 of each field's scale
+    over the whole mesh (a shard in a quiet region holds only the rounding
+    noise of Bizarrium's cancelling pressure terms)."""
+    for k in range(len(checks[0][0])):
+        scale = max(float(b[k][r].abs().max()) for _, b, r in checks)
+        for a, b, r in checks:
+            if fast:
+                assert float((a[k][r] - b[k][r]).abs().max()) <= 1e-4 * scale, k
+            else:
+                assert torch.equal(a[k][r], b[k][r]), k
+
+
+@pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
+                                        ("float32", True)],
+                         ids=["f64", "f32-exact", "f32-fast"])
+@pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
+def test_slab_sweeps_match_plain(card, test, dtype, fast):
+    """K1/K2 with a neighbour's slab on the sides that face one (the
+    `slab_x` / `slab_y` variants) against `sweep_plain` with the same
+    ghosts, on every shard of an uneven 3x3 mesh: the middle shard takes
+    slabs on both sides, the edge shards a slab and the mirror."""
+    cfg, mesh, res = _mesh_state(test, dtype, fast, (3, 3), (100, 98),
+                                 **PER_SWEEP)
+    cur = [tuple(c[:4]) for c in res.carry]
+    for sweep, axis in ((K.x_sweep, armon_torch.Axis.X),
+                        (K.y_sweep, armon_torch.Axis.Y)):
+        ghosts = halo_slabs(cfg, mesh, cur, axis)
+        checks = []
+        for s in mesh:
+            src = cur[s.index]
+            r = real_slice(cfg, s.n_real)
+            dst = tuple(torch.empty_like(a) for a in src)
+            p = torch.empty_like(src[0])
+            nb = K.n_partials(axis, src[0].shape, card)
+            partials = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
+            scal, iscal = K.new_scalars(cfg.dtype, card)
+            scal[K.SC_DTUSE] = 0.5 * res.dt_last
+            iscal[K.IS_RUN] = 1
+            sweep(cfg, src, dst, p, partials, scal, iscal, 1.0, True,
+                  ghosts[s.index], s.n_real)
+            ref = K.sweep_plain(cfg, axis, *src, scal[K.SC_DTUSE] * 1.0,
+                                ghosts[s.index], s.n_real)
+            checks.append((dst + (p,), ref[:5], r))
+            mx, my = K.cfl_partial_plain(cfg, ref[1], ref[2], ref[5], s.n_real)
+            tol = 1e-4 if fast else 0.0
+            assert abs(partials[0].max() - mx) <= tol * mx
+            assert abs(partials[1].max() - my) <= tol * my
+        _close_on_mesh(checks, fast)
+
+
+@pytest.mark.parametrize("x_first", [True, False], ids=["xy", "yx"])
+@pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
+                                        ("float32", True)],
+                         ids=["f64", "f32-exact", "f32-fast"])
+@pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
+def test_slab_cycle_matches_plain(card, test, dtype, fast, x_first):
+    """K4 with Y slabs and the X mirror after the splice (the `slab_y`
+    variant of `_cycle_kernel`) against `cycle_plain`, on every shard of a
+    1x3 mesh with an uneven Y split. Its first sweep runs on the ghost
+    rows, so the corner cells (the X mirror of slab rows) reach real
+    cells: this is the case that checks them."""
+    cfg, mesh, res = _mesh_state(test, dtype, fast, (1, 3), (96, 100), **PAIR)
+    assert route_of(cfg) == "pair"
+    cur = [tuple(c[:4]) for c in res.carry]
+    ghosts = halo_slabs(cfg, mesh, cur, armon_torch.Axis.Y)
+    checks = []
+    for s in mesh:
+        src = cur[s.index]
+        r = real_slice(cfg, s.n_real)
+        dst = tuple(torch.empty_like(a) for a in src)
+        p = torch.empty_like(src[0])
+        nb = C.n_partials(src[0].shape, card)
+        partials = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
+        scal, iscal = K.new_scalars(cfg.dtype, card)
+        scal[K.SC_DTUSE] = 0.5 * res.dt_last
+        iscal[K.IS_RUN] = 1
+        C.cycle(cfg, x_first, 0.5, 1.0, src, dst, p, partials, scal, iscal,
+                True, ghosts[s.index], s.n_real)
+        dt = scal[K.SC_DTUSE]
+        ref = C.cycle_plain(cfg, x_first, *src, dt * 0.5, dt * 1.0,
+                            ghosts[s.index], s.n_real)
+        checks.append((dst + (p,), ref[:5], r))
+        tol = 1e-4 if fast else 0.0
+        assert abs(partials[0].max() - ref[5]) <= tol * ref[5]
+        assert abs(partials[1].max() - ref[6]) <= tol * ref[6]
+    _close_on_mesh(checks, fast)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("P,N,route", [
+    ((2, 2), (100, 100), {}), ((3, 2), (100, 99), {}),
+    ((1, 2), (100, 100), PAIR), ((1, 3), (64, 100), PAIR)],
+    ids=["2x2", "3x2-uneven", "1x2-pair", "1x3-pair-uneven"])
+def test_mesh_run_matches_single_on_card(card, P, N, route, dtype):
+    """A mesh on one card (every shard on cuda:0) equals the one-device
+    run bit for bit in exact mode: t, cycles, dt and the real cells."""
+    opts = dict(test="Sod_circ", N=N, data_type=dtype, maxcycle=20,
+                use_fast_math=False, silent=5, return_data=True, **route)
+    K.reset_launches()
+    a = armon_torch.armon(armon_torch.ArmonParameters(
+        device="cuda", P=P, devices=["cuda:0"] * (P[0] * P[1]), **opts))
+    slab = "cycle_slab" if route else "y_sweep_slab"
+    assert K.LAUNCHES[slab] > 0
+    b = armon_torch.armon(armon_torch.ArmonParameters(device="cuda", **opts))
+    assert (a.cycles, a.final_time, a.last_dt) == (b.cycles, b.final_time, b.last_dt)
+    g = 4
+    for name in ("rho", "u", "v", "E", "p"):
+        x = getattr(a.data, name)[g:-g, g:-g]
+        y = getattr(b.data, name)[g:-g, g:-g]
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("P,devices,route", [
+    ((2, 2), None, {}), ((1, 4), None, PAIR),
+    ((3, 1), ["cuda:0", "cuda:1", "cuda:0"], {})],
+    ids=["2x2", "1x4-pair", "3x1-shared"])
+def test_mesh_on_four_cards(card, P, devices, route, dtype):
+    """Shards on several cards (by default cuda:0..n-1; the last case
+    shares a card between two shards) equal the one-device run bit for
+    bit: the cross-card slab copies, the partials gathered to the first
+    card and the loop scalars copied out to the others."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    opts = dict(test="Sod_circ", N=(200, 120), data_type=dtype, maxcycle=20,
+                use_fast_math=False, silent=5, return_data=True, **route)
+    place = dict(P=P) if devices is None else dict(P=P, devices=devices)
+    a = armon_torch.armon(armon_torch.ArmonParameters(device="cuda", **place,
+                                                      **opts))
+    b = armon_torch.armon(armon_torch.ArmonParameters(device="cuda", **opts))
+    assert (a.cycles, a.final_time, a.last_dt) == (b.cycles, b.final_time, b.last_dt)
+    g = 4
+    for name in ("rho", "u", "v", "E", "p"):
+        x = getattr(a.data, name)[g:-g, g:-g].cpu()
+        y = getattr(b.data, name)[g:-g, g:-g].cpu()
+        assert torch.equal(x, y), name

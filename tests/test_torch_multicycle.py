@@ -67,7 +67,7 @@ def test_multicycle_matches_jax(maxcycle, extra):
 
 def _loop(check_every=8, **kw):
     params = armon_torch.ArmonParameters(device="cpu", silent=5, **kw)
-    fs, seed = make_init_fused(params)()
+    [fs], seed = make_init_fused(params)()
     return routing.route(params.config), make_time_loop_lean(params.config)(
         fs, 0.0, 0, 0.0, float(seed), check_every=check_every)
 

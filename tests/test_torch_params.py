@@ -83,7 +83,8 @@ def test_nghost_floor_is_stencil_sum(scheme, projection, floor):
 @pytest.mark.parametrize("opt", [
     dict(write_output=True), dict(write_slices=True), dict(compare=True),
     dict(checkpoint_step=5), dict(animation_step=2), dict(log_blocks=True),
-    dict(profiling="trace"), dict(silent=1), dict(silent=0), dict(P=(2, 1)),
+    dict(profiling="trace"), dict(silent=1), dict(silent=0),
+    dict(P=(2, 1), num_processes=2),
     dict(kernel_tier="jnp"), dict(coordinator_address="localhost:1234"),
     dict(block_size=(8, 128)),
 ], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))))

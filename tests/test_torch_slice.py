@@ -95,7 +95,7 @@ def test_stop_check_interval_is_bitwise_neutral(splitting):
     cfg = params.config
     results = []
     for every in (1, 8):
-        fs, seed = make_init_fused(params)()
+        [fs], seed = make_init_fused(params)()
         results.append(make_time_loop_lean(cfg)(fs, 0.0, 0, 0.0, float(seed),
                                                 check_every=every))
     r1, r8 = results

@@ -96,7 +96,7 @@ def test_sweep_pass_through_when_not_running():
     p = armon_torch.ArmonParameters(device="cpu", test="Sod_circ", N=(16, 16))
     cfg = p.config
     from armon_torch.core.solver import make_init_fused
-    fs, _ = make_init_fused(p)()
+    [fs], _ = make_init_fused(p)()
     src = (fs.rho, fs.u, fs.v, fs.E)
     dst = tuple(torch.full_like(a, float("nan")) for a in src)
     pp = fs.p.clone()
