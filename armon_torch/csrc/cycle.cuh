@@ -71,6 +71,21 @@ template <int L> struct Tile {
 constexpr int CYCLE_L = 64;  // K4: 56 x 56 tiles, 1.22x recompute
 constexpr int MULTI_L = 32;  // K5: 24 x 24 tiles, more blocks on small grids
 
+// Measurement variants of K4 for the cycle probe
+// (armon_torch/probes/cycle_variants.py, after scripts/perf_probe.py), a
+// compile-time parameter of `cycle_tile` / `cycle_kernel` whose default,
+// CV_BASE, is the production kernel; the variants are instantiated only in
+// probe_cycle.cu. NO_P: the stale p is not written. NO_DT: no CFL partials
+// (and no sound speed formed for them). NO_ROLL: every shifted read of
+// `sweep_body` replaced by the own value times (1 + 1e-7 k). STREAM: the
+// same loads, windows, passes and stores with trivial math (fields copied,
+// p = rho + u + v + E).
+enum CycleVariant { CV_BASE = 0, CV_NO_P, CV_NO_DT, CV_NO_P_DT, CV_NO_ROLL, CV_STREAM };
+__host__ __device__ constexpr bool cv_writes_p(int v) { return v != CV_NO_P && v != CV_NO_P_DT; }
+__host__ __device__ constexpr bool cv_dt(int v) {
+  return v == CV_BASE || v == CV_NO_P || v == CV_NO_ROLL;
+}
+
 struct CycleArgs {
   const void* src[4];     // rho, u, v, E (input)
   void* dst[4];           // rho, u, v, E (output, distinct buffers)
@@ -108,7 +123,7 @@ template <typename T> struct Fields { T* f[4]; };
 // One cycle of one R x R tile (see the file note). Accumulates the CFL
 // maxima of the tile's real cells into mx / my when emitting. Every thread
 // of the block must call it.
-template <typename T, bool FAST, bool BIZ, int L>
+template <typename T, bool FAST, bool BIZ, int L, int V = CV_BASE>
 __device__ __forceinline__ void cycle_tile(const CycleArgs& a, Fields<const T> src,
                                            Fields<T> dst, T* p_out, T dtx, T dty,
                                            bool x_first, bool emit, T* S, T* F,
@@ -158,9 +173,13 @@ __device__ __forceinline__ void cycle_tile(const CycleArgs& a, Fields<const T> s
       const T v = __ldcg(base[2] + idx) * fac[2];
       const T E = __ldcg(base[3] + idx) * fac[3];
       T r2, a2, o2, e2, p, c;
-      sweep_body<T, FAST, BIZ, NT>(S, tid, tm, tp, a.k, a.riemann, a.limiter,
-                                   a.projection, dt, dx, inv, false, rho,
-                                   ax ? u : v, ax ? v : u, E, r2, a2, o2, e2, p, c);
+      if (V == CV_STREAM) {
+        r2 = rho, a2 = ax ? u : v, o2 = ax ? v : u, e2 = E;
+      } else {
+        sweep_body<T, FAST, BIZ, NT, V != CV_NO_ROLL>(
+            S, tid, tm, tp, a.k, a.riemann, a.limiter, a.projection, dt, dx, inv,
+            false, rho, ax ? u : v, ax ? v : u, E, r2, a2, o2, e2, p, c);
+      }
       if (pos >= HALO && pos < HALO + R) {
         const int o = line * FP + pos - HALO;
         F[o] = r2;
@@ -189,9 +208,14 @@ __device__ __forceinline__ void cycle_tile(const CycleArgs& a, Fields<const T> s
       const int o = pos * FP + line;
       const T rho = F[o], u = F[FS + o], v = F[2 * FS + o], E = F[3 * FS + o];
       T r2, a2, o2, e2, p, c;
-      sweep_body<T, FAST, BIZ, NT>(S, tid, tm, tp, a.k, a.riemann, a.limiter,
-                                   a.projection, dt, dx, inv, emit, rho,
-                                   ax ? u : v, ax ? v : u, E, r2, a2, o2, e2, p, c);
+      if (V == CV_STREAM) {
+        r2 = rho, a2 = ax ? u : v, o2 = ax ? v : u, e2 = E;
+        p = ((rho + u) + v) + E;
+      } else {
+        sweep_body<T, FAST, BIZ, NT, V != CV_NO_ROLL>(
+            S, tid, tm, tp, a.k, a.riemann, a.limiter, a.projection, dt, dx, inv,
+            emit && cv_dt(V), rho, ax ? u : v, ax ? v : u, E, r2, a2, o2, e2, p, c);
+      }
       if (pos >= HALO && pos < HALO + R) {
         const long long gr = ax ? r0 + line : r0 + pos - HALO;
         const long long gc = ax ? c0 + pos - HALO : c0 + line;
@@ -203,9 +227,9 @@ __device__ __forceinline__ void cycle_tile(const CycleArgs& a, Fields<const T> s
           dst.f[2][w] = v2;
           dst.f[3][w] = e2;
           if (emit) {
-            p_out[w] = p;
+            if (cv_writes_p(V)) p_out[w] = p;
             // `_dt_tile_min`: post-sweep velocities, pre-sweep c.
-            if (gr >= g && gr < g + a.ny && gc >= g && gc < g + a.nx) {
+            if (cv_dt(V) && gr >= g && gr < g + a.ny && gc >= g && gc < g + a.nx) {
               mx = jmax(mx, fabs(u2) + c);
               my = jmax(my, fabs(v2) + c);
             }
@@ -242,7 +266,7 @@ __device__ __forceinline__ Fields<T> fields(void* const* p) {
            reinterpret_cast<T*>(p[2]), reinterpret_cast<T*>(p[3])}};
 }
 
-template <typename T, bool FAST, bool BIZ, int L>
+template <typename T, bool FAST, bool BIZ, int L, int V = CV_BASE>
 __global__ void __launch_bounds__(Tile<L>::NT) cycle_kernel(const CycleArgs a) {
   constexpr int NT = Tile<L>::NT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -256,10 +280,10 @@ __global__ void __launch_bounds__(Tile<L>::NT) cycle_kernel(const CycleArgs a) {
   }
   const T dt_use = reinterpret_cast<const T*>(a.scal)[3];
   T mx = T(0), my = T(0);  // the TPU's zero-initialised max block
-  cycle_tile<T, FAST, BIZ, L>(a, src, dst, reinterpret_cast<T*>(a.p),
-                              dt_use * T(a.fx), dt_use * T(a.fy), a.x_first != 0,
-                              a.emit != 0, S, F, mx, my);
-  if (!a.emit) return;
+  cycle_tile<T, FAST, BIZ, L, V>(a, src, dst, reinterpret_cast<T*>(a.p),
+                                 dt_use * T(a.fx), dt_use * T(a.fy), a.x_first != 0,
+                                 a.emit != 0, S, F, mx, my);
+  if (!a.emit || !cv_dt(V)) return;
   block_max2<T, NT>(S, threadIdx.x, mx, my);
   if (threadIdx.x == 0) {
     const long long b = (long long)blockIdx.y * gridDim.x + blockIdx.x;
@@ -357,15 +381,14 @@ inline int check_tile_geometry(const CycleArgs* a, int L, bool partials) {
   return 0;
 }
 
-template <typename T, bool FAST, bool BIZ>
+template <typename T, bool FAST, bool BIZ, int L = CYCLE_L, int V = CV_BASE>
 int launch_cycle(const CycleArgs& a, cudaStream_t s) {
-  constexpr int L = CYCLE_L;
   const size_t smem = Tile<L>::template smem<T>();
-  cudaError_t e = cudaFuncSetAttribute(cycle_kernel<T, FAST, BIZ, L>,
+  cudaError_t e = cudaFuncSetAttribute(cycle_kernel<T, FAST, BIZ, L, V>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  cycle_kernel<T, FAST, BIZ, L><<<dim3(a.grid_x, a.grid_y), Tile<L>::NT, smem, s>>>(a);
+  cycle_kernel<T, FAST, BIZ, L, V><<<dim3(a.grid_x, a.grid_y), Tile<L>::NT, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

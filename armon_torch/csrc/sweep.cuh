@@ -243,7 +243,13 @@ __device__ __forceinline__ long long ghost_src(long long k, int g, int n_real,
 // block must call it: it holds barriers. In: the axis velocity `ua`, the
 // other one `uo`. Out: the swept (rho, ua, uo, E) and the pre-sweep p and
 // c (c only when need_c, or always in exact mode).
-template <typename T, bool FAST, bool BIZ, int NS>
+//
+// SHIFT = false is the `no_roll` measurement variant of the cycle probe
+// (armon_torch/probes/cycle_variants.py, scripts/perf_probe.py:80-87):
+// every read at k-1 / k+1 takes the thread's own value times (1 + 1e-7 k)
+// instead, with no shared-memory traffic and no barrier. Wrong numerics by
+// design; production code always has SHIFT = true.
+template <typename T, bool FAST, bool BIZ, int NS, bool SHIFT = true>
 __device__ __forceinline__ void sweep_body(
     T* S, int tid, int tm, int tp, const double* kk, int riemann, int lim,
     int projection, T dt, T dx, T inv_dx, bool need_c,
@@ -251,20 +257,30 @@ __device__ __forceinline__ void sweep_body(
     T& rho_o, T& ua_o, T& uo_o, T& E_o, T& p, T& c) {
   typedef Div<T, FAST> D;
   auto sv = [S](int j, int i) -> T& { return S[j * NS + i]; };
+  // Stage value j at slot t (tm: k-1, tp: k+1); `own` is this thread's.
+  auto nb = [&](int j, int t, T own, int k) -> T {
+    return SHIFT ? sv(j, t) : own * T(1 + 1e-7 * k);
+  };
+  auto sync = [] {
+    if (SHIFT) __syncthreads();
+  };
 
   // ---- stage 1: EOS of the input state
   T rc, rr = T(0);
   c = T(0);
   eos_prc<T, FAST, BIZ>(kk, rho, ua, uo, E, need_c, p, rc, c, rr);
   const T dm = rho * dx;
-  sv(0, tid) = dm;
-  sv(1, tid) = ua;
-  sv(2, tid) = p;
-  sv(3, tid) = rc;
-  __syncthreads();
+  if (SHIFT) {
+    sv(0, tid) = dm;
+    sv(1, tid) = ua;
+    sv(2, tid) = p;
+    sv(3, tid) = rc;
+  }
+  sync();
 
   // ---- stage 2: Godunov solve at the k-1/2 interface (`_godunov`)
-  const T dm_l = sv(0, tm), u_m = sv(1, tm), p_m = sv(2, tm), rc_l = sv(3, tm);
+  const T dm_l = nb(0, tm, dm, -1), u_m = nb(1, tm, ua, -1), p_m = nb(2, tm, p, -1),
+          rc_l = nb(3, tm, rc, -1);
   const T rc_sum = rc_l + rc;
   T us_i, ps_i;
   {
@@ -283,29 +299,33 @@ __device__ __forceinline__ void sweep_body(
       theta = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
     }
   }
-  sv(4, tid) = e_u;
-  sv(5, tid) = e_p;
-  sv(6, tid) = d_u;
-  sv(7, tid) = d_p;
-  __syncthreads();
+  if (SHIFT) {
+    sv(4, tid) = e_u;
+    sv(5, tid) = e_p;
+    sv(6, tid) = d_u;
+    sv(7, tid) = d_p;
+  }
+  sync();
 
   // ---- stage 3: GAD limiter blend (src/riemann_schemes.jl:55-104)
   T ustar = us_i, pstar = ps_i;
   if (riemann == 1) {
     const T eps = T(1e-6);
-    const T r_um = limiter(lim, D::divc(sv(4, tp), e_u + eps));
-    const T r_pm = limiter(lim, D::divc(sv(5, tp), e_p + eps));
-    const T r_up = limiter(lim, D::divc(sv(6, tm), d_u + eps));
-    const T r_pp = limiter(lim, D::divc(sv(7, tm), d_p + eps));
+    const T r_um = limiter(lim, D::divc(nb(4, tp, e_u, 1), e_u + eps));
+    const T r_pm = limiter(lim, D::divc(nb(5, tp, e_p, 1), e_p + eps));
+    const T r_up = limiter(lim, D::divc(nb(6, tm, d_u, -1), d_u + eps));
+    const T r_pp = limiter(lim, D::divc(nb(7, tm, d_p, -1), d_p + eps));
     ustar = us_i + theta * (r_up * d_u - r_um * e_u);
     pstar = ps_i + theta * (r_pp * d_p - r_pm * e_p);
   }
-  sv(0, tid) = ustar;
-  sv(1, tid) = pstar;
-  __syncthreads();
+  if (SHIFT) {
+    sv(0, tid) = ustar;
+    sv(1, tid) = pstar;
+  }
+  sync();
 
   // ---- stage 4: Lagrangian cell update (src/kernels.jl:58-68)
-  const T us_p = sv(0, tp), ps_p = sv(1, tp);
+  const T us_p = nb(0, tp, ustar, 1), ps_p = nb(1, tp, pstar, 1);
   const T dX = dx + dt * (us_p - ustar);
   const T rho1 = D::div(dm, dX);
   const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * rr : D::div(dt, dm);
@@ -313,22 +333,24 @@ __device__ __forceinline__ void sweep_body(
   const T E1 = E + dt_dm * (pstar * ustar - ps_p * us_p);
   const T disp = dt * ustar;
   const bool up = disp > T(0);
-  const T dxe = up ? (dt * sv(0, tm) - dx) : (dx + dt * sv(0, tp));
+  const T dxe = up ? (dt * nb(0, tm, ustar, -1) - dx) : (dx + dt * nb(0, tp, ustar, 1));
   T q[4] = {rho1, rho1 * ua1, rho1 * uo, rho1 * E1};
-  sv(4, tid) = dX;
-  for (int j = 0; j < 4; ++j) sv(5 + j, tid) = q[j];
-  __syncthreads();
+  if (SHIFT) {
+    sv(4, tid) = dX;
+    for (int j = 0; j < 4; ++j) sv(5 + j, tid) = q[j];
+  }
+  sync();
 
   // ---- stage 5: upwind values and limited slopes (slope_shift form)
   const bool second = projection == 1;
-  const T dXm = sv(4, tm), dXp = sv(4, tp);
+  const T dXm = nb(4, tm, dX, -1), dXp = nb(4, tp, dX, 1);
   const T dxl = up ? dXm : dX;
   T qi[4];
   {
     const T r_m = D::divc(T(2) * dX, dX + dXm);
     const T r_p = D::divc(T(2) * dX, dX + dXp);
     for (int j = 0; j < 4; ++j) {
-      const T qm = sv(5 + j, tm), qp = sv(5 + j, tp);
+      const T qm = nb(5 + j, tm, q[j], -1), qp = nb(5 + j, tp, q[j], 1);
       qi[j] = up ? qm : q[j];
       const T du_p = r_p * (qp - q[j]);
       const T du_m = r_m * (q[j] - qm);
@@ -337,23 +359,29 @@ __device__ __forceinline__ void sweep_body(
     }
   }
   // S[0..3] were last read in stage 4, before its barrier.
-  for (int j = 0; j < 4; ++j) sv(j, tid) = second ? q[j] : disp * qi[j];
-  __syncthreads();
+  T s5[4];  // what S[0..3] hold (read from registers only without SHIFT)
+  for (int j = 0; j < 4; ++j) s5[j] = second ? q[j] : disp * qi[j];
+  if (SHIFT) {
+    for (int j = 0; j < 4; ++j) sv(j, tid) = s5[j];
+  }
+  sync();
 
   // ---- stage 6: advection fluxes (src/projection_schemes.jl:62-124)
   T adv[4];
   if (second) {
     const T lf = D::divc(dxe, T(2) * dxl);
     for (int j = 0; j < 4; ++j) {
-      const T sl = up ? sv(j, tm) : sv(j, tid);
+      const T sl = up ? nb(j, tm, s5[j], -1) : (SHIFT ? sv(j, tid) : s5[j]);
       adv[j] = disp * (qi[j] - sl * lf);
     }
   } else {
-    for (int j = 0; j < 4; ++j) adv[j] = sv(j, tid);
+    for (int j = 0; j < 4; ++j) adv[j] = SHIFT ? sv(j, tid) : s5[j];
   }
   // S[4..8] were last read in stage 5, before its barrier.
-  for (int j = 0; j < 4; ++j) sv(4 + j, tid) = adv[j];
-  __syncthreads();
+  if (SHIFT) {
+    for (int j = 0; j < 4; ++j) sv(4 + j, tid) = adv[j];
+  }
+  sync();
 
   // ---- stage 7: projection (src/projection_schemes.jl:23-41). S[0..3]
   // were last read in stage 6, so a caller may reuse them right after.
@@ -362,7 +390,7 @@ __device__ __forceinline__ void sweep_body(
     const T dXr = dX * rho1;
     const T num[4] = {dXr, dXr * ua1, dXr * uo, dXr * E1};
     for (int j = 0; j < 4; ++j) {
-      const T v = num[j] - (sv(4 + j, tp) - adv[j]);
+      const T v = num[j] - (nb(4 + j, tp, adv[j], 1) - adv[j]);
       tmp[j] = FAST ? v * inv_dx : v / dx;
     }
   }

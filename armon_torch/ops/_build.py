@@ -3,7 +3,11 @@
 Each source compiles with nvcc for `sm_90a` into a shared library with a
 plain C interface, loaded with ctypes: the per-sweep kernels K1/K2
 (`sweep_f*.cu`), K3 (`cfl.cu`), the whole-cycle kernel K4 (`cycle_f*.cu`)
-and the K-cycles kernel K5 (`multicycle_f*.cu`, a cooperative launch).
+and the K-cycles kernel K5 (`multicycle_f*.cu`, a cooperative launch),
+and the probes' kernels (`armon_torch/probes/`): the mirror fill, copy
+and I/O ladder (`probe_stream.cu`), the sweep chain in f32, f64 and
+float-float (`probe_ff.cu`, `chain.cuh`), the per-class rate chains
+(`probe_rates.cu`) and K4's measurement variants (`probe_cycle.cu`).
 The sources are compiled in
 parallel (one nvcc each) on first use, into ``build/armon_torch/`` at the
 root of the checkout, under a name that hashes the sources and flags, so
@@ -35,8 +39,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "armon_torch")
 SOURCES = ("sweep_f32.cu", "sweep_f64.cu", "cfl.cu", "cycle_f32.cu",
-           "cycle_f64.cu", "multicycle_f32.cu", "multicycle_f64.cu")
-HEADERS = ("common.cuh", "sweep.cuh", "cycle.cuh")
+           "cycle_f64.cu", "multicycle_f32.cu", "multicycle_f64.cu",
+           "probe_stream.cu", "probe_ff.cu", "probe_rates.cu",
+           "probe_cycle.cu")
+HEADERS = ("common.cuh", "sweep.cuh", "cycle.cuh", "chain.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -133,6 +139,18 @@ class MultiArgs(ctypes.Structure):
     ]
 
 
+class ChainArgs(ctypes.Structure):
+    """Mirror of `armon::probe::ChainArgs` (csrc/probe_ff.cu)."""
+    _fields_ = [("src", ctypes.c_void_p * 8), ("dst", ctypes.c_void_p * 8),
+                ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong)]
+
+
+class IoArgs(ctypes.Structure):
+    """Mirror of `armon::probe::IoArgs` (csrc/probe_stream.cu)."""
+    _fields_ = [("f", ctypes.c_void_p * 4), ("p", ctypes.c_void_p),
+                ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong)]
+
+
 def _nvcc():
     path = shutil.which("nvcc")
     if path is None:
@@ -201,6 +219,18 @@ def load():
                 fn = getattr(libs[f"{stem}_f{bits}"], f"armon_{stem}_f{bits}")
                 fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        for stem, name, args in (
+                ("probe_stream", "armon_flip", [ci, vp, vp, ll, ll, ci, vp]),
+                ("probe_stream", "armon_io_ladder",
+                 [ci, ctypes.POINTER(IoArgs), vp]),
+                ("probe_ff", "armon_chain", [ci, ctypes.POINTER(ChainArgs), vp]),
+                ("probe_rates", "armon_rate", [ci, vp, vp, ll, ci, vp]),
+                ("probe_cycle", "armon_cycle_variant_f32",
+                 [ci, ci, ctypes.POINTER(CycleArgs), vp])):
+            fn = getattr(libs[stem], name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
         libs["cfl"].armon_error_string.argtypes = [ctypes.c_int]
         libs["cfl"].armon_error_string.restype = ctypes.c_char_p
         _LIBS = libs
@@ -440,3 +470,25 @@ def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
     fn = getattr(libs[f"multicycle_f{bits}"], f"armon_multicycle_f{bits}")
     rc = _launch(fn, src[0].device, ctypes.byref(m))
     _check_status(rc, "multicycle")
+
+
+def launch_probe(stem, name, device, *args):
+    """Launch a probe kernel of library `stem` (function `name`) on the
+    current stream of `device`; raises if the launcher refuses it."""
+    rc = _launch(getattr(load()[stem], name), device, *args)
+    _check_status(rc, name)
+
+
+def launch_cycle_variant(cfg, variant, tile, x_first, fx, fy, src, dst, p,
+                         partials, scal, iscal):
+    """Launch one of K4's measurement variants (csrc/probe_cycle.cu), an
+    emitting launch over tiles of edge `tile`, on the current stream."""
+    from .cycle import tile_grid
+    T = np.dtype(cfg.dtype).type
+    gx, gy = tile_grid(tile, src[0].shape)
+    stride = _partials_stride(partials, src[0].dtype, src[0].device, gx * gy)
+    a = _cycle_args(cfg, tile, src, dst, p, partials, scal, iscal, stride)
+    a.emit, a.x_first = 1, int(x_first)
+    a.fx, a.fy = float(T(fx)), float(T(fy))
+    launch_probe("probe_cycle", "armon_cycle_variant_f32", src[0].device,
+                 int(variant), int(tile), ctypes.byref(a))

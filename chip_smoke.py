@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4, 6 and 7, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-8, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
+    python3 chip_smoke.py --phases 0,8    # the probes only
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), the kernels' build time
@@ -34,8 +35,8 @@ Phases, each printing one JSON line:
      `pair_threshold` and `temporal_blocking` on this card: per-sweep
      against pair at 256^2-8192^2, K1/K2/K4 times at 8192^2, pair against
      multicycle on small grids;
-  6. the per-kernel summary line (all eight kernels; printed last, after
-     phase 7);
+  6. the per-kernel summary line (the eight solver kernels and the probe
+     kernels; printed last, after phase 8);
   7. domain-decomposed runs (P != (1, 1)), every shard on cuda:0: the slab
      variants of K1/K2 (X/Y slabs, a 3x3 mesh of 1024^2 shards) and of K4
      (Y slabs with the X mirror after the splice, corner cells, a 1x3
@@ -50,7 +51,19 @@ Phases, each printing one JSON line:
      the slab variants on those runs' final states (the first and the last
      shard), bit for bit against their plain versions in f32 exact and
      f64, within the fast-math gate as timed; and, where the machine has
-     four cards, the 2x2 check on cuda:0-3.
+     four cards, the 2x2 check on cuda:0-3;
+  8. the probes (`armon_torch/probes/`, the card counterparts of the TPU
+     probes under `scripts/`): each probe's entry point at its default
+     sizes (flip at 512x1024 and 8200^2, ff at 1024^2, the I/O ladder at
+     8192^2, the rate classes at 8192^2, K4's variants at Sod 4096^2 and
+     8192^2), printing its own lines with the card, its launches counted;
+     then each probe kernel against its plain version at the shapes it
+     was timed at, and a small one (bit for bit where the arithmetic is
+     exact, within a stated gate elsewhere).
+
+Every kernel time is the best of 3 passes of back-to-back CUDA-event
+timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
+probes), so host launch time does not enter it.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Without a CUDA card, or without the `armon_torch` package next
@@ -58,24 +71,26 @@ to this file, it exits non-zero at once. It imports nothing of JAX.
 """
 
 import argparse
-import json
 import os
-import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF_DIR = os.path.join(HERE, "tests", "reference_data")
 
-# H100 SXM data-sheet peaks (dense, no sparsity), for the bounds.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-# Floating-point operations per cell of one sweep, counted from the device
-# body in csrc/sweep.cuh (GAD + minmod + euler_2nd, perfect gas; a divide
-# or a square root counts as one): EOS 12, Riemann solve and theta 26,
-# limiter blend 26, Lagrangian update 19, slopes 46, advection 14,
-# projection 19.
-SWEEP_FLOPS_PER_CELL = 162
+sys.path.insert(0, HERE)
+try:  # the timing, bound and card line every timed row shares
+    from armon_torch._card import bound, card_line, emit, time_ms
+except ModuleNotFoundError as exc:  # alone, without its package: main exits 2
+    if exc.name != "armon_torch":
+        raise
+
+# Operations per cell of one sweep (GAD + minmod + euler_2nd, perfect gas;
+# a divide or a square root counts as one): the census of the sweep's
+# plain version, `python -m armon_torch.probes.roofline` (add 19, sub 34,
+# mul 65, div 22, sqrt 1, min 8, max 8, compares 9, selects 18, abs 4,
+# negations 4).
+SWEEP_OPS_PER_CELL = 192
 
 MAIN_N = 8192
 MAIN_CYCLES = 100
@@ -85,38 +100,10 @@ PER_SWEEP = dict(pair_threshold=0, temporal_blocking=1)
 PAIR = dict(temporal_blocking=1)
 
 
-def emit(obj):
-    print(json.dumps(obj), flush=True)
-
-
-def bound_ms(nbytes, nflops, dtype="float32"):
-    """(least ms, "bytes" or "operations"): the larger of the bytes over the
-    HBM rate and the flops over the peak rate of the type."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = nflops / PEAK_FLOPS[dtype] * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, reps=10):
-    """CUDA-event time of `fn` per call over `reps` calls, after one
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def bound_f32(nbytes, nops):
+    """`bound` with `nops` f32 operations (the kernels are built with
+    -fmad=false, so an operation is one lane instruction)."""
+    return bound(nbytes, {"float32": nops})
 
 
 def compare(torch, a, b, g):
@@ -386,22 +373,22 @@ def phase3(torch):
     scal[K.SC_DTUSE] = stats.last_dt
     iscal[K.IS_RUN] = 1
     field_bytes = st.rho.numel() * st.rho.element_size()
-    flops = SWEEP_FLOPS_PER_CELL * st.rho.numel()
+    ops = SWEEP_OPS_PER_CELL * st.rho.numel()
 
     saved = dict(K.LAUNCHES)
-    x_ms = time_ms(torch, lambda: K.x_sweep(cfg, fs_src, dst, p, partials, scal,
-                                      iscal, 1.0, False), reps=20)
-    y_ms = time_ms(torch, lambda: K.y_sweep(cfg, fs_src, dst, p, partials, scal,
-                                      iscal, 1.0, True), reps=20)
+    x_ms = time_ms(lambda i: K.x_sweep(cfg, fs_src, dst, p, partials, scal,
+                                      iscal, 1.0, False), k=20)
+    y_ms = time_ms(lambda i: K.y_sweep(cfg, fs_src, dst, p, partials, scal,
+                                      iscal, 1.0, True), k=20)
     s2, i2 = scal.clone(), iscal.clone()  # K3 advances its own scalars
-    k3_ms = time_ms(torch, lambda: K.cfl_finish(cfg, partials, nby, s2, i2),
-                    reps=50)
+    k3_ms = time_ms(lambda i: K.cfl_finish(cfg, partials, nby, s2, i2),
+                    k=50)
     dt_t = scal[K.SC_DTUSE] * 1.0
-    xp_ms = time_ms(torch, lambda: K.sweep_plain(cfg, Axis.X, *fs_src, dt_t), reps=3)
-    yp_ms = time_ms(torch, lambda: K.sweep_plain(cfg, Axis.Y, *fs_src, dt_t), reps=3)
-    k3p_ms = time_ms(torch, lambda: K.cfl_finish_plain(cfg, partials, nby, s2.clone(),
-                                                 i2.clone()), reps=20)
-    amax_ms = time_ms(torch, lambda: torch.amax(partials[:, :nby], dim=1), reps=50)
+    xp_ms = time_ms(lambda i: K.sweep_plain(cfg, Axis.X, *fs_src, dt_t), k=3)
+    yp_ms = time_ms(lambda i: K.sweep_plain(cfg, Axis.Y, *fs_src, dt_t), k=3)
+    k3p_ms = time_ms(lambda i: K.cfl_finish_plain(cfg, partials, nby, s2.clone(),
+                                                 i2.clone()), k=20)
+    amax_ms = time_ms(lambda i: torch.amax(partials[:, :nby], dim=1), k=50)
 
     # Against the plain version at these shapes (f32 fast math vs exact).
     checks = check_sweeps(torch, params, FusedCarry(st.rho, st.u, st.v, st.E, st.p),
@@ -414,17 +401,17 @@ def phase3(torch):
 
     part_bytes = 2 * nby * st.rho.element_size()
     kernels = []
-    for name, src_file, replaces, ms, pms, nbytes, nflops, lib, diffs in (
+    for name, src_file, replaces, ms, pms, nbytes, nops, lib, diffs in (
             ("x_sweep", "armon_torch/csrc/sweep.cuh",
              "armon_tpu/ops/pallas/sweep.py:978", x_ms, xp_ms,
-             8 * field_bytes, flops, None, checks["X"]["fields"]),
+             8 * field_bytes, ops, None, checks["X"]["fields"]),
             ("y_sweep", "armon_torch/csrc/sweep.cuh",
              "armon_tpu/ops/pallas/sweep.py:1092", y_ms, yp_ms,
-             9 * field_bytes + part_bytes, flops, None, checks["Y"]["fields"]),
+             9 * field_bytes + part_bytes, ops, None, checks["Y"]["fields"]),
             ("cfl_finish", "armon_torch/csrc/cfl.cu",
              "armon_tpu/ops/pallas/sweep.py:968", k3_ms, k3p_ms,
              part_bytes + 64, 4 * nby, amax_ms, None)):
-        b_ms, b_by = bound_ms(nbytes, nflops)
+        b_ms, b_by = bound_f32(nbytes, nops)
         err = max(d[0] for d in diffs.values()) if diffs else \
             (0.0 if checks["Y"]["k3_equal"] else float("inf"))
         kernels.append({"name": name, "route": "cuda", "source": src_file,
@@ -735,14 +722,14 @@ def phase4(torch):
     scal, iscal = K.new_scalars(cfg.dtype, dev)
     scal[K.SC_DTUSE] = sedov_stats.last_dt
     iscal[K.IS_RUN] = 1
-    k4_ms = time_ms(torch, lambda: C.cycle(cfg, True, 1.0, 1.0, src, dst, p,
-                                           partials, scal, iscal, True), reps=20)
+    k4_ms = time_ms(lambda i: C.cycle(cfg, True, 1.0, 1.0, src, dst, p,
+                                           partials, scal, iscal, True), k=20)
     dt_t = scal[K.SC_DTUSE]
-    k4p_ms = time_ms(torch, lambda: C.cycle_plain(cfg, True, *src, dt_t, dt_t),
-                     reps=3)
+    k4p_ms = time_ms(lambda i: C.cycle_plain(cfg, True, *src, dt_t, dt_t),
+                     k=3)
     fb = st.rho.numel() * st.rho.element_size()
-    b_ms, b_by = bound_ms(9 * fb + 2 * nb * st.rho.element_size(),
-                          2 * SWEEP_FLOPS_PER_CELL * st.rho.numel())
+    b_ms, b_by = bound_f32(9 * fb + 2 * nb * st.rho.element_size(),
+                          2 * SWEEP_OPS_PER_CELL * st.rho.numel())
     kernels.append({"name": "cycle", "route": "cuda",
                     "source": "armon_torch/csrc/cycle.cuh",
                     "replaces": "armon_tpu/ops/pallas/sweep.py:1571",
@@ -775,12 +762,12 @@ def phase4(torch):
     a = _k5_inputs(torch, cfg, tuple(fs[:4]), fs.p, sc)
     b = _k5_inputs(torch, cfg, tuple(fs[:4]), fs.p, sc)
     part = C.new_multicycle_partials(st.rho.shape, cfg.dtype, dev)
-    k5_ms = time_ms(torch, lambda: C.multicycle(cfg, pairs, a[0], a[1], a[2],
-                                                part, a[3], a[4]), reps=20)
-    k5p_ms = time_ms(torch, lambda: C.multicycle_plain(cfg, pairs, len(pairs),
-                                                       *b), reps=2)
+    k5_ms = time_ms(lambda i: C.multicycle(cfg, pairs, a[0], a[1], a[2],
+                                                part, a[3], a[4]), k=20)
+    k5p_ms = time_ms(lambda i: C.multicycle_plain(cfg, pairs, len(pairs),
+                                                       *b), k=2)
     fb = st.rho.numel() * st.rho.element_size()
-    b_ms, b_by = bound_ms(10 * fb, 2 * SWEEP_FLOPS_PER_CELL * st.rho.numel()
+    b_ms, b_by = bound_f32(10 * fb, 2 * SWEEP_OPS_PER_CELL * st.rho.numel()
                           * len(pairs))
     kernels.append({"name": "multicycle", "route": "cuda",
                     "source": "armon_torch/csrc/cycle.cuh",
@@ -892,13 +879,13 @@ def phase5(torch):
     scal[K.SC_DTUSE] = res.dt_last
     iscal[K.IS_RUN] = 1
     out["kernel_ms_8192"] = {
-        "x_sweep": time_ms(torch, lambda: K.x_sweep(
-            cfg, src, dst, p, partials, scal, iscal, 1.0, False), reps=20),
-        "y_sweep": time_ms(torch, lambda: K.y_sweep(
-            cfg, src, dst, p, partials, scal, iscal, 1.0, True), reps=20),
-        "cycle": time_ms(torch, lambda: C.cycle(
+        "x_sweep": time_ms(lambda i: K.x_sweep(
+            cfg, src, dst, p, partials, scal, iscal, 1.0, False), k=20),
+        "y_sweep": time_ms(lambda i: K.y_sweep(
+            cfg, src, dst, p, partials, scal, iscal, 1.0, True), k=20),
+        "cycle": time_ms(lambda i: C.cycle(
             cfg, True, 1.0, 1.0, src, dst, p, partials, scal, iscal, True),
-            reps=20)}
+            k=20)}
 
     rows = []
     pairs = ((True, 1.0, 1.0),) * 8  # Sequential, K = 8
@@ -1188,23 +1175,23 @@ def phase7(torch, rates):
     gy = halo_slabs(cfg, mesh, cur, Axis.Y, bufs[Axis.Y])[0]
     saved = dict(K.LAUNCHES)
     ms = {
-        "x_sweep_slab": time_ms(torch, lambda: K.x_sweep(
+        "x_sweep_slab": time_ms(lambda i: K.x_sweep(
             cfg, src, dst, p, partials, scal, iscal, 1.0, False, gx, s0.n_real),
-            reps=20),
-        "y_sweep_slab": time_ms(torch, lambda: K.y_sweep(
+            k=20),
+        "y_sweep_slab": time_ms(lambda i: K.y_sweep(
             cfg, src, dst, p, partials, scal, iscal, 1.0, True, gy, s0.n_real),
-            reps=20)}
+            k=20)}
     s2, i2 = scal.clone(), iscal.clone()
-    ms["cfl_finish_4_shards"] = time_ms(torch, lambda: K.cfl_finish(
-        cfg, partials, len(mesh) * nby, s2, i2), reps=50)
-    ms["slab_copies_per_cycle"] = time_ms(torch, lambda: (
+    ms["cfl_finish_4_shards"] = time_ms(lambda i: K.cfl_finish(
+        cfg, partials, len(mesh) * nby, s2, i2), k=50)
+    ms["slab_copies_per_cycle"] = time_ms(lambda i: (
         halo_slabs(cfg, mesh, cur, Axis.X, bufs[Axis.X]),
-        halo_slabs(cfg, mesh, cur, Axis.Y, bufs[Axis.Y])), reps=20)
+        halo_slabs(cfg, mesh, cur, Axis.Y, bufs[Axis.Y])), k=20)
     dt_t = scal[K.SC_DTUSE] * 1.0
-    plain = {"x_sweep_slab": time_ms(torch, lambda: K.sweep_plain(
-                 cfg, Axis.X, *src, dt_t, gx, s0.n_real), reps=3),
-             "y_sweep_slab": time_ms(torch, lambda: K.sweep_plain(
-                 cfg, Axis.Y, *src, dt_t, gy, s0.n_real), reps=3)}
+    plain = {"x_sweep_slab": time_ms(lambda i: K.sweep_plain(
+                 cfg, Axis.X, *src, dt_t, gx, s0.n_real), k=3),
+             "y_sweep_slab": time_ms(lambda i: K.sweep_plain(
+                 cfg, Axis.Y, *src, dt_t, gy, s0.n_real), k=3)}
     del dst, p, partials, bufs, gx, gy
     sweep_err = {"X": 0.0, "Y": 0.0}
     for dtype, ecfg in _exact_cfgs("Sod", (MESH_N, MESH_N), **_one_card(MESH_P)):
@@ -1227,14 +1214,14 @@ def phase7(torch, rates):
     rows, cols = shape
     g = cfg.nghost
     isz = src[0].element_size()
-    flops = SWEEP_FLOPS_PER_CELL * src[0].numel()
+    ops = SWEEP_OPS_PER_CELL * src[0].numel()
     kernels = []
     for name, replaces, nbytes, err in (
             ("x_sweep_slab", "armon_tpu/ops/pallas/sweep.py:1008", 8 * fb
              + 4 * rows * g * isz, sweep_err["X"]),
             ("y_sweep_slab", "armon_tpu/ops/pallas/sweep.py:1118", 9 * fb
              + 4 * g * cols * isz + 2 * nby * isz, sweep_err["Y"])):
-        b_ms, b_by = bound_ms(nbytes, flops)
+        b_ms, b_by = bound_f32(nbytes, ops)
         kernels.append({"name": name, "route": "cuda",
                         "source": "armon_torch/csrc/sweep.cuh",
                         "replaces": replaces, "launches": sod["launches"][name],
@@ -1264,14 +1251,14 @@ def phase7(torch, rates):
     scal[K.SC_DTUSE] = stats.last_dt
     iscal[K.IS_RUN] = 1
     saved = dict(K.LAUNCHES)
-    k4_ms = time_ms(torch, lambda: C.cycle(cfg, True, 1.0, 1.0, src, dst, p,
+    k4_ms = time_ms(lambda i: C.cycle(cfg, True, 1.0, 1.0, src, dst, p,
                                            partials, scal, iscal, True,
                                            ghosts, mesh.shards[0].n_real),
-                    reps=20)
+                    k=20)
     dt_t = scal[K.SC_DTUSE]
-    k4p_ms = time_ms(torch, lambda: C.cycle_plain(cfg, True, *src, dt_t, dt_t,
+    k4p_ms = time_ms(lambda i: C.cycle_plain(cfg, True, *src, dt_t, dt_t,
                                                   ghosts, mesh.shards[0].n_real),
-                     reps=3)
+                     k=3)
     ends = (mesh.shards[0], mesh.shards[-1])  # Y slabs above, below
     cycle_err = 0.0
     for dtype, ecfg in _exact_cfgs("Sedov", (SEDOV_N, SEDOV_N), **_one_card(SEDOV_P)):
@@ -1291,9 +1278,9 @@ def phase7(torch, rates):
     sedov["single_device"] = rates.get("small")
     emit({"phase": 7, "timed_sedov_mesh": sedov})
     fb = src[0].numel() * src[0].element_size()
-    b_ms, b_by = bound_ms(9 * fb + 4 * cfg.nghost * src[0].shape[1]
+    b_ms, b_by = bound_f32(9 * fb + 4 * cfg.nghost * src[0].shape[1]
                           * src[0].element_size() + 2 * nb * src[0].element_size(),
-                          2 * SWEEP_FLOPS_PER_CELL * src[0].numel())
+                          2 * SWEEP_OPS_PER_CELL * src[0].numel())
     kernels.append({"name": "cycle_slab", "route": "cuda",
                     "source": "armon_torch/csrc/cycle.cuh",
                     "replaces": "armon_tpu/ops/pallas/sweep.py:1592",
@@ -1321,9 +1308,38 @@ def phase7(torch, rates):
     return kernels
 
 
+# --------------------------------------------------------------- probes
+
+def phase8(torch):
+    """The probes (see the module doc); returns their kernels-line
+    entries. Each probe's counts are set to 0 just before its entry point
+    runs and read just after; its checks against the plain versions do
+    not count."""
+    from armon_torch import probes
+    from armon_torch.probes import flip, ff, roofline_io, roofline, cycle_variants
+    kernels, launches = [], {}
+    for mod in (flip, ff, roofline_io, roofline, cycle_variants):
+        probes.reset_launches()
+        res = mod.run("cuda")
+        torch.cuda.synchronize()
+        counted = dict(probes.LAUNCHES)
+        errs = mod.check("cuda")
+        probes.reset_launches()
+        probes.LAUNCHES.update(counted)
+        entries = mod.entries(res, errs)
+        for e in entries:
+            if not e["launches"]:
+                raise AssertionError(f"probe {mod.__name__} never launched {e['name']}")
+        kernels += entries
+        launches.update(counted)
+    emit({"phase": 8, "card": card_line(), "launches": launches,
+          "max_abs_err": {e["name"]: e["max_abs_err"] for e in kernels}})
+    return kernels
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     args = ap.parse_args(argv)
@@ -1337,7 +1353,6 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
     t0 = time.perf_counter()
     if 0 in phases:
         phase0(torch)
@@ -1355,6 +1370,8 @@ def main(argv=None):
         phase5(torch)
     if 7 in phases:
         kernels += phase7(torch, rates)
+    if 8 in phases:
+        kernels += phase8(torch)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})

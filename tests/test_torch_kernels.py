@@ -433,3 +433,14 @@ def test_mesh_on_four_cards(card, P, devices, route, dtype):
         x = getattr(a.data, name)[g:-g, g:-g].cpu()
         y = getattr(b.data, name)[g:-g, g:-g].cpu()
         assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("probe", ["flip", "ff", "roofline_io", "roofline",
+                                   "cycle_variants"])
+def test_probe_kernels_match_plain(card, probe):
+    """Each probe kernel (`armon_torch/probes/`) against its plain version
+    on the card: bit for bit where the arithmetic is exact, within the
+    probe's stated gate elsewhere (its `check` raises otherwise)."""
+    import importlib
+    errs = importlib.import_module(f"armon_torch.probes.{probe}").check("cuda")
+    assert errs and all(v == v for v in errs.values())
