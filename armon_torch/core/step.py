@@ -93,7 +93,7 @@ def run_schedule(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
         last = i + step == len(schedule)
         axis = Axis.Y if is_pair else schedule[i][0]
         if last:
-            nb = C.n_partials(shape, device) if is_pair \
+            nb = C.n_partials(shape, device, cfg.dtype) if is_pair \
                 else K.n_partials(axis, shape, device)
             ops = parts[nb]
         ghosts = halo_slabs(cfg, mesh, cur, axis, slabs[axis]) \
@@ -158,7 +158,7 @@ def make_time_loop_lean(cfg, mesh=None):
         nbs = {K.n_partials(Axis.X, shape, dev0),
                K.n_partials(Axis.Y, shape, dev0)}
         if pair:
-            nbs.add(C.n_partials(shape, dev0))
+            nbs.add(C.n_partials(shape, dev0, cfg.dtype))
         # One K3 folds every shard's partials: for a last launch writing nb
         # per shard, shard s writes columns [s*nb, (s+1)*nb) of `partials`,
         # or, on another device, a buffer of its own copied in after the

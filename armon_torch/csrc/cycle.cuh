@@ -7,15 +7,55 @@
 // mesh sharded along Y included. K5 replaces `_multicycle_kernel` (:1905, with
 // `_mc_ext` :1883, called by `fused_multicycle` at :2046).
 //
-// Bound on this card. K4: memory. It reads rho/u/v/E once and writes them
-// and the stale p once, 36 B/cell in f32 against the 68 B/cell of the two
-// per-sweep kernels of a Sequential cycle, for ~2 x 162 flops/cell (times
-// ~1.2 for the recomputed halo): still under the f32 flop/byte ridge. K5:
+// Bound on this card. K4: its bytes and its instructions come close. It
+// reads rho/u/v/E once and writes them and the stale p once, 36 B/cell in
+// f32 against the 68 B/cell of the two per-sweep kernels of a Sequential
+// cycle, for 2 x 192 operations per cell (times ~1.2 for the recomputed
+// halo): at 8200^2, 0.72 ms of bytes and 0.77 ms of lane operations. On
+// the card it runs well above both, held back by instruction latency
+// (PERF.md). K5:
 // operations and latency. The grids it admits (<= 256 KiB per field) stay
 // in the 50 MB L2 for all K cycles, so the sweeps' flops and one grid-wide
 // barrier per cycle set its floor, not HBM.
 //
-// Design. A block owns an R x R output tile (R = L - 2 HALO) and works on
+// K4's design (`cycle_kernel`, the tile body redesigned for Hopper). A
+// block owns an RX x RY output tile and sweeps the WX x WY window around
+// it. A line (a window row along X, a window column along Y) belongs to
+// one warp, and each lane owns a run of PX (along X) or PY (along Y)
+// consecutive positions of it: `run_body` is `sweep_body` stage by stage
+// with the same operations in the same order at every position, but its
+// k-1 / k+1 reads come from the lane's own registers inside the run and
+// from `__shfl_up_sync` / `__shfl_down_sync` at its ends, so no block
+// barrier sits inside a sweep. Block barriers remain between the load (Y
+// first only), the first sweep, the second sweep and the store.
+//
+// Overlap of loads with math comes from resident blocks: f32 runs two
+// blocks of 16 warps per SM (K4Geom: 96 x 64 windows, 88 x 56 tiles, 113
+// KB of shared memory and at most 64 registers a thread), so one block's
+// loads and stores run under the other's math; a cp.async ring would need
+// a second window's shared memory. The window is small for that: the two
+// sweeps cover 1.195x the tile's cells X first, 1.169x Y first (the old
+// 56 x 56 tiles 1.22x). Larger windows at one block per SM (96 x 128,
+// 1.115x) measured slower: the kernel is latency-bound at 16 warps per
+// SM (PERF.md). f64 takes 64 x 64 windows, one block of 8 warps.
+//
+// X first, each warp loads its rows straight from device memory into
+// registers (a row is contiguous; the lanes' runs share cache lines),
+// the next row's loads issued before the current row's sweep. The
+// first sweep keeps its rows' RX inner positions in shared memory (4
+// planes), the second sweep runs down F's columns and writes its outputs
+// back in place (and p to a fifth plane), and the block then stores the
+// tile row by row, coalesced. Y first, a column loaded straight into a
+// lane's run would touch one cache line per position, so the block stages
+// the whole window in shared memory with coalesced row loads, then sweeps
+// its columns and its rows in place; p goes to device memory from the
+// rows' registers. The shared memory's layout skews row i by i / PY
+// words, so a warp reading a column (lane t at rows PY t ... PY t + PY -
+// 1) and a warp reading a row (lane t at columns PX t ... PX t + PX - 1,
+// PX odd) both hit 32 distinct banks.
+//
+// K5's design (`cycle_tile`, also run by the probe's `base_l32`): a block
+// owns an R x R output tile (R = L - 2 HALO) and works on
 // the L x L window around it. The load fills both ghost bands from the
 // pre-cycle state, Y mirror and X mirror (the X sweep is row-local and
 // exactly odd in v, so this equals filling before each sweep bit for bit:
@@ -68,18 +108,18 @@ template <int L> struct Tile {
   }
 };
 
-constexpr int CYCLE_L = 64;  // K4: 56 x 56 tiles, 1.22x recompute
 constexpr int MULTI_L = 32;  // K5: 24 x 24 tiles, more blocks on small grids
 
 // Measurement variants of K4 for the cycle probe
 // (armon_torch/probes/cycle_variants.py, after scripts/perf_probe.py), a
-// compile-time parameter of `cycle_tile` / `cycle_kernel` whose default,
-// CV_BASE, is the production kernel; the variants are instantiated only in
-// probe_cycle.cu. NO_P: the stale p is not written. NO_DT: no CFL partials
-// (and no sound speed formed for them). NO_ROLL: every shifted read of
-// `sweep_body` replaced by the own value times (1 + 1e-7 k). STREAM: the
-// same loads, windows, passes and stores with trivial math (fields copied,
-// p = rho + u + v + E).
+// compile-time parameter of `cycle_kernel` (and of K5's `cycle_tile`)
+// whose default, CV_BASE, is the production kernel; the variants are
+// instantiated only in probe_cycle.cu. NO_P: the stale p is not written.
+// NO_DT: no CFL partials (and no sound speed formed for them). NO_ROLL:
+// every shifted read replaced by the own value times (1 + 1e-7 k): no
+// shuffle and no shared-memory exchange. STREAM: the same loads, windows,
+// passes and stores with trivial math (fields copied, p = rho + u + v +
+// E).
 enum CycleVariant { CV_BASE = 0, CV_NO_P, CV_NO_DT, CV_NO_P_DT, CV_NO_ROLL, CV_STREAM };
 __host__ __device__ constexpr bool cv_writes_p(int v) { return v != CV_NO_P && v != CV_NO_P_DT; }
 __host__ __device__ constexpr bool cv_dt(int v) {
@@ -266,8 +306,10 @@ __device__ __forceinline__ Fields<T> fields(void* const* p) {
            reinterpret_cast<T*>(p[2]), reinterpret_cast<T*>(p[3])}};
 }
 
+// One cycle with K5's tile body on L x L windows: the cycle probe's
+// `base_l32` (K4's function on K5's 24 x 24 tiles).
 template <typename T, bool FAST, bool BIZ, int L, int V = CV_BASE>
-__global__ void __launch_bounds__(Tile<L>::NT) cycle_kernel(const CycleArgs a) {
+__global__ void __launch_bounds__(Tile<L>::NT) tile_kernel(const CycleArgs a) {
   constexpr int NT = Tile<L>::NT;
   extern __shared__ __align__(16) unsigned char smem[];
   T* S = reinterpret_cast<T*>(smem);
@@ -371,24 +413,547 @@ __global__ void __launch_bounds__(Tile<L>::NT) multicycle_kernel(const MultiArgs
   }
 }
 
+// ------------------------------------------------------------------ K4
+
+// A K4 geometry (see the file note): a lane owns PX consecutive positions
+// of an X line and PY of a Y line, so a window is WX = 32 PX columns by
+// WY = 32 PY rows; NW warps per block, MINB blocks per SM (launch
+// bounds).
+template <typename T, int PX_, int PY_, int NW_, int MINB_>
+struct K4Shape {
+  static constexpr int PX = PX_, PY = PY_, NW = NW_, MINB = MINB_;
+  static constexpr int NT = 32 * NW;
+  static constexpr int WX = 32 * PX, WY = 32 * PY;
+  static constexpr int RX = WX - 2 * HALO, RY = WY - 2 * HALO;
+  // One plane of shared memory: X first, the first sweep's WY rows x RX
+  // inner columns (5 planes: rho, u, v, E, p); Y first, the whole window
+  // (4 planes). Row i starts i / PY words late (the bank skew).
+  static constexpr int PLANE_XF = WY * RX + WY / PY, PLANE_YF = WY * WX + WY / PY;
+  static constexpr int PLANES = 5 * PLANE_XF > 4 * PLANE_YF ? 5 * PLANE_XF : 4 * PLANE_YF;
+  static constexpr size_t smem() { return (size_t)(PLANES + 2 * NW) * sizeof(T); }
+  static __device__ __forceinline__ int at(int i, int c, int width) {
+    return i * width + i / PY + c;
+  }
+};
+
+// The production geometries.
+template <typename T> struct K4Geom;
+template <> struct K4Geom<float> { typedef K4Shape<float, 3, 2, 16, 2> G; };
+template <> struct K4Geom<double> { typedef K4Shape<double, 2, 2, 8, 1> G; };
+template <typename T> using K4 = typename K4Geom<T>::G;
+
+// jmax / jmin (common.cuh) in the forms `run_body` meets them, with the
+// same results bit for bit, NaN operands and signed zeros included, in
+// fewer instructions: jmax(0, m) is m < 0 ? 0 : m, jmin(a, b) is
+// a < b || a != a ? a : b. PTX's min.NaN / max.NaN would order -0 below
+// +0, where jmax(+0, -0) gives -0.
+template <typename T> __device__ __forceinline__ T clamp0(T m) { return m < T(0) ? T(0) : m; }
+template <typename T> __device__ __forceinline__ T xmin(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T xmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T limiter_x(int name, T r) {
+  if (name == 0) return T(1);
+  if (name == 1) return clamp0(xmin(T(1), r));
+  return xmax(clamp0(xmin(T(2) * r, T(1))), xmin(r, T(2)));
+}
+
+// `sweep_body` on a run of P consecutive positions of a line held by one
+// lane, the line's 32 P positions spread over the warp's 32 lanes in
+// order. The same operations in the same order at every position; a k-1
+// read at the run's first position comes from the lane below through
+// `__shfl_up_sync`, a k+1 read at its last from the lane above through
+// `__shfl_down_sync`, every other one from the lane's own registers (at
+// the line's ends a lane reads itself: those positions are halo, read
+// but never valid). Every lane of the warp must call it. In: the state
+// with the axis velocity `ua`, the other one `uo`; out: the swept state in
+// place, the pre-sweep p and c. SHIFT = false is the no_roll variant, as
+// in `sweep_body`. Its min/max are `limiter_x`, `clamp0` and `xmin`.
+template <typename T, bool FAST, bool BIZ, int P, bool SHIFT = true>
+__device__ __forceinline__ void run_body(const double* kk, int riemann, int lim, int projection,
+                                         T dt, T dx, T inv_dx, bool need_c, T (&rho)[P],
+                                         T (&ua)[P], T (&uo)[P], T (&E)[P], T (&p)[P],
+                                         T (&c)[P]) {
+  typedef Div<T, FAST> D;
+  constexpr unsigned FULL = 0xffffffffu;
+  // The neighbouring lanes' values at the run's ends.
+  auto lo = [](T v) -> T { return SHIFT ? __shfl_up_sync(FULL, v, 1) : v; };
+  auto hi = [](T v) -> T { return SHIFT ? __shfl_down_sync(FULL, v, 1) : v; };
+  // Position k-1 / k+1 of run slot j; `edge` is `lo` / `hi` of the run.
+  auto km = [](const T (&a)[P], T edge, int j) -> T {
+    return SHIFT ? (j > 0 ? a[j - 1] : edge) : a[j] * T(1 + 1e-7 * -1);
+  };
+  auto kp = [](const T (&a)[P], T edge, int j) -> T {
+    return SHIFT ? (j < P - 1 ? a[j + 1] : edge) : a[j] * T(1 + 1e-7 * 1);
+  };
+
+  // ---- stage 1: EOS of the input state
+  T rc[P], rr[P], dm[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    rr[j] = T(0);
+    c[j] = T(0);
+    eos_prc<T, FAST, BIZ>(kk, rho[j], ua[j], uo[j], E[j], need_c, p[j], rc[j], c[j], rr[j]);
+    dm[j] = rho[j] * dx;
+  }
+
+  // ---- stage 2: Godunov solve at the k-1/2 interface
+  T us_i[P], ps_i[P], e_u[P], e_p[P], d_u[P], d_p[P], theta[P];
+  {
+    const T dm_e = lo(dm[P - 1]), ua_e = lo(ua[P - 1]), p_e = lo(p[P - 1]),
+            rc_e = lo(rc[P - 1]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T dm_l = km(dm, dm_e, j), u_m = km(ua, ua_e, j), p_m = km(p, p_e, j),
+              rc_l = km(rc, rc_e, j);
+      const T rc_sum = rc_l + rc[j];
+      {
+        typename D::Over over(rc_sum);
+        us_i[j] = over(rc_l * u_m + rc[j] * ua[j] + (p_m - p[j]));
+        ps_i[j] = over(rc[j] * p_m + rc_l * p[j] + rc_l * rc[j] * (u_m - ua[j]));
+      }
+      e_u[j] = us_i[j] - u_m, e_p[j] = ps_i[j] - p_m;
+      d_u[j] = ua[j] - us_i[j], d_p[j] = p[j] - ps_i[j];
+      theta[j] = T(0);
+      if (riemann == 1) {
+        if (FAST) {
+          theta[j] = T(0.5) * (T(1) - rc_sum * D::divc(dt, dm_l + dm[j]));
+        } else {
+          const T Dm = (dm_l + dm[j]) / T(2);
+          theta[j] = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
+        }
+      }
+    }
+  }
+
+  // ---- stage 3: GAD limiter blend
+  T ustar[P], pstar[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) ustar[j] = us_i[j], pstar[j] = ps_i[j];
+  if (riemann == 1) {
+    const T eu_e = hi(e_u[0]), ep_e = hi(e_p[0]), du_e = lo(d_u[P - 1]), dp_e = lo(d_p[P - 1]);
+    const T eps = T(1e-6);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T r_um = limiter_x(lim, D::divc(kp(e_u, eu_e, j), e_u[j] + eps));
+      const T r_pm = limiter_x(lim, D::divc(kp(e_p, ep_e, j), e_p[j] + eps));
+      const T r_up = limiter_x(lim, D::divc(km(d_u, du_e, j), d_u[j] + eps));
+      const T r_pp = limiter_x(lim, D::divc(km(d_p, dp_e, j), d_p[j] + eps));
+      ustar[j] = us_i[j] + theta[j] * (r_up * d_u[j] - r_um * e_u[j]);
+      pstar[j] = ps_i[j] + theta[j] * (r_pp * d_p[j] - r_pm * e_p[j]);
+    }
+  }
+
+  // ---- stage 4: Lagrangian cell update
+  T dX[P], rho1[P], ua1[P], E1[P], disp[P], dxe[P];
+  bool up[P];
+  {
+    const T us_e = hi(ustar[0]), ps_e = hi(pstar[0]), usm_e = lo(ustar[P - 1]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T us_p = kp(ustar, us_e, j), ps_p = kp(pstar, ps_e, j);
+      dX[j] = dx + dt * (us_p - ustar[j]);
+      rho1[j] = D::div(dm[j], dX[j]);
+      const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * rr[j] : D::div(dt, dm[j]);
+      ua1[j] = ua[j] + dt_dm * (pstar[j] - ps_p);
+      E1[j] = E[j] + dt_dm * (pstar[j] * ustar[j] - ps_p * us_p);
+      disp[j] = dt * ustar[j];
+      up[j] = disp[j] > T(0);
+      dxe[j] = up[j] ? (dt * km(ustar, usm_e, j) - dx) : (dx + dt * us_p);
+    }
+  }
+
+  // ---- stages 5-7, one conserved variable q at a time (each position's
+  // operations as in `sweep_body`, their order across variables free):
+  // upwind values and limited slopes (slope_shift form), advection fluxes,
+  // projection. Per variable only its fluxes' result stays live.
+  const bool second = projection == 1;
+  T dxl[P], r_m[P], r_p[P], lf[P], dXr[P];
+  {
+    const T dXm_e = lo(dX[P - 1]), dXp_e = hi(dX[0]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T dXm = km(dX, dXm_e, j), dXp = kp(dX, dXp_e, j);
+      dxl[j] = up[j] ? dXm : dX[j];
+      r_m[j] = D::divc(T(2) * dX[j], dX[j] + dXm);
+      r_p[j] = D::divc(T(2) * dX[j], dX[j] + dXp);
+      lf[j] = second ? D::divc(dxe[j], T(2) * dxl[j]) : T(0);
+      dXr[j] = dX[j] * rho1[j];
+    }
+  }
+  T tmp[4][P];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    T q[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      q[j] = f == 0 ? rho1[j] : rho1[j] * (f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]));
+    const T qm_e = lo(q[P - 1]), qp_e = hi(q[0]);
+    T qi[P], s5[P], adv[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T qm = km(q, qm_e, j), qp = kp(q, qp_e, j);
+      qi[j] = up[j] ? qm : q[j];
+      const T du_p = r_p[j] * (qp - q[j]);
+      const T du_m = r_m[j] * (q[j] - qm);
+      const T sgn = jsign(du_p);
+      const T slope = sgn * clamp0(xmin(fabs(du_p), sgn * du_m));
+      s5[j] = second ? slope : disp[j] * qi[j];
+    }
+    if (second) {
+      const T s5_e = lo(s5[P - 1]);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const T sl = up[j] ? km(s5, s5_e, j) : s5[j];
+        adv[j] = disp[j] * (qi[j] - sl * lf[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) adv[j] = s5[j];
+    }
+    const T adv_e = hi(adv[0]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T num = f == 0 ? dXr[j] : dXr[j] * (f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]));
+      const T v = num - (kp(adv, adv_e, j) - adv[j]);
+      tmp[f][j] = FAST ? v * inv_dx : v / dx;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    rho[j] = tmp[0][j];
+    typename D::Over over_rho(tmp[0][j]);
+    ua[j] = over_rho(tmp[1][j]);
+    uo[j] = over_rho(tmp[2][j]);
+    E[j] = over_rho(tmp[3][j]);
+  }
+}
+
+// Where window cell (gr, gc) of the pre-cycle state with both ghost fills
+// lies, and the factors it takes, as K5's `cycle_tile` loads it: the X
+// mirror maps the column first, then the Y side (mirror or a neighbour's
+// slab row), the factors folded; `window_cell` loads it.
+template <typename T>
+__device__ __forceinline__ void window_src(const CycleArgs& a, const Fields<const T>& src,
+                                           long long gr, long long gc, const T* ptr[4],
+                                           T fac[4]) {
+#pragma unroll
+  for (int f = 0; f < 4; ++f) fac[f] = T(1);
+  int side;
+  gc = ghost_src(gc, a.g, a.nx, GHOST_MIRROR, GHOST_MIRROR, a.fx_lo, a.fx_hi, fac, side);
+  gc = gc < 0 ? 0 : (gc >= a.cols ? a.cols - 1 : gc);  // array edge: dead outputs only
+  gr = ghost_src(gr, a.g, a.ny, a.ymode_lo, a.ymode_hi, a.fy_lo, a.fy_hi, fac, side);
+  if (side < 0) {
+    gr = gr < 0 ? 0 : (gr >= a.rows ? a.rows - 1 : gr);
+    const long long idx = gr * a.cols + gc;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) ptr[f] = src.f[f] + idx;
+  } else {  // a neighbour's slab row, at the X-mirrored column
+    const T* sl = reinterpret_cast<const T*>(side ? a.slab_hi : a.slab_lo);
+    const long long idx = gr * a.cols + gc;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) ptr[f] = sl + (long long)f * a.g * a.cols + idx;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void window_cell(const CycleArgs& a, const Fields<const T>& src,
+                                            long long gr, long long gc, T out[4]) {
+  const T* ptr[4];
+  T fac[4];
+  window_src(a, src, gr, gc, ptr, fac);
+#pragma unroll
+  for (int f = 0; f < 4; ++f) out[f] = __ldg(ptr[f]) * fac[f];
+}
+
+// One line of P positions through `run_body` (or the STREAM variant's
+// copy), the velocities swapped for a Y line.
+template <typename T, bool FAST, bool BIZ, int P, int V>
+__device__ __forceinline__ void line(const CycleArgs& a, bool along_x, T dt, bool need_c,
+                                     T (&rho)[P], T (&u)[P], T (&v)[P], T (&E)[P], T (&p)[P],
+                                     T (&c)[P]) {
+  if (V == CV_STREAM) return;
+  const T dx = T(along_x ? a.dx : a.dy), inv = T(along_x ? a.inv_dx : a.inv_dy);
+  if (along_x)
+    run_body<T, FAST, BIZ, P, V != CV_NO_ROLL>(a.k, a.riemann, a.limiter, a.projection, dt, dx,
+                                               inv, need_c, rho, u, v, E, p, c);
+  else
+    run_body<T, FAST, BIZ, P, V != CV_NO_ROLL>(a.k, a.riemann, a.limiter, a.projection, dt, dx,
+                                               inv, need_c, rho, v, u, E, p, c);
+}
+
+// A CFL sample of an output cell (`_dt_tile_min`: post-sweep velocities,
+// pre-sweep c), real cells only.
+template <typename T>
+__device__ __forceinline__ void cfl_sample(const CycleArgs& a, long long gr, long long gc, T u,
+                                           T v, T c, T& mx, T& my) {
+  if (gr >= a.g && gr < a.g + a.ny && gc >= a.g && gc < a.g + a.nx) {
+    mx = jmax(mx, fabs(u) + c);
+    my = jmax(my, fabs(v) + c);
+  }
+}
+
+// X then Y: rows from device memory, F = the rows' inner columns.
+template <typename T, bool FAST, bool BIZ, int V, typename G>
+__device__ __forceinline__ void k4_x_first(const CycleArgs& a, Fields<const T> src, T* F,
+                                           T dtx, T dty, bool emit, T& mx, T& my) {
+  constexpr int PX = G::PX, PY = G::PY, RX = G::RX;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r0 = (long long)blockIdx.y * G::RY, c0 = (long long)blockIdx.x * RX;
+  T* pl[5];
+#pragma unroll
+  for (int f = 0; f < 5; ++f) pl[f] = F + f * G::PLANE_XF;
+
+  T raw[4][PX];  // the next row's values, in flight during this row's sweep
+  auto issue = [&](int i) {
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const T* ptr[4];
+      T fac[4];
+      window_src<T>(a, src, r0 - HALO + i, c0 - HALO + PX * lane + j, ptr, fac);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) raw[f][j] = __ldg(ptr[f]);
+    }
+  };
+  // Always true (NW <= WY); with the guard ptxas allocates the f32 body
+  // with 16 B of spills instead of 80, 5% faster at 8200^2 (PERF.md).
+  if (warp < G::WY) issue(warp);
+#pragma unroll 1
+  for (int i = warp; i < G::WY; i += G::NW) {
+    T rho[PX], u[PX], v[PX], E[PX], p[PX], c[PX];
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {  // the factors again: ALU work, no loads
+      const T* ptr[4];
+      T fac[4];
+      window_src<T>(a, src, r0 - HALO + i, c0 - HALO + PX * lane + j, ptr, fac);
+      rho[j] = raw[0][j] * fac[0], u[j] = raw[1][j] * fac[1];
+      v[j] = raw[2][j] * fac[2], E[j] = raw[3][j] * fac[3];
+    }
+    if (i + G::NW < G::WY) issue(i + G::NW);
+    line<T, FAST, BIZ, PX, V>(a, true, dtx, false, rho, u, v, E, p, c);
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int cc = PX * lane + j - HALO;
+      if (cc >= 0 && cc < RX) {
+        const int o = G::at(i, cc, RX);
+        pl[0][o] = rho[j], pl[1][o] = u[j], pl[2][o] = v[j], pl[3][o] = E[j];
+      }
+    }
+  }
+  __syncthreads();  // F is complete
+
+#pragma unroll 1
+  for (int cc = warp; cc < RX; cc += G::NW) {
+    T rho[PY], u[PY], v[PY], E[PY], p[PY], c[PY];
+#pragma unroll
+    for (int j = 0; j < PY; ++j) {
+      const int o = G::at(PY * lane + j, cc, RX);
+      rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
+      if (V == CV_STREAM) p[j] = ((rho[j] + u[j]) + v[j]) + E[j];
+    }
+    line<T, FAST, BIZ, PY, V>(a, false, dty, emit && cv_dt(V), rho, u, v, E, p, c);
+#pragma unroll
+    for (int j = 0; j < PY; ++j) {
+      const int i = PY * lane + j;
+      if (i >= HALO && i < G::WY - HALO) {
+        const int o = G::at(i, cc, RX);
+        pl[0][o] = rho[j], pl[1][o] = u[j], pl[2][o] = v[j], pl[3][o] = E[j];
+        if (emit && cv_writes_p(V)) pl[4][o] = p[j];
+        if (emit && cv_dt(V)) {
+          const long long gr = r0 + i - HALO, gc = c0 + cc;
+          if (gr < a.rows && gc < a.cols) cfl_sample(a, gr, gc, u[j], v[j], c[j], mx, my);
+        }
+      }
+    }
+  }
+}
+
+// Y then X: the window staged in shared memory, both sweeps in place.
+template <typename T, bool FAST, bool BIZ, int V, typename G>
+__device__ __forceinline__ void k4_y_first(const CycleArgs& a, Fields<const T> src, T* F,
+                                           T* p_out, T dtx, T dty, bool emit, T& mx, T& my) {
+  constexpr int PX = G::PX, PY = G::PY, WX = G::WX, WY = G::WY;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r0 = (long long)blockIdx.y * G::RY, c0 = (long long)blockIdx.x * G::RX;
+  T* pl[4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) pl[f] = F + f * G::PLANE_YF;
+
+#pragma unroll 1
+  for (int t = threadIdx.x; t < WY * WX; t += G::NT) {
+    const int i = t / WX, cw = t % WX;
+    T in[4];
+    window_cell<T>(a, src, r0 - HALO + i, c0 - HALO + cw, in);
+    const int o = G::at(i, cw, WX);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) pl[f][o] = in[f];
+  }
+  __syncthreads();  // the window is loaded
+
+#pragma unroll 1
+  for (int cw = warp; cw < WX; cw += G::NW) {
+    T rho[PY], u[PY], v[PY], E[PY], p[PY], c[PY];
+#pragma unroll
+    for (int j = 0; j < PY; ++j) {
+      const int o = G::at(PY * lane + j, cw, WX);
+      rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
+    }
+    line<T, FAST, BIZ, PY, V>(a, false, dty, false, rho, u, v, E, p, c);
+#pragma unroll
+    for (int j = 0; j < PY; ++j) {
+      const int i = PY * lane + j;
+      if (i >= HALO && i < WY - HALO) {
+        const int o = G::at(i, cw, WX);
+        pl[0][o] = rho[j], pl[1][o] = u[j], pl[2][o] = v[j], pl[3][o] = E[j];
+      }
+    }
+  }
+  __syncthreads();  // the first sweep is complete
+
+#pragma unroll 1
+  for (int i = HALO + warp; i < WY - HALO; i += G::NW) {
+    T rho[PX], u[PX], v[PX], E[PX], p[PX], c[PX];
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int o = G::at(i, PX * lane + j, WX);
+      rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
+      if (V == CV_STREAM) p[j] = ((rho[j] + u[j]) + v[j]) + E[j];
+    }
+    line<T, FAST, BIZ, PX, V>(a, true, dtx, emit && cv_dt(V), rho, u, v, E, p, c);
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int cw = PX * lane + j;
+      if (cw >= HALO && cw < WX - HALO) {
+        const int o = G::at(i, cw, WX);
+        pl[0][o] = rho[j], pl[1][o] = u[j], pl[2][o] = v[j], pl[3][o] = E[j];
+        const long long gr = r0 + i - HALO, gc = c0 + cw - HALO;
+        if (emit && gr < a.rows && gc < a.cols) {
+          if (cv_writes_p(V)) p_out[gr * a.cols + gc] = p[j];
+          if (cv_dt(V)) cfl_sample(a, gr, gc, u[j], v[j], c[j], mx, my);
+        }
+      }
+    }
+  }
+}
+
+// K4: one cycle of one tile (see the file note), or its pass-through copy
+// when iscal[run] is 0. Emitting, it writes the stale p and one pair of
+// CFL partial maxima per block.
+template <typename T, bool FAST, bool BIZ, int V = CV_BASE, typename G = K4<T>>
+__global__ void __launch_bounds__(G::NT, G::MINB) cycle_kernel(const CycleArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* F = reinterpret_cast<T*>(smem);
+  T* red = F + G::PLANES;  // 2 NW: the warps' CFL maxima
+  const Fields<const T> src = const_fields<T>(a.src);
+  const Fields<T> dst = fields<T>(a.dst);
+  const long long rows = a.rows, cols = a.cols;
+  const long long r0 = (long long)blockIdx.y * G::RY, c0 = (long long)blockIdx.x * G::RX;
+  if (!reinterpret_cast<const int*>(a.iscal)[2]) {
+    for (int t = threadIdx.x; t < G::RY * G::RX; t += G::NT) {
+      const long long gr = r0 + t / G::RX, gc = c0 + t % G::RX;
+      if (gr < rows && gc < cols) {
+        const long long o = gr * cols + gc;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) dst.f[f][o] = __ldg(src.f[f] + o);
+      }
+    }
+    return;
+  }
+  const T dt_use = reinterpret_cast<const T*>(a.scal)[3];
+  const T dtx = dt_use * T(a.fx), dty = dt_use * T(a.fy);
+  const bool emit = a.emit != 0, xf = a.x_first != 0;
+  T* p_out = reinterpret_cast<T*>(a.p);
+  T mx = T(0), my = T(0);  // the TPU's zero-initialised max block
+  if (xf)
+    k4_x_first<T, FAST, BIZ, V, G>(a, src, F, dtx, dty, emit, mx, my);
+  else
+    k4_y_first<T, FAST, BIZ, V, G>(a, src, F, p_out, dtx, dty, emit, mx, my);
+  const bool partials = emit && cv_dt(V);
+  if (partials) {  // the warp's maxima, before the barrier
+    for (int s = 16; s > 0; s >>= 1) {
+      mx = jmax(mx, __shfl_xor_sync(0xffffffffu, mx, s));
+      my = jmax(my, __shfl_xor_sync(0xffffffffu, my, s));
+    }
+    if ((threadIdx.x & 31) == 0) {
+      red[threadIdx.x >> 5] = mx;
+      red[G::NW + (threadIdx.x >> 5)] = my;
+    }
+  }
+  __syncthreads();  // the tile's outputs sit in shared memory
+
+  // Store the tile row by row: consecutive lanes, consecutive columns.
+  const int width = xf ? G::RX : G::WX, cofs = xf ? 0 : HALO;
+  const int plane = xf ? G::PLANE_XF : G::PLANE_YF;
+  const bool p_here = emit && cv_writes_p(V) && xf;  // Y first stored p already
+#pragma unroll 1
+  for (int t = threadIdx.x; t < G::RY * G::RX; t += G::NT) {
+    const int i = HALO + t / G::RX, cc = t % G::RX;
+    const long long gr = r0 + i - HALO, gc = c0 + cc;
+    if (gr < rows && gc < cols) {
+      const long long w = gr * cols + gc;
+      const int o = G::at(i, cc + cofs, width);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) dst.f[f][w] = F[f * plane + o];
+      if (p_here) p_out[w] = F[4 * plane + o];
+    }
+  }
+  if (partials && threadIdx.x == 0) {
+    T bx = red[0], by = red[G::NW];
+    for (int w = 1; w < G::NW; ++w) bx = jmax(bx, red[w]), by = jmax(by, red[G::NW + w]);
+    const long long b = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+    T* part = reinterpret_cast<T*>(a.partials);
+    part[b] = bx;
+    part[a.n_partials + b] = by;
+  }
+}
+
 // Host side. Checks the launch geometry the Python wrapper computed (it
-// sized the partials from it). Returns 0 or a negative code.
-inline int check_tile_geometry(const CycleArgs* a, int L, bool partials) {
-  const long long R = L - 2 * HALO;
-  const long long gx = (a->cols + R - 1) / R, gy = (a->rows + R - 1) / R;
+// sized the partials from it): RX x RY output tiles. Returns 0 or a
+// negative code.
+inline int check_tile_geometry(const CycleArgs* a, long long RX, long long RY, bool partials) {
+  const long long gx = (a->cols + RX - 1) / RX, gy = (a->rows + RY - 1) / RY;
   if (gx != a->grid_x || gy != a->grid_y || gy > 65535 || gx > 2147483647LL) return -2;
   if (partials && a->n_partials < gx * gy) return -3;
   return 0;
 }
 
-template <typename T, bool FAST, bool BIZ, int L = CYCLE_L, int V = CV_BASE>
+template <typename T, bool FAST, bool BIZ, int V = CV_BASE, typename G = K4<T>>
 int launch_cycle(const CycleArgs& a, cudaStream_t s) {
-  const size_t smem = Tile<L>::template smem<T>();
-  cudaError_t e = cudaFuncSetAttribute(cycle_kernel<T, FAST, BIZ, L, V>,
+  const size_t smem = G::smem();
+  cudaError_t e = cudaFuncSetAttribute(cycle_kernel<T, FAST, BIZ, V, G>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  cycle_kernel<T, FAST, BIZ, L, V><<<dim3(a.grid_x, a.grid_y), Tile<L>::NT, smem, s>>>(a);
+  cycle_kernel<T, FAST, BIZ, V, G><<<dim3(a.grid_x, a.grid_y), G::NT, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of a K4 instance (cudaOccupancy...), with its
+// threads per block and dynamic shared memory.
+template <typename T, bool FAST, bool BIZ>
+int cycle_occupancy(int* out) {
+  const size_t smem = K4<T>::smem();
+  auto kern = cycle_kernel<T, FAST, BIZ>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, K4<T>::NT, smem);
+  out[1] = K4<T>::NT;
+  out[2] = (int)smem;
+  return (int)e;
+}
+
+// K5's tile body as a one-cycle kernel (the probe's base_l32).
+template <typename T, bool FAST, bool BIZ, int L, int V = CV_BASE>
+int launch_tile(const CycleArgs& a, cudaStream_t s) {
+  const size_t smem = Tile<L>::template smem<T>();
+  cudaError_t e = cudaFuncSetAttribute(tile_kernel<T, FAST, BIZ, L, V>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  tile_kernel<T, FAST, BIZ, L, V><<<dim3(a.grid_x, a.grid_y), Tile<L>::NT, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -417,14 +982,15 @@ int launch_multicycle(const MultiArgs& m, cudaStream_t s) {
 
 template <typename T, bool FAST>
 int dispatch_cycle(const CycleArgs* a, cudaStream_t s) {
-  const int err = check_tile_geometry(a, CYCLE_L, a->emit != 0);
+  const int err = check_tile_geometry(a, K4<T>::RX, K4<T>::RY, a->emit != 0);
   if (err) return err;
   return a->biz ? launch_cycle<T, FAST, true>(*a, s) : launch_cycle<T, FAST, false>(*a, s);
 }
 
 template <typename T, bool FAST>
 int dispatch_multicycle(const MultiArgs* m, cudaStream_t s) {
-  const int err = check_tile_geometry(&m->c, MULTI_L, true);
+  constexpr int R = MULTI_L - 2 * HALO;
+  const int err = check_tile_geometry(&m->c, R, R, true);
   if (err) return err;
   if (m->ncycles < 1) return -1;
   return m->c.biz ? launch_multicycle<T, FAST, true>(*m, s)

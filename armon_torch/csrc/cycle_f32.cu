@@ -7,3 +7,11 @@ extern "C" int armon_cycle_f32(const armon::CycleArgs* a, void* stream) {
   return a->fast ? armon::dispatch_cycle<float, true>(a, s)
                  : armon::dispatch_cycle<float, false>(a, s);
 }
+
+// out: resident blocks per SM, threads per block, dynamic shared memory.
+extern "C" int armon_cycle_occupancy_f32(int fast, int biz, int* out) {
+  using armon::cycle_occupancy;
+  if (fast)
+    return biz ? cycle_occupancy<float, true, true>(out) : cycle_occupancy<float, true, false>(out);
+  return biz ? cycle_occupancy<float, false, true>(out) : cycle_occupancy<float, false, false>(out);
+}

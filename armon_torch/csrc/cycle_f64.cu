@@ -6,3 +6,10 @@ extern "C" int armon_cycle_f64(const armon::CycleArgs* a, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return armon::dispatch_cycle<double, false>(a, s);
 }
+
+// out: resident blocks per SM, threads per block, dynamic shared memory.
+extern "C" int armon_cycle_occupancy_f64(int fast, int biz, int* out) {
+  if (fast) return -1;
+  return biz ? armon::cycle_occupancy<double, false, true>(out)
+             : armon::cycle_occupancy<double, false, false>(out);
+}

@@ -6,8 +6,17 @@
 // `pl.pallas_call` :54) and `kernel_copy` (:47, :71): an identity copy of
 // a (rows, cols) f32 array, the first and last g columns of each row
 // mirror-filled (column i <- 2g-1-i, column cols-1-i <- cols-2g+i) when
-// `mirror`. Bound: bytes, 8 B per element. One thread per column of a row,
-// rows strided over the grid's y.
+// `mirror`. Bound: bytes, 8 B per element. Design for HBM: one
+// grid-stride pass over the flat array in 16-byte vectors, FLIP_UNROLL
+// independent vectors per thread with every load issued before the first
+// store, a block's vectors of one step contiguous, streaming (evict-first)
+// loads and stores, on a grid of FLIP_BLOCKS_PER_SM blocks per SM; a
+// scalar head and tail take the elements before the first 16-byte
+// boundary and after the last whole vector. Each vector tracks the column
+// of its first element (one division per thread, then an add and a
+// compare per step), and a vector that touches the first or last g
+// columns of a row (a row may begin mid-vector when cols % 4 != 0)
+// gathers those elements from their source columns.
 //
 // `io_kernel` replaces `make_kernel` (scripts/roofline_io.py:45,
 // `pl.pallas_call` :92): read rho/u/v/E, write them back IN PLACE and a
@@ -35,20 +44,75 @@
 namespace armon {
 namespace probe {
 
-constexpr int FT = 256;  // flip: columns per block
+constexpr int FT = 256;                // flip: threads per block
+constexpr int FLIP_UNROLL = 8;         // vectors in flight per thread
+constexpr int FLIP_BLOCKS_PER_SM = 8;  // blocks per SM in the grid
 
-__global__ void __launch_bounds__(FT) flip_kernel(const float* x, float* o, long long rows,
-                                                  long long cols, int g, int mirror) {
-  const long long col = (long long)blockIdx.x * FT + threadIdx.x;
-  if (col >= cols) return;
-  long long sc = col;
-  if (mirror) {
-    if (col < g)
-      sc = 2LL * g - 1 - col;
-    else if (col >= cols - g)
-      sc = cols - 2LL * g + (cols - 1 - col);
+// The source column of column `col` (the mirror map, or col itself).
+__device__ __forceinline__ long long flip_src_col(long long col, long long cols, int g) {
+  if (col < g) return 2LL * g - 1 - col;
+  if (col >= cols - g) return cols - 2LL * g + (cols - 1 - col);
+  return col;
+}
+
+// One element at flat index e, its column `col` (the scalar head and tail).
+__device__ __forceinline__ void flip_one(const float* x, float* o, long long e, long long col,
+                                         long long cols, int g, int mirror) {
+  o[e] = x[mirror ? e - col + flip_src_col(col, cols, g) : e];
+}
+
+// `n` elements; vectors start at flat index `head` (16-byte aligned in
+// both x and o) and number `nv`. A block's FLIP_UNROLL x FT vectors of one
+// step are contiguous, a thread's FT vectors apart.
+__global__ void __launch_bounds__(FT) flip_kernel(const float* __restrict__ x,
+                                                  float* __restrict__ o, long long n,
+                                                  long long cols, int g, int mirror,
+                                                  long long head, long long nv) {
+  constexpr int U = FLIP_UNROLL;
+  const long long tid = (long long)blockIdx.x * FT + threadIdx.x;
+  const long long stride = (long long)gridDim.x * FT;
+  const long long v0 = (long long)blockIdx.x * U * FT + threadIdx.x;
+  const long long is = U * stride;  // vectors per step of the grid
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+  float4* ov = reinterpret_cast<float4*>(o + head);
+  // Column of each in-flight vector's first element, and its step per
+  // iteration, both reduced mod cols.
+  long long col[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k) col[k] = (head + 4 * (v0 + k * FT)) % cols;
+  const long long step = (4 * is) % cols;
+  for (long long v = v0; v < nv; v += is) {
+    float4 a[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+      if (v + k * FT < nv) a[k] = __ldcs(xv + v + k * FT);
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const long long vk = v + k * FT;
+      if (mirror && vk < nv && (col[k] < g || col[k] + 3 >= cols - g)) {
+        float* el = reinterpret_cast<float*>(&a[k]);
+        const long long e0 = head + 4 * vk;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          long long c = col[k] + i, rs = e0 - col[k];  // column, row start
+          if (c >= cols) c -= cols, rs += cols;       // the next row
+          if (c < g || c >= cols - g) el[i] = x[rs + flip_src_col(c, cols, g)];
+        }
+      }
+      col[k] += step;
+      if (col[k] >= cols) col[k] -= cols;
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+      if (v + k * FT < nv) __stcs(ov + v + k * FT, a[k]);
   }
-  for (long long r = blockIdx.y; r < rows; r += gridDim.y) o[r * cols + col] = x[r * cols + sc];
+  // The scalar head [0, head) and tail [head + 4 nv, n): fewer than 4
+  // elements each, or every element where the launcher found no vectors.
+  const long long ns = n - 4 * nv;
+  for (long long s = tid; s < ns; s += stride) {
+    const long long e = s < head ? s : s + 4 * nv;
+    flip_one(x, o, e, e % cols, cols, g, mirror);
+  }
 }
 
 struct IoArgs {
@@ -156,9 +220,31 @@ extern "C" int armon_flip(int mirror, const void* x, void* o, long long rows, lo
   using namespace armon::probe;
   if (rows < 1 || cols < 2LL * g || g < 0) return -2;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((cols + FT - 1) / FT), (unsigned)(rows < 65535 ? rows : 65535));
-  flip_kernel<<<grid, FT, 0, s>>>(reinterpret_cast<const float*>(x), reinterpret_cast<float*>(o),
-                                  rows, cols, g, mirror);
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long n = rows * cols;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x), oa = reinterpret_cast<uintptr_t>(o);
+  long long head = n, nv = 0;  // all scalar unless x and o align alike
+  if ((xa - oa) % 16 == 0 && xa % 4 == 0 && cols >= 4) {
+    head = (long long)((16 - xa % 16) % 16) / 4;
+    if (head > n) head = n;
+    nv = (n - head) / 4;
+  }
+  // Up to FLIP_BLOCKS_PER_SM blocks per SM, no more than one step of the
+  // pass needs: a small array launches few threads (each begins with
+  // divides).
+  const long long per_block = nv ? (long long)FLIP_UNROLL * FT : FT;
+  const long long need = ((nv ? nv : n) + per_block - 1) / per_block;
+  const long long most = (long long)sms * FLIP_BLOCKS_PER_SM;
+  const long long blocks = need < 1 ? 1 : (need < most ? need : most);
+  flip_kernel<<<(unsigned)blocks, FT, 0, s>>>(
+      reinterpret_cast<const float*>(x), reinterpret_cast<float*>(o), n, cols, g, mirror, head,
+      nv);
   return (int)cudaGetLastError();
 }
 

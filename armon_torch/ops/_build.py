@@ -219,6 +219,9 @@ def load():
                 fn = getattr(libs[f"{stem}_f{bits}"], f"armon_{stem}_f{bits}")
                 fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_occupancy_f{bits}")
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for stem, name, args in (
                 ("probe_stream", "armon_flip", [ci, vp, vp, ll, ll, ci, vp]),
@@ -401,16 +404,16 @@ def launch_cfl_finish(cfg, partials, nblocks, scal, iscal, fold, step):
     _check_status(rc, "cfl_finish")
 
 
-def _cycle_args(cfg, tile, src, dst, p, partials, scal, iscal, n_partials,
+def _cycle_args(cfg, window, src, dst, p, partials, scal, iscal, n_partials,
                 y_ghosts=None, n_real=None):
-    """`CycleArgs` of a K4 or K5 launch over tiles of edge `tile`;
+    """`CycleArgs` of a K4 or K5 launch over `window`s (`tile_grid`);
     `n_partials` is the partials' row stride (already validated), 0 when
     nothing is emitted; the Y ghosts mirror unless `y_ghosts` says
     otherwise."""
     from .cycle import tile_grid
     from .sweep import mirror_factors, MIRRORED
     T = np.dtype(cfg.dtype).type
-    gx, gy = tile_grid(tile, src[0].shape)
+    gx, gy = tile_grid(window, src[0].shape)
     a = CycleArgs()
     _set_common(a, cfg, src, dst, scal, iscal, (gx, gy), n_real or cfg.n_local)
     a.p = _ptr(p)
@@ -431,13 +434,14 @@ def _cycle_args(cfg, tile, src, dst, p, partials, scal, iscal, n_partials,
 def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
                  emit, y_ghosts, n_real):
     """Launch K4 on the current stream."""
-    from .cycle import CYCLE_TILE, tile_grid
+    from .cycle import cycle_window, tile_grid
     libs = load()
     T = np.dtype(cfg.dtype).type
-    gx, gy = tile_grid(CYCLE_TILE, src[0].shape)
+    window = cycle_window(cfg.dtype)
+    gx, gy = tile_grid(window, src[0].shape)
     stride = _partials_stride(partials, src[0].dtype, src[0].device,
                               gx * gy) if emit else 0
-    a = _cycle_args(cfg, CYCLE_TILE, src, dst, p, partials, scal, iscal,
+    a = _cycle_args(cfg, window, src, dst, p, partials, scal, iscal,
                     stride, y_ghosts, n_real)
     a.emit, a.x_first = int(emit), int(x_first)
     a.fx, a.fy = float(T(fx)), float(T(fy))
@@ -472,6 +476,16 @@ def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
     _check_status(rc, "multicycle")
 
 
+def cycle_occupancy(dtype, fast, biz):
+    """(resident blocks per SM, threads per block, dynamic shared memory
+    bytes) of a K4 instance on the current card."""
+    bits = 8 * np.dtype(dtype).itemsize
+    out = (ctypes.c_int * 3)()
+    fn = getattr(load()[f"cycle_f{bits}"], f"armon_cycle_occupancy_f{bits}")
+    _check_status(fn(int(fast), int(biz), out), "cycle occupancy")
+    return tuple(out)
+
+
 def launch_probe(stem, name, device, *args):
     """Launch a probe kernel of library `stem` (function `name`) on the
     current stream of `device`; raises if the launcher refuses it."""
@@ -479,16 +493,20 @@ def launch_probe(stem, name, device, *args):
     _check_status(rc, name)
 
 
-def launch_cycle_variant(cfg, variant, tile, x_first, fx, fy, src, dst, p,
+def launch_cycle_variant(cfg, variant, window, x_first, fx, fy, src, dst, p,
                          partials, scal, iscal):
     """Launch one of K4's measurement variants (csrc/probe_cycle.cu), an
-    emitting launch over tiles of edge `tile`, on the current stream."""
-    from .cycle import tile_grid
+    emitting launch over (columns, rows) windows (K4's own, or 96 x 128)
+    or, for an int `window`, K5's tile body on square ones, on the current
+    stream."""
+    from .cycle import tile_grid, CYCLE_WINDOW
     T = np.dtype(cfg.dtype).type
-    gx, gy = tile_grid(tile, src[0].shape)
+    gx, gy = tile_grid(window, src[0].shape)
     stride = _partials_stride(partials, src[0].dtype, src[0].device, gx * gy)
-    a = _cycle_args(cfg, tile, src, dst, p, partials, scal, iscal, stride)
+    a = _cycle_args(cfg, window, src, dst, p, partials, scal, iscal, stride)
     a.emit, a.x_first = 1, int(x_first)
     a.fx, a.fy = float(T(fx)), float(T(fy))
     launch_probe("probe_cycle", "armon_cycle_variant_f32", src[0].device,
-                 int(variant), int(tile), ctypes.byref(a))
+                 int(variant), window if isinstance(window, int) else
+                 (0 if tuple(window) == CYCLE_WINDOW[4] else window[1]),
+                 ctypes.byref(a))

@@ -30,26 +30,45 @@ from .sweep import (LAUNCHES, IS_RUN, IS_CYCLE, SC_DTUSE, HALO, MIRRORED,
                     fill_ghosts_plain, sweep_plain, cfl_partial_plain,
                     cfl_finish_plain, check_ghosts)
 
-# Window edge of a block, shared with csrc/cycle.cuh (CYCLE_L, MULTI_L): a
-# block writes a (TILE - 2 HALO)^2 output tile.
-CYCLE_TILE = 64
+# K4's window (columns, rows) by itemsize, shared with csrc/cycle.cuh
+# (`K4Geom`: 32 lanes, each with a run of PX positions along X and PY
+# along Y): a block writes the (columns - 2 HALO) x (rows - 2 HALO) tile
+# inside it. K5's window is a MULTI_TILE square (`MULTI_L`).
+CYCLE_WINDOW = {4: (96, 64), 8: (64, 64)}
 MULTI_TILE = 32
 
 
-def tile_grid(tile, shape):
+def cycle_window(dtype):
+    """(columns, rows) of K4's window for a numpy or torch dtype."""
+    size = dtype.itemsize if isinstance(dtype, torch.dtype) else np.dtype(dtype).itemsize
+    return CYCLE_WINDOW[size]
+
+
+def tile_grid(window, shape):
     """(grid_x, grid_y) of a K4 / K5 launch over a padded (rows, cols)
-    array."""
+    array, for a (columns, rows) window or a square one's edge."""
+    wx, wy = (window, window) if isinstance(window, int) else window
     rows, cols = shape
-    r = tile - 2 * HALO
-    return -(-cols // r), -(-rows // r)
+    return -(-cols // (wx - 2 * HALO)), -(-rows // (wy - 2 * HALO))
 
 
-def n_partials(shape, device, tile=CYCLE_TILE) -> int:
-    """CFL partial maxima a K4 (or K5) launch writes: one per block on the
-    card, one for the whole array in the plain version."""
+def covered_cells(window, x_first=True):
+    """Cells the two sweeps of one block run over, per cell of its tile:
+    the first sweep runs on every cell of the window, the second on the
+    first sweep's kept lines."""
+    wx, wy = (window, window) if isinstance(window, int) else window
+    rx, ry = wx - 2 * HALO, wy - 2 * HALO
+    kept = wy * rx if x_first else wx * ry
+    return (wx * wy + kept) / (2 * rx * ry)
+
+
+def n_partials(shape, device, dtype, window=None) -> int:
+    """CFL partial maxima a K4 launch (or K5's, with its `window`) writes:
+    one per block on the card, one for the whole array in the plain
+    version."""
     if torch.device(device).type != "cuda":
         return 1
-    gx, gy = tile_grid(tile, shape)
+    gx, gy = tile_grid(window or cycle_window(dtype), shape)
     return gx * gy
 
 
@@ -144,7 +163,7 @@ def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
 
 def new_multicycle_partials(shape, dtype, device):
     """K5's CFL partials: two cycle parities of (2, n) maxima."""
-    nb = n_partials(shape, device, MULTI_TILE)
+    nb = n_partials(shape, device, dtype, MULTI_TILE)
     return torch.zeros((2, 2, nb), dtype=torch_dtype(dtype), device=device)
 
 

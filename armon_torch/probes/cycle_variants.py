@@ -12,11 +12,19 @@ Sod 4096^2 and 8192^2 f32 as the script times its variants (:203):
     no_dt        no CFL partials (and no sound speed formed for them)
     no_p_dt      both
     no_roll      every shifted read replaced by a * (1 + 1e-7 k), no
-                 shared-memory traffic or barrier: wrong numerics by design
+                 shuffle and no shared-memory exchange: wrong numerics by
+                 design
     stream       K4's loads, windows, passes and stores, trivial math
     first_order  base with Godunov + euler (runtime arguments)
-    base_l32     base on K5's 32 x 32 windows (24 x 24 tiles): the halo
-                 recompute's share, in place of the script's chunk=K
+    base_w128    base on 96 x 128 windows (88 x 120 tiles, 1.115x the
+                 cells covered against base's 1.195x) at one block of 16
+                 warps per SM against base's two: recompute against
+                 resident warps
+    base_l32     K5's tile body (`cycle_tile`, one thread per position,
+                 shared-memory shifts) on 32 x 32 windows (24 x 24
+                 tiles), run as a one-cycle kernel: K4's redesigned body
+                 has no 32-wide form, so this is the old body and its
+                 halo recompute, in place of the script's chunk=K
 
 Each prints ms, cells/s, effective GB/s at 36 B/cell (32 without p) and
 its share of `base`. Inputs are the script's random fields (:218-221),
@@ -33,17 +41,19 @@ from .._card import (bound, card_line, device_of, emit, kernel_entry, shown,
                      time_ms)
 from ..ops.sweep import (fill_ghosts_plain, sweep_math_plain, cfl_partial_plain,
                          new_scalars, SC_DTUSE, IS_RUN)
-from ..ops.cycle import cycle_plain, tile_grid, CYCLE_TILE, MULTI_TILE
+from ..ops.cycle import cycle_plain, tile_grid, CYCLE_WINDOW, MULTI_TILE
 from ..ops.eos import scalar_like
 from ..ops.reductions import real_slice
 from ..utils.enums import Axis
 
-# name: (CycleVariant code, window edge); first_order is base with its
-# own config.
-VARIANTS = {"base": (0, CYCLE_TILE), "no_p": (1, CYCLE_TILE),
-            "no_dt": (2, CYCLE_TILE), "no_p_dt": (3, CYCLE_TILE),
-            "no_roll": (4, CYCLE_TILE), "stream": (5, CYCLE_TILE),
-            "first_order": (0, CYCLE_TILE), "base_l32": (0, MULTI_TILE)}
+# name: (CycleVariant code, window: K4's f32 (columns, rows), or the edge
+# of K5's square one); first_order is base with its own config.
+K4_WINDOW = CYCLE_WINDOW[4]
+VARIANTS = {"base": (0, K4_WINDOW), "no_p": (1, K4_WINDOW),
+            "no_dt": (2, K4_WINDOW), "no_p_dt": (3, K4_WINDOW),
+            "no_roll": (4, K4_WINDOW), "stream": (5, K4_WINDOW),
+            "first_order": (0, K4_WINDOW), "base_w128": (0, (96, 128)),
+            "base_l32": (0, MULTI_TILE)}
 WRITES_P = {n: n not in ("no_p", "no_p_dt") for n in VARIANTS}
 EMITS_DT = {n: n not in ("no_dt", "no_p_dt", "stream") for n in VARIANTS}
 SOURCE = "armon_torch/csrc/probe_cycle.cu"

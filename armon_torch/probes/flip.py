@@ -6,7 +6,10 @@
 Two kernels (csrc/probe_stream.cu): ``mirror_fill`` copies a (rows, cols)
 f32 array with its first and last g = 4 columns mirror-filled, as K1
 fills its X ghost columns in its load (`kernel_mirror`, probe_flip.py:39);
-``copy`` is the same pass without the fill (`kernel_copy` :47). The run
+``copy`` is the same pass without the fill (`kernel_copy` :47). Both are
+one kernel, a streaming pass over the flat array in 16-byte vectors whose
+vectors touching a row's first or last g columns gather those elements
+from their source columns. The run
 checks the fill bit for bit against the script's numpy mirror (:59-62)
 and times both, and the copy as one PyTorch call (`Tensor.copy_`, the
 library time): at the script's (512, 1024), which moves 4 MB and so
@@ -25,6 +28,9 @@ from .._card import bound, card_line, device_of, emit, kernel_entry, shown, time
 G = 4
 SCRIPT_SHAPE = (512, 1024)   # probe_flip.py:52
 MAIN_SHAPE = (8200, 8200)    # the main path's 8192^2 with its ghosts
+# Widths with cols % 4 = 2, 1, 3: rows begin mid-vector, and a vector may
+# hold the end of one row and the start of the next.
+ODD_SHAPES = ((513, 1030), (7, 9), (33, 1027))
 SOURCE = "armon_torch/csrc/probe_stream.cu"
 REPLACES = {"flip_mirror": "scripts/probe_flip.py:54",
             "flip_copy": "scripts/probe_flip.py:71"}
@@ -110,16 +116,26 @@ def run(device="cuda", shapes=(SCRIPT_SHAPE, MAIN_SHAPE), seed=0, k=20):
     return rows
 
 
-def check(device="cuda", shapes=(SCRIPT_SHAPE, MAIN_SHAPE), seed=1):
+def check(device="cuda", shapes=(SCRIPT_SHAPE, MAIN_SHAPE) + ODD_SHAPES, seed=1):
     """Both kernels against their plain versions on the same inputs, bit
-    for bit; returns the max abs difference by kernel."""
+    for bit, at the timed shapes and at odd widths; returns the max abs
+    difference by kernel."""
     dev = device_of(device)
-    for shape in shapes:
-        _, x = _inputs(shape, dev, seed)
+    cases = [(shape, _inputs(shape, dev, seed)[1], None) for shape in shapes]
+    # Views 4 bytes past a 16-byte boundary: the input with an output
+    # offset alike (the pass's scalar head) and one offset apart (every
+    # element scalar).
+    rows, cols = ODD_SHAPES[0]
+    n = rows * cols
+    x = _inputs((n + 8,), dev, seed)[1][1:1 + n].view(rows, cols)
+    for off in (1, 2):
+        out = torch.empty(n + 8, device=dev)[off:off + n].view(rows, cols)
+        cases.append(((rows, cols, "offsets", 1, off), x, out))
+    for what, x, out in cases:
         for name, fn, plain in (("flip_mirror", mirror_fill, mirror_plain),
                                 ("flip_copy", copy, copy_plain)):
-            if not torch.equal(fn(x), plain(x)):
-                raise AssertionError(f"{name} at {shape} differs from its "
+            if not torch.equal(fn(x, out=out), plain(x)):
+                raise AssertionError(f"{name} at {what} differs from its "
                                      f"plain version")
     return {"flip_mirror": 0.0, "flip_copy": 0.0}
 

@@ -294,13 +294,15 @@ def floors(ops, shifts, rates):
     n_shift = sum(shifts.values())
     per_exact = sum(c * t[k] for k, c in ops.items()) + n_shift * t["shift"]
     per_fast = per_exact - ops.get("div", 0) * (t["div"] - t["fast_div"])
+    from ..ops.cycle import covered_cells, CYCLE_WINDOW, MULTI_TILE
+    k4, k5 = covered_cells(CYCLE_WINDOW[4]), covered_cells(MULTI_TILE)
     rows = {}
     for name, cells, sweeps, nbytes in (
             ("x_sweep", 8200 ** 2, 1, 8 * 8200 ** 2 * 4),
             ("y_sweep", 8200 ** 2, 1, 9 * 8200 ** 2 * 4),
-            ("cycle_8200", 8200 ** 2, 2 * 1.224, 9 * 8200 ** 2 * 4),
-            ("cycle_2008", 2008 ** 2, 2 * 1.224, 9 * 2008 ** 2 * 4),
-            ("multicycle_108_8cycles", 108 ** 2, 16 * 1.556, 10 * 108 ** 2 * 4)):
+            ("cycle_8200", 8200 ** 2, 2 * k4, 9 * 8200 ** 2 * 4),
+            ("cycle_2008", 2008 ** 2, 2 * k4, 9 * 2008 ** 2 * 4),
+            ("multicycle_108_8cycles", 108 ** 2, 16 * k5, 10 * 108 ** 2 * 4)):
         rows[name] = {"floor_ms_exact": cells * sweeps * per_exact * 1e3,
                       "floor_ms_fast": cells * sweeps * per_fast * 1e3,
                       "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
@@ -312,25 +314,24 @@ def static_issue():
     paths' shapes: the instructions of one thread of K1 / K2 (f32, fast
     math, perfect gas; one position per thread) times the threads
     launched, over the card's 33.5e12 lane instructions per second (4 warp
-    instructions per SM and clock). K4 and K5 run `sweep_body` once per
-    thread and pass; they are charged the mean of K1's and K2's count per
-    thread-pass. An estimate, not a floor: the static count holds every
+    instructions per SM and clock). K4 and K5 sweep every position their
+    windows cover (X first); they are charged the mean of K1's and K2's
+    count per position. An estimate, not a floor: the static count holds every
     branch, the untaken ones too (the pass-through copy, slow paths of
     the IEEE sqrt, the CFL reduction of non-emitting launches). None
     without cuobjdump."""
     from ..ops.sweep import grid_dims, X_TILE, Y_TILE, Y_LINES
-    from ..ops.cycle import tile_grid, CYCLE_TILE, MULTI_TILE
+    from ..ops.cycle import tile_grid, CYCLE_WINDOW, MULTI_TILE
     per = sass_opcodes("sweep_f32", r"sweep_kernelIfLi(\d)ELb1ELb0E")
     if not per or set(per) != {"0", "1"}:
         return None
     ix, iy = len(per["0"]), len(per["1"])
     rate = LANE_OPS_PER_S["float32"]
 
-    def k4_threads(tile, n, cycles=1):
-        gx, gy = tile_grid(tile, (n, n))
-        nl = 8
-        passes = tile // nl + (tile - 8) // nl
-        return gx * gy * tile * nl * passes * cycles
+    def positions(window, n, cycles=1):
+        wx, wy = (window, window) if isinstance(window, int) else window
+        gx, gy = tile_grid(window, (n, n))
+        return gx * gy * (wx * wy + wy * (wx - 8)) * cycles
 
     gx, gy = grid_dims(Axis.X, (8200, 8200))
     tx = gx * gy * X_TILE
@@ -339,9 +340,9 @@ def static_issue():
     mean = (ix + iy) / 2
     return {"instructions_per_thread": {"x_sweep": ix, "y_sweep": iy},
             "x_sweep": ix * tx / rate * 1e3, "y_sweep": iy * ty / rate * 1e3,
-            "cycle_8200": mean * k4_threads(CYCLE_TILE, 8200) / rate * 1e3,
-            "cycle_2008": mean * k4_threads(CYCLE_TILE, 2008) / rate * 1e3,
-            "multicycle_108_8cycles": mean * k4_threads(MULTI_TILE, 108, 8)
+            "cycle_8200": mean * positions(CYCLE_WINDOW[4], 8200) / rate * 1e3,
+            "cycle_2008": mean * positions(CYCLE_WINDOW[4], 2008) / rate * 1e3,
+            "multicycle_108_8cycles": mean * positions(MULTI_TILE, 108, 8)
             / rate * 1e3}
 
 

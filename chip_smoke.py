@@ -8,8 +8,9 @@
     python3 chip_smoke.py --phases 0,8    # the probes only
 
 Phases, each printing one JSON line:
-  0. the card (nvidia-smi name and power limit), the kernels' build time
-     and ptxas's registers and spills per kernel instance;
+  0. the card (nvidia-smi name and power limit), the kernels' build time,
+     ptxas's registers and spills per kernel instance, and the resident
+     blocks per SM of each K4 instance;
   1. the per-sweep kernels against their plain PyTorch versions on the
      card, one X and one Y sweep at 1024^2 after a few cycles, on Sod_circ
      and Bizarrium, in f64, f32 exact and f32 fast math, plus the CFL
@@ -21,7 +22,9 @@ Phases, each printing one JSON line:
      4, Sequential), one warm-up run then 100 timed cycles through
      `armon()`, with launch counts (K4/K5 must stay at 0), kernel times
      from CUDA events, host reads, conservation drift and peak memory; then
-     every kernel against its plain version at the main path's shapes;
+     every kernel against its plain version at the main path's shapes, and
+     K4 on the same final state (8200^2 padded), timed and held against
+     its plain version;
   4. the small-grid routes: K4 against its plain version at 1024^2 (both
      sweep orders) and K5 at 100^2 (one 8-cycle launch from a mid-run
      state, across maxcycle, dt_on_even_cycles, cst_dt), bit for bit in
@@ -30,7 +33,9 @@ Phases, each printing one JSON line:
      runs through `armon()` of Sedov 2000^2 (pair, then per-sweep) and Sod
      100^2 (multicycle, then pair); K4 and K5 on those runs' final states,
      bit for bit against their plain versions in f32 exact and f64, within
-     the fast-math gate in f32 fast math, and timed;
+     the fast-math gate in f32 fast math, and timed; K4 against K1 then K2
+     on Sedov's final state (bit for bit in f32 exact, the fast-math
+     difference reported);
   5. (only when asked for) route crossovers, data for retuning
      `pair_threshold` and `temporal_blocking` on this card: per-sweep
      against pair at 256^2-8192^2, K1/K2/K4 times at 8192^2, pair against
@@ -59,7 +64,8 @@ Phases, each printing one JSON line:
      8192^2), printing its own lines with the card, its launches counted;
      then each probe kernel against its plain version at the shapes it
      was timed at, and a small one (bit for bit where the arithmetic is
-     exact, within a stated gate elsewhere).
+     exact, within a stated gate elsewhere; the flip kernels also at odd
+     widths, 513x1030, 7x9 and 33x1027, and on offset views).
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -154,8 +160,16 @@ def phase0(torch):
     build_s = time.perf_counter() - t0
     regs = {src: _ptxas_summary(log)
             for src, log in _build.BUILD_INFO["logs"].items()}
+    occupancy = {f"cycle_{dtype} fast={fast} biz={biz}":
+                 dict(zip(("blocks_per_sm", "threads", "smem_bytes"),
+                          _build.cycle_occupancy(dtype, fast, biz)))
+                 for dtype, fast in (("float32", True), ("float32", False),
+                                     ("float64", False))
+                 for biz in (False, True)}
     emit({"phase": 0, "card": card_line(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": regs})
+          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": regs,
+          "k4_occupancy": occupancy})
+    return occupancy
 
 
 def _state_after(torch, test, n, dtype, fast, cycles):
@@ -389,6 +403,17 @@ def phase3(torch):
     k3p_ms = time_ms(lambda i: K.cfl_finish_plain(cfg, partials, nby, s2.clone(),
                                                  i2.clone()), k=20)
     amax_ms = time_ms(lambda i: torch.amax(partials[:, :nby], dim=1), k=50)
+    # K4 on the same state (8200^2 padded; X first, the full dt on both
+    # sweeps): the pair route's kernel at the main path's size, timed and
+    # held against its plain version within the fast-math gate.
+    from armon_torch.ops import cycle as C
+    part4 = torch.zeros((2, C.n_partials(shape, dev, cfg.dtype)),
+                        dtype=st.rho.dtype, device=dev)
+    k4_ms = time_ms(lambda i: C.cycle(cfg, True, 1.0, 1.0, fs_src, dst, p,
+                                      part4, scal, iscal, True), k=20)
+    k4_err = _k4_vs_plain(torch, cfg, fs_src, stats.last_dt, True, True,
+                          f"K4 at Sod {MAIN_N}^2 fast math", factors=(1.0, 1.0))
+    del part4
 
     # Against the plain version at these shapes (f32 fast math vs exact).
     checks = check_sweeps(torch, params, FusedCarry(st.rho, st.u, st.v, st.E, st.p),
@@ -419,8 +444,10 @@ def phase3(torch):
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib})
-    main["kernel_ms"] = {"x_sweep": x_ms, "y_sweep": y_ms, "cfl_finish": k3_ms}
+    main["kernel_ms"] = {"x_sweep": x_ms, "y_sweep": y_ms, "cfl_finish": k3_ms,
+                         "cycle_8200": k4_ms}
     main["checks"] = checks
+    main["cycle_8200_fast_math_max_abs_err"] = k4_err
     emit(main)
     return kernels + [{"cells_per_s": main["cells_per_s"],
                        "kernel_ms": main["kernel_ms"]}]
@@ -479,7 +506,7 @@ def _k4_vs_plain(torch, cfg, src, dt, x_first, fast, what,
     dev = src[0].device
     dst = tuple(torch.empty_like(a) for a in src)
     p = torch.empty_like(src[0])
-    nb = C.n_partials(src[0].shape, dev)
+    nb = C.n_partials(src[0].shape, dev, cfg.dtype)
     partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
     scal, iscal = K.new_scalars(cfg.dtype, dev)
     scal[K.SC_DTUSE] = dt
@@ -499,6 +526,36 @@ def _k4_vs_plain(torch, cfg, src, dt, x_first, fast, what,
     if not (torch.equal(scal, s2) and torch.equal(iscal, i2)):
         raise AssertionError(f"{what}: K3 on K4's partials")
     return err
+
+
+def _k4_vs_sweeps(torch, cfg, src, dt):
+    """One emitting K4 launch (X first, the full dt on both sweeps)
+    against K1 then K2 on the same state and mode: (max abs difference of
+    rho/u/v/E/p on real cells, the largest over each field's scale)."""
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    from armon_torch.utils.enums import Axis
+    dev, shape = src[0].device, src[0].shape
+    scal, iscal = K.new_scalars(cfg.dtype, dev)
+    scal[K.SC_DTUSE] = dt
+    iscal[K.IS_RUN] = 1
+    part = torch.zeros((2, max(K.n_partials(Axis.Y, shape, dev),
+                               C.n_partials(shape, dev, cfg.dtype))),
+                       dtype=src[0].dtype, device=dev)
+    mid, out, out4 = ([torch.empty_like(a) for a in src] for _ in range(3))
+    p, p4 = torch.empty_like(src[0]), torch.empty_like(src[0])
+    K.x_sweep(cfg, src, mid, p, part, scal, iscal, 1.0, False)
+    K.y_sweep(cfg, mid, out, p, part, scal, iscal, 1.0, True)
+    C.cycle(cfg, True, 1.0, 1.0, src, out4, p4, part, scal, iscal, True)
+    torch.cuda.synchronize()
+    g = cfg.nghost
+    r = (slice(g, -g), slice(g, -g))
+    err = rel = 0.0
+    for a, b in zip(out4 + [p4], out + [p]):
+        d = float((a[r] - b[r]).abs().max())
+        err = max(err, d)
+        rel = max(rel, d / max(float(b[r].abs().max()), 1e-300))
+    return err, rel
 
 
 def _k5_inputs(torch, cfg, src, p, sc):
@@ -715,9 +772,18 @@ def phase4(torch):
     k4_fast = _k4_vs_plain(torch, cfg, src, sedov_stats.last_dt, True, True,
                            f"K4 at Sedov {SEDOV_N}^2 fast math",
                            factors=(1.0, 1.0))
+    # K4 against K1 -> K2 on the same state: fast math as timed (reported)
+    # and f32 exact (bit for bit, as the routes agree).
+    e_abs, e_rel = _k4_vs_sweeps(torch, cfg, src, sedov_stats.last_dt)
+    out["k4_vs_k1_k2"] = {"fast_math_max_abs": e_abs, "fast_math_max_rel": e_rel}
+    ecfg = _exact_cfgs("Sedov", (SEDOV_N, SEDOV_N))[0][1]
+    x_abs, _ = _k4_vs_sweeps(torch, ecfg, src, sedov_stats.last_dt)
+    if x_abs != 0.0:
+        raise AssertionError(f"K4 f32 exact differs from K1 -> K2 by {x_abs}")
+    out["k4_vs_k1_k2"]["exact_max_abs"] = x_abs
     dst = tuple(torch.empty_like(a) for a in src)
     p = torch.empty_like(st.rho)
-    nb = C.n_partials(st.rho.shape, dev)
+    nb = C.n_partials(st.rho.shape, dev, cfg.dtype)
     partials = torch.zeros((2, nb), dtype=st.rho.dtype, device=dev)
     scal, iscal = K.new_scalars(cfg.dtype, dev)
     scal[K.SC_DTUSE] = sedov_stats.last_dt
@@ -871,7 +937,7 @@ def phase5(torch):
     dev = src[0].device
     dst = tuple(torch.empty_like(a) for a in src)
     p = torch.empty_like(src[0])
-    nb = max(C.n_partials(src[0].shape, dev),
+    nb = max(C.n_partials(src[0].shape, dev, cfg.dtype),
              K.n_partials(Axis.X, src[0].shape, dev),
              K.n_partials(Axis.Y, src[0].shape, dev))
     partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
@@ -1022,7 +1088,7 @@ def _slab_cycle_checks(torch, cfg, mesh, cur, dt, fast, what, shards=None,
             dev = src[0].device
             dst = tuple(torch.empty_like(a) for a in src)
             p = torch.empty_like(src[0])
-            nb = C.n_partials(src[0].shape, dev)
+            nb = C.n_partials(src[0].shape, dev, cfg.dtype)
             partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
             scal, iscal = K.new_scalars(cfg.dtype, dev)
             scal[K.SC_DTUSE] = dt
@@ -1245,7 +1311,7 @@ def phase7(torch, rates):
     ghosts = halo_slabs(cfg, mesh, cur, Axis.Y)[0]
     dst = tuple(torch.empty_like(a) for a in src)
     p = torch.empty_like(src[0])
-    nb = C.n_partials(src[0].shape, dev)
+    nb = C.n_partials(src[0].shape, dev, cfg.dtype)
     partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
     scal, iscal = K.new_scalars(cfg.dtype, dev)
     scal[K.SC_DTUSE] = stats.last_dt
@@ -1354,8 +1420,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    if 0 in phases:
-        phase0(torch)
+    occupancy = phase0(torch) if 0 in phases else {}
     if 1 in phases:
         phase1(torch)
     if 2 in phases:
@@ -1365,6 +1430,11 @@ def main(argv=None):
     if 4 in phases:
         k4 = phase4(torch)
         rates["small"] = k4.pop()
+        # K4's entry also carries its time at 8200^2 (phase 3) and the
+        # resident blocks per SM of its f32 fast-math instance (phase 0).
+        k4[0]["ms_8200"] = rates.get("main", {}).get("kernel_ms", {}).get("cycle_8200")
+        k4[0]["blocks_per_sm"] = occupancy.get("cycle_float32 fast=True biz=False",
+                                               {}).get("blocks_per_sm")
         kernels += k4
     if 5 in phases:
         phase5(torch)

@@ -21,11 +21,14 @@ from armon_tpu.core import step as jstep
 from armon_tpu.io.output import read_reference_csv, compare_states
 import armon_torch
 from armon_torch.interop import to_numpy
-from armon_torch.core.solver import make_init_fused
+from armon_torch.core.solver import make_init_fused, make_mesh
 from armon_torch.core.step import make_time_loop_lean
 from armon_torch.ops import routing
 from armon_torch.ops import sweep as K
+from armon_torch.ops import cycle as C
 from armon_torch.ops.cycle import cycle_plain
+from armon_torch.ops.reductions import real_slice
+from armon_torch.parallel.halo import halo_slabs
 from armon_torch.utils.enums import Axis
 
 PER_SWEEP = dict(pair_threshold=0, temporal_blocking=1)
@@ -134,6 +137,75 @@ def test_cycle_plain_equals_two_sweeps(test, N, dtype, x_first):
         assert torch.equal(a[G:-G, G:-G], b[G:-G, G:-G])
     mx, my = K.cfl_partial_plain(cfg, out[1], out[2], out[5])
     assert torch.equal(ref[5], mx) and torch.equal(ref[6], my)
+
+
+def _k4_windows(cfg, x_first, src, dtx, dty, y_ghosts=K.MIRRORED, n_real=None):
+    """K4's function cut as its kernel cuts it (`ops/cycle.py`'s window
+    and grid): the pre-cycle state with both ghost fills, read at each
+    block's window rows and columns (clamped to the array, as the
+    kernel's loads are), the two plain sweeps on the window alone without
+    refilling, and the tile at the window's centre written back. Returns
+    (rho, u, v, E, p); cells no tile covers stay NaN."""
+    H = K.HALO
+    wx, wy = C.cycle_window(cfg.dtype)
+    rx, ry = wx - 2 * H, wy - 2 * H
+    f = K.fill_ghosts_plain(cfg, Axis.X, K.fill_ghosts_plain(
+        cfg, Axis.Y, src, n_real, y_ghosts), n_real)
+    rows, cols = f[0].shape
+    gx, gy = C.tile_grid((wx, wy), (rows, cols))
+    out = [torch.full_like(f[0], float("nan")) for _ in range(5)]
+    a1, d1, a2, d2 = ((Axis.X, dtx, Axis.Y, dty) if x_first
+                      else (Axis.Y, dty, Axis.X, dtx))
+    for by in range(gy):
+        for bx in range(gx):
+            r0, c0 = by * ry, bx * rx
+            ri = (torch.arange(wy) + r0 - H).clamp(0, rows - 1)
+            ci = (torch.arange(wx) + c0 - H).clamp(0, cols - 1)
+            win = [a[ri][:, ci] for a in f]
+            o = K.sweep_plain(cfg, a1, *win, d1, (None, None))
+            o = K.sweep_plain(cfg, a2, *o[:4], d2, (None, None))
+            h, w = min(ry, rows - r0), min(rx, cols - c0)
+            for k in range(5):
+                out[k][r0:r0 + h, c0:c0 + w] = o[k][H:H + h, H:H + w]
+    return out
+
+
+K4_WINDOW_CASES = [
+    ("ragged", (200, 260), "float32", None),       # 3 x 5 f32 tiles
+    ("ragged-f64", (200, 260), "float64", None),   # 4 x 5 f64 tiles
+    ("40x2", (40, 2), "float64", None),
+    ("2x40", (2, 40), "float32", None),
+    ("slab-1x3", (150, 300), "float32", (1, 3)),   # every shard
+]
+
+
+@pytest.mark.parametrize("x_first", [True, False], ids=["xy", "yx"])
+@pytest.mark.parametrize("name,N,dtype,P", K4_WINDOW_CASES,
+                         ids=[c[0] for c in K4_WINDOW_CASES])
+def test_k4_windows_stitch_to_cycle_plain(name, N, dtype, P, x_first):
+    """The tile geometry and halo depth K4 relies on: two sweeps on each
+    block's window alone, without refilling, give at the tiles' centres
+    what `cycle_plain` gives on the whole array, bit for bit on real
+    cells; on several tiles with ragged edges, on grids thinner than the
+    ghost band and on every Y-slab shard of a 1x3 mesh."""
+    params = armon_torch.ArmonParameters(
+        device="cpu", test="Sod_circ", N=N, data_type=dtype, maxcycle=3,
+        silent=5, **PER_SWEEP, **({"P": P} if P else {}))
+    cfg = params.config
+    mesh = make_mesh(params)
+    fs, seed = make_init_fused(params)()
+    res = make_time_loop_lean(cfg, mesh)(fs, 0.0, 0, 0.0, float(seed))
+    cur = [tuple(c[:4]) for c in res.carry]
+    ghosts = halo_slabs(cfg, mesh, cur, Axis.Y) if P else [K.MIRRORED]
+    dt = torch.tensor(0.5 * res.dt_last, dtype=cur[0][0].dtype)
+    dtx, dty = (dt * 0.5, dt) if x_first else (dt, dt * 0.5)
+    for s in mesh:
+        src = cur[s.index]
+        got = _k4_windows(cfg, x_first, src, dtx, dty, ghosts[s.index], s.n_real)
+        ref = cycle_plain(cfg, x_first, *src, dtx, dty, ghosts[s.index], s.n_real)
+        r = real_slice(cfg, s.n_real)
+        for a, b in zip(got, ref[:5]):
+            assert torch.equal(a[r], b[r]), (name, s.index)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

@@ -33,8 +33,8 @@ def card():
     return torch.device("cuda")
 
 
-def _advanced(test, dtype, fast, n=96, cycles=4, **scheme):
-    params = armon_torch.ArmonParameters(test=test, N=(n, n), data_type=dtype,
+def _advanced(test, dtype, fast, n=96, cycles=4, N=None, **scheme):
+    params = armon_torch.ArmonParameters(test=test, N=N or (n, n), data_type=dtype,
                                          use_fast_math=fast, maxcycle=cycles,
                                          silent=5, device="cuda", **PER_SWEEP,
                                          **scheme)
@@ -181,22 +181,25 @@ def _close(a, b, fast):
     return torch.equal(a, b)
 
 
+@pytest.mark.parametrize("N", [(200, 200), (250, 130), (40, 2), (2, 40)],
+                         ids=["200", "250x130", "40x2", "2x40"])
 @pytest.mark.parametrize("x_first", [True, False], ids=["xy", "yx"])
 @pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
                                         ("float32", True)],
                          ids=["f64", "f32-exact", "f32-fast"])
 @pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
-def test_cycle_matches_plain(card, test, dtype, fast, x_first):
+def test_cycle_matches_plain(card, test, dtype, fast, x_first, N):
     """K4 against `cycle_plain` on the same state: bit for bit in exact
     mode (fields, p, CFL maxima and K3's fold), 1e-4 of scale in fast
-    math."""
-    cfg, res = _advanced(test, dtype, fast, n=200)
+    math; on several tiles with ragged edges (K4's tiles are 88 x 120 in
+    f32, 56 x 56 in f64) and on grids thinner than the ghost band."""
+    cfg, res = _advanced(test, dtype, fast, N=N)
     g = cfg.nghost
     r = (slice(g, -g), slice(g, -g))
     src = tuple(res.carry[:4])
     dst = tuple(torch.empty_like(a) for a in src)
     p = torch.empty_like(src[0])
-    nb = C.n_partials(src[0].shape, card)
+    nb = C.n_partials(src[0].shape, card, cfg.dtype)
     partials = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
     scal, iscal = K.new_scalars(cfg.dtype, card)
     scal[K.SC_DTUSE] = 0.5 * res.dt_last
@@ -347,18 +350,19 @@ def test_slab_sweeps_match_plain(card, test, dtype, fast):
         _close_on_mesh(checks, fast)
 
 
+@pytest.mark.parametrize("N", [(96, 100), (250, 370)], ids=["96x100", "250x370"])
 @pytest.mark.parametrize("x_first", [True, False], ids=["xy", "yx"])
 @pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
                                         ("float32", True)],
                          ids=["f64", "f32-exact", "f32-fast"])
 @pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
-def test_slab_cycle_matches_plain(card, test, dtype, fast, x_first):
+def test_slab_cycle_matches_plain(card, test, dtype, fast, x_first, N):
     """K4 with Y slabs and the X mirror after the splice (the `slab_y`
     variant of `_cycle_kernel`) against `cycle_plain`, on every shard of a
     1x3 mesh with an uneven Y split. Its first sweep runs on the ghost
     rows, so the corner cells (the X mirror of slab rows) reach real
     cells: this is the case that checks them."""
-    cfg, mesh, res = _mesh_state(test, dtype, fast, (1, 3), (96, 100), **PAIR)
+    cfg, mesh, res = _mesh_state(test, dtype, fast, (1, 3), N, **PAIR)
     assert route_of(cfg) == "pair"
     cur = [tuple(c[:4]) for c in res.carry]
     ghosts = halo_slabs(cfg, mesh, cur, armon_torch.Axis.Y)
@@ -368,7 +372,7 @@ def test_slab_cycle_matches_plain(card, test, dtype, fast, x_first):
         r = real_slice(cfg, s.n_real)
         dst = tuple(torch.empty_like(a) for a in src)
         p = torch.empty_like(src[0])
-        nb = C.n_partials(src[0].shape, card)
+        nb = C.n_partials(src[0].shape, card, cfg.dtype)
         partials = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
         scal, iscal = K.new_scalars(cfg.dtype, card)
         scal[K.SC_DTUSE] = 0.5 * res.dt_last

@@ -37,7 +37,9 @@ import numpy as np
 import pytest
 import torch
 
-import jax
+# The card's machine has no jax: there this file skips whole, and the
+# probes' kernels are checked by tests/test_torch_kernels.py.
+jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
@@ -92,6 +94,66 @@ def test_flip_matches_script_kernels(scripts):
     xt = torch.from_numpy(x)
     assert np.array_equal(np.asarray(mirror), flip.mirror_fill(xt).numpy())
     assert np.array_equal(np.asarray(copy), flip.copy(xt).numpy())
+
+
+def _flip_pass_model(x, g, mirror, head, blocks, ft, unroll=8):
+    """A numpy model of `flip_kernel`'s index logic (csrc/probe_stream.cu):
+    `blocks` blocks of `ft` threads stride over the 16-byte vectors that
+    start at flat index `head`, a block's `unroll` x `ft` vectors of one
+    step contiguous, every vector tracking the column of its first element
+    by adds; a vector that touches a row's first or last g columns gathers
+    those elements from their source columns; the scalar head and tail
+    take the rest."""
+    rows, cols = x.shape
+    xf = x.reshape(-1)
+    n = xf.size
+    nv = (n - head) // 4
+    o = np.full(n, np.nan, np.float32)
+
+    def src(c):
+        return 2 * g - 1 - c if c < g else (cols - 2 * g + cols - 1 - c
+                                            if c >= cols - g else c)
+
+    step = (4 * unroll * blocks * ft) % cols
+    for tid in range(blocks * ft):
+        v0 = (tid // ft) * unroll * ft + tid % ft
+        col = [(head + 4 * (v0 + k * ft)) % cols for k in range(unroll)]
+        for v in range(v0, nv, unroll * blocks * ft):
+            vks = [v + k * ft for k in range(unroll)]
+            a = [xf[head + 4 * vk:head + 4 * vk + 4].copy() if vk < nv else None
+                 for vk in vks]
+            for k, vk in enumerate(vks):
+                if mirror and vk < nv and (col[k] < g or col[k] + 3 >= cols - g):
+                    e0 = head + 4 * vk
+                    for i in range(4):
+                        c, rs = col[k] + i, e0 - col[k]
+                        if c >= cols:
+                            c, rs = c - cols, rs + cols
+                        if c < g or c >= cols - g:
+                            a[k][i] = xf[rs + src(c)]
+                col[k] = col[k] + step - (cols if col[k] + step >= cols else 0)
+            for k, vk in enumerate(vks):
+                if vk < nv:
+                    o[head + 4 * vk:head + 4 * vk + 4] = a[k]
+    for s in range(n - 4 * nv):
+        e = s if s < head else s + 4 * nv
+        c = e % cols
+        o[e] = xf[e - c + src(c)] if mirror else xf[e]
+    return o.reshape(rows, cols)
+
+
+@pytest.mark.parametrize("cols", [16, 9, 10, 11, 8], ids=lambda c: f"cols{c}")
+def test_flip_vector_pass_model(cols):
+    """The flat float4 pass with its column fix-up equals the plain
+    mirror fill (and the copy) bit for bit for cols % 4 in {0, 1, 2, 3}
+    and at cols = 2 g, g = 4, from every 16-byte offset of the base and
+    for grids whose steps wrap a vector's column past a row or more."""
+    x = np.random.default_rng(cols).random((7, cols), dtype=np.float32)
+    want = flip.mirror_plain(torch.from_numpy(x)).numpy()
+    for head in (0, 1, 2, 3):
+        for blocks, ft in ((1, 1), (2, 1), (1, 3), (3, 2)):
+            assert np.array_equal(_flip_pass_model(x, 4, True, head, blocks, ft), want)
+            assert np.array_equal(_flip_pass_model(x, 4, False, head, blocks, ft), x)
 
 
 # ------------------------------------------------------ I/O-shape ladder
@@ -243,7 +305,7 @@ SCRIPT_KW = {"base": {}, "no_p": dict(write_p=False),
              "no_dt": dict(do_dtmin=False),
              "no_p_dt": dict(write_p=False, do_dtmin=False),
              "no_roll": dict(no_roll=True), "stream": dict(stream_only=True),
-             "first_order": {}, "base_l32": {}}
+             "first_order": {}, "base_w128": {}, "base_l32": {}}
 
 
 def _script_stream(fields, chunk):

@@ -55,8 +55,9 @@ def _launch_times(torch, params, pair):
     dev = src[0].device
     dst = tuple(torch.empty_like(a) for a in src)
     p = torch.empty_like(src[0])
-    nb = max(C.n_partials(src[0].shape, dev),
-             K.n_partials(Axis.X, src[0].shape, dev),
+    # K1's partials outnumber K2's and K4's (a 248-position strip of one
+    # row per block), in every tree this times.
+    nb = max(K.n_partials(Axis.X, src[0].shape, dev),
              K.n_partials(Axis.Y, src[0].shape, dev))
     partials = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
     scal, iscal = K.new_scalars(cfg.dtype, dev)

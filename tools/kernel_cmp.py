@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""K4 `cycle` and the flip probe kernels of two or more checkouts, timed in
+alternation on one NVIDIA card.
+
+    python3 tools/kernel_cmp.py ROOT [ROOT ...]
+
+Each ROOT is the root of a checkout that holds `armon_torch/` (its kernels
+build into ROOT/build/armon_torch on first use). The roots run in the
+order given and then in reverse (parent, change, change, parent for two),
+each pass in a process of its own. A pass, f32 fast math (GAD, minmod,
+euler_2nd, nghost 4):
+
+- builds two states through the per-sweep kernels K1/K2 (the same in
+  every tree, so every root times the same inputs): Sedov 2000^2 after
+  1000 cycles and Sod 8192^2 after 10 (2008^2 and 8200^2 padded);
+- times one emitting K4 launch on each, X first and Y first (the full dt
+  on both sweeps; the shared timer `armon_torch._card.time_ms`), and
+  takes the max difference, on real cells, of the X-first launch's
+  rho/u/v/E/p from K1 then K2 on the same state, absolute and over each
+  field's scale; on the Sedov state it also times K4 X first on the top
+  1008 rows, the shape of a shard of Sedov 2000^2 over a 1x2 mesh;
+- times `flip_copy`, `flip_mirror` and `Tensor.copy_` on an 8200^2 f32
+  array.
+
+It prints the card line, one JSON line per pass and, last, the mean per
+root.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+CHILD = r'''
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+from armon_torch import ArmonParameters
+from armon_torch.core.solver import make_init_fused
+from armon_torch.core.step import make_time_loop_lean
+from armon_torch.ops import sweep as K
+from armon_torch.ops import cycle as C
+from armon_torch.probes import flip
+from armon_torch.utils.enums import Axis
+from armon_torch._card import time_ms
+
+OPTS = dict(data_type="float32", scheme="GAD", projection="euler_2nd",
+            riemann_limiter="minmod", nghost=4, use_fast_math=True,
+            maxtime=1e30, silent=5, device="cuda", pair_threshold=0,
+            temporal_blocking=1)
+out = {"root": sys.argv[1]}
+for name, test, n, cycles in (("sedov_2008", "Sedov", 2000, 1000),
+                              ("sod_8200", "Sod", 8192, 10)):
+    params = ArmonParameters(test=test, N=(n, n), maxcycle=cycles, **OPTS)
+    cfg = params.config
+    [fs], seed = make_init_fused(params)()
+    res = make_time_loop_lean(cfg)(fs, 0.0, 0, 0.0, float(seed))
+    T = np.float32
+    dt = float(min(T(cfg.cfl) * T(res.lm), T(1.05) * T(res.dt_last)))
+    src = tuple(res.carry[:4])
+    dev, shape = src[0].device, src[0].shape
+    scal, iscal = K.new_scalars(cfg.dtype, dev)
+    scal[K.SC_DTUSE] = dt
+    iscal[K.IS_RUN] = 1
+    # K1's partials outnumber K2's and K4's in every tree.
+    part = torch.zeros((2, K.n_partials(Axis.X, shape, dev)), dtype=src[0].dtype,
+                       device=dev)
+    mid, ref, got = ([torch.empty_like(a) for a in src] for _ in range(3))
+    p, p4 = torch.empty_like(src[0]), torch.empty_like(src[0])
+    out[name + "_cycle_yx_ms"] = time_ms(lambda i: C.cycle(
+        cfg, False, 1.0, 1.0, src, got, p4, part, scal, iscal, True), k=20)
+    out[name + "_cycle_ms"] = time_ms(lambda i: C.cycle(
+        cfg, True, 1.0, 1.0, src, got, p4, part, scal, iscal, True), k=20)
+    if name == "sedov_2008":
+        top = tuple(a[:1008] for a in src)
+        out["sedov_1008x2008_cycle_ms"] = time_ms(lambda i: C.cycle(
+            cfg, True, 1.0, 1.0, top, tuple(a[:1008] for a in mid),
+            p[:1008], part, scal, iscal, True), k=20)
+    K.x_sweep(cfg, src, mid, p, part, scal, iscal, 1.0, False)
+    K.y_sweep(cfg, mid, ref, p, part, scal, iscal, 1.0, True)
+    torch.cuda.synchronize()
+    g = cfg.nghost
+    r = (slice(g, -g), slice(g, -g))
+    err = rel = 0.0
+    for a, b in zip(got + [p4], ref + [p]):
+        d = float((a[r] - b[r]).abs().max())
+        err = max(err, d)
+        rel = max(rel, d / max(float(b[r].abs().max()), 1e-30))
+    out[name + "_vs_k1_k2_max_abs"] = err
+    out[name + "_vs_k1_k2_max_rel"] = rel
+    del src, mid, ref, got, p, p4, part, fs, res
+x = torch.rand((8200, 8200), device="cuda")
+o = torch.empty_like(x)
+out["flip_copy_ms"] = time_ms(lambda i: flip.copy(x, o), k=20)
+out["flip_mirror_ms"] = time_ms(lambda i: flip.mirror_fill(x, 4, o), k=20)
+out["copy__ms"] = time_ms(lambda i: o.copy_(x), k=20)
+print(json.dumps(out), flush=True)
+'''
+
+
+def main(argv=None):
+    roots = [os.path.abspath(r) for r in (argv or sys.argv[1:])]
+    if not roots:
+        sys.exit(__doc__)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    rows = {r: [] for r in roots}
+    for root in roots + roots[::-1]:
+        res = subprocess.run([sys.executable, "-c", CHILD, root], cwd=root,
+                             capture_output=True, text=True)
+        if res.returncode:
+            sys.stderr.write(res.stderr[-4000:])
+            sys.exit(f"kernel_cmp: the pass in {root} failed")
+        line = res.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        rows[root].append(json.loads(line))
+    for root, passes in rows.items():
+        keys = [k for k in passes[0] if k != "root"]
+        print(json.dumps({"root": root, "mean": {
+            k: statistics.mean(p[k] for p in passes) for k in keys}}))
+
+
+if __name__ == "__main__":
+    main()
