@@ -22,7 +22,8 @@
 // block owns an RX x RY output tile and sweeps the WX x WY window around
 // it. A line (a window row along X, a window column along Y) belongs to
 // one warp, and each lane owns a run of PX (along X) or PY (along Y)
-// consecutive positions of it: `run_body` is `sweep_body` stage by stage
+// consecutive positions of it: `run_body` (sweep.cuh, shared with K1) is
+// `sweep_body` stage by stage
 // with the same operations in the same order at every position, but its
 // k-1 / k+1 reads come from the lane's own registers inside the run and
 // from `__shfl_up_sync` / `__shfl_down_sync` at its ends, so no block
@@ -69,8 +70,8 @@
 // window, L/NL passes of NL lines with one thread per position; its
 // outputs on the R inner positions of each line stay in shared memory (F,
 // 4 fields x L lines x R), never in device memory. The second sweep runs
-// on the R lines of F. Both are `sweep_body` (sweep.cuh), the body K1/K2
-// run, with the line's stride in S as the shifted-read stride. The block
+// on the R lines of F. Both are `sweep_body` (sweep.cuh), one position
+// per thread, with the line's stride in S as the shifted-read stride. The block
 // writes its tile's rho/u/v/E (+ p) to the second buffer set and, when it
 // emits, one pair of CFL partial maxima. The TPU's full-width row chunks
 // are not carried over: the TPU runs its grid in order out of a large
@@ -441,195 +442,6 @@ template <typename T> struct K4Geom;
 template <> struct K4Geom<float> { typedef K4Shape<float, 3, 2, 16, 2> G; };
 template <> struct K4Geom<double> { typedef K4Shape<double, 2, 2, 8, 1> G; };
 template <typename T> using K4 = typename K4Geom<T>::G;
-
-// jmax / jmin (common.cuh) in the forms `run_body` meets them, with the
-// same results bit for bit, NaN operands and signed zeros included, in
-// fewer instructions: jmax(0, m) is m < 0 ? 0 : m, jmin(a, b) is
-// a < b || a != a ? a : b. PTX's min.NaN / max.NaN would order -0 below
-// +0, where jmax(+0, -0) gives -0.
-template <typename T> __device__ __forceinline__ T clamp0(T m) { return m < T(0) ? T(0) : m; }
-template <typename T> __device__ __forceinline__ T xmin(T a, T b) {
-  return (a < b || a != a) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T xmax(T a, T b) {
-  return (a > b || a != a) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T limiter_x(int name, T r) {
-  if (name == 0) return T(1);
-  if (name == 1) return clamp0(xmin(T(1), r));
-  return xmax(clamp0(xmin(T(2) * r, T(1))), xmin(r, T(2)));
-}
-
-// `sweep_body` on a run of P consecutive positions of a line held by one
-// lane, the line's 32 P positions spread over the warp's 32 lanes in
-// order. The same operations in the same order at every position; a k-1
-// read at the run's first position comes from the lane below through
-// `__shfl_up_sync`, a k+1 read at its last from the lane above through
-// `__shfl_down_sync`, every other one from the lane's own registers (at
-// the line's ends a lane reads itself: those positions are halo, read
-// but never valid). Every lane of the warp must call it. In: the state
-// with the axis velocity `ua`, the other one `uo`; out: the swept state in
-// place, the pre-sweep p and c. SHIFT = false is the no_roll variant, as
-// in `sweep_body`. Its min/max are `limiter_x`, `clamp0` and `xmin`.
-template <typename T, bool FAST, bool BIZ, int P, bool SHIFT = true>
-__device__ __forceinline__ void run_body(const double* kk, int riemann, int lim, int projection,
-                                         T dt, T dx, T inv_dx, bool need_c, T (&rho)[P],
-                                         T (&ua)[P], T (&uo)[P], T (&E)[P], T (&p)[P],
-                                         T (&c)[P]) {
-  typedef Div<T, FAST> D;
-  constexpr unsigned FULL = 0xffffffffu;
-  // The neighbouring lanes' values at the run's ends.
-  auto lo = [](T v) -> T { return SHIFT ? __shfl_up_sync(FULL, v, 1) : v; };
-  auto hi = [](T v) -> T { return SHIFT ? __shfl_down_sync(FULL, v, 1) : v; };
-  // Position k-1 / k+1 of run slot j; `edge` is `lo` / `hi` of the run.
-  auto km = [](const T (&a)[P], T edge, int j) -> T {
-    return SHIFT ? (j > 0 ? a[j - 1] : edge) : a[j] * T(1 + 1e-7 * -1);
-  };
-  auto kp = [](const T (&a)[P], T edge, int j) -> T {
-    return SHIFT ? (j < P - 1 ? a[j + 1] : edge) : a[j] * T(1 + 1e-7 * 1);
-  };
-
-  // ---- stage 1: EOS of the input state
-  T rc[P], rr[P], dm[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    rr[j] = T(0);
-    c[j] = T(0);
-    eos_prc<T, FAST, BIZ>(kk, rho[j], ua[j], uo[j], E[j], need_c, p[j], rc[j], c[j], rr[j]);
-    dm[j] = rho[j] * dx;
-  }
-
-  // ---- stage 2: Godunov solve at the k-1/2 interface
-  T us_i[P], ps_i[P], e_u[P], e_p[P], d_u[P], d_p[P], theta[P];
-  {
-    const T dm_e = lo(dm[P - 1]), ua_e = lo(ua[P - 1]), p_e = lo(p[P - 1]),
-            rc_e = lo(rc[P - 1]);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const T dm_l = km(dm, dm_e, j), u_m = km(ua, ua_e, j), p_m = km(p, p_e, j),
-              rc_l = km(rc, rc_e, j);
-      const T rc_sum = rc_l + rc[j];
-      {
-        typename D::Over over(rc_sum);
-        us_i[j] = over(rc_l * u_m + rc[j] * ua[j] + (p_m - p[j]));
-        ps_i[j] = over(rc[j] * p_m + rc_l * p[j] + rc_l * rc[j] * (u_m - ua[j]));
-      }
-      e_u[j] = us_i[j] - u_m, e_p[j] = ps_i[j] - p_m;
-      d_u[j] = ua[j] - us_i[j], d_p[j] = p[j] - ps_i[j];
-      theta[j] = T(0);
-      if (riemann == 1) {
-        if (FAST) {
-          theta[j] = T(0.5) * (T(1) - rc_sum * D::divc(dt, dm_l + dm[j]));
-        } else {
-          const T Dm = (dm_l + dm[j]) / T(2);
-          theta[j] = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
-        }
-      }
-    }
-  }
-
-  // ---- stage 3: GAD limiter blend
-  T ustar[P], pstar[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) ustar[j] = us_i[j], pstar[j] = ps_i[j];
-  if (riemann == 1) {
-    const T eu_e = hi(e_u[0]), ep_e = hi(e_p[0]), du_e = lo(d_u[P - 1]), dp_e = lo(d_p[P - 1]);
-    const T eps = T(1e-6);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const T r_um = limiter_x(lim, D::divc(kp(e_u, eu_e, j), e_u[j] + eps));
-      const T r_pm = limiter_x(lim, D::divc(kp(e_p, ep_e, j), e_p[j] + eps));
-      const T r_up = limiter_x(lim, D::divc(km(d_u, du_e, j), d_u[j] + eps));
-      const T r_pp = limiter_x(lim, D::divc(km(d_p, dp_e, j), d_p[j] + eps));
-      ustar[j] = us_i[j] + theta[j] * (r_up * d_u[j] - r_um * e_u[j]);
-      pstar[j] = ps_i[j] + theta[j] * (r_pp * d_p[j] - r_pm * e_p[j]);
-    }
-  }
-
-  // ---- stage 4: Lagrangian cell update
-  T dX[P], rho1[P], ua1[P], E1[P], disp[P], dxe[P];
-  bool up[P];
-  {
-    const T us_e = hi(ustar[0]), ps_e = hi(pstar[0]), usm_e = lo(ustar[P - 1]);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const T us_p = kp(ustar, us_e, j), ps_p = kp(pstar, ps_e, j);
-      dX[j] = dx + dt * (us_p - ustar[j]);
-      rho1[j] = D::div(dm[j], dX[j]);
-      const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * rr[j] : D::div(dt, dm[j]);
-      ua1[j] = ua[j] + dt_dm * (pstar[j] - ps_p);
-      E1[j] = E[j] + dt_dm * (pstar[j] * ustar[j] - ps_p * us_p);
-      disp[j] = dt * ustar[j];
-      up[j] = disp[j] > T(0);
-      dxe[j] = up[j] ? (dt * km(ustar, usm_e, j) - dx) : (dx + dt * us_p);
-    }
-  }
-
-  // ---- stages 5-7, one conserved variable q at a time (each position's
-  // operations as in `sweep_body`, their order across variables free):
-  // upwind values and limited slopes (slope_shift form), advection fluxes,
-  // projection. Per variable only its fluxes' result stays live.
-  const bool second = projection == 1;
-  T dxl[P], r_m[P], r_p[P], lf[P], dXr[P];
-  {
-    const T dXm_e = lo(dX[P - 1]), dXp_e = hi(dX[0]);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const T dXm = km(dX, dXm_e, j), dXp = kp(dX, dXp_e, j);
-      dxl[j] = up[j] ? dXm : dX[j];
-      r_m[j] = D::divc(T(2) * dX[j], dX[j] + dXm);
-      r_p[j] = D::divc(T(2) * dX[j], dX[j] + dXp);
-      lf[j] = second ? D::divc(dxe[j], T(2) * dxl[j]) : T(0);
-      dXr[j] = dX[j] * rho1[j];
-    }
-  }
-  T tmp[4][P];
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    T q[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j)
-      q[j] = f == 0 ? rho1[j] : rho1[j] * (f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]));
-    const T qm_e = lo(q[P - 1]), qp_e = hi(q[0]);
-    T qi[P], s5[P], adv[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const T qm = km(q, qm_e, j), qp = kp(q, qp_e, j);
-      qi[j] = up[j] ? qm : q[j];
-      const T du_p = r_p[j] * (qp - q[j]);
-      const T du_m = r_m[j] * (q[j] - qm);
-      const T sgn = jsign(du_p);
-      const T slope = sgn * clamp0(xmin(fabs(du_p), sgn * du_m));
-      s5[j] = second ? slope : disp[j] * qi[j];
-    }
-    if (second) {
-      const T s5_e = lo(s5[P - 1]);
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const T sl = up[j] ? km(s5, s5_e, j) : s5[j];
-        adv[j] = disp[j] * (qi[j] - sl * lf[j]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < P; ++j) adv[j] = s5[j];
-    }
-    const T adv_e = hi(adv[0]);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const T num = f == 0 ? dXr[j] : dXr[j] * (f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]));
-      const T v = num - (kp(adv, adv_e, j) - adv[j]);
-      tmp[f][j] = FAST ? v * inv_dx : v / dx;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    rho[j] = tmp[0][j];
-    typename D::Over over_rho(tmp[0][j]);
-    ua[j] = over_rho(tmp[1][j]);
-    uo[j] = over_rho(tmp[2][j]);
-    E[j] = over_rho(tmp[3][j]);
-  }
-}
 
 // Where window cell (gr, gc) of the pre-cycle state with both ghost fills
 // lies, and the factors it takes, as K5's `cycle_tile` loads it: the X

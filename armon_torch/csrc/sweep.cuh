@@ -1,6 +1,8 @@
-// Per-sweep hydro kernels for Hopper (sm_90a): the shared device body
-// `sweep_body` (also run by the whole-cycle kernels of cycle.cuh) and the
-// X/Y sweep kernel template.
+// Per-sweep hydro kernels for Hopper (sm_90a): K1 `x_sweep_kernel` and K2
+// `y_sweep_kernel`, and the device bodies of the sweep: `sweep_body` (one
+// position per thread, neighbours through shared memory; run by K5's tile
+// body and the probes) and `run_body` (a run of positions per lane,
+// neighbours through registers and shuffles; run by K1 and K4).
 //
 // Replaces the TPU kernels `_x_sweep_kernel` and `_y_sweep_kernel` of
 // armon_tpu/ops/pallas/sweep.py (with their body `_sweep_math`, the
@@ -8,22 +10,38 @@
 // of a domain-decomposed run `_bc_x_apply_slab` / `_halo_cat_slab`, and
 // the CFL tile reduction `_dt_tile_min`).
 //
-// Bound on this card: memory. A sweep reads rho/u/v/E once and writes them
-// once (plus the stale p on the cycle's last sweep): 32-36 bytes per cell
-// in f32 against ~230 flops, far below the H100's ~20 flop/byte f32 ridge.
+// Bound on this card: bytes and instructions come close. A sweep reads
+// rho/u/v/E once and writes them once (plus the stale p on the cycle's
+// last sweep), 32-36 bytes per cell in f32, against 192 operations per
+// cell (-fmad=false: one lane instruction each): at 8200^2, 0.64-0.72 ms
+// of bytes and 0.77 ms of operations; the card's issue of the compiled
+// body takes more (PERF.md).
 //
-// Design: one block owns a segment of TILE positions along the sweep axis
-// times LINES lines across it (X: 256 x 1 row, Y: 32 rows x 16 columns so
-// a warp reads 16 consecutive columns). Each thread owns one position and
-// keeps it through seven stages; values a stage reads at a shifted
-// position (k-1, k+1) go through shared memory, with a barrier between
-// stages. The outer HALO = 4 positions on each side are read but not
-// written, which covers the sweep's dependency depth (<= 4 = nghost
-// floor). Every field crosses device memory once per sweep (plus 8/TILE
-// re-read halo); the intermediates (EOS, fluxes, slopes) never leave the
-// SM. Output goes to a second buffer set (out of place): GPU blocks run
-// concurrently, so the TPU's in-place update would race on the halo.
-//
+// Design. No block barrier and no shared memory inside a sweep: every
+// k-1 / k+1 operand is a register. The outer HALO = 4 positions on each
+// side of a segment are read but not written, which covers the sweep's
+// dependency depth (<= 4 = nghost floor). The intermediates (EOS, fluxes,
+// slopes) never leave the SM. Output goes to a second buffer set (out of
+// place): GPU blocks run concurrently, so the TPU's in-place update would
+// race on the halo. Every block is on grid_x, so any padded shape with
+// int32 rows and columns launches (the TPU's X kernel tiles rows too).
+// - K1 (`XGeom`): a warp sweeps windows of 128 consecutive columns of a
+//   row (120 written, 1.067x the cells), each lane a run of 4 through
+//   `run_body` with shuffles at the runs' ends, as K4's X-first sweep
+//   does; rows load and store as 16-byte vectors, the next window's loads
+//   in flight during this one's sweep. Up to 8 windows a warp, fewer on a
+//   small grid so that it still has 2048 blocks.
+// - K2 (`YGeom`): a thread marches down one column of 128 output rows
+//   (136 read, 1.0625x; 64 or 32 on a grid that would otherwise have
+//   fewer than 512 blocks), a warp on 32 consecutive columns so every row
+//   access is one 128-byte line. The seven stages run as a register
+//   pipeline over rows: at step i stages 1-2 at row i, 3 at i-1, 4 at i-2,
+//   5-6 at i-3, 7 at i-4, so a stage's neighbours are the registers of the
+//   steps before, and stages on different rows give the scheduler
+//   independent work.
+// - CFL partials: a running max per thread, folded by warp shuffles and
+//   once per block through shared memory; one pair per block for K3.
+
 // Ghost bands are filled in the load, per side of the swept axis: mirror
 // (a global border), slab (a mesh neighbour's g real lines, packed by the
 // host into a (4, rows, g) X or (4, g, cols) Y buffer: the TPU kernels'
@@ -49,9 +67,6 @@ namespace armon {
 
 constexpr int HALO = 4;
 
-template <int AXIS> struct Geom;
-template <> struct Geom<0> { static constexpr int TILE = 256, LINES = 1; };
-template <> struct Geom<1> { static constexpr int TILE = 32, LINES = 16; };
 
 // EOS constants, precomputed on the host in dtype T with the exact numpy
 // expressions of the TPU kernel (see ops/_build.py).
@@ -234,8 +249,10 @@ __device__ __forceinline__ long long ghost_src(long long k, int g, int n_real,
   return k;
 }
 
-// `_sweep_math` at one position of a line, the one port of it that every
-// kernel runs. The calling thread owns position k and reads the stage
+// `_sweep_math` at one position of a line, one position per thread (K5's
+// tile body and the probes run it; K1, K2 and K4 run the same operations
+// in the same order through `run_body` or K2's pipeline). The calling
+// thread owns position k and reads the stage
 // values of k-1 and k+1 through shared memory S (9 rows of NS values):
 // `tm` / `tp` are those neighbours' slots, i.e. the thread's own slot minus
 // / plus the line's stride in S, clamped at the line's ends (the outer
@@ -420,124 +437,701 @@ __device__ __forceinline__ void block_max2(T* S, int tid, T mx, T my) {
   }
 }
 
-template <typename T, int AXIS, bool FAST, bool BIZ>
-__global__ void __launch_bounds__(Geom<AXIS>::TILE * Geom<AXIS>::LINES)
-sweep_kernel(const SweepArgs a) {
-  constexpr int P = Geom<AXIS>::TILE;
-  constexpr int C = Geom<AXIS>::LINES;
-  constexpr int NT = P * C;
-  __shared__ T S[9][NT];
+// jmax / jmin (common.cuh) in the forms `run_body` meets them, with the
+// same results bit for bit, NaN operands and signed zeros included, in
+// fewer instructions: jmax(0, m) is m < 0 ? 0 : m, jmin(a, b) is
+// a < b || a != a ? a : b. PTX's min.NaN / max.NaN would order -0 below
+// +0, where jmax(+0, -0) gives -0.
+template <typename T> __device__ __forceinline__ T clamp0(T m) { return m < T(0) ? T(0) : m; }
+template <typename T> __device__ __forceinline__ T xmin(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T xmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T limiter_x(int name, T r) {
+  if (name == 0) return T(1);
+  if (name == 1) return clamp0(xmin(T(1), r));
+  return xmax(clamp0(xmin(T(2) * r, T(1))), xmin(r, T(2)));
+}
 
-  const int lane = AXIS == 0 ? 0 : threadIdx.x;
-  const int pos = AXIS == 0 ? threadIdx.x : threadIdx.y;
-  const int tid = pos * C + lane;
-  const int tm = pos > 0 ? tid - C : tid;      // position k-1 (clamped)
-  const int tp = pos < P - 1 ? tid + C : tid;  // position k+1 (clamped)
-
-  const long long rows = a.rows, cols = a.cols;
-  const long long n_along = AXIS == 0 ? cols : rows;
-  const long long n_across = AXIS == 0 ? rows : cols;
-  const long long seg = AXIS == 0 ? blockIdx.x : blockIdx.y;
-  const long long k = seg * (P - 2 * HALO) - HALO + pos;
-  const long long across = AXIS == 0 ? (long long)blockIdx.y
-                                     : (long long)blockIdx.x * C + lane;
-  const long long across_c = across < n_across ? across : n_across - 1;
-  const bool out = pos >= HALO && pos < P - HALO && k < n_along && across < n_across;
-  const int g = a.g;
-  const int n_real = AXIS == 0 ? a.nx : a.ny;
-  const int n_cross = AXIS == 0 ? a.ny : a.nx;
-
-  auto at = [&](long long kk) -> long long {
-    return AXIS == 0 ? across_c * cols + kk : kk * cols + across_c;
+// `sweep_body` on a run of P consecutive positions of a line held by one
+// lane, the line's 32 P positions spread over the warp's 32 lanes in
+// order. The same operations in the same order at every position; a k-1
+// read at the run's first position comes from the lane below through
+// `__shfl_up_sync`, a k+1 read at its last from the lane above through
+// `__shfl_down_sync`, every other one from the lane's own registers (at
+// the line's ends a lane reads itself: those positions are halo, read
+// but never valid). Every lane of the warp must call it. In: the state
+// with the axis velocity `ua`, the other one `uo`; out: the swept state in
+// place, the pre-sweep p and c. SHIFT = false is the no_roll variant, as
+// in `sweep_body`. Its min/max are `limiter_x`, `clamp0` and `xmin`.
+template <typename T, bool FAST, bool BIZ, int P, bool SHIFT = true>
+__device__ __forceinline__ void run_body(const double* kk, int riemann, int lim, int projection,
+                                         T dt, T dx, T inv_dx, bool need_c, T (&rho)[P],
+                                         T (&ua)[P], T (&uo)[P], T (&E)[P], T (&p)[P],
+                                         T (&c)[P]) {
+  typedef Div<T, FAST> D;
+  constexpr unsigned FULL = 0xffffffffu;
+  // The neighbouring lanes' values at the run's ends.
+  auto lo = [](T v) -> T { return SHIFT ? __shfl_up_sync(FULL, v, 1) : v; };
+  auto hi = [](T v) -> T { return SHIFT ? __shfl_down_sync(FULL, v, 1) : v; };
+  // Position k-1 / k+1 of run slot j; `edge` is `lo` / `hi` of the run.
+  auto km = [](const T (&a)[P], T edge, int j) -> T {
+    return SHIFT ? (j > 0 ? a[j - 1] : edge) : a[j] * T(1 + 1e-7 * -1);
+  };
+  auto kp = [](const T (&a)[P], T edge, int j) -> T {
+    return SHIFT ? (j < P - 1 ? a[j + 1] : edge) : a[j] * T(1 + 1e-7 * 1);
   };
 
+  // ---- stage 1: EOS of the input state
+  T rc[P], rr[P], dm[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    rr[j] = T(0);
+    c[j] = T(0);
+    eos_prc<T, FAST, BIZ>(kk, rho[j], ua[j], uo[j], E[j], need_c, p[j], rc[j], c[j], rr[j]);
+    dm[j] = rho[j] * dx;
+  }
+
+  // ---- stage 2: Godunov solve at the k-1/2 interface
+  T us_i[P], ps_i[P], e_u[P], e_p[P], d_u[P], d_p[P], theta[P];
+  {
+    const T dm_e = lo(dm[P - 1]), ua_e = lo(ua[P - 1]), p_e = lo(p[P - 1]),
+            rc_e = lo(rc[P - 1]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T dm_l = km(dm, dm_e, j), u_m = km(ua, ua_e, j), p_m = km(p, p_e, j),
+              rc_l = km(rc, rc_e, j);
+      const T rc_sum = rc_l + rc[j];
+      {
+        typename D::Over over(rc_sum);
+        us_i[j] = over(rc_l * u_m + rc[j] * ua[j] + (p_m - p[j]));
+        ps_i[j] = over(rc[j] * p_m + rc_l * p[j] + rc_l * rc[j] * (u_m - ua[j]));
+      }
+      e_u[j] = us_i[j] - u_m, e_p[j] = ps_i[j] - p_m;
+      d_u[j] = ua[j] - us_i[j], d_p[j] = p[j] - ps_i[j];
+      theta[j] = T(0);
+      if (riemann == 1) {
+        if (FAST) {
+          theta[j] = T(0.5) * (T(1) - rc_sum * D::divc(dt, dm_l + dm[j]));
+        } else {
+          const T Dm = (dm_l + dm[j]) / T(2);
+          theta[j] = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
+        }
+      }
+    }
+  }
+
+  // ---- stage 3: GAD limiter blend
+  T ustar[P], pstar[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) ustar[j] = us_i[j], pstar[j] = ps_i[j];
+  if (riemann == 1) {
+    const T eu_e = hi(e_u[0]), ep_e = hi(e_p[0]), du_e = lo(d_u[P - 1]), dp_e = lo(d_p[P - 1]);
+    const T eps = T(1e-6);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T r_um = limiter_x(lim, D::divc(kp(e_u, eu_e, j), e_u[j] + eps));
+      const T r_pm = limiter_x(lim, D::divc(kp(e_p, ep_e, j), e_p[j] + eps));
+      const T r_up = limiter_x(lim, D::divc(km(d_u, du_e, j), d_u[j] + eps));
+      const T r_pp = limiter_x(lim, D::divc(km(d_p, dp_e, j), d_p[j] + eps));
+      ustar[j] = us_i[j] + theta[j] * (r_up * d_u[j] - r_um * e_u[j]);
+      pstar[j] = ps_i[j] + theta[j] * (r_pp * d_p[j] - r_pm * e_p[j]);
+    }
+  }
+
+  // ---- stage 4: Lagrangian cell update
+  T dX[P], rho1[P], ua1[P], E1[P], disp[P], dxe[P];
+  bool up[P];
+  {
+    const T us_e = hi(ustar[0]), ps_e = hi(pstar[0]), usm_e = lo(ustar[P - 1]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T us_p = kp(ustar, us_e, j), ps_p = kp(pstar, ps_e, j);
+      dX[j] = dx + dt * (us_p - ustar[j]);
+      rho1[j] = D::div(dm[j], dX[j]);
+      const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * rr[j] : D::div(dt, dm[j]);
+      ua1[j] = ua[j] + dt_dm * (pstar[j] - ps_p);
+      E1[j] = E[j] + dt_dm * (pstar[j] * ustar[j] - ps_p * us_p);
+      disp[j] = dt * ustar[j];
+      up[j] = disp[j] > T(0);
+      dxe[j] = up[j] ? (dt * km(ustar, usm_e, j) - dx) : (dx + dt * us_p);
+    }
+  }
+
+  // ---- stages 5-7, one conserved variable q at a time (each position's
+  // operations as in `sweep_body`, their order across variables free):
+  // upwind values and limited slopes (slope_shift form), advection fluxes,
+  // projection. Per variable only its fluxes' result stays live.
+  const bool second = projection == 1;
+  T dxl[P], r_m[P], r_p[P], lf[P], dXr[P];
+  {
+    const T dXm_e = lo(dX[P - 1]), dXp_e = hi(dX[0]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T dXm = km(dX, dXm_e, j), dXp = kp(dX, dXp_e, j);
+      dxl[j] = up[j] ? dXm : dX[j];
+      r_m[j] = D::divc(T(2) * dX[j], dX[j] + dXm);
+      r_p[j] = D::divc(T(2) * dX[j], dX[j] + dXp);
+      lf[j] = second ? D::divc(dxe[j], T(2) * dxl[j]) : T(0);
+      dXr[j] = dX[j] * rho1[j];
+    }
+  }
+  T tmp[4][P];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    T q[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      q[j] = f == 0 ? rho1[j] : rho1[j] * (f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]));
+    const T qm_e = lo(q[P - 1]), qp_e = hi(q[0]);
+    T qi[P], s5[P], adv[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T qm = km(q, qm_e, j), qp = kp(q, qp_e, j);
+      qi[j] = up[j] ? qm : q[j];
+      const T du_p = r_p[j] * (qp - q[j]);
+      const T du_m = r_m[j] * (q[j] - qm);
+      const T sgn = jsign(du_p);
+      const T slope = sgn * clamp0(xmin(fabs(du_p), sgn * du_m));
+      s5[j] = second ? slope : disp[j] * qi[j];
+    }
+    if (second) {
+      const T s5_e = lo(s5[P - 1]);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const T sl = up[j] ? km(s5, s5_e, j) : s5[j];
+        adv[j] = disp[j] * (qi[j] - sl * lf[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) adv[j] = s5[j];
+    }
+    const T adv_e = hi(adv[0]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T num = f == 0 ? dXr[j] : dXr[j] * (f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]));
+      const T v = num - (kp(adv, adv_e, j) - adv[j]);
+      tmp[f][j] = FAST ? v * inv_dx : v / dx;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    rho[j] = tmp[0][j];
+    typename D::Over over_rho(tmp[0][j]);
+    ua[j] = over_rho(tmp[1][j]);
+    uo[j] = over_rho(tmp[2][j]);
+    E[j] = over_rho(tmp[3][j]);
+  }
+}
+
+// ------------------------------------------------------------ K1 / K2
+
+// K1's geometry (`x_sweep_kernel`): a warp sweeps windows of W = 32 PX
+// consecutive columns of a row, each lane a run of PX positions through
+// `run_body`; the window's outer HALO columns on each side are only read,
+// so it writes RX = W - 2 HALO. NW warps a block, up to WPW windows a
+// warp: fewer where that leaves fewer than MIN_BLOCKS blocks, so a small
+// grid still fills the card (`x_windows_per_warp`; at 2008^2 two windows
+// a warp ran 14% faster than eight and 7% faster than one: PERF.md).
+struct XGeom {
+  static constexpr int PX = 4, NW = 8, WPW = 8, MIN_BLOCKS = 2048;
+  static constexpr int W = 32 * PX, RX = W - 2 * HALO, NT = 32 * NW;
+};
+// K2's geometry (`y_sweep_kernel`): a thread marches down one column of a
+// segment of H output rows (H + 2 HALO rows read); NT columns a block. H
+// is the longest of 128, 64, 32 that gives at least MIN_BLOCKS blocks
+// (`y_segment_rows`): shorter segments recompute more (8 / H) but fill
+// the card on a small grid (at 2008^2, 64 rows ran 19% faster than 128,
+// and a minimum of 1024 blocks, 32 rows, 4% slower than 64: PERF.md).
+struct YGeom {
+  static constexpr int H = 128, H_MIN = 32, NT = 128, MIN_BLOCKS = 512;
+};
+// Resident blocks per SM the launch bounds ask for. f32: K1 two blocks of
+// 256 threads (128 registers a thread), K2 five of 128 (at most 102; it
+// takes 96 without spills, 6.4% faster at 8200^2 than four blocks with
+// 114, while six blocks (80) spill and lose 12%: PERF.md). f64 takes half
+// the blocks.
+template <typename T> struct SweepMinBlocks {
+  static constexpr int X = sizeof(T) == 4 ? 2 : 1, Y = sizeof(T) == 4 ? 5 : 2;
+};
+
+__host__ __device__ inline long long x_windows(long long rows, long long cols) {
+  return rows * ((cols + XGeom::RX - 1) / XGeom::RX);
+}
+__host__ __device__ inline int x_windows_per_warp(long long rows, long long cols) {
+  const long long w = x_windows(rows, cols) / ((long long)XGeom::NW * XGeom::MIN_BLOCKS);
+  return w < 1 ? 1 : (w > XGeom::WPW ? XGeom::WPW : (int)w);
+}
+__host__ __device__ inline int y_segment_rows(long long rows, long long cols) {
+  const long long cgroups = (cols + YGeom::NT - 1) / YGeom::NT;
+  int h = YGeom::H;
+  while (h > YGeom::H_MIN && cgroups * ((rows + h - 1) / h) < YGeom::MIN_BLOCKS) h /= 2;
+  return h;
+}
+
+// Blocks of a K1 (axis 0) or K2 (axis 1) launch over a padded (rows, cols)
+// array, all on grid_x: K1 one per NW x `x_windows_per_warp` windows in
+// row-major order (rows x ceil(cols / RX) windows), K2 one per NT columns
+// x `y_segment_rows` rows.
+inline long long sweep_blocks(int axis, long long rows, long long cols) {
+  if (axis == 0) {
+    const long long per = (long long)XGeom::NW * x_windows_per_warp(rows, cols);
+    return (x_windows(rows, cols) + per - 1) / per;
+  }
+  const long long h = y_segment_rows(rows, cols);
+  return ((cols + YGeom::NT - 1) / YGeom::NT) * ((rows + h - 1) / h);
+}
+
+// The block's pair of CFL partial maxima (NaN-propagating; exact in any
+// order): the warps' maxima through `red` (2 NWARP words). Every thread of
+// the block must call it.
+template <typename T, int NWARP>
+__device__ __forceinline__ void block_partials(const SweepArgs& a, T* red, T mx, T my) {
+  for (int s = 16; s > 0; s >>= 1) {
+    mx = jmax(mx, __shfl_xor_sync(0xffffffffu, mx, s));
+    my = jmax(my, __shfl_xor_sync(0xffffffffu, my, s));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5] = mx;
+    red[NWARP + (threadIdx.x >> 5)] = my;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T bx = red[0], by = red[NWARP];
+    for (int w = 1; w < NWARP; ++w) bx = jmax(bx, red[w]), by = jmax(by, red[NWARP + w]);
+    T* part = reinterpret_cast<T*>(a.partials);
+    part[blockIdx.x] = bx;
+    part[a.n_partials + blockIdx.x] = by;
+  }
+}
+
+// Where the four fields at position k of the swept axis of line `across`
+// lie, and the factors they take: the ghost fill along the axis
+// (`ghost_src`), a neighbour's slab line, or the array (clamped).
+template <typename T, int AXIS>
+__device__ __forceinline__ void axis_src(const SweepArgs& a, long long k, long long across,
+                                         const T* ptr[4], T fac[4]) {
+  const long long cols = a.cols;
+  const long long n_along = AXIS == 0 ? cols : a.rows;
+  const long long n_across = AXIS == 0 ? a.rows : cols;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) fac[f] = T(1);
+  int side;
+  long long ks = ghost_src(k, a.g, AXIS == 0 ? a.nx : a.ny, a.mode_lo, a.mode_hi, a.f_lo,
+                           a.f_hi, fac, side);
   const T* const* src = reinterpret_cast<const T* const*>(a.src);
-  const int run = reinterpret_cast<const int*>(a.iscal)[2];
-  if (!run) {  // this cycle is past the run's end: pass the fields through
-    if (out) {
-      for (int f = 0; f < 4; ++f)
-        reinterpret_cast<T*>(a.dst[f])[at(k)] = src[f][at(k)];
+  if (side < 0) {
+    ks = ks < 0 ? 0 : (ks >= n_along ? n_along - 1 : ks);  // array edge: dead outputs only
+    const long long idx = AXIS == 0 ? across * cols + ks : ks * cols + across;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) ptr[f] = src[f] + idx;
+  } else {
+    const T* sl = reinterpret_cast<const T*>(side ? a.slab_hi : a.slab_lo);
+    const long long o = AXIS == 0 ? across * a.g + ks : ks * cols + across;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) ptr[f] = sl + f * a.g * n_across + o;
+  }
+}
+
+// PX consecutive values at 16-byte aligned p, in 16-byte loads / stores.
+template <typename T, int PX>
+__device__ __forceinline__ void load_run(const T* p, T (&o)[PX]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int v = 0; v < PX / 4; ++v) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p) + v);
+      o[4 * v] = x.x, o[4 * v + 1] = x.y, o[4 * v + 2] = x.z, o[4 * v + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < PX / 2; ++v) {
+      const double2 x = __ldg(reinterpret_cast<const double2*>(p) + v);
+      o[2 * v] = x.x, o[2 * v + 1] = x.y;
+    }
+  }
+}
+template <typename T, int PX>
+__device__ __forceinline__ void store_run(T* p, const T (&o)[PX]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int v = 0; v < PX / 4; ++v)
+      reinterpret_cast<float4*>(p)[v] =
+          make_float4(o[4 * v], o[4 * v + 1], o[4 * v + 2], o[4 * v + 3]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < PX / 2; ++v)
+      reinterpret_cast<double2*>(p)[v] = make_double2(o[2 * v], o[2 * v + 1]);
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// K1: one X sweep (see the file note). Warp w of block b takes windows
+// (b P + i) NW + w, i < P = `x_windows_per_warp`, so at each step the
+// block's warps sweep NW
+// consecutive windows. A window whose columns are all real cells, in rows
+// that start on 16-byte boundaries (cols a multiple of 16 / sizeof(T)),
+// loads and stores its lanes' runs as 16-byte vectors, its loads issued
+// one window ahead; a window at a border loads position by position with
+// the ghost fill.
+template <typename T, bool FAST, bool BIZ>
+__global__ void __launch_bounds__(XGeom::NT, SweepMinBlocks<T>::X)
+x_sweep_kernel(const SweepArgs a) {
+  constexpr int PX = XGeom::PX, NW = XGeom::NW, RX = XGeom::RX;
+  constexpr int VEC = 16 / sizeof(T);
+  static_assert(PX % VEC == 0 && RX % VEC == 0, "runs and windows in whole vectors");
+  __shared__ T red[2 * NW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long rows = a.rows, cols = a.cols;
+  const long long segs = (cols + RX - 1) / RX, nwin = rows * segs;
+  const int wpw = x_windows_per_warp(rows, cols);
+  const T* const* src = reinterpret_cast<const T* const*>(a.src);
+  T* const* dst = reinterpret_cast<T* const*>(a.dst);
+  T* p_out = reinterpret_cast<T*>(a.p);
+  const int g = a.g, nx = a.nx, ny = a.ny;
+  const bool emit = a.emit != 0;
+  auto window = [&](int i) { return ((long long)blockIdx.x * wpw + i) * NW + warp; };
+  const int off = PX * lane - HALO;  // the lane's first position in the window
+
+  if (!reinterpret_cast<const int*>(a.iscal)[2]) {  // past the run's end: copy
+    for (int i = 0; i < wpw; ++i) {
+      const long long id = window(i);
+      if (id >= nwin) break;
+      const long long row = id / segs, c0 = (id % segs) * RX;
+      for (int j = 0; j < PX; ++j) {
+        const long long k = c0 + off + j;
+        if (k >= c0 && k < c0 + RX && k < cols)
+          for (int f = 0; f < 4; ++f) dst[f][row * cols + k] = src[f][row * cols + k];
+      }
     }
     return;
   }
   const T dt = reinterpret_cast<const T*>(a.scal)[3] * T(a.dt_factor);
+  bool vec = cols % VEC == 0 && (!emit || aligned16(p_out));
+  for (int f = 0; f < 4; ++f) vec = vec && aligned16(src[f]) && aligned16(dst[f]);
+  // Every column of the window real: no ghost fill, no array edge.
+  auto fast_window = [&](long long id) {
+    const long long c = (id % segs) * RX - HALO;
+    return vec && id < nwin && c >= g && c + XGeom::W <= g + nx;
+  };
 
-  // Load with the ghost fill along the axis.
-  T fac[4] = {T(1), T(1), T(1), T(1)};
-  int side;
-  long long ks = ghost_src(k, g, n_real, a.mode_lo, a.mode_hi, a.f_lo, a.f_hi, fac, side);
-  T in[4];
-  if (side < 0) {
-    ks = ks < 0 ? 0 : (ks >= n_along ? n_along - 1 : ks);  // array edge: dead outputs only
-    const long long idx = at(ks);
-    for (int f = 0; f < 4; ++f) in[f] = src[f][idx] * fac[f];
-  } else {
-    const T* sl = reinterpret_cast<const T*>(side ? a.slab_hi : a.slab_lo);
-    const long long o = AXIS == 0 ? across_c * g + ks : ks * cols + across_c;
-    for (int f = 0; f < 4; ++f) in[f] = sl[f * g * n_across + o] * fac[f];
+  T raw[4][PX];  // the next fast window's runs, in flight
+  auto issue = [&](long long id) {
+    const long long base = (id / segs) * cols + (id % segs) * RX + off;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) load_run<T, PX>(src[f] + base, raw[f]);
+  };
+  if (fast_window(window(0))) issue(window(0));
+  T mx = T(0), my = T(0);  // the TPU's zero-initialised max block
+#pragma unroll 1
+  for (int i = 0; i < wpw; ++i) {
+    const long long id = window(i);
+    if (id >= nwin) break;
+    const long long row = id / segs, c0 = (id % segs) * RX;
+    const bool fast = fast_window(id);
+    T rho[PX], u[PX], v[PX], E[PX], p[PX], c[PX];
+    if (fast) {
+#pragma unroll
+      for (int j = 0; j < PX; ++j)
+        rho[j] = raw[0][j], u[j] = raw[1][j], v[j] = raw[2][j], E[j] = raw[3][j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < PX; ++j) {
+        const T* ptr[4];
+        T fac[4];
+        axis_src<T, 0>(a, c0 + off + j, row, ptr, fac);
+        rho[j] = __ldg(ptr[0]) * fac[0], u[j] = __ldg(ptr[1]) * fac[1];
+        v[j] = __ldg(ptr[2]) * fac[2], E[j] = __ldg(ptr[3]) * fac[3];
+      }
+    }
+    if (i + 1 < wpw && fast_window(window(i + 1))) issue(window(i + 1));
+    run_body<T, FAST, BIZ, PX>(a.k, a.riemann, a.limiter, a.projection, dt, T(a.dx),
+                               T(a.inv_dx), emit, rho, u, v, E, p, c);
+    const bool row_real = row >= g && row < g + ny;
+    const long long base = row * cols + c0 + off;
+    if (fast) {  // lanes 1-30 hold whole runs of outputs, every column real
+      if (lane >= 1 && lane <= 30) {
+        store_run<T, PX>(dst[0] + base, rho);
+        store_run<T, PX>(dst[1] + base, u);
+        store_run<T, PX>(dst[2] + base, v);
+        store_run<T, PX>(dst[3] + base, E);
+        if (emit) {
+          store_run<T, PX>(p_out + base, p);
+          if (row_real) {
+#pragma unroll
+            for (int j = 0; j < PX; ++j) {
+              mx = jmax(mx, fabs(u[j]) + c[j]);
+              my = jmax(my, fabs(v[j]) + c[j]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < PX; ++j) {
+        const long long k = c0 + off + j;
+        if (k >= c0 && k < c0 + RX && k < cols) {
+          dst[0][base + j] = rho[j];
+          dst[1][base + j] = u[j];
+          dst[2][base + j] = v[j];
+          dst[3][base + j] = E[j];
+          if (emit) {
+            p_out[base + j] = p[j];
+            // `_dt_tile_min`: post-sweep velocities, pre-sweep c.
+            if (row_real && k >= g && k < g + nx) {
+              mx = jmax(mx, fabs(u[j]) + c[j]);
+              my = jmax(my, fabs(v[j]) + c[j]);
+            }
+          }
+        }
+      }
+    }
   }
-  const T rho = in[0], u_in = in[1], v_in = in[2], E = in[3];
-  const T ua = AXIS == 0 ? u_in : v_in;  // velocity along the axis
-  const T uo = AXIS == 0 ? v_in : u_in;  // the other one
-
-  T rho2, ua2, uo2, E2, p, c;
-  sweep_body<T, FAST, BIZ, NT>(&S[0][0], tid, tm, tp, a.k, a.riemann, a.limiter,
-                               a.projection, dt, T(a.dx), T(a.inv_dx), a.emit != 0,
-                               rho, ua, uo, E, rho2, ua2, uo2, E2, p, c);
-  const T ux2 = AXIS == 0 ? ua2 : uo2;
-  const T uy2 = AXIS == 0 ? uo2 : ua2;
-  if (out) {
-    const long long o = at(k);
-    reinterpret_cast<T*>(a.dst[0])[o] = rho2;
-    reinterpret_cast<T*>(a.dst[1])[o] = ux2;
-    reinterpret_cast<T*>(a.dst[2])[o] = uy2;
-    reinterpret_cast<T*>(a.dst[3])[o] = E2;
-    if (a.emit) reinterpret_cast<T*>(a.p)[o] = p;
-  }
-  if (!a.emit) return;
-
-  // ---- CFL partials (`_dt_tile_min`): max of |u|+c and |v|+c over this
-  // block's real output cells, post-sweep velocities with the pre-sweep c.
-  const bool real = out && k >= g && k < g + n_real && across >= g && across < g + n_cross;
-  block_max2<T, NT>(&S[0][0], tid, real ? fabs(ux2) + c : T(0),
-                    real ? fabs(uy2) + c : T(0));
-  if (tid == 0) {
-    const long long b = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    T* part = reinterpret_cast<T*>(a.partials);
-    part[b] = S[0][0];
-    part[a.n_partials + b] = S[1][0];
-  }
+  if (emit) block_partials<T, NW>(a, red, mx, my);
 }
 
-// Host side: geometry check and dispatch to the template instance.
-template <typename T, int AXIS, bool FAST, bool BIZ>
-int launch_one(const SweepArgs& a, cudaStream_t stream) {
-  const dim3 block = AXIS == 0 ? dim3(Geom<0>::TILE) : dim3(Geom<1>::LINES, Geom<1>::TILE);
-  sweep_kernel<T, AXIS, FAST, BIZ><<<dim3(a.grid_x, a.grid_y), block, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+// K2's register pipeline (see the file note): what a row holds after
+// stage 1 (S1), stage 2 (S2) and stage 4 (S4).
+template <typename T> struct S1 { T dm, ua, uo, E, p, rc, c, rr; };
+template <typename T> struct S2 { T us, ps, eu, ep, du, dp, th; };
+template <typename T> struct S4 { T dX, rho1, ua1, E1, disp, dxe, q[4]; bool up; };
+
+// K2: one Y sweep (see the file note). Thread t of block b marches down
+// column (b mod ceil(cols / NT)) NT + t from row r0 - HALO to r0 + H +
+// HALO - 1, r0 = (b div ceil(cols / NT)) H. At step i it loads row i (the
+// next row's loads in flight) and runs stages 1-2 at row i, 3 at i - 1, 4
+// at i - 2, 5-6 at i - 3 and 7 at i - 4, each stage's k-1 / k+1 operands
+// from registers that earlier steps wrote; the rows before r0 - HALO are
+// zeros, read only by dead positions. Each position's operations are
+// `sweep_body`'s in its order (min and max in `run_body`'s forms).
+template <typename T, bool FAST, bool BIZ>
+__global__ void __launch_bounds__(YGeom::NT, SweepMinBlocks<T>::Y)
+y_sweep_kernel(const SweepArgs a) {
+  typedef Div<T, FAST> D;
+  constexpr int NT = YGeom::NT;
+  __shared__ T red[2 * (NT / 32)];
+  const long long rows = a.rows, cols = a.cols;
+  const long long H = y_segment_rows(rows, cols);
+  const long long cgroups = (cols + NT - 1) / NT;
+  const long long col = (blockIdx.x % cgroups) * NT + threadIdx.x;
+  const long long r0 = (blockIdx.x / cgroups) * H;
+  const long long r_end = r0 + H < rows ? r0 + H : rows;  // output rows [r0, r_end)
+  const bool live = col < cols;
+  const long long cc = live ? col : cols - 1;  // dead lanes sweep the last column
+  const T* const* src = reinterpret_cast<const T* const*>(a.src);
+  T* const* dst = reinterpret_cast<T* const*>(a.dst);
+  T* p_out = reinterpret_cast<T*>(a.p);
+  const int g = a.g;
+  const bool emit = a.emit != 0;
+
+  if (!reinterpret_cast<const int*>(a.iscal)[2]) {  // past the run's end: copy
+    if (live)
+      for (long long r = r0; r < r_end; ++r)
+        for (int f = 0; f < 4; ++f) dst[f][r * cols + col] = src[f][r * cols + col];
+    return;
+  }
+  const T dt = reinterpret_cast<const T*>(a.scal)[3] * T(a.dt_factor);
+  const T dx = T(a.dx), inv_dx = T(a.inv_dx);
+  const int riemann = a.riemann, lim = a.limiter;
+  const bool second = a.projection == 1;
+  const bool col_real = live && col >= g && col < g + a.nx;
+
+  // Each stage's outputs by row, indexed by the distance to row i.
+  S1<T> s1[5] = {};
+  S2<T> s2[3] = {};
+  T us3[4] = {}, ps3[4] = {};  // stage 3: ustar, pstar
+  S4<T> s4[5] = {};
+  T s5[5][4] = {}, adv[5][4] = {};  // stages 5 and 6: slopes, fluxes
+  T mx = T(0), my = T(0);  // the TPU's zero-initialised max block
+
+  T raw[4];  // the next row's fields, in flight
+  auto issue = [&](long long r) {
+    const T* ptr[4];
+    T fac[4];
+    axis_src<T, 1>(a, r, cc, ptr, fac);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) raw[f] = __ldg(ptr[f]);
+  };
+  issue(r0 - HALO);
+#pragma unroll 1
+  for (long long i = r0 - HALO; i < r_end + HALO; ++i) {
+    T in[4];
+    {  // the factors again: ALU work, no loads
+      const T* ptr[4];
+      T fac[4];
+      axis_src<T, 1>(a, i, cc, ptr, fac);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) in[f] = raw[f] * fac[f];
+    }
+    if (i + 1 < r_end + HALO) issue(i + 1);
+
+    // ---- stage 1 at row i: EOS of the input state (ua = v, uo = u)
+    {
+      S1<T>& n = s1[0];
+      n.rr = T(0);
+      n.c = T(0);
+      n.ua = in[2], n.uo = in[1], n.E = in[3];
+      eos_prc<T, FAST, BIZ>(a.k, in[0], n.ua, n.uo, n.E, emit, n.p, n.rc, n.c, n.rr);
+      n.dm = in[0] * dx;
+    }
+    // ---- stage 2 at row i: Godunov solve at the i-1/2 interface
+    {
+      const S1<T>& m = s1[1];
+      const S1<T>& k = s1[0];
+      S2<T>& n = s2[0];
+      const T rc_sum = m.rc + k.rc;
+      {
+        typename D::Over over(rc_sum);
+        n.us = over(m.rc * m.ua + k.rc * k.ua + (m.p - k.p));
+        n.ps = over(k.rc * m.p + m.rc * k.p + m.rc * k.rc * (m.ua - k.ua));
+      }
+      n.eu = n.us - m.ua, n.ep = n.ps - m.p;
+      n.du = k.ua - n.us, n.dp = k.p - n.ps;
+      n.th = T(0);
+      if (riemann == 1) {
+        if (FAST) {
+          n.th = T(0.5) * (T(1) - rc_sum * D::divc(dt, m.dm + k.dm));
+        } else {
+          const T Dm = (m.dm + k.dm) / T(2);
+          n.th = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
+        }
+      }
+    }
+    // ---- stage 3 at row i-1: GAD limiter blend
+    {
+      const S2<T>& k = s2[1];
+      us3[1] = k.us, ps3[1] = k.ps;
+      if (riemann == 1) {
+        const T eps = T(1e-6);
+        const T r_um = limiter_x(lim, D::divc(s2[0].eu, k.eu + eps));
+        const T r_pm = limiter_x(lim, D::divc(s2[0].ep, k.ep + eps));
+        const T r_up = limiter_x(lim, D::divc(s2[2].du, k.du + eps));
+        const T r_pp = limiter_x(lim, D::divc(s2[2].dp, k.dp + eps));
+        us3[1] = k.us + k.th * (r_up * k.du - r_um * k.eu);
+        ps3[1] = k.ps + k.th * (r_pp * k.dp - r_pm * k.ep);
+      }
+    }
+    // ---- stage 4 at row i-2: Lagrangian cell update
+    {
+      const S1<T>& k = s1[2];
+      S4<T>& n = s4[2];
+      const T ustar = us3[2], pstar = ps3[2], us_p = us3[1], ps_p = ps3[1];
+      n.dX = dx + dt * (us_p - ustar);
+      n.rho1 = D::div(k.dm, n.dX);
+      const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * k.rr : D::div(dt, k.dm);
+      n.ua1 = k.ua + dt_dm * (pstar - ps_p);
+      n.E1 = k.E + dt_dm * (pstar * ustar - ps_p * us_p);
+      n.disp = dt * ustar;
+      n.up = n.disp > T(0);
+      n.dxe = n.up ? (dt * us3[3] - dx) : (dx + dt * us_p);
+      n.q[0] = n.rho1, n.q[1] = n.rho1 * n.ua1;
+      n.q[2] = n.rho1 * k.uo, n.q[3] = n.rho1 * n.E1;
+    }
+    // ---- stages 5-6 at row i-3: upwind values, limited slopes, fluxes
+    {
+      const S4<T>& k = s4[3];
+      const S4<T>& m = s4[4];
+      const S4<T>& n = s4[2];
+      const T dxl = k.up ? m.dX : k.dX;
+      const T r_m = D::divc(T(2) * k.dX, k.dX + m.dX);
+      const T r_p = D::divc(T(2) * k.dX, k.dX + n.dX);
+      T qi[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const T qm = m.q[j], qp = n.q[j], q = k.q[j];
+        qi[j] = k.up ? qm : q;
+        const T du_p = r_p * (qp - q);
+        const T du_m = r_m * (q - qm);
+        const T sgn = jsign(du_p);
+        const T slope = sgn * clamp0(xmin(fabs(du_p), sgn * du_m));
+        s5[3][j] = second ? slope : k.disp * qi[j];
+      }
+      if (second) {
+        const T lf = D::divc(k.dxe, T(2) * dxl);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const T sl = k.up ? s5[4][j] : s5[3][j];
+          adv[3][j] = k.disp * (qi[j] - sl * lf);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) adv[3][j] = s5[3][j];
+      }
+    }
+    // ---- stage 7 at row i-4: projection and output
+    const long long r = i - HALO;
+    if (r >= r0) {
+      const S4<T>& k = s4[4];
+      const T dXr = k.dX * k.rho1;
+      const T num[4] = {dXr, dXr * k.ua1, dXr * s1[4].uo, dXr * k.E1};
+      T tmp[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const T v = num[j] - (adv[3][j] - adv[4][j]);
+        tmp[j] = FAST ? v * inv_dx : v / dx;
+      }
+      typename D::Over over_rho(tmp[0]);
+      const T ua_o = over_rho(tmp[1]), uo_o = over_rho(tmp[2]), E_o = over_rho(tmp[3]);
+      if (live) {
+        const long long o = r * cols + col;
+        dst[0][o] = tmp[0];
+        dst[1][o] = uo_o;
+        dst[2][o] = ua_o;
+        dst[3][o] = E_o;
+        if (emit) {
+          p_out[o] = s1[4].p;
+          // `_dt_tile_min`: post-sweep velocities, pre-sweep c.
+          if (col_real && r >= g && r < g + a.ny) {
+            mx = jmax(mx, fabs(uo_o) + s1[4].c);
+            my = jmax(my, fabs(ua_o) + s1[4].c);
+          }
+        }
+      }
+    }
+    // Shift the pipeline by one row.
+#pragma unroll
+    for (int d = 4; d > 0; --d) {
+      s1[d] = s1[d - 1];
+      s4[d] = s4[d - 1];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s5[d][j] = s5[d - 1][j], adv[d][j] = adv[d - 1][j];
+    }
+#pragma unroll
+    for (int d = 3; d > 0; --d) us3[d] = us3[d - 1], ps3[d] = ps3[d - 1];
+    s2[2] = s2[1];
+    s2[1] = s2[0];
+  }
+  if (emit) block_partials<T, NT / 32>(a, red, mx, my);
 }
 
-// Checks the launch geometry the Python wrapper computed (it sized the
-// partials from it). Returns 0 or a negative code.
+// Host side. Checks the launch geometry the Python wrapper computed (it
+// sized the partials from it): `sweep_blocks` blocks, all on grid_x.
+// Returns 0 or a negative code.
 inline int check_geometry(int axis, const SweepArgs* a) {
   if (axis != 0 && axis != 1) return -1;
-  const long long P = axis == 0 ? Geom<0>::TILE : Geom<1>::TILE;
-  const long long C = axis == 0 ? Geom<0>::LINES : Geom<1>::LINES;
-  const long long gx = axis == 0 ? (a->cols + P - 2 * HALO - 1) / (P - 2 * HALO)
-                                 : (a->cols + C - 1) / C;
-  const long long gy = axis == 0 ? a->rows : (a->rows + P - 2 * HALO - 1) / (P - 2 * HALO);
-  if (gx != a->grid_x || gy != a->grid_y || gy > 65535 || gx > 2147483647LL) return -2;
-  if (a->emit && a->n_partials < gx * gy) return -3;
+  const long long gx = sweep_blocks(axis, a->rows, a->cols);
+  if (gx != a->grid_x || a->grid_y != 1 || gx < 1 || gx > 2147483647LL) return -2;
+  if (a->emit && a->n_partials < gx) return -3;
   return 0;
+}
+
+template <typename T, bool FAST, bool BIZ>
+int launch_one(int axis, const SweepArgs& a, cudaStream_t stream) {
+  if (axis == 0)
+    x_sweep_kernel<T, FAST, BIZ><<<a.grid_x, XGeom::NT, 0, stream>>>(a);
+  else
+    y_sweep_kernel<T, FAST, BIZ><<<a.grid_x, YGeom::NT, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool FAST>
 int dispatch(int axis, const SweepArgs* a, cudaStream_t stream) {
-  if (axis == 0)
-    return a->biz ? launch_one<T, 0, FAST, true>(*a, stream)
-                  : launch_one<T, 0, FAST, false>(*a, stream);
-  return a->biz ? launch_one<T, 1, FAST, true>(*a, stream)
-                : launch_one<T, 1, FAST, false>(*a, stream);
+  return a->biz ? launch_one<T, FAST, true>(axis, *a, stream)
+                : launch_one<T, FAST, false>(axis, *a, stream);
 }
 
 }  // namespace armon

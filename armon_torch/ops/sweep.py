@@ -52,12 +52,18 @@ from .eos import ieee_sqrt, scalar_like
 SC_T, SC_DTPREV, SC_LM, SC_DTUSE = range(4)
 IS_CYCLE, IS_OK, IS_RUN, IS_NEXT = range(4)
 
-# Launch geometry, shared with csrc/sweep.cuh: a block covers TILE
-# positions along the sweep axis (HALO of them on each side are only read)
-# times LINES lines across it.
+# Launch geometry, shared with csrc/sweep.cuh (`XGeom`, `YGeom`). A segment
+# of a line reads HALO positions on each side that it does not write. K1:
+# a warp sweeps windows of X_WINDOW consecutive columns of a row (a lane a
+# run of X_WINDOW // 32), X_WARPS warps a block, up to X_WINDOWS_PER_WARP
+# windows a warp. K2: a thread marches down one column of a segment of
+# Y_ROWS output rows, Y_THREADS columns a block. On a grid that would give
+# fewer than X_MIN_BLOCKS / Y_MIN_BLOCKS blocks, K1 gives a warp fewer
+# windows and K2 halves its segments, down to Y_ROWS_MIN rows. Every block
+# is on grid_x.
 HALO = 4
-X_TILE, X_LINES = 256, 1
-Y_TILE, Y_LINES = 32, 16
+X_WINDOW, X_WARPS, X_WINDOWS_PER_WARP, X_MIN_BLOCKS = 128, 8, 8, 2048
+Y_ROWS, Y_ROWS_MIN, Y_THREADS, Y_MIN_BLOCKS = 128, 32, 128, 512
 
 # Launches made on the card, by kernel (K4/K5's wrappers are in
 # `ops/cycle.py`). Counted where the wrapper launches, and nowhere else; a
@@ -77,13 +83,47 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def grid_dims(axis, shape):
-    """(grid_x, grid_y) of a sweep kernel launch over a padded (rows, cols)
-    array."""
+def x_windows_per_warp(shape):
+    """K1's windows per warp over a padded (rows, cols) array
+    (`x_windows_per_warp` in csrc/sweep.cuh)."""
+    rows, cols = shape
+    windows = rows * -(-cols // (X_WINDOW - 2 * HALO))
+    return max(1, min(X_WINDOWS_PER_WARP, windows // (X_WARPS * X_MIN_BLOCKS)))
+
+
+def y_segment_rows(shape):
+    """K2's segment rows over a padded (rows, cols) array
+    (`y_segment_rows` in csrc/sweep.cuh)."""
+    rows, cols = shape
+    h = Y_ROWS
+    while h > Y_ROWS_MIN and -(-cols // Y_THREADS) * -(-rows // h) < Y_MIN_BLOCKS:
+        h //= 2
+    return h
+
+
+def segments(axis, shape):
+    """Segments of a line a sweep kernel writes, each from its own
+    segment read with HALO more positions on each side: (segment length,
+    segments per line). K1: X_WINDOW - 2 HALO columns of a row; K2:
+    `y_segment_rows` rows of a column."""
     rows, cols = shape
     if axis is Axis.X:
-        return -(-cols // (X_TILE - 2 * HALO)), rows
-    return -(-cols // Y_LINES), -(-rows // (Y_TILE - 2 * HALO))
+        step = X_WINDOW - 2 * HALO
+        return step, -(-cols // step)
+    step = y_segment_rows(shape)
+    return step, -(-rows // step)
+
+
+def grid_dims(axis, shape):
+    """(grid_x, grid_y) of a sweep kernel launch over a padded (rows, cols)
+    array (`sweep_blocks` in csrc/sweep.cuh): K1 one block per X_WARPS x
+    `x_windows_per_warp` windows, K2 one per Y_THREADS columns of a
+    segment; grid_y is 1."""
+    rows, cols = shape
+    _, segs = segments(axis, shape)
+    if axis is Axis.X:
+        return -(-rows * segs // (X_WARPS * x_windows_per_warp(shape))), 1
+    return -(-cols // Y_THREADS) * segs, 1
 
 
 def n_partials(axis, shape, device) -> int:

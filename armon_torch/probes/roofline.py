@@ -311,21 +311,23 @@ def floors(ops, shifts, rates):
 
 def static_issue():
     """Issue time (ms) of the production kernels' static SASS on the main
-    paths' shapes: the instructions of one thread of K1 / K2 (f32, fast
-    math, perfect gas; one position per thread) times the threads
-    launched, over the card's 33.5e12 lane instructions per second (4 warp
-    instructions per SM and clock). K4 and K5 sweep every position their
-    windows cover (X first); they are charged the mean of K1's and K2's
-    count per position. An estimate, not a floor: the static count holds every
-    branch, the untaken ones too (the pass-through copy, slow paths of
-    the IEEE sqrt, the CFL reduction of non-emitting launches). None
-    without cuobjdump."""
-    from ..ops.sweep import grid_dims, X_TILE, Y_TILE, Y_LINES
+    paths' shapes, over the card's 33.5e12 lane instructions per second (4
+    warp instructions per SM and clock): K1 and K2 (f32, fast math,
+    perfect gas) charged their instructions per position times the
+    positions they sweep. K1's function sweeps one window per pass of its
+    loop, a lane's run of X_WINDOW / 32 positions; K2's one row of its
+    column per pass. K4 and K5 sweep every position their windows cover (X
+    first); they are charged the mean of K1's and K2's count per position.
+    An estimate, not a floor: the static count holds every branch, the
+    untaken ones too (the pass-through copy, the border windows' ghost
+    fill, slow paths of the IEEE sqrt, the CFL reduction of non-emitting
+    launches), and K2's set-up once per row. None without cuobjdump."""
+    from ..ops.sweep import segments, HALO, X_WINDOW, Y_ROWS, Y_THREADS
     from ..ops.cycle import tile_grid, CYCLE_WINDOW, MULTI_TILE
-    per = sass_opcodes("sweep_f32", r"sweep_kernelIfLi(\d)ELb1ELb0E")
-    if not per or set(per) != {"0", "1"}:
+    per = sass_opcodes("sweep_f32", r"([xy])_sweep_kernelIfLb1ELb0E")
+    if not per or set(per) != {"x", "y"}:
         return None
-    ix, iy = len(per["0"]), len(per["1"])
+    ix, iy = len(per["x"]) / (X_WINDOW // 32), len(per["y"])
     rate = LANE_OPS_PER_S["float32"]
 
     def positions(window, n, cycles=1):
@@ -333,12 +335,12 @@ def static_issue():
         gx, gy = tile_grid(window, (n, n))
         return gx * gy * (wx * wy + wy * (wx - 8)) * cycles
 
-    gx, gy = grid_dims(Axis.X, (8200, 8200))
-    tx = gx * gy * X_TILE
-    gx, gy = grid_dims(Axis.Y, (8200, 8200))
-    ty = gx * gy * Y_TILE * Y_LINES
+    shape = (8200, 8200)
+    tx = shape[0] * segments(Axis.X, shape)[1] * X_WINDOW
+    ty = -(-shape[1] // Y_THREADS) * Y_THREADS * segments(Axis.Y, shape)[1] \
+        * (Y_ROWS + 2 * HALO)
     mean = (ix + iy) / 2
-    return {"instructions_per_thread": {"x_sweep": ix, "y_sweep": iy},
+    return {"instructions_per_position": {"x_sweep": ix, "y_sweep": iy},
             "x_sweep": ix * tx / rate * 1e3, "y_sweep": iy * ty / rate * 1e3,
             "cycle_8200": mean * positions(CYCLE_WINDOW[4], 8200) / rate * 1e3,
             "cycle_2008": mean * positions(CYCLE_WINDOW[4], 2008) / rate * 1e3,

@@ -12,9 +12,10 @@ Phases, each printing one JSON line:
      ptxas's registers and spills per kernel instance, and the resident
      blocks per SM of each K4 instance;
   1. the per-sweep kernels against their plain PyTorch versions on the
-     card, one X and one Y sweep at 1024^2 after a few cycles, on Sod_circ
-     and Bizarrium, in f64, f32 exact and f32 fast math, plus the CFL
-     minimum via K3;
+     card, one X and one Y sweep (each emitting) at 1024^2 after a few
+     cycles, on Sod_circ and Bizarrium, in f64, f32 exact and f32 fast
+     math, plus the CFL minimum via K3; and on a 64 x 70000 strip (more
+     than 65535 padded rows), bit for bit in f32 exact;
   2. the Julia goldens (Sod, Sod_y, Sod_circ at 100^2) through the
      per-sweep kernels: zero differences in f64 and f32 exact; the f32
      fast-math count is reported;
@@ -99,6 +100,8 @@ except ModuleNotFoundError as exc:  # alone, without its package: main exits 2
 SWEEP_OPS_PER_CELL = 192
 
 MAIN_N = 8192
+# A strip of more than 65535 padded rows (ROADMAP C1), (nx, ny).
+STRIP_N = (64, 70000)
 MAIN_CYCLES = 100
 
 # Route pins (`armon_torch/ops/routing.py`).
@@ -174,11 +177,13 @@ def phase0(torch):
 
 def _state_after(torch, test, n, dtype, fast, cycles):
     """The port's carry after `cycles` cycles (through the per-sweep
-    kernels) and the dt of the next cycle."""
+    kernels) on an n^2 grid (or N = n, a pair), and the dt of the next
+    cycle."""
     from armon_torch import ArmonParameters
     from armon_torch.core.solver import make_init_fused
     from armon_torch.core.step import make_time_loop_lean
-    params = ArmonParameters(test=test, N=(n, n), data_type=dtype,
+    N = tuple(n) if isinstance(n, (tuple, list)) else (n, n)
+    params = ArmonParameters(test=test, N=N, data_type=dtype,
                              use_fast_math=fast, maxcycle=cycles, silent=5,
                              device="cuda", **PER_SWEEP)
     cfg = params.config
@@ -193,9 +198,9 @@ def _state_after(torch, test, n, dtype, fast, cycles):
 
 
 def check_sweeps(torch, params, fs, dt):
-    """One X sweep (not emitting) and one Y sweep (emitting p and the CFL
-    partials) through the kernels and through the plain version on the
-    same inputs, then K3 against its plain version on the kernel's
+    """One X sweep, then one Y sweep on its output, each emitting p and
+    the CFL partials, through the kernels and through the plain version on
+    the same inputs, then K3 against its plain version on each kernel's
     partials. Returns per-kernel diffs."""
     from armon_torch.ops import sweep as K
     from armon_torch.utils.enums import Axis
@@ -205,7 +210,7 @@ def check_sweeps(torch, params, fs, dt):
     dev = fs.rho.device
     out = {}
     src = (fs.rho, fs.u, fs.v, fs.E)
-    for axis, emit_last in ((Axis.X, False), (Axis.Y, True)):
+    for axis, emit_last in ((Axis.X, True), (Axis.Y, True)):
         dst = tuple(torch.empty_like(a) for a in src)
         p = torch.empty_like(fs.rho)
         nb = K.n_partials(axis, shape, dev)
@@ -261,18 +266,28 @@ def phase1(torch, n=1024, cycles=3):
     for test in ("Sod_circ", "Bizarrium"):
         for dtype, fast in (("float64", False), ("float32", False),
                             ("float32", True)):
-            params, fs, dt = _state_after(torch, test, n, dtype, fast, cycles)
-            res = check_sweeps(torch, params, fs, dt)
-            for ax in ("X", "Y"):
-                _gate(res[ax]["fields"], dtype, fast)
-            cfl_tol = 1e-13 if dtype == "float64" else (8 * 1.2e-7 if not fast else 1e-4)
-            if res["Y"]["cfl_max_rel"] > cfl_tol or not res["Y"]["k3_equal"]:
-                raise AssertionError(f"CFL check failed: {test} {dtype} "
-                                     f"fast={fast}: {res['Y']}")
-            results.append({"test": test, "dtype": dtype, "fast": fast,
-                            "n": n, "dt": dt, **res})
+            results.append(_phase1_case(torch, test, n, dtype, fast, cycles))
+    # C1: a strip of more than 65535 padded rows (K1 puts rows on grid_x),
+    # bit for bit in f32 exact.
+    results.append(_phase1_case(torch, "Sod_circ", STRIP_N, "float32", False,
+                                cycles, bitwise=True))
     emit({"phase": 1, "checks": results})
     return results
+
+
+def _phase1_case(torch, test, n, dtype, fast, cycles, bitwise=False):
+    params, fs, dt = _state_after(torch, test, n, dtype, fast, cycles)
+    res = check_sweeps(torch, params, fs, dt)
+    for ax in ("X", "Y"):
+        _gate(res[ax]["fields"], dtype, fast)
+        if bitwise and any(d[0] for d in res[ax]["fields"].values()):
+            raise AssertionError(f"{test} {n} {dtype}: not bit for bit: {res[ax]}")
+        cfl_tol = 0.0 if bitwise else 1e-13 if dtype == "float64" else (
+            8 * 1.2e-7 if not fast else 1e-4)
+        if res[ax]["cfl_max_rel"] > cfl_tol or not res[ax]["k3_equal"]:
+            raise AssertionError(f"CFL check failed: {test} {dtype} "
+                                 f"fast={fast}: {res[ax]}")
+    return {"test": test, "dtype": dtype, "fast": fast, "n": n, "dt": dt, **res}
 
 
 def _read_golden(path, dtype):
@@ -420,8 +435,8 @@ def phase3(torch):
                           stats.last_dt)
     for ax in ("X", "Y"):
         _gate(checks[ax]["fields"], "float32", True)
-    if checks["Y"]["cfl_max_rel"] > 1e-4 or not checks["Y"]["k3_equal"]:
-        raise AssertionError(f"main-path CFL check failed: {checks['Y']}")
+        if checks[ax]["cfl_max_rel"] > 1e-4 or not checks[ax]["k3_equal"]:
+            raise AssertionError(f"main-path CFL check failed: {checks[ax]}")
     K.LAUNCHES.update(saved)  # timing and check launches are not main-path ones
 
     part_bytes = 2 * nby * st.rho.element_size()

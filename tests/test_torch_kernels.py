@@ -43,12 +43,23 @@ def _advanced(test, dtype, fast, n=96, cycles=4, N=None, **scheme):
     return params.config, res
 
 
+# Grids against K1's 120-column windows and K2's 128-row segments: whole
+# windows, odd rows and columns (no 16-byte rows), fewer rows than one
+# segment (and a row of one window).
+SHAPES = [(96, 96), (131, 77), (300, 40)]
+SHAPE_IDS = ["96x96", "131x77", "300x40"]
+
+
+@pytest.mark.parametrize("N", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
                                         ("float32", True)],
                          ids=["f64", "f32-exact", "f32-fast"])
 @pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
-def test_sweeps_match_plain(card, test, dtype, fast):
-    cfg, res = _advanced(test, dtype, fast)
+def test_sweeps_match_plain(card, test, dtype, fast, N):
+    """K1 and K2 (emitting) against `sweep_plain`, their CFL partials
+    folded by K3 against its plain version, and the pass-through copy of a
+    launch whose cycle does not run (every cell, ghosts included)."""
+    cfg, res = _advanced(test, dtype, fast, N=N)
     g = cfg.nghost
     r = (slice(g, -g), slice(g, -g))
     src = tuple(res.carry[:4])
@@ -78,17 +89,23 @@ def test_sweeps_match_plain(card, test, dtype, fast):
         K.cfl_finish(cfg, partials, nb, scal, iscal)
         K.cfl_finish_plain(cfg, partials, nb, s2, i2)
         assert torch.equal(scal, s2) and torch.equal(iscal, i2)
+        iscal[K.IS_RUN] = 0
+        dst = tuple(torch.full_like(a, float("nan")) for a in src)
+        sweep(cfg, src, dst, p, partials, scal, iscal, 1.0, True)
+        for a, b in zip(dst, src):
+            assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("N", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("scheme", [
     dict(scheme="GAD", riemann_limiter="superbee"),
     dict(scheme="GAD", riemann_limiter="no_limiter", projection="euler"),
     dict(scheme="Godunov", projection="euler"),
     dict(scheme="Godunov", projection="euler_2nd", nghost=3),
 ], ids=lambda d: "-".join(str(v) for v in d.values()))
-def test_scheme_switches_match_plain(card, scheme):
+def test_scheme_switches_match_plain(card, scheme, N):
     """The runtime scheme switches of the shared device body, f64 exact."""
-    cfg, res = _advanced("Sod_circ", "float64", False, **scheme)
+    cfg, res = _advanced("Sod_circ", "float64", False, N=N, **scheme)
     g = cfg.nghost
     r = (slice(g, -g), slice(g, -g))
     src = tuple(res.carry[:4])
@@ -105,6 +122,46 @@ def test_scheme_switches_match_plain(card, scheme):
         ref = K.sweep_plain(cfg, axis, *src, scal[K.SC_DTUSE] * 1.0)
         for a, b in zip(dst + (p,), ref[:5]):
             assert torch.equal(a[r], b[r])
+
+
+def test_strip_beyond_65535_rows(card):
+    """C1: a 64 x 70000 strip (70008 padded rows, more than CUDA's 65535
+    grid_y) through one emitting K1 and K2 launch, bit for bit against
+    `sweep_plain` in f32 exact, the CFL partials folded by K3 as the single
+    whole-array partial folds; then a few cycles of `armon()` on the strip
+    against the CPU run."""
+    N = (64, 70000)
+    cfg, res = _advanced("Sod_circ", "float32", False, N=N, cycles=3)
+    assert res.carry.rho.shape[0] > 65535
+    r = real_slice(cfg)
+    src = tuple(res.carry[:4])
+    for sweep, axis in ((K.x_sweep, armon_torch.Axis.X),
+                        (K.y_sweep, armon_torch.Axis.Y)):
+        dst = tuple(torch.empty_like(a) for a in src)
+        p = torch.empty_like(src[0])
+        nb = K.n_partials(axis, src[0].shape, card)
+        partials = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
+        scal, iscal = K.new_scalars(cfg.dtype, card, lm=1.0)
+        scal[K.SC_DTUSE] = 0.5 * res.dt_last
+        iscal[K.IS_RUN] = 1
+        sweep(cfg, src, dst, p, partials, scal, iscal, 1.0, True)
+        ref = K.sweep_plain(cfg, axis, *src, scal[K.SC_DTUSE] * 1.0)
+        for a, b in zip(dst + (p,), ref[:5]):
+            assert torch.equal(a[r], b[r])
+        single = torch.stack(K.cfl_partial_plain(cfg, ref[1], ref[2], ref[5])).view(2, 1)
+        s2, i2 = scal.clone(), iscal.clone()
+        K.cfl_finish(cfg, partials, nb, scal, iscal)
+        K.cfl_finish_plain(cfg, single, 1, s2, i2)
+        assert torch.equal(scal, s2) and torch.equal(iscal, i2)
+    opts = dict(test="Sod_circ", N=N, data_type="float32", maxcycle=4,
+                use_fast_math=False, silent=5, return_data=True)
+    K.reset_launches()
+    a = armon_torch.armon(armon_torch.ArmonParameters(device="cuda", **opts))
+    assert K.LAUNCHES["x_sweep"] > 0 and K.LAUNCHES["y_sweep"] > 0
+    b = armon_torch.armon(armon_torch.ArmonParameters(device="cpu", **opts))
+    assert (a.cycles, a.final_time, a.last_dt) == (b.cycles, b.final_time, b.last_dt)
+    for name in ("rho", "u", "v", "E", "p"):
+        assert torch.equal(getattr(a.data, name).cpu()[r], getattr(b.data, name)[r]), name
 
 
 @pytest.mark.parametrize("route", [PER_SWEEP, PAIR, {}],
@@ -312,17 +369,20 @@ def _close_on_mesh(checks, fast):
                 assert torch.equal(a[k][r], b[k][r]), k
 
 
+@pytest.mark.parametrize("P,N", [((3, 3), (100, 98)), ((2, 2), (263, 301))],
+                         ids=["3x3", "2x2"])
 @pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
                                         ("float32", True)],
                          ids=["f64", "f32-exact", "f32-fast"])
 @pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
-def test_slab_sweeps_match_plain(card, test, dtype, fast):
+def test_slab_sweeps_match_plain(card, test, dtype, fast, P, N):
     """K1/K2 with a neighbour's slab on the sides that face one (the
     `slab_x` / `slab_y` variants) against `sweep_plain` with the same
-    ghosts, on every shard of an uneven 3x3 mesh: the middle shard takes
-    slabs on both sides, the edge shards a slab and the mirror."""
-    cfg, mesh, res = _mesh_state(test, dtype, fast, (3, 3), (100, 98),
-                                 **PER_SWEEP)
+    ghosts, on every shard of an uneven mesh: on 3x3 the middle shard takes
+    slabs on both sides, the edge shards a slab and the mirror; on 2x2
+    every shard takes one slab side and one mirror side along each axis,
+    on several K1 windows and K2 segments with ragged edges."""
+    cfg, mesh, res = _mesh_state(test, dtype, fast, P, N, **PER_SWEEP)
     cur = [tuple(c[:4]) for c in res.carry]
     for sweep, axis in ((K.x_sweep, armon_torch.Axis.X),
                         (K.y_sweep, armon_torch.Axis.Y)):

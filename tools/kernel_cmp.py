@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K4 `cycle` and the flip probe kernels of two or more checkouts, timed in
-alternation on one NVIDIA card.
+"""K1 `x_sweep`, K2 `y_sweep`, K4 `cycle` and the flip probe kernels of two or
+more checkouts, timed in alternation on one NVIDIA card.
 
     python3 tools/kernel_cmp.py ROOT [ROOT ...]
 
@@ -10,8 +10,9 @@ order given and then in reverse (parent, change, change, parent for two),
 each pass in a process of its own. A pass, f32 fast math (GAD, minmod,
 euler_2nd, nghost 4):
 
-- builds two states through the per-sweep kernels K1/K2 (the same in
-  every tree, so every root times the same inputs): Sedov 2000^2 after
+- builds two states through the per-sweep kernels K1/K2 (the same
+  arithmetic in every tree, so every root times the same inputs, as the
+  K4-against-K1/K2 difference shows): Sedov 2000^2 after
   1000 cycles and Sod 8192^2 after 10 (2008^2 and 8200^2 padded);
 - times one emitting K4 launch on each, X first and Y first (the full dt
   on both sweeps; the shared timer `armon_torch._card.time_ms`), and
@@ -19,6 +20,11 @@ euler_2nd, nghost 4):
   rho/u/v/E/p from K1 then K2 on the same state, absolute and over each
   field's scale; on the Sedov state it also times K4 X first on the top
   1008 rows, the shape of a shard of Sedov 2000^2 over a 1x2 mesh;
+- on each state, times K1 (not emitting) and K2 (emitting), as a
+  Sequential cycle launches them, and on the Sod state their slab forms
+  on the same 8200^2 array as a middle shard of a mesh (a neighbour's
+  slab on both sides of the swept axis, packed from the state's own edge
+  lines);
 - times `flip_copy`, `flip_mirror` and `Tensor.copy_` on an 8200^2 f32
   array.
 
@@ -64,9 +70,10 @@ for name, test, n, cycles in (("sedov_2008", "Sedov", 2000, 1000),
     scal, iscal = K.new_scalars(cfg.dtype, dev)
     scal[K.SC_DTUSE] = dt
     iscal[K.IS_RUN] = 1
-    # K1's partials outnumber K2's and K4's in every tree.
-    part = torch.zeros((2, K.n_partials(Axis.X, shape, dev)), dtype=src[0].dtype,
-                       device=dev)
+    part = torch.zeros((2, max(K.n_partials(Axis.X, shape, dev),
+                               K.n_partials(Axis.Y, shape, dev),
+                               C.n_partials(shape, dev, cfg.dtype))),
+                       dtype=src[0].dtype, device=dev)
     mid, ref, got = ([torch.empty_like(a) for a in src] for _ in range(3))
     p, p4 = torch.empty_like(src[0]), torch.empty_like(src[0])
     out[name + "_cycle_yx_ms"] = time_ms(lambda i: C.cycle(
@@ -78,6 +85,20 @@ for name, test, n, cycles in (("sedov_2008", "Sedov", 2000, 1000),
         out["sedov_1008x2008_cycle_ms"] = time_ms(lambda i: C.cycle(
             cfg, True, 1.0, 1.0, top, tuple(a[:1008] for a in mid),
             p[:1008], part, scal, iscal, True), k=20)
+    g = cfg.nghost
+    sides = [("", K.MIRRORED, K.MIRRORED)]
+    if name == "sod_8200":
+        sides.append(("_slab",
+                      (torch.stack([a[:, g:2 * g] for a in src]).contiguous(),
+                       torch.stack([a[:, -2 * g:-g] for a in src]).contiguous()),
+                      (torch.stack([a[g:2 * g] for a in src]).contiguous(),
+                       torch.stack([a[-2 * g:-g] for a in src]).contiguous())))
+    for tag, gx, gy in sides:
+        out[name + "_x_sweep" + tag + "_ms"] = time_ms(lambda i: K.x_sweep(
+            cfg, src, mid, p, part, scal, iscal, 1.0, False, gx), k=20)
+        out[name + "_y_sweep" + tag + "_ms"] = time_ms(lambda i: K.y_sweep(
+            cfg, src, mid, p, part, scal, iscal, 1.0, True, gy), k=20)
+    del sides
     K.x_sweep(cfg, src, mid, p, part, scal, iscal, 1.0, False)
     K.y_sweep(cfg, mid, ref, p, part, scal, iscal, 1.0, True)
     torch.cuda.synchronize()
