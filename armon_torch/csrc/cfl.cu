@@ -94,6 +94,9 @@ extern "C" const char* armon_error_string(int code) {
   switch (code) {
     case -4: return "the grid does not fit co-resident on the card (cooperative launch)";
     case -5: return "the card does not support cooperative launches";
+    case -6: return "the card cannot place one cluster of this size and shared memory";
+    case -7: return "the cluster plan does not cover the grid (probes/cluster.py plan)";
+    case -8: return "the plan's shared memory is not what the kernel needs, or exceeds 227 KB";
     default: break;
   }
   if (code < 0) return "argument rejected by the launcher";

@@ -7,7 +7,8 @@ and the K-cycles kernel K5 (`multicycle_f*.cu`, a cooperative launch),
 and the probes' kernels (`armon_torch/probes/`): the mirror fill, copy
 and I/O ladder (`probe_stream.cu`), the sweep chain in f32, f64 and
 float-float (`probe_ff.cu`, `chain.cuh`), the per-class rate chains
-(`probe_rates.cu`) and K4's measurement variants (`probe_cycle.cu`).
+(`probe_rates.cu`), K4's measurement variants (`probe_cycle.cu`) and K5
+as one thread-block cluster (`probe_cluster.cu`, `cluster.cuh`).
 The sources are compiled in
 parallel (one nvcc each) on first use, into ``build/armon_torch/`` at the
 root of the checkout, under a name that hashes the sources and flags, so
@@ -41,8 +42,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "armon_torch")
 SOURCES = ("sweep_f32.cu", "sweep_f64.cu", "cfl.cu", "cycle_f32.cu",
            "cycle_f64.cu", "multicycle_f32.cu", "multicycle_f64.cu",
            "probe_stream.cu", "probe_ff.cu", "probe_rates.cu",
-           "probe_cycle.cu")
-HEADERS = ("common.cuh", "sweep.cuh", "cycle.cuh", "chain.cuh")
+           "probe_cycle.cu", "probe_cluster.cu")
+HEADERS = ("common.cuh", "sweep.cuh", "cycle.cuh", "cluster.cuh", "chain.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -139,6 +140,31 @@ class MultiArgs(ctypes.Structure):
     ]
 
 
+class McArgs(ctypes.Structure):
+    """Mirror of `armon::McArgs` (csrc/cluster.cuh)."""
+    _fields_ = [
+        ("src", ctypes.c_void_p * 4), ("dst", ctypes.c_void_p * 4),
+        ("p", ctypes.c_void_p), ("scal", ctypes.c_void_p),
+        ("iscal", ctypes.c_void_p),
+        ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong),
+        ("g", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
+        ("riemann", ctypes.c_int), ("limiter", ctypes.c_int),
+        ("projection", ctypes.c_int), ("fast", ctypes.c_int),
+        ("biz", ctypes.c_int), ("ncycles", ctypes.c_int),
+        ("x_first", ctypes.c_int * 2),
+        ("band_r", ctypes.c_int), ("band_c", ctypes.c_int),
+        ("pitch_r", ctypes.c_int), ("pitch_c", ctypes.c_int),
+        ("plane", ctypes.c_int), ("smem", ctypes.c_longlong),
+        ("fx", ctypes.c_double * 2), ("fy", ctypes.c_double * 2),
+        ("dx", ctypes.c_double), ("dy", ctypes.c_double),
+        ("inv_dx", ctypes.c_double), ("inv_dy", ctypes.c_double),
+        ("fx_lo", ctypes.c_double * 4), ("fx_hi", ctypes.c_double * 4),
+        ("fy_lo", ctypes.c_double * 4), ("fy_hi", ctypes.c_double * 4),
+        ("k", ctypes.c_double * len(EOS_KEYS)),
+        ("dt", DtParams),
+    ]
+
+
 class ChainArgs(ctypes.Structure):
     """Mirror of `armon::probe::ChainArgs` (csrc/probe_ff.cu)."""
     _fields_ = [("src", ctypes.c_void_p * 8), ("dst", ctypes.c_void_p * 8),
@@ -222,6 +248,12 @@ def load():
             fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_occupancy_f{bits}")
             fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
+            for name, last in ((f"armon_cluster_f{bits}", ctypes.c_void_p),
+                               (f"armon_cluster_occupancy_f{bits}",
+                                ctypes.POINTER(ctypes.c_int))):
+                fn = getattr(libs["probe_cluster"], name)
+                fn.argtypes = [ctypes.POINTER(McArgs), last]
+                fn.restype = ctypes.c_int
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for stem, name, args in (
                 ("probe_stream", "armon_flip", [ci, vp, vp, ll, ll, ci, vp]),
@@ -322,9 +354,9 @@ def _check_status(rc, what):
 
 
 def _set_common(a, cfg, src, dst, scal, iscal, grid, n_real):
-    """The fields `SweepArgs` and `CycleArgs` share: operands, geometry
-    (`n_real`: the shard's real cells), scheme switches and EOS
-    constants."""
+    """The fields `SweepArgs`, `CycleArgs` and `McArgs` share: operands,
+    geometry (`grid`, where the kernel takes one; `n_real`: the shard's
+    real cells), scheme switches and EOS constants."""
     from .sweep import fast_math_on
     dev = src[0].device
     _require(scal, src[0].dtype, dev, 4, "scal")
@@ -333,7 +365,8 @@ def _set_common(a, cfg, src, dst, scal, iscal, grid, n_real):
     a.dst[:] = [_ptr(t) for t in dst]
     a.scal, a.iscal = _ptr(scal), _ptr(iscal)
     a.rows, a.cols = src[0].shape
-    a.grid_x, a.grid_y = grid
+    if grid is not None:
+        a.grid_x, a.grid_y = grid
     a.g, a.nx, a.ny = cfg.nghost, n_real[0], n_real[1]
     a.riemann = 1 if cfg.riemann == "GAD" else 0
     a.limiter = ("no_limiter", "minmod", "superbee").index(cfg.limiter)
@@ -411,8 +444,7 @@ def _cycle_args(cfg, window, src, dst, p, partials, scal, iscal, n_partials,
     nothing is emitted; the Y ghosts mirror unless `y_ghosts` says
     otherwise."""
     from .cycle import tile_grid
-    from .sweep import mirror_factors, MIRRORED
-    T = np.dtype(cfg.dtype).type
+    from .sweep import MIRRORED
     gx, gy = tile_grid(window, src[0].shape)
     a = CycleArgs()
     _set_common(a, cfg, src, dst, scal, iscal, (gx, gy), n_real or cfg.n_local)
@@ -421,6 +453,15 @@ def _cycle_args(cfg, window, src, dst, p, partials, scal, iscal, n_partials,
     a.n_partials = n_partials
     (a.ymode_lo, a.ymode_hi), (a.slab_lo, a.slab_hi) = \
         _ghost_args(y_ghosts or MIRRORED)
+    _set_axes(a, cfg)
+    return a
+
+
+def _set_axes(a, cfg):
+    """The per-axis fields `CycleArgs` and `McArgs` share: cell sizes and
+    their inverses in T, and the mirror factors of both axes."""
+    from .sweep import mirror_factors
+    T = np.dtype(cfg.dtype).type
     dx, dy = T(cfg.dx), T(cfg.dy)
     a.dx, a.dy = float(dx), float(dy)
     a.inv_dx, a.inv_dy = float(T(1.0) / dx), float(T(1.0) / dy)
@@ -428,7 +469,6 @@ def _cycle_args(cfg, window, src, dst, p, partials, scal, iscal, n_partials,
     a.fx_lo[:], a.fx_hi[:] = list(f_lo), list(f_hi)
     f_lo, f_hi = mirror_factors(cfg, Axis.Y)
     a.fy_lo[:], a.fy_hi[:] = list(f_lo), list(f_hi)
-    return a
 
 
 def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
@@ -474,6 +514,56 @@ def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
     fn = getattr(libs[f"multicycle_f{bits}"], f"armon_multicycle_f{bits}")
     rc = _launch(fn, src[0].device, ctypes.byref(m))
     _check_status(rc, "multicycle")
+
+
+def _cluster_args(cfg, plan, parity_pairs, ncycles, src, dst, p, scal,
+                  iscal):
+    """`McArgs` of a launch of the cluster probe's kernel with `plan`
+    (probes/cluster.py `plan`)."""
+    T = np.dtype(cfg.dtype).type
+    rows, cols = src[0].shape
+    g = cfg.nghost
+    m = McArgs()
+    _set_common(m, cfg, src, dst, scal, iscal, None,
+                (cols - 2 * g, rows - 2 * g))
+    m.p = _ptr(p)
+    m.ncycles = int(ncycles)
+    m.x_first[:] = [int(xf) for xf, _, _ in parity_pairs]
+    for key in ("band_r", "band_c", "pitch_r", "pitch_c", "plane", "smem"):
+        setattr(m, key, plan[key])
+    m.fx[:] = [float(T(fx)) for _, fx, _ in parity_pairs]
+    m.fy[:] = [float(T(fy)) for _, _, fy in parity_pairs]
+    _set_axes(m, cfg)
+    m.dt = _dt_params(cfg)
+    return m
+
+
+def launch_cluster(cfg, plan, parity_pairs, ncycles, src, dst, p, scal,
+                   iscal):
+    """Launch the cluster probe's K5 (csrc/cluster.cuh) on the current
+    stream: one cluster of 16 CTAs with `plan`."""
+    m = _cluster_args(cfg, plan, parity_pairs, ncycles, src, dst, p, scal,
+                      iscal)
+    bits = 8 * np.dtype(cfg.dtype).itemsize
+    fn = getattr(load()["probe_cluster"], f"armon_cluster_f{bits}")
+    rc = _launch(fn, src[0].device, ctypes.byref(m))
+    _check_status(rc, "cluster multicycle")
+
+
+def cluster_occupancy(cfg, plan, src):
+    """What the card makes of the cluster probe's `plan` on `src`'s grid:
+    {"max_active_clusters", "registers", "local_bytes"}."""
+    dev = src[0].device
+    scal = torch.zeros(4, dtype=src[0].dtype, device=dev)
+    iscal = torch.zeros(4, dtype=torch.int32, device=dev)
+    m = _cluster_args(cfg, plan, ((True, 1.0, 1.0),) * 2, 1, src, src,
+                      src[0], scal, iscal)
+    bits = 8 * np.dtype(cfg.dtype).itemsize
+    out = (ctypes.c_int * 4)()
+    fn = getattr(load()["probe_cluster"], f"armon_cluster_occupancy_f{bits}")
+    _check_status(fn(ctypes.byref(m), out), "cluster occupancy")
+    return {"max_active_clusters": out[0], "registers": out[2],
+            "local_bytes": out[3]}
 
 
 def cycle_occupancy(dtype, fast, biz):

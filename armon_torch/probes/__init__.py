@@ -8,7 +8,10 @@ TPU kernels, as entry points of the port with hand-written CUDA kernels.
   4, write 5 in place) with graded math;
 - `roofline` (`scripts/roofline.py`): the operation census of the sweep,
   per-class operation rates, and the floors they give;
-- `cycle_variants` (`scripts/perf_probe.py`): K4 with parts taken out.
+- `cycle_variants` (`scripts/perf_probe.py`): K4 with parts taken out;
+- `cluster`: K5 as one thread-block cluster that holds the grid in
+  shared memory, a redesign of K5 timed against the solver's K5 (no
+  script of its own: the TPU has no clusters).
 
 Each runs on the card by default (``python -m armon_torch.probes.<name>``)
 and raises without one unless given ``--device cpu``, where it runs the

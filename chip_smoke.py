@@ -9,8 +9,11 @@
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), the kernels' build time,
-     ptxas's registers and spills per kernel instance, and the resident
-     blocks per SM of each K4 instance;
+     ptxas's registers and spills per kernel instance, the resident
+     blocks per SM of each K4 instance, and the cluster probe's plan
+     (CTAs, rows and columns a CTA holds, shared memory a CTA uses, the
+     clusters the card holds at once, registers and local memory) at Sod
+     100^2 and at the largest grids the routing sends to K5;
   1. the per-sweep kernels against their plain PyTorch versions on the
      card, one X and one Y sweep (each emitting) at 1024^2 after a few
      cycles, on Sod_circ and Bizarrium, in f64, f32 exact and f32 fast
@@ -28,9 +31,11 @@ Phases, each printing one JSON line:
      its plain version;
   4. the small-grid routes: K4 against its plain version at 1024^2 (both
      sweep orders) and K5 at 100^2 (one 8-cycle launch from a mid-run
-     state, across maxcycle, dt_on_even_cycles, cst_dt), bit for bit in
-     exact mode; per-sweep, pair and multicycle runs bit for bit against
-     each other; the goldens through the pair and multicycle routes; timed
+     state, across maxcycle, dt_on_even_cycles, cst_dt) and at the largest
+     grids the routing admits (f32 120 x 496, 240^2 and the 3192 x 4
+     strip, f64 120^2 and 120 x 240), bit for bit in exact mode;
+     per-sweep, pair and multicycle runs bit for bit against each other;
+     the goldens through the pair and multicycle routes; timed
      runs through `armon()` of Sedov 2000^2 (pair, then per-sweep) and Sod
      100^2 (multicycle, then pair); K4 and K5 on those runs' final states,
      bit for bit against their plain versions in f32 exact and f64, within
@@ -62,7 +67,9 @@ Phases, each printing one JSON line:
      probes under `scripts/`): each probe's entry point at its default
      sizes (flip at 512x1024 and 8200^2, ff at 1024^2, the I/O ladder at
      8192^2, the rate classes at 8192^2, K4's variants at Sod 4096^2 and
-     8192^2), printing its own lines with the card, its launches counted;
+     8192^2, the cluster probe's K5 and the solver's K5 at 108^2, 168^2
+     and 248^2 padded f32 and 128^2 f64), printing its own lines with the
+     card, its launches counted;
      then each probe kernel against its plain version at the shapes it
      was timed at, and a small one (bit for bit where the arithmetic is
      exact, within a stated gate elsewhere; the flip kernels also at odd
@@ -156,6 +163,26 @@ def _ptxas_summary(log):
     return out
 
 
+# K5's grids: Sod 100^2 (BASELINE config 1) and the largest the routing
+# admits (`multicycle_geom_ok`'s 256 KiB cap): thin, square and the wide
+# strip in f32, thin and square in f64; (nx, ny).
+K5_GRIDS = (("float32", (100, 100)), ("float32", (120, 496)),
+            ("float32", (240, 240)), ("float32", (3192, 4)),
+            ("float64", (120, 120)), ("float64", (120, 240)))
+
+
+def _cluster_plan(torch, dtype, N):
+    """The cluster probe's plan on an (nx, ny) grid and what the card
+    makes of it (`probes.cluster.occupancy`)."""
+    from armon_torch import ArmonParameters
+    from armon_torch.probes import cluster
+    cfg = ArmonParameters(test="Sod", N=N, data_type=dtype, silent=5,
+                          device="cuda").config
+    src = tuple(torch.zeros(cfg.local_shape, dtype=getattr(torch, dtype),
+                            device="cuda") for _ in range(4))
+    return cluster.occupancy(cfg, src)
+
+
 def phase0(torch):
     from armon_torch.ops import _build
     t0 = time.perf_counter()
@@ -169,9 +196,11 @@ def phase0(torch):
                  for dtype, fast in (("float32", True), ("float32", False),
                                      ("float64", False))
                  for biz in (False, True)}
+    plans = {f"{dtype} {N[0]}x{N[1]}": _cluster_plan(torch, dtype, N)
+             for dtype, N in K5_GRIDS}
     emit({"phase": 0, "card": card_line(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": regs,
-          "k4_occupancy": occupancy})
+          "k4_occupancy": occupancy, "cluster_plan": plans})
     return occupancy
 
 
@@ -734,6 +763,18 @@ def phase4(torch):
             k5.append({"test": test, "options": extra, "dtype": dtype,
                        "fast": fast, "cycles_run": ran, "max_abs_err": err})
     out["k5_vs_plain"] = k5
+    # K5 at the largest grids the routing admits.
+    k5x = []
+    for dtype, N in K5_GRIDS[1:]:
+        for fast in ((False, True) if dtype == "float32" else (False,)):
+            params = ArmonParameters(test="Sod_circ", N=N, data_type=dtype,
+                                     use_fast_math=fast, silent=5,
+                                     device="cuda", maxcycle=100)
+            err, ran = _k5_vs_plain(torch, params, 10,
+                                    f"K5 Sod_circ {N} {dtype} fast={fast}")
+            k5x.append({"N": N, "dtype": dtype, "fast": fast,
+                        "cycles_run": ran, "max_abs_err": err})
+    out["k5_extremes_vs_plain"] = k5x
 
     # (b) the routes against each other, exact mode
     out["routes_bitwise"] = [
@@ -1397,9 +1438,10 @@ def phase8(torch):
     runs and read just after; its checks against the plain versions do
     not count."""
     from armon_torch import probes
-    from armon_torch.probes import flip, ff, roofline_io, roofline, cycle_variants
+    from armon_torch.probes import (flip, ff, roofline_io, roofline, cycle_variants,
+                                    cluster)
     kernels, launches = [], {}
-    for mod in (flip, ff, roofline_io, roofline, cycle_variants):
+    for mod in (flip, ff, roofline_io, roofline, cycle_variants, cluster):
         probes.reset_launches()
         res = mod.run("cuda")
         torch.cuda.synchronize()

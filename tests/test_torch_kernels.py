@@ -284,20 +284,30 @@ MULTI_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("test,extra", MULTI_CASES,
-                         ids=["sod", "circ-godunov", "maxcycle", "even-dt",
-                              "cst-dt"])
-def test_multicycle_matches_plain(card, test, extra, dtype):
-    """One K5 launch of 8 cycles from the state after 10 cycles against
-    `multicycle_plain`: fields, p and every loop scalar bit for bit."""
-    opts = dict(test=test, N=(100, 100), data_type=dtype, use_fast_math=False,
-                silent=5, device="cuda", **extra)
+def _k5_launch(kernel, cfg, pairs, src, dst, p, scal, iscal):
+    """One launch of the solver's K5 (`ops/cycle.py` `multicycle`) or of
+    the cluster probe's (`probes/cluster.py`)."""
+    if kernel == "k5":
+        C.multicycle(cfg, pairs, src, dst, p, C.new_multicycle_partials(
+            src[0].shape, cfg.dtype, src[0].device), scal, iscal)
+    else:
+        from armon_torch.probes import cluster
+        cluster.multicycle(cfg, pairs, src, dst, p, scal, iscal)
+
+
+def _k5_vs_plain(card, test, dtype, kernel="k5", ncycles=8, **extra):
+    """One launch of `ncycles` cycles from the state after 10 per-sweep
+    cycles against `multicycle_plain` on copies of the same inputs: fields
+    (in the buffer set the cycle count's parity names), p and every loop
+    scalar bit for bit. Returns the loop ints after the launch."""
+    opts = dict(test=test, data_type=dtype, use_fast_math=False, silent=5,
+                device="cuda", **extra)
+    opts.setdefault("N", (100, 100))
     opts.setdefault("maxcycle", 100)
     params = armon_torch.ArmonParameters(**opts)
     cfg = params.config
     pairs = temporal_pairs(cfg)
-    assert len(pairs) == 8
+    assert len(pairs) == ncycles
     [fs], seed = make_init_fused(params)()
     warm = armon_torch.ArmonParameters(**{**opts, "maxcycle": 10, **PER_SWEEP})
     res = make_time_loop_lean(warm.config)(fs, 0.0, 0, 0.0, float(seed))
@@ -308,14 +318,57 @@ def test_multicycle_matches_plain(card, test, extra, dtype):
     ins = [tuple(a.clone() for a in src), tuple(torch.empty_like(a) for a in src),
            p.clone(), scal.clone(), iscal.clone()]
     dst = tuple(torch.empty_like(a) for a in src)
-    C.multicycle(cfg, pairs, src, dst, p, C.new_multicycle_partials(
-        src[0].shape, cfg.dtype, card), scal, iscal)
+    _k5_launch(kernel, cfg, pairs, src, dst, p, scal, iscal)
     C.multicycle_plain(cfg, pairs, len(pairs), *ins)
     g = cfg.nghost
     r = (slice(g, -g), slice(g, -g))
-    for a, b in zip(src + (p,), ins[0] + (ins[2],)):
+    out = (src, dst)[len(pairs) % 2]
+    for a, b in zip(out + (p,), ins[len(pairs) % 2] + (ins[2],)):
         assert torch.equal(a[r], b[r])
     assert torch.equal(scal, ins[3]) and torch.equal(iscal, ins[4])
+    return iscal
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("test,extra", MULTI_CASES,
+                         ids=["sod", "circ-godunov", "maxcycle", "even-dt",
+                              "cst-dt"])
+def test_multicycle_matches_plain(card, test, extra, dtype):
+    """One K5 launch of 8 cycles from the state after 10 cycles against
+    `multicycle_plain`: fields, p and every loop scalar bit for bit."""
+    iscal = _k5_vs_plain(card, test, dtype, **extra)
+    if "maxcycle" in extra:
+        assert int(iscal[K.IS_CYCLE]) == 13 and not int(iscal[K.IS_NEXT])
+
+
+@pytest.mark.parametrize("kernel", ["k5", "cluster"])
+@pytest.mark.parametrize("test,dtype,extra", [
+    ("Sod_circ", "float32", dict(N=(120, 496))),   # thin: 504 x 128 padded
+    ("Sod_circ", "float32", dict(N=(240, 240))),   # square: 248 x 248
+    ("Sod", "float32", dict(N=(3192, 4))),         # wide: 12 x 3200
+    ("Sod_circ", "float64", dict(N=(120, 240))),   # f64 thin: 248 x 128
+    ("Sod_circ", "float64", dict(N=(120, 120))),
+    ("Bizarrium", "float64", dict()),
+    ("Bizarrium", "float32", dict(N=(240, 240))),
+    ("Sod_circ", "float64", dict(temporal_blocking=7)),  # odd K: ends in dst
+    ("Sod_circ", "float32", dict(temporal_blocking=7, maxcycle=13)),
+], ids=["f32-120x496", "f32-240", "f32-3192x4", "f64-120x240", "f64-120",
+        "biz-f64", "biz-f32-240", "odd-k-f64", "odd-k-f32-stop"])
+def test_multicycle_extremes_match_plain(card, kernel, test, dtype, extra):
+    """K5, and the cluster probe's K5, bit for bit against
+    `multicycle_plain` at the largest grids the routing admits, on the
+    wide strip, on Bizarrium and with an odd K."""
+    _k5_vs_plain(card, test, dtype, kernel, extra.get("temporal_blocking", 8),
+                 **extra)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("test,extra", MULTI_CASES,
+                         ids=["sod", "circ-godunov", "maxcycle", "even-dt",
+                              "cst-dt"])
+def test_cluster_multicycle_matches_plain(card, test, extra, dtype):
+    """The cluster probe's K5 on `test_multicycle_matches_plain`'s cases."""
+    iscal = _k5_vs_plain(card, test, dtype, "cluster", **extra)
     if "maxcycle" in extra:
         assert int(iscal[K.IS_CYCLE]) == 13 and not int(iscal[K.IS_NEXT])
 
@@ -500,7 +553,7 @@ def test_mesh_on_four_cards(card, P, devices, route, dtype):
 
 
 @pytest.mark.parametrize("probe", ["flip", "ff", "roofline_io", "roofline",
-                                   "cycle_variants"])
+                                   "cycle_variants", "cluster"])
 def test_probe_kernels_match_plain(card, probe):
     """Each probe kernel (`armon_torch/probes/`) against its plain version
     on the card: bit for bit where the arithmetic is exact, within the

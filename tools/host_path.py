@@ -12,6 +12,8 @@ each pass in a process of its own, and that twice (parent, change,
 change, parent, parent, change, change, parent for two). A pass times,
 after one warm-up run per cell, three runs of each cell:
 
+- Sod 100^2 on the multicycle route (the routing's own choice: K5, 8
+  cycles a launch, one stop read per launch), 4000 cycles;
 - Sod 100^2 on the pair route (`temporal_blocking=1`), 4000 cycles;
 - Sedov 2000^2 on the per-sweep route (`pair_threshold=0`), 1000 cycles;
 
@@ -31,7 +33,8 @@ import subprocess
 import sys
 import time
 
-CELLS = (("Sod 100^2 pair", "Sod", 100, 4000, dict(temporal_blocking=1)),
+CELLS = (("Sod 100^2 multicycle", "Sod", 100, 4000, dict()),
+         ("Sod 100^2 pair", "Sod", 100, 4000, dict(temporal_blocking=1)),
          ("Sedov 2000^2 per-sweep", "Sedov", 2000, 1000,
           dict(pair_threshold=0, temporal_blocking=1)))
 OPTS = dict(data_type="float32", scheme="GAD", projection="euler_2nd",
@@ -41,15 +44,16 @@ REPS = 3
 CALLS = 200
 
 
-def _launch_times(torch, params, pair):
+def _launch_times(torch, params, route):
     """{launch: [device ms, host us]} of the cell's launches on its initial
-    state (a pair cycle is K4 + K3, a per-sweep one K1 + K2 + K3)."""
+    state (a pair cycle is K4 + K3, a per-sweep one K1 + K2 + K3, a
+    multicycle launch K5 alone; `route` names the cell's)."""
     from armon_torch.core.solver import make_init_fused
     from armon_torch.ops import sweep as K
     from armon_torch.ops import cycle as C
     from armon_torch.utils.enums import Axis
     cfg = params.config
-    fs = make_init_fused(params)()[0]
+    fs, seed = make_init_fused(params)()
     fs = fs[0] if isinstance(fs, list) else fs  # a list of shards, or one
     src = tuple(fs[:4])
     dev = src[0].device
@@ -65,7 +69,14 @@ def _launch_times(torch, params, pair):
     iscal[K.IS_RUN] = 1
     s3, i3 = scal.clone(), iscal.clone()
     calls = {"cfl_finish": lambda: K.cfl_finish(cfg, partials, nb, s3, i3)}
-    if pair:
+    if route == "multicycle":  # from cycle 0, as the loop starts: all run
+        from armon_torch.ops.routing import temporal_pairs
+        pairs = temporal_pairs(cfg)
+        part = C.new_multicycle_partials(src[0].shape, cfg.dtype, dev)
+        s5, i5 = K.new_scalars(cfg.dtype, dev, lm=float(seed))
+        calls = {"multicycle": lambda: C.multicycle(cfg, pairs, src, dst, p, part,
+                                                    s5, i5)}
+    elif route == "pair":
         calls["cycle"] = lambda: C.cycle(cfg, True, 1.0, 1.0, src, dst, p,
                                          partials, scal, iscal, True)
     else:
@@ -109,7 +120,7 @@ def worker(root):
             us.append(stats.solve_time / stats.cycles * 1e6)
         out[name] = us
         out[name + " launches [device ms, host us]"] = _launch_times(
-            torch, ArmonParameters(maxcycle=cycles, **opts), "pair" in name)
+            torch, ArmonParameters(maxcycle=cycles, **opts), name.split()[-1])
     print(json.dumps(out), flush=True)
 
 

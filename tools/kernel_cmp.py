@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""K1 `x_sweep`, K2 `y_sweep`, K4 `cycle` and the flip probe kernels of two or
-more checkouts, timed in alternation on one NVIDIA card.
+"""K1 `x_sweep`, K2 `y_sweep`, K4 `cycle`, K5 `multicycle` and the flip probe
+kernels of two or more checkouts, timed in alternation on one NVIDIA card.
 
     python3 tools/kernel_cmp.py ROOT [ROOT ...]
+    python3 tools/kernel_cmp.py --only k5 ROOT [ROOT ...]   # K5 alone
 
 Each ROOT is the root of a checkout that holds `armon_torch/` (its kernels
 build into ROOT/build/armon_torch on first use). The roots run in the
@@ -26,7 +27,12 @@ euler_2nd, nghost 4):
   slab on both sides of the swept axis, packed from the state's own edge
   lines);
 - times `flip_copy`, `flip_mirror` and `Tensor.copy_` on an 8200^2 f32
-  array.
+  array;
+- K5 (`--only k5` runs this part alone): one launch of 8 cycles (the
+  default `temporal_blocking`, Sequential) from the state after 50
+  per-sweep cycles of Sod at 108^2, 168^2 and 248^2 padded, f32 fast
+  math, and at 128^2 in f64, the calls back to back, each from the
+  state the one before left (every cycle runs).
 
 It prints the card line, one JSON line per pass and, last, the mean per
 root.
@@ -57,8 +63,11 @@ OPTS = dict(data_type="float32", scheme="GAD", projection="euler_2nd",
             maxtime=1e30, silent=5, device="cuda", pair_threshold=0,
             temporal_blocking=1)
 out = {"root": sys.argv[1]}
+groups = sys.argv[2].split(",")
 for name, test, n, cycles in (("sedov_2008", "Sedov", 2000, 1000),
                               ("sod_8200", "Sod", 8192, 10)):
+    if "sweeps" not in groups:
+        break
     params = ArmonParameters(test=test, N=(n, n), maxcycle=cycles, **OPTS)
     cfg = params.config
     [fs], seed = make_init_fused(params)()
@@ -112,17 +121,47 @@ for name, test, n, cycles in (("sedov_2008", "Sedov", 2000, 1000),
     out[name + "_vs_k1_k2_max_abs"] = err
     out[name + "_vs_k1_k2_max_rel"] = rel
     del src, mid, ref, got, p, p4, part, fs, res
-x = torch.rand((8200, 8200), device="cuda")
-o = torch.empty_like(x)
-out["flip_copy_ms"] = time_ms(lambda i: flip.copy(x, o), k=20)
-out["flip_mirror_ms"] = time_ms(lambda i: flip.mirror_fill(x, 4, o), k=20)
-out["copy__ms"] = time_ms(lambda i: o.copy_(x), k=20)
+if "sweeps" in groups:
+    x = torch.rand((8200, 8200), device="cuda")
+    o = torch.empty_like(x)
+    out["flip_copy_ms"] = time_ms(lambda i: flip.copy(x, o), k=20)
+    out["flip_mirror_ms"] = time_ms(lambda i: flip.mirror_fill(x, 4, o), k=20)
+    out["copy__ms"] = time_ms(lambda i: o.copy_(x), k=20)
+    del x, o
+
+from armon_torch.ops.routing import temporal_pairs
+MC = {k: v for k, v in OPTS.items() if k not in ("pair_threshold", "temporal_blocking")}
+for name, n, dtype in (("k5_108", 100, "float32"), ("k5_168", 160, "float32"),
+                       ("k5_248", 240, "float32"), ("k5_f64_128", 120, "float64")):
+    if "k5" not in groups:
+        break
+    opts = {**MC, "data_type": dtype, "use_fast_math": dtype == "float32"}
+    warm = ArmonParameters(test="Sod", N=(n, n), maxcycle=50, **opts,
+                           pair_threshold=0, temporal_blocking=1)
+    [fs], seed = make_init_fused(warm)()
+    res = make_time_loop_lean(warm.config)(fs, 0.0, 0, 0.0, float(seed))
+    cfg = ArmonParameters(test="Sod", N=(n, n), maxcycle=1 << 23, **opts).config
+    pairs = temporal_pairs(cfg)
+    src0, p0 = tuple(res.carry[:4]), res.carry.p
+    dev = p0.device
+    cur = tuple(a.clone() for a in src0)
+    nxt = tuple(torch.empty_like(a) for a in src0)
+    p = p0.clone()
+    scal, iscal = K.new_scalars(cfg.dtype, dev, t=res.t, cycle=res.cycles,
+                                dt_prev=res.dt_last, lm=res.lm)
+    part = C.new_multicycle_partials(p0.shape, cfg.dtype, dev)
+    out[name + "_ms"] = time_ms(lambda i: C.multicycle(
+        cfg, pairs, cur, nxt, p, part, scal, iscal), k=20)
 print(json.dumps(out), flush=True)
 '''
 
 
 def main(argv=None):
-    roots = [os.path.abspath(r) for r in (argv or sys.argv[1:])]
+    args = list(argv or sys.argv[1:])
+    groups = "sweeps,k5"
+    if args[:1] == ["--only"]:
+        groups, args = args[1], args[2:]
+    roots = [os.path.abspath(r) for r in args]
     if not roots:
         sys.exit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,7 +169,7 @@ def main(argv=None):
                          text=True).stdout.strip(), flush=True)
     rows = {r: [] for r in roots}
     for root in roots + roots[::-1]:
-        res = subprocess.run([sys.executable, "-c", CHILD, root], cwd=root,
+        res = subprocess.run([sys.executable, "-c", CHILD, root, groups], cwd=root,
                              capture_output=True, text=True)
         if res.returncode:
             sys.stderr.write(res.stderr[-4000:])

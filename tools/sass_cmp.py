@@ -1,18 +1,19 @@
 """The kernels' SASS in two trees, function by function.
 
-    python3 tools/sass_cmp.py <parent tree> <tree>
+    python3 tools/sass_cmp.py <parent tree> <tree> [--changed STEM,...]
+    python3 tools/sass_cmp.py build/parent . --changed multicycle_f32,multicycle_f64
 
 Builds each tree's kernels (`armon_torch.ops._build.load()`, in a child
-process run from that tree) and prints, for K3 (`cfl`), K4 (`cycle_f*`),
-K5 (`multicycle_f*`) and each probe library, how many of its kernel
-functions have the same SASS in both trees, naming those that differ; K1
-and K2 (`sweep_f*`) are listed after them, for information. A change
-that must leave those kernels as they were (a redesign of K1 and K2 in
-`sweep.cuh`, a probe-only template parameter) should print every
-function identical. K4's instances carry the probe
-variant parameter in their mangled names (`...ELi64ELi0EE`) where the
-tree has it; it is dropped before the names are compared. Needs the CUDA
-toolkit (nvcc, cuobjdump).
+process run from that tree) and prints, for every library (K1/K2
+`sweep_f*`, K3 `cfl`, K4 `cycle_f*`, K5 `multicycle_f*`, the probes'),
+how many of its kernel functions have the same SASS in both trees,
+naming those that differ. The libraries named by `--changed` (those the
+change redesigns) are listed after the others, for information; every
+other one must be identical (a library new in the tree is named as
+such), and the last line says whether it is. K4's instances carry the
+probe variant parameter in their mangled names (`...ELi64ELi0EE`) where
+the tree has it; it is dropped before the names are compared. Needs the
+CUDA toolkit (nvcc, cuobjdump).
 """
 
 import glob
@@ -23,9 +24,9 @@ import shutil
 import subprocess
 import sys
 
-STEMS = ("cfl", "cycle_f32", "cycle_f64", "multicycle_f32", "multicycle_f64",
-         "probe_stream", "probe_ff", "probe_rates", "probe_cycle")
-INFO = ("sweep_f32", "sweep_f64")
+STEMS = ("sweep_f32", "sweep_f64", "cfl", "cycle_f32", "cycle_f64",
+         "multicycle_f32", "multicycle_f64", "probe_stream", "probe_ff",
+         "probe_rates", "probe_cycle", "probe_cluster")
 CUOBJDUMP = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
 
@@ -37,8 +38,11 @@ def build(tree):
 
 def functions(tree, stem):
     """{kernel function name: hash of its SASS} of the newest library
-    built from source `stem` in `tree`."""
+    built from source `stem` in `tree`; None where the tree has no such
+    source."""
     libs = glob.glob(os.path.join(tree, "build", "armon_torch", f"lib{stem}_*.so"))
+    if not libs:
+        return None
     lib = max(libs, key=os.path.getmtime)
     text = subprocess.run([CUOBJDUMP, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
@@ -51,19 +55,35 @@ def functions(tree, stem):
 
 
 def main(argv=None):
-    parent, tree = (argv or sys.argv[1:])[:2]
+    args = list(argv or sys.argv[1:])
+    changed = ()
+    if "--changed" in args:
+        i = args.index("--changed")
+        changed = tuple(args[i + 1].split(","))
+        del args[i:i + 2]
+    unknown = set(changed) - set(STEMS)
+    if len(args) != 2 or unknown:
+        sys.exit(__doc__ + (f"\nunknown stems: {sorted(unknown)}" if unknown else ""))
+    parent, tree = args
     for t in (parent, tree):
         build(t)
+    held = [s for s in STEMS if s not in changed]
     same_all = True
-    for stem in STEMS + INFO:
+    for stem in held + list(changed):
         a, b = functions(parent, stem), functions(tree, stem)
+        if a is None or b is None:  # a library one tree does not build
+            print(f"{stem}: only in {tree if a is None else parent}")
+            same_all &= a is None or stem in changed
+            continue
         differ = sorted(k for k in a if a[k] != b.get(k))
-        if stem in STEMS:
+        if stem in held:
             same_all &= not differ
-        print(f"{stem}: {len(a) - len(differ)}/{len(a)} functions with the "
-              f"same SASS", differ or "")
+        print(f"{stem}{' (changed)' if stem in changed else ''}: "
+              f"{len(a) - len(differ)}/{len(a)} functions with the same SASS",
+              differ or "")
     print("sass_cmp:", "all identical" if same_all else "some differ",
-          f"({', '.join(STEMS)})")
+          f"({', '.join(held)})")
+    sys.exit(0 if same_all else 1)
 
 
 if __name__ == "__main__":
