@@ -13,9 +13,12 @@ import torch
 # the tensor cores count a fused multiply-add as two operations, so one
 # instruction per lane and clock is 33.5e12 f32 and 17e12 f64 lane-ops/s;
 # the special-function unit (MUFU: rcp, rsqrt, ...) issues 16 of the
-# SM's 128 lanes per clock, 1/8 of the f32 rate.
+# SM's 128 lanes per clock, 1/8 of the f32 rate; shared-memory loads and
+# stores and warp shuffles (`lsu`) 32, 1/4 (CUDA C++ Programming Guide,
+# throughput of native instructions, compute capability 9.0).
 HBM_BYTES_PER_S = 3.35e12
-LANE_OPS_PER_S = {"float32": 33.5e12, "float64": 17e12, "mufu": 33.5e12 / 8}
+LANE_OPS_PER_S = {"float32": 33.5e12, "float64": 17e12, "mufu": 33.5e12 / 8,
+                  "lsu": 33.5e12 / 4}
 NOT_MEASURED = "not measured"
 
 
@@ -47,7 +50,9 @@ def time_ms(fn, device="cuda", k=20, passes=3, reset=None):
     runs, so host launch time does not leak into a call's. With `reset`,
     ``reset()`` runs before every call, outside the timed interval (each
     call then has its own pair of events): every call sees the same
-    inputs, where a call updates its inputs in place."""
+    inputs, where a call updates its inputs in place. A reset and two
+    events cost the host more than a short call takes on the card, so the
+    spin then lasts about half a millisecond per call."""
     if torch.device(device).type != "cuda":
         return None
     if reset is not None:
@@ -59,7 +64,7 @@ def time_ms(fn, device="cuda", k=20, passes=3, reset=None):
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
                   for _ in range(k if reset is not None else 1)]
-        torch.cuda._sleep(min(int(k * 1e5), int(2e8)))
+        torch.cuda._sleep(min(int(k * (1e5 if reset is None else 1e6)), int(2e9)))
         if reset is None:
             events[0][0].record()
             for i in range(k):

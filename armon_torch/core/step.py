@@ -2,9 +2,8 @@
 
 Three routes, chosen as the JAX package chooses them (`ops/routing.py`):
 
-- per-sweep: one cycle is K3 `cfl_finish` (fold the last cycle's CFL
-  partials, one dt step) and then one sweep kernel per (axis, factor) of
-  the splitting schedule;
+- per-sweep: one cycle is one sweep kernel per (axis, factor) of the
+  splitting schedule, K1 along X and K2 along Y;
 - pair (``max(n_local) <= pair_threshold``): the same, but each adjacent
   X/Y pair of the schedule is one K4 `cycle` launch (`run_schedule_fused`'s
   pairing); a leftover sweep (Strang's trailing half) stays K1/K2;
@@ -12,9 +11,29 @@ Three routes, chosen as the JAX package chooses them (`ops/routing.py`):
   runs K cycles with the dt recurrence, the CFL fold and the stop
   predicate in-kernel; no K3.
 
-The cycle's last launch writes the stale p and the CFL partials for the
-next cycle. The loop carries only rho/u/v/E/p, plus a second rho/u/v/E set
-that the out-of-place kernels write into (ping-pong).
+The cycle's last launch writes the stale p and the CFL partials, and on
+the per-sweep and pair routes runs K3's work in its tail (`ops/sweep.Finish`):
+it folds the partials into lm when the cycle ran, and takes one step of
+the dt recurrence for the next cycle. So a Sequential cycle is two
+launches per-sweep and one on the pair route. The loop carries only
+rho/u/v/E/p, plus a second rho/u/v/E set that the out-of-place kernels
+write into (ping-pong).
+
+Sequencing. One K3 `cfl_finish` (step, no fold) starts the run: the
+first cycle's run predicate and dt. Then cycle k's last launch folds
+cycle k's partials (if iscal[run] says cycle k ran) and steps for cycle
+k + 1: iscal[run] becomes cycle k + 1's predicate, and the host reads it
+every `check_every` cycles. An earlier form ran K3 (fold the previous
+cycle's partials, step) before each cycle, stopped on iscal[next], and
+ended with a K3 that only folded. Both make the same updates to t, cycle,
+dt, lm and ok in the same order: a step's inputs are the state its K3
+would have read, one launch earlier, and iscal[run] after cycle k is the
+iscal[next] that K3 of cycle k computed, since the state it tests does
+not change between them; the old final fold is the last running cycle's
+tail, and a cycle that does not run leaves every scalar as it was. The
+one difference: iscal[run] ends at 0 (no cycle after the last one runs),
+where it ended at 1 after a last cycle that ran. `LoopResult` does not
+carry it.
 
 On a mesh (`parallel/mesh.py`; `fused_sweep_step`, `fused_cycle_step`,
 `armon_tpu/core/step.py:147-250`) the per-sweep and pair routes run over
@@ -22,11 +41,16 @@ every shard: before each launch along a sharded axis, every shard's ghost
 slabs are refilled from its neighbours' current fields (`halo_slabs`), then
 each shard's kernel runs with its own real extent, slab splice on the sides
 that face a neighbour and mirror on global borders, uneven splits
-included. One K3 folds every shard's CFL partials: x -> dx/x is monotone
-under IEEE rounding, so min(dx/max_s mx_s, dy/max_s my_s) is the JAX
-package's per-shard dt followed by `pmin_dt`, bit for bit, and a NaN in any
-shard fails the dt gate as `pmin_dt`'s NaN -> 0 does. The loop scalars live
-on the first shard's device; a shard on another device reads a copy made
+included. One fold covers every shard's CFL partials: x -> dx/x is
+monotone under IEEE rounding, so min(dx/max_s mx_s, dy/max_s my_s) is the
+JAX package's per-shard dt followed by `pmin_dt`, bit for bit, and a NaN
+in any shard fails the dt gate as `pmin_dt`'s NaN -> 0 does. On one card
+the last shard's last launch carries the tail, and its fold covers every
+shard's columns: the earlier shards' launches wrote theirs before it in
+stream order. A mesh across cards copies the remote shards' partials to
+the first shard's device after the cycle and then launches K3 (fold,
+step): the one case that keeps a K3 per cycle. The loop scalars live on
+the first shard's device; a shard on another device reads a copy made
 after each K3. Ordering across devices: PyTorch's copy between two cards
 waits for the work queued before it on both cards' current streams, and
 the work queued after it waits for the copy, so a slab copy follows the
@@ -71,7 +95,7 @@ class LoopResult(NamedTuple):
 
 
 def run_schedule(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
-                 pair=False, slabs=None):
+                 pair=False, slabs=None, finish=None):
     """The launches of one cycle (`run_schedule_fused`) on every shard of
     `mesh`: each launch reads `cur[s]` and writes `nxt[s]`, then the two
     swap. With `pair`, an adjacent X/Y pair of sweeps is one K4 launch in
@@ -79,7 +103,9 @@ def run_schedule(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
     sharded ones), the shards' slab buffers `slabs[axis]` are refilled from
     their neighbours' `cur`. The cycle's last launch, which writes nb CFL
     partials per shard, writes shard s's into `parts[nb][s]`; `scalars[s]`
-    are the loop scalars on shard s's device. Returns (cur, nxt, nb)."""
+    are the loop scalars on shard s's device. With `finish` (nb -> a
+    `Finish` over every shard's nb columns), the last shard's last launch
+    carries K3's tail. Returns (cur, nxt, nb)."""
     slabs = slabs or {}
     shape = cur[0][0].shape
     device = cur[0][0].device
@@ -100,16 +126,17 @@ def run_schedule(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
             if axis in slabs else [K.MIRRORED] * len(mesh)
         for s in mesh:
             k = s.index
+            fin = finish[nb] if last and finish and k == len(mesh) - 1 else None
             if is_pair:
                 (a0, f0), (_, f1) = schedule[i], schedule[i + 1]
                 x_first = a0 is Axis.X
                 C.cycle(cfg, x_first, f0 if x_first else f1,
                         f1 if x_first else f0, cur[k], nxt[k], p[k], ops[k],
-                        *scalars[k], last, ghosts[k], s.n_real)
+                        *scalars[k], last, ghosts[k], s.n_real, fin)
             else:
                 sweep = K.x_sweep if axis is Axis.X else K.y_sweep
                 sweep(cfg, cur[k], nxt[k], p[k], ops[k], *scalars[k],
-                      schedule[i][1], last, ghosts[k], s.n_real)
+                      schedule[i][1], last, ghosts[k], s.n_real, fin)
         cur, nxt = nxt, cur
         i += step
     return cur, nxt, nb
@@ -130,13 +157,17 @@ def _result(cur, p, scal, iscal, reads, single):
                       float(s[K.SC_LM]), bool(i[K.IS_OK]), reads + 2)
 
 
-def make_time_loop_lean(cfg, mesh=None):
+def make_time_loop_lean(cfg, mesh=None, remote=()):
     """The lean loop (`make_time_loop_lean`):
     (fs, t0, cycle0, dt0, local0, check_every) -> LoopResult. `fs` is a
     list of FusedCarry, one per shard of `mesh` in its order, and so is the
     result's carry; a caller that passes one FusedCarry gets one back.
     Without a `mesh`, one shard holds the whole grid on the carry's
-    device."""
+    device. A shard on another device than the first shard's is remote:
+    its CFL partials go to a buffer of its own, copied in after each
+    cycle for K3 to fold. `remote` names shards to treat so on the first
+    shard's device too, which runs a mesh across cards' sequencing on
+    one device."""
     T = np.dtype(cfg.dtype).type
     kind = route(cfg)
     if kind == "multicycle":
@@ -159,16 +190,22 @@ def make_time_loop_lean(cfg, mesh=None):
                K.n_partials(Axis.Y, shape, dev0)}
         if pair:
             nbs.add(C.n_partials(shape, dev0, cfg.dtype))
-        # One K3 folds every shard's partials: for a last launch writing nb
-        # per shard, shard s writes columns [s*nb, (s+1)*nb) of `partials`,
-        # or, on another device, a buffer of its own copied in after the
-        # cycle. Each shard's operand is made once per nb.
+        # One fold covers every shard's partials: for a last launch writing
+        # nb per shard, shard s writes columns [s*nb, (s+1)*nb) of
+        # `partials`, or, if remote, a buffer of its own copied in after
+        # the cycle. Each shard's operand is made once per nb.
+        far = sorted({k for k, d in enumerate(devs) if d != dev0} | set(remote))
         partials = torch.zeros((2, len(m) * max(nbs)), dtype=dtype, device=dev0)
-        parts = {nb: [partials[:, k * nb:(k + 1) * nb] if d == dev0 else
-                      torch.zeros((2, nb), dtype=dtype, device=d)
+        parts = {nb: [torch.zeros((2, nb), dtype=dtype, device=d) if k in far
+                      else partials[:, k * nb:(k + 1) * nb]
                       for k, d in enumerate(devs)]
                  for nb in nbs}
-        remote = [k for k, d in enumerate(devs) if d != dev0]
+        # On one card the cycle's last launch folds and steps in its tail;
+        # across cards K3 does, after the remote partials are copied in.
+        finish = None
+        if not far:
+            ticket = K.new_ticket(dev0)
+            finish = {nb: K.Finish(partials, len(m) * nb, ticket) for nb in nbs}
         scal, iscal = K.new_scalars(cfg.dtype, dev0, t=float(t0),
                                     cycle=int(cycle0), dt_prev=float(dt0),
                                     lm=float(local0))
@@ -177,28 +214,35 @@ def make_time_loop_lean(cfg, mesh=None):
         scalars = [copies.get(d, (scal, iscal)) for d in devs]
         slabs = {axis: new_slab_buffers(cfg, m, cur, axis)
                  for axis in (Axis.X, Axis.Y) if m.proc_dims[axis] > 1}
+
+        def share_scalars():
+            for sc, isc in copies.values():
+                sc.copy_(scal)
+                isc.copy_(iscal)
+
         cycle = int(cycle0)
-        nb = 0
         reads = 0
         running = T(t0) < T(cfg.maxtime) and cycle < cfg.maxcycle
+        if running:  # the first cycle's step: its run predicate and dt
+            K.cfl_finish(cfg, partials, 0, scal, iscal, fold=False, step=True)
+            share_scalars()
         while running:
             for _ in range(check_every):
-                K.cfl_finish(cfg, partials, nb, scal, iscal, fold=True, step=True)
-                for sc, isc in copies.values():
-                    sc.copy_(scal)
-                    isc.copy_(iscal)
                 sched = even if cycle % 2 == 0 else odd
                 cur, nxt, nb = run_schedule(cfg, m, cur, nxt, p, parts,
-                                            scalars, sched, pair, slabs)
-                for k in remote:
-                    partials[:, k * nb:(k + 1) * nb].copy_(parts[nb][k])
-                nb *= len(m)
+                                            scalars, sched, pair, slabs, finish)
+                if far:
+                    for k in far:
+                        partials[:, k * nb:(k + 1) * nb].copy_(parts[nb][k])
+                    K.cfl_finish(cfg, partials, len(m) * nb, scal, iscal,
+                                 fold=True, step=True)
+                    share_scalars()
                 cycle += 1
-            running = bool(iscal[K.IS_NEXT].item())
+            # The next cycle's predicate; after the last cycle that ran,
+            # lm is the CFL minimum of the final state, the carry a resumed
+            # run would start from.
+            running = bool(iscal[K.IS_RUN].item())
             reads += 1
-        # Fold the last cycle's partials: lm is the CFL minimum of the
-        # final state, the carry a resumed run would start from.
-        K.cfl_finish(cfg, partials, nb, scal, iscal, fold=True, step=False)
         return _result(cur, p, scal, iscal, reads, single)
 
     return loop

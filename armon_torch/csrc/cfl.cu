@@ -7,11 +7,19 @@
 // (sweep.py:1950-1967, bitwise `core/timestep.dt_update`; the recurrence
 // itself is `dt_step` in common.cuh, shared with K5).
 //
-// Bound on this card: launch latency. It reads 2 x n_partials values
-// (~70 K at 8192^2) and writes a few scalars: ~0.5 MB, well under a
-// microsecond of HBM time. One block of 1024 threads strides over the
-// partials, reduces in shared memory, and one thread runs the scalar
-// recurrence, so the loop never reads a scalar back to the host.
+// Bound on this card: launch latency. It reads 2 x n_partials values and
+// writes a few scalars: at 8200^2 padded K1 writes 8841 partials a launch,
+// K2 4225 and K4 13818 (`n_partials` in ops/sweep.py and ops/cycle.py),
+// 71, 34 and 111 KB in f32, well under a microsecond of HBM time. One block of CFL_NT = 1024
+// threads folds the partials (`fold_partials`: a strided pass, then a tree
+// in shared memory) and one thread runs the scalar step (`cfl_scalars`),
+// so the loop never reads a scalar back to the host.
+//
+// The solver's loop launches it once per run, for the first cycle's step;
+// every later fold and step runs in the tail of the cycle's last launch
+// (`cfl_tail` in common.cuh, the same fold order and scalar step), except
+// on a mesh across cards, which copies remote partials in after the cycle
+// and then launches K3 (core/step.py).
 
 #include "common.cuh"
 
@@ -29,49 +37,22 @@ struct CflArgs {
   double dx, dy;          // rounded to T
 };
 
-constexpr int NT = 1024;
+constexpr int NT = CFL_NT;
 
 template <typename T>
 __global__ void __launch_bounds__(NT) cfl_finish_kernel(const CflArgs a) {
-  __shared__ T smx[NT], smy[NT];
-  T* scal = reinterpret_cast<T*>(a.scal);
+  __shared__ T red[2 * NT];
   int* iscal = reinterpret_cast<int*>(a.iscal);
-  const T* part = reinterpret_cast<const T*>(a.partials);
-  const int tid = threadIdx.x;
-  const bool fold = a.fold && iscal[2] != 0;  // the cycle that wrote them ran
-  if (fold) {
-    T mx = T(0), my = T(0);  // the TPU's zero-initialised max block
-    for (long long i = tid; i < a.nblocks; i += NT) {
-      mx = jmax(mx, part[i]);
-      my = jmax(my, part[a.n_partials + i]);
-    }
-    smx[tid] = mx;
-    smy[tid] = my;
-    __syncthreads();
-    for (int w = NT / 2; w > 0; w >>= 1) {
-      if (tid < w) {
-        smx[tid] = jmax(smx[tid], smx[tid + w]);
-        smy[tid] = jmax(smy[tid], smy[tid + w]);
-      }
-      __syncthreads();
-    }
-  }
-  if (tid != 0) return;
-  if (fold) scal[2] = jmin(T(a.dx) / smx[0], T(a.dy) / smy[0]);
-  if (!a.step) return;
-  const T t = scal[0];
-  const int cyc = iscal[0];
-  const bool run = runs(a.dt, t, cyc, iscal[1] != 0);
-  if (run) {
-    const DtStep<T> r = dt_step(a.dt, scal[2], scal[1], cyc);
-    scal[3] = r.dt_use;
-    scal[0] = t + r.dt_use;
-    scal[1] = r.dt_next;
-    iscal[0] = cyc + 1;
-    iscal[1] = r.ok ? 1 : 0;
-  }
-  iscal[2] = run ? 1 : 0;
-  iscal[3] = runs(a.dt, scal[0], iscal[0], iscal[1] != 0) ? 1 : 0;
+  // The cycle that wrote them ran; every thread reads iscal[run] before
+  // thread 0 rewrites it.
+  const bool fold = a.fold && __syncthreads_and(iscal[2] != 0);
+  T mx = T(0), my = T(0);
+  if (fold)
+    fold_partials<T, NT>(reinterpret_cast<const T*>(a.partials), a.n_partials, a.nblocks,
+                         red, mx, my);
+  if (threadIdx.x != 0) return;
+  cfl_scalars<T>(a.dt, a.dx, a.dy, reinterpret_cast<T*>(a.scal), iscal, fold, a.step != 0,
+                 mx, my);
 }
 
 }  // namespace armon

@@ -652,9 +652,11 @@ __device__ __forceinline__ void k4_y_first(const CycleArgs& a, Fields<const T> s
 
 // K4: one cycle of one tile (see the file note), or its pass-through copy
 // when iscal[run] is 0. Emitting, it writes the stale p and one pair of
-// CFL partial maxima per block.
-template <typename T, bool FAST, bool BIZ, int V = CV_BASE, typename G = K4<T>>
-__global__ void __launch_bounds__(G::NT, G::MINB) cycle_kernel(const CycleArgs a) {
+// CFL partial maxima per block. FIN: then K3's fold and dt step in the
+// tail (`cfl_tail`, common.cuh), in the window's shared memory.
+template <typename T, bool FAST, bool BIZ, int V, typename G, bool FIN>
+__device__ __forceinline__ void cycle_body(const CycleArgs& a, const FinishArgs* fin) {
+  static_assert(G::PLANES >= 2 * G::NT, "the tail's scratch fits the window");
   extern __shared__ __align__(16) unsigned char smem[];
   T* F = reinterpret_cast<T*>(smem);
   T* red = F + G::PLANES;  // 2 NW: the warps' CFL maxima
@@ -671,6 +673,7 @@ __global__ void __launch_bounds__(G::NT, G::MINB) cycle_kernel(const CycleArgs a
         for (int f = 0; f < 4; ++f) dst.f[f][o] = __ldg(src.f[f] + o);
       }
     }
+    if constexpr (FIN) cfl_tail<T, G::NT, false>(*fin, F);
     return;
   }
   const T dt_use = reinterpret_cast<const T*>(a.scal)[3];
@@ -719,6 +722,21 @@ __global__ void __launch_bounds__(G::NT, G::MINB) cycle_kernel(const CycleArgs a
     part[b] = bx;
     part[a.n_partials + b] = by;
   }
+  // Synced: the barrier before the store follows the scalars' last read.
+  // F is free once every thread is past the tail's barrier.
+  if constexpr (FIN) cfl_tail<T, G::NT, true>(*fin, F);
+}
+
+template <typename T, bool FAST, bool BIZ, int V = CV_BASE, typename G = K4<T>>
+__global__ void __launch_bounds__(G::NT, G::MINB) cycle_kernel(const CycleArgs a) {
+  cycle_body<T, FAST, BIZ, V, G, false>(a, nullptr);
+}
+
+// K4 as the cycle's last launch: the same cycle, then K3's fold and step.
+template <typename T, bool FAST, bool BIZ>
+__global__ void __launch_bounds__(K4<T>::NT, K4<T>::MINB)
+cycle_finish_kernel(const CycleArgs a, __grid_constant__ const FinishArgs f) {
+  cycle_body<T, FAST, BIZ, CV_BASE, K4<T>, true>(a, &f);
 }
 
 // Host side. Checks the launch geometry the Python wrapper computed (it
@@ -739,6 +757,17 @@ int launch_cycle(const CycleArgs& a, cudaStream_t s) {
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   cycle_kernel<T, FAST, BIZ, V, G><<<dim3(a.grid_x, a.grid_y), G::NT, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool FAST, bool BIZ>
+int launch_cycle_finish(const CycleArgs& a, const FinishArgs& fin, cudaStream_t s) {
+  const size_t smem = K4<T>::smem();
+  cudaError_t e = cudaFuncSetAttribute(cycle_finish_kernel<T, FAST, BIZ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cycle_finish_kernel<T, FAST, BIZ><<<dim3(a.grid_x, a.grid_y), K4<T>::NT, smem, s>>>(a, fin);
   return (int)cudaGetLastError();
 }
 
@@ -792,10 +821,15 @@ int launch_multicycle(const MultiArgs& m, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// `fin`: null, or K3's work for the launch's tail (the cycle's last launch).
 template <typename T, bool FAST>
-int dispatch_cycle(const CycleArgs* a, cudaStream_t s) {
-  const int err = check_tile_geometry(a, K4<T>::RX, K4<T>::RY, a->emit != 0);
+int dispatch_cycle(const CycleArgs* a, const FinishArgs* fin, cudaStream_t s) {
+  int err = check_tile_geometry(a, K4<T>::RX, K4<T>::RY, a->emit != 0);
+  if (!err) err = check_finish(fin, a->emit != 0, (long long)a->grid_x * a->grid_y);
   if (err) return err;
+  if (fin)
+    return a->biz ? launch_cycle_finish<T, FAST, true>(*a, *fin, s)
+                  : launch_cycle_finish<T, FAST, false>(*a, *fin, s);
   return a->biz ? launch_cycle<T, FAST, true>(*a, s) : launch_cycle<T, FAST, false>(*a, s);
 }
 

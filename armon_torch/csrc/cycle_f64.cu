@@ -2,9 +2,11 @@
 // Kernel body and design notes: cycle.cuh.
 #include "cycle.cuh"
 
-extern "C" int armon_cycle_f64(const armon::CycleArgs* a, void* stream) {
+// `fin`: null, or K3's work for the launch's tail (the cycle's last launch).
+extern "C" int armon_cycle_f64(const armon::CycleArgs* a, const armon::FinishArgs* fin,
+                                void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return armon::dispatch_cycle<double, false>(a, s);
+  return armon::dispatch_cycle<double, false>(a, fin, s);
 }
 
 // out: resident blocks per SM, threads per block, dynamic shared memory.

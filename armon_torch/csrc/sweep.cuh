@@ -40,7 +40,10 @@
 //   steps before, and stages on different rows give the scheduler
 //   independent work.
 // - CFL partials: a running max per thread, folded by warp shuffles and
-//   once per block through shared memory; one pair per block for K3.
+//   once per block through shared memory; one pair per block. The cycle's
+//   last launch (`x_sweep_finish_kernel`, `y_sweep_finish_kernel`) then
+//   runs K3's fold and dt step in its tail (`cfl_tail`, common.cuh): the
+//   last block to finish folds every block's pair.
 
 // Ghost bands are filled in the load, per side of the swept axis: mirror
 // (a global border), slab (a mesh neighbour's g real lines, packed by the
@@ -685,8 +688,8 @@ inline long long sweep_blocks(int axis, long long rows, long long cols) {
 }
 
 // The block's pair of CFL partial maxima (NaN-propagating; exact in any
-// order): the warps' maxima through `red` (2 NWARP words). Every thread of
-// the block must call it.
+// order): the warps' maxima through `red` (2 NWARP words), stored by
+// thread 0 after a block barrier. Every thread of the block must call it.
 template <typename T, int NWARP>
 __device__ __forceinline__ void block_partials(const SweepArgs& a, T* red, T mx, T my) {
   for (int s = 16; s > 0; s >>= 1) {
@@ -705,6 +708,15 @@ __device__ __forceinline__ void block_partials(const SweepArgs& a, T* red, T mx,
     part[blockIdx.x] = bx;
     part[a.n_partials + blockIdx.x] = by;
   }
+}
+
+// K3's function in the tail of a finishing K1 / K2 launch (`cfl_tail`),
+// with 2 NT words of shared memory of its own. Every thread of the block
+// must call it.
+template <typename T, int NT, bool SYNCED>
+__device__ __forceinline__ void sweep_tail(const FinishArgs& f) {
+  __shared__ T scratch[2 * NT];
+  cfl_tail<T, NT, SYNCED>(f, scratch);
 }
 
 // Where the four fields at position k of the swept axis of line `across`
@@ -777,10 +789,9 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // that start on 16-byte boundaries (cols a multiple of 16 / sizeof(T)),
 // loads and stores its lanes' runs as 16-byte vectors, its loads issued
 // one window ahead; a window at a border loads position by position with
-// the ghost fill.
-template <typename T, bool FAST, bool BIZ>
-__global__ void __launch_bounds__(XGeom::NT, SweepMinBlocks<T>::X)
-x_sweep_kernel(const SweepArgs a) {
+// the ghost fill. FIN: K3's function in the tail (`sweep_tail`).
+template <typename T, bool FAST, bool BIZ, bool FIN>
+__device__ __forceinline__ void x_sweep_body(const SweepArgs& a, const FinishArgs* fin) {
   constexpr int PX = XGeom::PX, NW = XGeom::NW, RX = XGeom::RX;
   constexpr int VEC = 16 / sizeof(T);
   static_assert(PX % VEC == 0 && RX % VEC == 0, "runs and windows in whole vectors");
@@ -808,6 +819,7 @@ x_sweep_kernel(const SweepArgs a) {
           for (int f = 0; f < 4; ++f) dst[f][row * cols + k] = src[f][row * cols + k];
       }
     }
+    if constexpr (FIN) sweep_tail<T, XGeom::NT, false>(*fin);
     return;
   }
   const T dt = reinterpret_cast<const T*>(a.scal)[3] * T(a.dt_factor);
@@ -892,6 +904,20 @@ x_sweep_kernel(const SweepArgs a) {
     }
   }
   if (emit) block_partials<T, NW>(a, red, mx, my);
+  if constexpr (FIN) sweep_tail<T, XGeom::NT, true>(*fin);  // FIN emits: synced
+}
+
+template <typename T, bool FAST, bool BIZ>
+__global__ void __launch_bounds__(XGeom::NT, SweepMinBlocks<T>::X)
+x_sweep_kernel(const SweepArgs a) {
+  x_sweep_body<T, FAST, BIZ, false>(a, nullptr);
+}
+
+// K1 as the cycle's last launch: the same sweep, then K3's fold and step.
+template <typename T, bool FAST, bool BIZ>
+__global__ void __launch_bounds__(XGeom::NT, SweepMinBlocks<T>::X)
+x_sweep_finish_kernel(const SweepArgs a, __grid_constant__ const FinishArgs f) {
+  x_sweep_body<T, FAST, BIZ, true>(a, &f);
 }
 
 // K2's register pipeline (see the file note): what a row holds after
@@ -907,10 +933,10 @@ template <typename T> struct S4 { T dX, rho1, ua1, E1, disp, dxe, q[4]; bool up;
 // at i - 2, 5-6 at i - 3 and 7 at i - 4, each stage's k-1 / k+1 operands
 // from registers that earlier steps wrote; the rows before r0 - HALO are
 // zeros, read only by dead positions. Each position's operations are
-// `sweep_body`'s in its order (min and max in `run_body`'s forms).
-template <typename T, bool FAST, bool BIZ>
-__global__ void __launch_bounds__(YGeom::NT, SweepMinBlocks<T>::Y)
-y_sweep_kernel(const SweepArgs a) {
+// `sweep_body`'s in its order (min and max in `run_body`'s forms). FIN:
+// K3's function in the tail (`sweep_tail`).
+template <typename T, bool FAST, bool BIZ, bool FIN>
+__device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArgs* fin) {
   typedef Div<T, FAST> D;
   constexpr int NT = YGeom::NT;
   __shared__ T red[2 * (NT / 32)];
@@ -932,6 +958,7 @@ y_sweep_kernel(const SweepArgs a) {
     if (live)
       for (long long r = r0; r < r_end; ++r)
         for (int f = 0; f < 4; ++f) dst[f][r * cols + col] = src[f][r * cols + col];
+    if constexpr (FIN) sweep_tail<T, YGeom::NT, false>(*fin);
     return;
   }
   const T dt = reinterpret_cast<const T*>(a.scal)[3] * T(a.dt_factor);
@@ -1106,6 +1133,20 @@ y_sweep_kernel(const SweepArgs a) {
     s2[1] = s2[0];
   }
   if (emit) block_partials<T, NT / 32>(a, red, mx, my);
+  if constexpr (FIN) sweep_tail<T, NT, true>(*fin);  // FIN emits: synced
+}
+
+template <typename T, bool FAST, bool BIZ>
+__global__ void __launch_bounds__(YGeom::NT, SweepMinBlocks<T>::Y)
+y_sweep_kernel(const SweepArgs a) {
+  y_sweep_body<T, FAST, BIZ, false>(a, nullptr);
+}
+
+// K2 as the cycle's last launch: the same sweep, then K3's fold and step.
+template <typename T, bool FAST, bool BIZ>
+__global__ void __launch_bounds__(YGeom::NT, SweepMinBlocks<T>::Y)
+y_sweep_finish_kernel(const SweepArgs a, __grid_constant__ const FinishArgs f) {
+  y_sweep_body<T, FAST, BIZ, true>(a, &f);
 }
 
 // Host side. Checks the launch geometry the Python wrapper computed (it
@@ -1119,19 +1160,33 @@ inline int check_geometry(int axis, const SweepArgs* a) {
   return 0;
 }
 
+// A finishing launch (`fin` not null) emits, and folds at least its own
+// blocks' partials.
+inline int check_finish(const FinishArgs* fin, bool emit, long long nblocks) {
+  if (!fin) return 0;
+  if (!emit || !fin->ticket || fin->n < nblocks || fin->stride < fin->n) return -3;
+  return 0;
+}
+
 template <typename T, bool FAST, bool BIZ>
-int launch_one(int axis, const SweepArgs& a, cudaStream_t stream) {
-  if (axis == 0)
+int launch_one(int axis, const SweepArgs& a, const FinishArgs* fin, cudaStream_t stream) {
+  if (axis == 0 && fin)
+    x_sweep_finish_kernel<T, FAST, BIZ><<<a.grid_x, XGeom::NT, 0, stream>>>(a, *fin);
+  else if (axis == 0)
     x_sweep_kernel<T, FAST, BIZ><<<a.grid_x, XGeom::NT, 0, stream>>>(a);
+  else if (fin)
+    y_sweep_finish_kernel<T, FAST, BIZ><<<a.grid_x, YGeom::NT, 0, stream>>>(a, *fin);
   else
     y_sweep_kernel<T, FAST, BIZ><<<a.grid_x, YGeom::NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool FAST>
-int dispatch(int axis, const SweepArgs* a, cudaStream_t stream) {
-  return a->biz ? launch_one<T, FAST, true>(axis, *a, stream)
-                : launch_one<T, FAST, false>(axis, *a, stream);
+int dispatch(int axis, const SweepArgs* a, const FinishArgs* fin, cudaStream_t stream) {
+  const int err = check_finish(fin, a->emit != 0, a->grid_x);
+  if (err) return err;
+  return a->biz ? launch_one<T, FAST, true>(axis, *a, fin, stream)
+                : launch_one<T, FAST, false>(axis, *a, fin, stream);
 }
 
 }  // namespace armon

@@ -105,6 +105,17 @@ class CflArgs(ctypes.Structure):
     ]
 
 
+class FinishArgs(ctypes.Structure):
+    """Mirror of `armon::FinishArgs` (csrc/common.cuh)."""
+    _fields_ = [
+        ("partials", ctypes.c_void_p), ("scal", ctypes.c_void_p),
+        ("iscal", ctypes.c_void_p), ("ticket", ctypes.c_void_p),
+        ("stride", ctypes.c_longlong), ("n", ctypes.c_longlong),
+        ("dt", DtParams),
+        ("dx", ctypes.c_double), ("dy", ctypes.c_double),
+    ]
+
+
 class CycleArgs(ctypes.Structure):
     """Mirror of `armon::CycleArgs` (csrc/cycle.cuh)."""
     _fields_ = [
@@ -233,18 +244,21 @@ def load():
         libs = {}
         for src in SOURCES:
             libs[os.path.splitext(src)[0]] = ctypes.CDLL(_lib_path(src))
+        fin = ctypes.POINTER(FinishArgs)
         for bits in (32, 64):
             fn = getattr(libs[f"sweep_f{bits}"], f"armon_sweep_f{bits}")
-            fn.argtypes = [ctypes.c_int, ctypes.POINTER(SweepArgs), ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(SweepArgs), fin, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         fn = libs["cfl"].armon_cfl_finish
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(CflArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
         for bits in (32, 64):
-            for stem, args in (("cycle", CycleArgs), ("multicycle", MultiArgs)):
-                fn = getattr(libs[f"{stem}_f{bits}"], f"armon_{stem}_f{bits}")
-                fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
-                fn.restype = ctypes.c_int
+            fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_f{bits}")
+            fn.argtypes = [ctypes.POINTER(CycleArgs), fin, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = getattr(libs[f"multicycle_f{bits}"], f"armon_multicycle_f{bits}")
+            fn.argtypes = [ctypes.POINTER(MultiArgs), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
             fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_occupancy_f{bits}")
             fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
@@ -377,8 +391,9 @@ def _set_common(a, cfg, src, dst, scal, iscal, grid, n_real):
 
 
 def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
-                 emit, ghosts, n_real):
-    """Launch K1 (axis X) or K2 (axis Y) on the current stream."""
+                 emit, ghosts, n_real, finish=None):
+    """Launch K1 (axis X) or K2 (axis Y) on the current stream; with
+    `finish` (`ops/sweep.Finish`), its finishing kernel."""
     from .sweep import grid_dims, mirror_factors
     libs = load()
     T = np.dtype(cfg.dtype).type
@@ -399,9 +414,10 @@ def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
     a.inv_dx = float(T(1.0) / dx)
     a.f_lo[:] = list(f_lo)
     a.f_hi[:] = list(f_hi)
+    fin = _finish_args(cfg, finish, partials, gx * gy, scal, iscal)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"sweep_f{bits}"], f"armon_sweep_f{bits}")
-    rc = _launch(fn, dev, 0 if axis is Axis.X else 1, ctypes.byref(a))
+    rc = _launch(fn, dev, 0 if axis is Axis.X else 1, ctypes.byref(a), fin)
     _check_status(rc, "x_sweep" if axis is Axis.X else "y_sweep")
 
 
@@ -414,6 +430,36 @@ def _dt_params(cfg):
     d.cfl, d.maxtime = float(T(cfg.cfl)), float(T(cfg.maxtime))
     d.Dt, d.cap = float(T(cfg.Dt)), float(T(1.05))
     return d
+
+
+def _finish_args(cfg, finish, partials, nblocks, scal, iscal):
+    """`FinishArgs` of a finishing launch that writes `nblocks` partials
+    into `partials`, a column slice of `finish.partials` inside the folded
+    columns [0, finish.n); None without `finish`. Kept on `finish` for the
+    next launch with the same configuration and operands: the loop makes
+    the same finishing launch every cycle, and building the arguments
+    costs more host time than the rest of the launch's."""
+    if finish is None:
+        return None
+    key = (partials.data_ptr(), nblocks, scal.data_ptr(), iscal.data_ptr())
+    if finish.args is not None and finish.args[0] is cfg and finish.args[1] == key:
+        return finish.args[2]
+    dtype, dev = partials.dtype, partials.device
+    stride = _partials_stride(finish.partials, dtype, dev, finish.n)
+    off = (partials.data_ptr() - finish.partials.data_ptr()) // partials.element_size()
+    if partials.stride(0) != stride or off < 0 or off + nblocks > finish.n:
+        solver_error("config", f"a finishing launch's CFL partials must be "
+                               f"columns of the {finish.n} it folds")
+    _require(finish.ticket, torch.int32, dev, 1, "finish ticket")
+    T = np.dtype(cfg.dtype).type
+    f = FinishArgs()
+    f.partials, f.scal, f.iscal = _ptr(finish.partials), _ptr(scal), _ptr(iscal)
+    f.ticket = _ptr(finish.ticket)
+    f.stride, f.n = stride, finish.n
+    f.dt = _dt_params(cfg)
+    f.dx, f.dy = float(T(cfg.dx)), float(T(cfg.dy))
+    finish.args = (cfg, key, ctypes.byref(f))
+    return finish.args[2]
 
 
 def launch_cfl_finish(cfg, partials, nblocks, scal, iscal, fold, step):
@@ -472,8 +518,9 @@ def _set_axes(a, cfg):
 
 
 def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
-                 emit, y_ghosts, n_real):
-    """Launch K4 on the current stream."""
+                 emit, y_ghosts, n_real, finish=None):
+    """Launch K4 on the current stream; with `finish` (`ops/sweep.Finish`),
+    its finishing kernel."""
     from .cycle import cycle_window, tile_grid
     libs = load()
     T = np.dtype(cfg.dtype).type
@@ -485,9 +532,10 @@ def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
                     stride, y_ghosts, n_real)
     a.emit, a.x_first = int(emit), int(x_first)
     a.fx, a.fy = float(T(fx)), float(T(fy))
+    fin = _finish_args(cfg, finish, partials, gx * gy, scal, iscal)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_f{bits}")
-    rc = _launch(fn, src[0].device, ctypes.byref(a))
+    rc = _launch(fn, src[0].device, ctypes.byref(a), fin)
     _check_status(rc, "cycle")
 
 

@@ -6,7 +6,8 @@ Counterpart of `fused_cycle` and `fused_multicycle`
 
 - ``cycle`` (K4) replaces `_cycle_kernel` (`sweep.py:1571`): both sweeps
   of one cycle in one launch, both ghost fills in-kernel, the stale p and
-  the CFL partials that K3 folds. On a mesh sharded along Y its Y ghost
+  the CFL partials that K3 folds (the cycle's last launch folds them in
+  its own tail: `ops/sweep.Finish`). On a mesh sharded along Y its Y ghost
   rows come from the neighbours' slabs (the `slab_y` splice of
   `sweep.py:1592-1620`), and the X mirror applies after the splice;
 - ``multicycle`` (K5) replaces `_multicycle_kernel` (`sweep.py:1905`):
@@ -138,27 +139,33 @@ def multicycle_plain(cfg, pairs, ncycles, src, dst, p, scal, iscal):
 # ---------------------------------------------------------------- wrappers
 
 def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
-          y_ghosts=MIRRORED, n_real=None):
+          y_ghosts=MIRRORED, n_real=None, finish=None):
     """K4: one X/Y pair of sweeps of (rho, u, v, E) `src` into `dst`, X
     first when `x_first`, with dt = scal[dt_use] * fx along X and * fy
     along Y; copied through when iscal[run] is 0. Y ghost rows come from
     `y_ghosts` (mirror, or a (4, g, cols) slab of the neighbour's rows),
     X ghost columns from the mirror. With `emit` (the cycle's last launch)
     it also writes the stale p and the CFL partial maxima of the `n_real`
-    real cells (`partials` as in `ops/sweep.x_sweep`). Replaces
-    `_cycle_kernel` (`sweep.py:1571`), its `slab_y` variant included."""
+    real cells (`partials` and `finish`, K3's tail, as in
+    `ops/sweep.x_sweep`). Replaces `_cycle_kernel` (`sweep.py:1571`), its
+    `slab_y` variant included."""
     device = src[0].device
     S._check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
              src[0].shape, device)
     slab = check_ghosts(cfg, Axis.Y, y_ghosts, src[0].shape, device)
+    S.check_finish(finish, emit)
     if device.type == "cuda":
         from . import _build
         _build.launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials,
-                            scal, iscal, emit, y_ghosts, n_real or cfg.n_local)
+                            scal, iscal, emit, y_ghosts, n_real or cfg.n_local,
+                            finish)
         LAUNCHES["cycle_slab" if slab else "cycle"] += 1
+        if finish is not None:
+            S.TAILS["cfl_tail"] += 1
         return
     _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
                       iscal, emit, y_ghosts, n_real)
+    S.finish_plain(cfg, finish, scal, iscal)
 
 
 def new_multicycle_partials(shape, dtype, device):

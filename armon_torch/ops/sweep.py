@@ -11,6 +11,12 @@ kernels (`armon_torch/csrc/`) replace the TPU's per-sweep kernels:
   (`_dt_from_tiles`) and runs the dt recurrence of `core/timestep.dt_update`
   on the device, as `_multicycle_kernel` does in-kernel.
 
+The cycle's last launch (K1, K2 or K4's, with `finish`, a `Finish`) runs
+K3's fold and dt step in its tail: the block that finishes last folds
+every block's partials in K3's order, as the TPU's sweep kernel
+accumulated its cross-tile maximum in-kernel (`_dt_tile_min`); the loop
+launches K3 itself only for the run's first step (`core/step.py`).
+
 Both sweeps share one device body, the port of `_sweep_math`. They read
 rho/u/v/E and write the new fields OUT OF PLACE into a second buffer set:
 blocks of a GPU grid run concurrently, so the TPU's in-place aliasing
@@ -72,15 +78,38 @@ Y_ROWS, Y_ROWS_MIN, Y_THREADS, Y_MIN_BLOCKS = 128, 32, 128, 512
 LAUNCHES = {"x_sweep": 0, "y_sweep": 0, "cfl_finish": 0, "cycle": 0,
             "multicycle": 0, "x_sweep_slab": 0, "y_sweep_slab": 0,
             "cycle_slab": 0}
+# Launches above that carried K3's tail (`Finish`), by the tail's name: a
+# tail is not a launch of its own, so it is not in LAUNCHES.
+TAILS = {"cfl_tail": 0}
 
 # Ghost sources of a side (see module doc).
 MIRROR = "mirror"
 MIRRORED = (MIRROR, MIRROR)
 
 
+class Finish:
+    """K3's work for the tail of the cycle's last launch: fold columns
+    [0, n) of `partials` (2, >= n), the launch's own and, on a one-card
+    mesh, the earlier shards', into lm, then one dt step. `ticket` is an
+    int32 counter of the launch's finished blocks, 0 between launches
+    (`new_ticket`); one per loop. The launcher keeps the kernel's
+    arguments on it (`args`), built once for a configuration and a set of
+    operands."""
+    __slots__ = ("partials", "n", "ticket", "args")
+
+    def __init__(self, partials, n, ticket):
+        self.partials, self.n, self.ticket = partials, n, ticket
+        self.args = None
+
+
+def new_ticket(device):
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TAILS):
+        for k in counts:
+            counts[k] = 0
 
 
 def x_windows_per_warp(shape):
@@ -426,62 +455,84 @@ def check_ghosts(cfg, axis, ghosts, shape, device) -> bool:
     return bool(slabs)
 
 
+def check_finish(finish, emit):
+    if finish is not None and not emit:
+        solver_error("config", "only an emitting launch (the cycle's last) "
+                               "can carry K3's tail")
+
+
+def finish_plain(cfg, finish, scal, iscal):
+    """Plain version of the tail: K3's plain version, fold and step."""
+    if finish is not None:
+        cfl_finish_plain(cfg, finish.partials, finish.n, scal, iscal)
+
+
 def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real):
+           ghosts, n_real, finish):
     rho = src[0]
     device = rho.device
     _check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
            rho.shape, device)
     slab = check_ghosts(cfg, axis, ghosts, rho.shape, device)
+    check_finish(finish, emit)
     if device.type == "cuda":
         from . import _build
         _build.launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal,
-                            factor, emit, ghosts, n_real or cfg.n_local)
+                            factor, emit, ghosts, n_real or cfg.n_local,
+                            finish)
         name = "x_sweep" if axis is Axis.X else "y_sweep"
         LAUNCHES[name + "_slab" if slab else name] += 1
+        if finish is not None:
+            TAILS["cfl_tail"] += 1
         return
-    if not int(iscal[IS_RUN]):
+    if int(iscal[IS_RUN]):
+        T = np.dtype(cfg.dtype).type
+        dt = scal[SC_DTUSE] * float(T(factor))
+        out = sweep_plain(cfg, axis, *src, dt, ghosts, n_real)
+        for d, o in zip(dst, out[:4]):
+            d.copy_(o)
+        if emit:
+            p.copy_(out[4])
+            mx, my = cfl_partial_plain(cfg, out[1], out[2], out[5], n_real)
+            partials[0, 0] = mx
+            partials[1, 0] = my
+    else:
         for s, d in zip(src, dst):
             d.copy_(s)
-        return
-    T = np.dtype(cfg.dtype).type
-    dt = scal[SC_DTUSE] * float(T(factor))
-    out = sweep_plain(cfg, axis, *src, dt, ghosts, n_real)
-    for d, o in zip(dst, out[:4]):
-        d.copy_(o)
-    if emit:
-        p.copy_(out[4])
-        mx, my = cfl_partial_plain(cfg, out[1], out[2], out[5], n_real)
-        partials[0, 0] = mx
-        partials[1, 0] = my
+    finish_plain(cfg, finish, scal, iscal)
 
 
 def x_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
-            ghosts=MIRRORED, n_real=None):
+            ghosts=MIRRORED, n_real=None, finish=None):
     """K1: one X sweep of (rho, u, v, E) `src` into `dst` with dt =
     scal[dt_use] * factor, skipped (copied through) when iscal[run] is 0,
     ghost columns from `ghosts` (see module doc). With `emit` (the cycle's
     last sweep) it also writes the stale p and the CFL partial maxima of
     the `n_real` real cells into `partials`, a (2, n) tensor or a column
-    slice of a wider one. Replaces `_x_sweep_kernel` (`sweep.py:978`),
-    its X slab variant (`_bc_x_apply_slab` :849) included."""
+    slice of a wider one; with `finish` (a `Finish` whose columns hold
+    `partials`) it then runs K3's fold and dt step in its tail. Replaces
+    `_x_sweep_kernel` (`sweep.py:978`, with `_dt_tile_min` :924), its X
+    slab variant (`_bc_x_apply_slab` :849) included."""
     _sweep(cfg, Axis.X, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real)
+           ghosts, n_real, finish)
 
 
 def y_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
-            ghosts=MIRRORED, n_real=None):
+            ghosts=MIRRORED, n_real=None, finish=None):
     """K2: the same along Y. Replaces `_y_sweep_kernel` (`sweep.py:1092`),
     its Y slab variant (`_halo_cat_slab` :590) included."""
     _sweep(cfg, Axis.Y, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real)
+           ghosts, n_real, finish)
 
 
 def cfl_finish(cfg, partials, nblocks, scal, iscal, fold=True, step=True):
     """K3: fold the last sweep's `nblocks` CFL partials into lm (when the
     cycle that wrote them ran), then, with `step`, one dt-recurrence step
     (see module doc). Replaces `_dt_from_tiles` (`sweep.py:968`) and the
-    in-kernel dt update of `_multicycle_kernel` (`sweep.py:1950-1967`)."""
+    in-kernel dt update of `_multicycle_kernel` (`sweep.py:1950-1967`).
+    The loop runs it for a run's first step, and after each cycle of a
+    mesh across cards; the cycle's last launch runs it in its tail
+    otherwise (`Finish`)."""
     if scal.device.type == "cuda":
         from . import _build
         _build.launch_cfl_finish(cfg, partials, nblocks, scal, iscal, fold,

@@ -40,7 +40,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from . import LAUNCHES, count
-from .._card import (HBM_BYTES_PER_S, LANE_OPS_PER_S, bound, card_line,
+from .._card import (HBM_BYTES_PER_S, LANE_OPS_PER_S, card_line,
                      device_of, emit, kernel_entry, shown, time_ms)
 from ..ops.eos import ieee_sqrt
 from ..utils.enums import Axis
@@ -209,25 +209,58 @@ def sass_opcodes(stem, pattern):
     return out
 
 
+# SASS opcodes by the narrow pipe they issue to (`_card.LANE_OPS_PER_S`):
+# the special-function unit, and shared memory and shuffles.
+PIPES = {"mufu": ("MUFU",), "lsu": ("LDS", "STS", "SHFL")}
+
+
+def _pipe_counts(ops):
+    """(all instructions, then one count per `PIPES` entry) of `ops`."""
+    return (len(ops),) + tuple(sum(o.startswith(pre) for o in ops)
+                               for pre in PIPES.values())
+
+
 def sass_counts():
-    """{class: (instructions per step, MUFU instructions per step)} from
-    the rate kernels' SASS, net of the `none` class; None without
-    cuobjdump."""
+    """{class: (instructions, MUFU instructions, shared-memory and shuffle
+    instructions) per step} from the rate kernels' SASS, net of the
+    `none` class; None without cuobjdump."""
     per = sass_opcodes("probe_rates", r"rate_kernelILi(\d+)E")
     if not per or "0" not in per:
         return None
-    n0, m0 = len(per["0"]), sum(o.startswith("MUFU") for o in per["0"])
-    return {CLASSES[int(c)]: ((len(ops) - n0) / W0,
-                              (sum(o.startswith("MUFU") for o in ops) - m0) / W0)
+    base = _pipe_counts(per["0"])
+    return {CLASSES[int(c)]: tuple((n - b) / W0 for n, b in zip(_pipe_counts(ops), base))
             for c, ops in per.items()}
 
 
-# Instructions per step where no SASS was read: (all, MUFU) by the forms
-# above (an IEEE divide or sqrt is a MUFU seed and its Newton steps).
-NOMINAL_INSTR = {"none": (0, 0), "add": (1, 0), "mul": (1, 0), "fma": (1, 0),
-                 "mul_add": (2, 0), "min": (4, 0), "select": (4, 0),
-                 "abs_add": (1, 0), "sqrt": (8, 1), "div": (10, 1),
-                 "rcp": (2, 1), "smem": (3, 0), "shfl": (3, 0)}
+# Instructions per step where no SASS was read: (all, MUFU, shared memory
+# and shuffles) by the forms above (an IEEE divide or sqrt is a MUFU seed
+# and its Newton steps; a shift stores the accumulator and loads or
+# shuffles the neighbour's).
+NOMINAL_INSTR = {"none": (0, 0, 0), "add": (1, 0, 0), "mul": (1, 0, 0),
+                 "fma": (1, 0, 0), "mul_add": (2, 0, 0), "min": (4, 0, 0),
+                 "select": (4, 0, 0), "abs_add": (1, 0, 0), "sqrt": (8, 1, 0),
+                 "div": (10, 1, 0), "rcp": (2, 1, 0), "smem": (3, 0, 2),
+                 "shfl": (3, 0, 1)}
+
+
+def pipe_bound(nbytes, steps, instr):
+    """(least ms, "bytes" or "operations", the limiting pipe) of `steps`
+    lane-steps of a class with `instr` = (all, MUFU, shared memory and
+    shuffles) SASS per step: the larger of the bytes over the HBM rate and
+    the slowest pipe, each pipe's instructions over its lane rate (every
+    instruction over the issue rate, MUFU over 1/8 of it, shared memory and
+    shuffles over 1/4), since the pipes run side by side. A class with a
+    MUFU instruction (sqrt, divide, reciprocal) has slow paths in its
+    static SASS (subnormals, special values) that these inputs never
+    take: its issue count is an overcount, so only its pipes bound it."""
+    times = {} if instr[1] else {"issue": steps * instr[0] / LANE_OPS_PER_S["float32"]}
+    for key, n in zip(PIPES, instr[1:]):
+        times[key] = steps * n / LANE_OPS_PER_S[key]
+    pipe = max(times, key=times.get)
+    tb = nbytes / HBM_BYTES_PER_S
+    if tb >= times[pipe]:
+        return tb * 1e3, "bytes", "hbm"
+    return times[pipe] * 1e3, "operations", pipe
 
 
 def run_rates(device="cuda", n=8192, reps=5, k=5):
@@ -244,7 +277,8 @@ def run_rates(device="cuda", n=8192, reps=5, k=5):
            "sass_per_step": shown(sass),
            "bound_instr": "SASS" if sass else "nominal (no cuobjdump)",
            "ms": {}, "plain_ms": {}, "net_ps_per_op": {}, "gops_per_s": {},
-           "instr_per_step": instr, "bound_ms": {}, "bound_by": {}}
+           "instr_per_step": instr, "bound_ms": {}, "bound_by": {},
+           "bound_pipe": {}}
     for cls in CLASSES:
         t1 = time_ms(lambda i: rate(cls, x, 1, out), dev, k)
         tr = time_ms(lambda i: rate(cls, x, reps, out), dev, k)
@@ -255,13 +289,9 @@ def run_rates(device="cuda", n=8192, reps=5, k=5):
             net = (tr - t1) * 1e-3 / (elems * W0 * (reps - 1))
             row["net_ps_per_op"][cls] = net * 1e12
             row["gops_per_s"][cls] = 1 / net / 1e9 if net > 0 else None
-        # Issue-bound, or for the classes with a MUFU instruction (sqrt,
-        # divide, reciprocal) MUFU-bound: their static SASS holds slow
-        # paths (subnormals, special values) that these inputs never take.
-        steps = elems * W0 * reps
-        alu, mufu = instr[cls]
-        row["bound_ms"][cls], row["bound_by"][cls] = bound(
-            2 * elems * 4, {"mufu": steps * mufu} if mufu else {"float32": steps * alu})
+        (row["bound_ms"][cls], row["bound_by"][cls],
+         row["bound_pipe"][cls]) = pipe_bound(2 * elems * 4, elems * W0 * reps,
+                                              instr[cls])
     if dev.type == "cuda":
         row["card"] = card_line()
     emit(row)

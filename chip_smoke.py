@@ -18,15 +18,22 @@ Phases, each printing one JSON line:
      card, one X and one Y sweep (each emitting) at 1024^2 after a few
      cycles, on Sod_circ and Bizarrium, in f64, f32 exact and f32 fast
      math, plus the CFL minimum via K3; and on a 64 x 70000 strip (more
-     than 65535 padded rows), bit for bit in f32 exact;
+     than 65535 padded rows), bit for bit in f32 exact; K3's tail (the
+     fold and dt step in the cycle's last launch) in K1's and K2's launch
+     on each of those states against the launch then K3 and K3's plain
+     version, bit for bit, three launches back to back (the ticket
+     resets; the last past the run's end), and with a NaN in u;
   2. the Julia goldens (Sod, Sod_y, Sod_circ at 100^2) through the
      per-sweep kernels: zero differences in f64 and f32 exact; the f32
      fast-math count is reported;
   3. the main path: Sod 8192^2 f32 fast math (GAD/minmod/euler_2nd, nghost
      4, Sequential), one warm-up run then 100 timed cycles through
-     `armon()`, with launch counts (K4/K5 must stay at 0), kernel times
-     from CUDA events, host reads, conservation drift and peak memory; then
-     every kernel against its plain version at the main path's shapes, and
+     `armon()`, with launch counts (K4/K5 must stay at 0; two launches a
+     cycle, K3 once a run, K2 carrying K3's tail), kernel times from CUDA
+     events, host reads, conservation drift and peak memory; then every
+     kernel against its plain version at the main path's shapes, K3's
+     tail in K1, K2 and K4 at 8200^2 (thousands of blocks) as in phase 1,
+     K3 and K2 with and without its tail timed from the same scalars, and
      K4 on the same final state (8200^2 padded), timed and held against
      its plain version;
   4. the small-grid routes: K4 against its plain version at 1024^2 (both
@@ -37,7 +44,10 @@ Phases, each printing one JSON line:
      per-sweep, pair and multicycle runs bit for bit against each other;
      the goldens through the pair and multicycle routes; timed
      runs through `armon()` of Sedov 2000^2 (pair, then per-sweep) and Sod
-     100^2 (multicycle, then pair); K4 and K5 on those runs' final states,
+     100^2 (multicycle, then pair), one launch a cycle on the pair route
+     and two per-sweep, K3 once a run; K3's tail in K4's launch on
+     Sedov's final state and on grids of one block (K4 at 40^2, K2 at 96
+     x 20); K4 and K5 on those runs' final states,
      bit for bit against their plain versions in f32 exact and f64, within
      the fast-math gate in f32 fast math, and timed; K4 against K1 then K2
      on Sedov's final state (bit for bit in f32 exact, the fast-math
@@ -46,19 +56,22 @@ Phases, each printing one JSON line:
      `pair_threshold` and `temporal_blocking` on this card: per-sweep
      against pair at 256^2-8192^2, K1/K2/K4 times at 8192^2, pair against
      multicycle on small grids;
-  6. the per-kernel summary line (the eight solver kernels and the probe
-     kernels; printed last, after phase 8);
+  6. the per-kernel summary line (the eight solver kernels, K3's tail and
+     the probe kernels; printed last, after phase 8);
   7. domain-decomposed runs (P != (1, 1)), every shard on cuda:0: the slab
      variants of K1/K2 (X/Y slabs, a 3x3 mesh of 1024^2 shards) and of K4
      (Y slabs with the X mirror after the splice, corner cells, a 1x3
      mesh, both sweep orders) against their plain versions on every shard
-     of a mid-run state; meshes against the one-device run bit for bit
+     of a mid-run state; K3's tail folding every shard's partials in the
+     last shard's launch (K1 and K2 over 2x2, K4 over 1x2, f64 and f32
+     exact) as in phase 1; meshes against the one-device run bit for bit
      (Sod_circ 1000^2 over 2x2, 1x2, 2x1, 4x1 and 3x2, N=(1000, 999) over
      3x2, Sedov 2000^2 over 1x2 on the pair route) in f64 and f32 exact;
      the goldens through a 2x2 mesh; timed runs through `armon()` of Sod
      16384^2 over 2x2 (8192^2 shards, the main path's shape) and Sedov
      2000^2 over 1x2 (pair route), with per-shard kernel times, the slab
-     copies' time, launches per cycle, conservation drift and peak memory;
+     copies' time, launches per cycle (K3 once a run, its tail once a
+     cycle), conservation drift and peak memory;
      the slab variants on those runs' final states (the first and the last
      shard), bit for bit against their plain versions in f32 exact and
      f64, within the fast-math gate as timed; and, where the machine has
@@ -114,6 +127,17 @@ MAIN_CYCLES = 100
 # Route pins (`armon_torch/ops/routing.py`).
 PER_SWEEP = dict(pair_threshold=0, temporal_blocking=1)
 PAIR = dict(temporal_blocking=1)
+
+
+def saved_counts(K):
+    """The launch and tail counts (`ops/sweep.py` LAUNCHES, TAILS), to be
+    put back by `restore_counts` after launches that are not a path's."""
+    return dict(K.LAUNCHES), dict(K.TAILS)
+
+
+def restore_counts(K, saved):
+    for counts, was in zip((K.LAUNCHES, K.TAILS), saved):
+        counts.update(was)
 
 
 def bound_f32(nbytes, nops):
@@ -274,6 +298,110 @@ def check_sweeps(torch, params, fs, dt):
     return out
 
 
+# ------------------------------------------------------------ K3's tail
+
+def _bits_equal(torch, a, b):
+    """Equal bits (NaN payloads and signed zeros included)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def _launcher(kind, cfg, src, x_first=True, ghosts=None, n_real=None):
+    """(launch, nb): `launch(dst, p, part, scal, iscal, finish)` runs one
+    emitting K1 (`x_sweep`), K2 (`y_sweep`) or K4 (`cycle`, the full dt
+    on both sweeps) launch on `src`; nb is the partials it writes."""
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops import cycle as C
+    from armon_torch.utils.enums import Axis
+    dev, shape = src[0].device, src[0].shape
+    ghosts = ghosts or K.MIRRORED
+    if kind == "cycle":
+        def launch(dst, p, part, scal, iscal, finish):
+            C.cycle(cfg, x_first, 1.0, 1.0, src, dst, p, part, scal, iscal,
+                    True, ghosts, n_real, finish)
+        return launch, C.n_partials(shape, dev, cfg.dtype)
+    axis = Axis.X if kind == "x_sweep" else Axis.Y
+    sweep = K.x_sweep if axis is Axis.X else K.y_sweep
+
+    def launch(dst, p, part, scal, iscal, finish):
+        sweep(cfg, src, dst, p, part, scal, iscal, 1.0, True, ghosts, n_real,
+              finish)
+    return launch, K.n_partials(axis, shape, dev)
+
+
+def _tail_check(torch, cfg, launches, srcs, sc, what, runs=(1, 1, 0)):
+    """K3's tail against K3 and its plain version. `launches` holds one
+    `_launcher` per shard over `srcs` (one, or a one-card mesh's); the last
+    shard's carries the tail over every shard's partials. Against the
+    same launches then K3 `cfl_finish`, and K3 against `cfl_finish_plain`
+    on the same partials and scalars: fields, stale p, partials and every
+    loop scalar bit for bit (the plain version's NaNs as NaNs), in rounds
+    back to back with iscal[run] set to each of `runs` (a round past the
+    run's end copies, and still steps), the ticket 0 after each. `sc`
+    seeds the loop scalars (`new_scalars`); `cfg` should admit every
+    round's cycle (maxcycle). Raises on a difference; returns the number
+    of blocks the tail's launch counted."""
+    from armon_torch.ops import sweep as K
+    nb = launches[0][1]
+    S = len(launches)
+    dev, dtype = srcs[0][0].device, srcs[0][0].dtype
+    sides = []
+    for _ in range(2):
+        part = torch.zeros((2, S * nb), dtype=dtype, device=dev)
+        scal, iscal = K.new_scalars(cfg.dtype, dev, **sc)
+        out = [(tuple(torch.empty_like(a) for a in src), torch.empty_like(src[0]))
+               for src in srcs]
+        sides.append((part, scal, iscal, out))
+    (pa, sa, ia, oa), (pb, sb, ib, ob) = sides
+    ticket = K.new_ticket(dev)
+    fin = K.Finish(pa, S * nb, ticket)
+    for r, run in enumerate(runs):
+        ia[K.IS_RUN] = run
+        ib[K.IS_RUN] = run
+        for k, (launch, _) in enumerate(launches):
+            launch(*oa[k], pa[:, k * nb:(k + 1) * nb], sa, ia,
+                   fin if k == S - 1 else None)
+            launch(*ob[k], pb[:, k * nb:(k + 1) * nb], sb, ib, None)
+        s0, i0 = sb.clone(), ib.clone()
+        K.cfl_finish(cfg, pb, S * nb, sb, ib)
+        K.cfl_finish_plain(cfg, pb, S * nb, s0, i0)
+        torch.cuda.synchronize()
+        same = int(ticket) == 0 and all(
+            _bits_equal(torch, a, b) for (da, p_a), (db, p_b) in zip(oa, ob)
+            for a, b in zip(da + (p_a,), db + (p_b,)))
+        same = same and all(_bits_equal(torch, a, b)
+                            for a, b in ((pa, pb), (sa, sb), (ia, ib)))
+        plain = bool(((sb == s0) | (sb.isnan() & s0.isnan())).all()) \
+            and torch.equal(ib, i0)
+        if not (same and plain):
+            raise AssertionError(
+                f"{what}: K3's tail, round {r} (run={run}): tail {sa.tolist()} "
+                f"{ia.tolist()} ticket {int(ticket)}, K3 {sb.tolist()} "
+                f"{ib.tolist()}, plain {s0.tolist()} {i0.tolist()}")
+    return S * nb
+
+
+def _tail_cases(torch, cfg, kinds, src, sc, what, nan=True):
+    """`_tail_check` of one launch of each of `kinds` on `src`, then (with
+    `nan`) again with a NaN in u, which fails the dt gate; `cfg` is
+    lifted to admit every round. Returns {kind: blocks folded}."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, maxcycle=1 << 23, maxtime=1e30)
+    out = {}
+    for kind in kinds:
+        out[kind] = _tail_check(torch, cfg, [_launcher(kind, cfg, src)], [src],
+                                sc, f"{what} {kind}")
+        if nan:
+            bad = tuple(a.clone() for a in src)
+            bad[1][cfg.nghost + 3, cfg.nghost + 2] = float("nan")
+            _tail_check(torch, cfg, [_launcher(kind, cfg, bad)], [bad], sc,
+                        f"{what} {kind} NaN")
+            del bad
+    return out
+
+
 def _gate(fields, dtype, fast):
     """Tolerances: f64 1e-13 relative (bitwise expected: -fmad=false and
     IEEE divides on both sides); f32 exact 4 ulp; f32 fast math 1e-4
@@ -307,6 +435,11 @@ def phase1(torch, n=1024, cycles=3):
 def _phase1_case(torch, test, n, dtype, fast, cycles, bitwise=False):
     params, fs, dt = _state_after(torch, test, n, dtype, fast, cycles)
     res = check_sweeps(torch, params, fs, dt)
+    # K3's tail in K1's and K2's emitting launch (a NaN case on Sod_circ).
+    res["tail_blocks"] = _tail_cases(
+        torch, params.config, ("x_sweep", "y_sweep"), tuple(fs[:4]),
+        dict(cycle=cycles, dt_prev=dt, lm=1.0), f"{test} {n} {dtype} fast={fast}",
+        nan=test == "Sod_circ")
     for ax in ("X", "Y"):
         _gate(res[ax]["fields"], dtype, fast)
         if bitwise and any(d[0] for d in res[ax]["fields"].values()):
@@ -392,7 +525,7 @@ def phase3(torch):
     K.reset_launches()
     stats = armon(params)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches, tails = saved_counts(K)
     peak = torch.cuda.max_memory_allocated()
     st = stats.data
     m, e = conservation_vars(cfg, st.rho, st.E)
@@ -401,11 +534,17 @@ def phase3(torch):
     energy_drift = abs(e - params.initial_energy) / params.initial_energy
     if stats.cycles != MAIN_CYCLES or not np.isfinite(st.rho.sum().item()):
         raise AssertionError(f"main path: {stats.cycles} cycles")
-    for name in ("x_sweep", "y_sweep", "cfl_finish"):
-        if launches[name] == 0:
+    counts = {**launches, **tails}
+    for name in ("x_sweep", "y_sweep", "cfl_finish", "cfl_tail"):
+        if counts[name] == 0:
             raise AssertionError(f"main path never launched {name}")
     if launches["cycle"] or launches["multicycle"]:
         raise AssertionError(f"8192^2 left the per-sweep route: {launches}")
+    # Two launches a cycle: K1, then K2 with K3's tail; K3 once, for the
+    # first step.
+    if not (launches["cfl_finish"] == 1 and launches["x_sweep"]
+            == launches["y_sweep"] == tails["cfl_tail"]):
+        raise AssertionError(f"main path sequencing: {launches} {tails}")
     if mass_drift > 1e-6 or energy_drift > 1e-6:
         raise AssertionError(f"conservation drift {mass_drift} {energy_drift}")
     cells = MAIN_N * MAIN_N
@@ -413,7 +552,8 @@ def phase3(torch):
             "solve_s": stats.solve_time,
             "cells_per_s": cells * stats.cycles / stats.solve_time,
             "grind_ns": stats.solve_time / stats.cycles / cells * 1e9,
-            "host_reads": stats.host_reads, "launches": launches,
+            "host_reads": stats.host_reads, "launches": launches, "tails": tails,
+            "launches_per_cycle": sum(launches.values()) / stats.cycles,
             "mass_drift": mass_drift, "energy_drift": energy_drift,
             "max_memory_allocated": peak}
 
@@ -433,26 +573,60 @@ def phase3(torch):
     field_bytes = st.rho.numel() * st.rho.element_size()
     ops = SWEEP_OPS_PER_CELL * st.rho.numel()
 
-    saved = dict(K.LAUNCHES)
+    saved = saved_counts(K)
     x_ms = time_ms(lambda i: K.x_sweep(cfg, fs_src, dst, p, partials, scal,
                                       iscal, 1.0, False), k=20)
     y_ms = time_ms(lambda i: K.y_sweep(cfg, fs_src, dst, p, partials, scal,
                                       iscal, 1.0, True), k=20)
-    s2, i2 = scal.clone(), iscal.clone()  # K3 advances its own scalars
-    k3_ms = time_ms(lambda i: K.cfl_finish(cfg, partials, nby, s2, i2),
-                    k=50)
+    # K3, and K1, K2 and K4 with and without its tail: each call from the
+    # same scalars (an untimed reset before it), so every call folds.
+    import dataclasses
+    from armon_torch.ops import cycle as C
+    tcfg = dataclasses.replace(cfg, maxcycle=1 << 23, maxtime=1e30)
+    s0, i0 = scal.clone(), iscal.clone()
+    s2, i2 = scal.clone(), iscal.clone()
+
+    def reset():
+        s2.copy_(s0)
+        i2.copy_(i0)
+    k3_ms = time_ms(lambda i: K.cfl_finish(tcfg, partials, nby, s2, i2),
+                    k=50, reset=reset)
+    part4 = torch.zeros((2, C.n_partials(shape, dev, cfg.dtype)),
+                        dtype=st.rho.dtype, device=dev)
+
+    def with_tail(launch, part, nb):
+        """ms of `launch(finish)` without and with the tail over nb
+        partials, three passes each in turns. The tail's cost is the
+        difference of the best passes, resolved where it exceeds the
+        spread of either side's passes."""
+        fin = K.Finish(part, nb, K.new_ticket(dev))
+        out = {"without": [], "with": []}
+        for _ in range(3):
+            for key, f in (("without", None), ("with", fin)):
+                out[key].append(time_ms(lambda i: launch(f), k=20, reset=reset))
+        d = min(out["with"]) - min(out["without"])
+        spread = max(max(v) - min(v) for v in out.values())
+        return {**out, "tail_ms": d, "spread_ms": spread, "resolved": d > spread}
+    tails_ms = {
+        "y_sweep": with_tail(lambda f: K.y_sweep(
+            tcfg, fs_src, dst, p, partials, s2, i2, 1.0, True, finish=f),
+            partials, nby),
+        "x_sweep": with_tail(lambda f: K.x_sweep(
+            tcfg, fs_src, dst, p, partials, s2, i2, 1.0, True, finish=f),
+            partials, nbx),
+        "cycle": with_tail(lambda f: C.cycle(
+            tcfg, True, 1.0, 1.0, fs_src, dst, p, part4, s2, i2, True, finish=f),
+            part4, part4.shape[1])}
+    reset()
     dt_t = scal[K.SC_DTUSE] * 1.0
     xp_ms = time_ms(lambda i: K.sweep_plain(cfg, Axis.X, *fs_src, dt_t), k=3)
     yp_ms = time_ms(lambda i: K.sweep_plain(cfg, Axis.Y, *fs_src, dt_t), k=3)
-    k3p_ms = time_ms(lambda i: K.cfl_finish_plain(cfg, partials, nby, s2.clone(),
+    k3p_ms = time_ms(lambda i: K.cfl_finish_plain(tcfg, partials, nby, s2.clone(),
                                                  i2.clone()), k=20)
     amax_ms = time_ms(lambda i: torch.amax(partials[:, :nby], dim=1), k=50)
     # K4 on the same state (8200^2 padded; X first, the full dt on both
     # sweeps): the pair route's kernel at the main path's size, timed and
     # held against its plain version within the fast-math gate.
-    from armon_torch.ops import cycle as C
-    part4 = torch.zeros((2, C.n_partials(shape, dev, cfg.dtype)),
-                        dtype=st.rho.dtype, device=dev)
     k4_ms = time_ms(lambda i: C.cycle(cfg, True, 1.0, 1.0, fs_src, dst, p,
                                       part4, scal, iscal, True), k=20)
     k4_err = _k4_vs_plain(torch, cfg, fs_src, stats.last_dt, True, True,
@@ -462,13 +636,22 @@ def phase3(torch):
     # Against the plain version at these shapes (f32 fast math vs exact).
     checks = check_sweeps(torch, params, FusedCarry(st.rho, st.u, st.v, st.E, st.p),
                           stats.last_dt)
+    # K3's tail in K1, K2 and K4 at 8200^2: thousands of blocks a launch.
+    checks["tail_blocks"] = _tail_cases(
+        torch, cfg, ("x_sweep", "y_sweep", "cycle"), fs_src,
+        dict(t=stats.final_time, cycle=stats.cycles, dt_prev=stats.last_dt,
+             lm=params._final_local_min), f"Sod {MAIN_N}^2")
     for ax in ("X", "Y"):
         _gate(checks[ax]["fields"], "float32", True)
         if checks[ax]["cfl_max_rel"] > 1e-4 or not checks[ax]["k3_equal"]:
             raise AssertionError(f"main-path CFL check failed: {checks[ax]}")
-    K.LAUNCHES.update(saved)  # timing and check launches are not main-path ones
+    restore_counts(K, saved)  # timing and check launches are not main-path ones
 
     part_bytes = 2 * nby * st.rho.element_size()
+    # The tail has no launch of its own: its entry times the main path's
+    # launch that carries it, K2 with the tail (`y_sweep_finish_kernel`),
+    # against K2's and K3's plain versions, with the bound of both.
+    carrier = tails_ms["y_sweep"]
     kernels = []
     for name, src_file, replaces, ms, pms, nbytes, nops, lib, diffs in (
             ("x_sweep", "armon_torch/csrc/sweep.cuh",
@@ -479,17 +662,26 @@ def phase3(torch):
              9 * field_bytes + part_bytes, ops, None, checks["Y"]["fields"]),
             ("cfl_finish", "armon_torch/csrc/cfl.cu",
              "armon_tpu/ops/pallas/sweep.py:968", k3_ms, k3p_ms,
-             part_bytes + 64, 4 * nby, amax_ms, None)):
+             part_bytes + 64, 4 * nby, amax_ms, None),
+            ("cfl_tail", "armon_torch/csrc/common.cuh",
+             "armon_tpu/ops/pallas/sweep.py:924", min(carrier["with"]),
+             yp_ms + k3p_ms, 9 * field_bytes + 2 * part_bytes + 64,
+             ops + 4 * nby, None, None)):
         b_ms, b_by = bound_f32(nbytes, nops)
+        # K3 against its plain version; the tail's check raised on any
+        # difference from K3 and its plain version.
         err = max(d[0] for d in diffs.values()) if diffs else \
-            (0.0 if checks["Y"]["k3_equal"] else float("inf"))
+            (0.0 if checks["Y"]["k3_equal"] or name == "cfl_tail" else float("inf"))
         kernels.append({"name": name, "route": "cuda", "source": src_file,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": counts[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib})
+    kernels[-1].update(carrier="y_sweep", tail_ms=carrier["tail_ms"],
+                       tail_resolved=carrier["resolved"])
     main["kernel_ms"] = {"x_sweep": x_ms, "y_sweep": y_ms, "cfl_finish": k3_ms,
-                         "cycle_8200": k4_ms}
+                         "cycle_8200": k4_ms,
+                         "with_and_without_tail_from_reset": tails_ms}
     main["checks"] = checks
     main["cycle_8200_fast_math_max_abs_err"] = k4_err
     emit(main)
@@ -703,7 +895,7 @@ def _timed(torch, test, n, cycles, **route):
     K.reset_launches()
     stats = armon(params)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches, tails = saved_counts(K)
     peak = torch.cuda.max_memory_allocated()
     st = stats.data
     if stats.cycles != cycles or not np.isfinite(float(st.rho.sum())):
@@ -716,7 +908,7 @@ def _timed(torch, test, n, cycles, **route):
             "cells_per_s": cells * stats.cycles / stats.solve_time,
             "grind_ns": stats.solve_time / stats.cycles / cells * 1e9,
             "cycle_ms": stats.solve_time / stats.cycles * 1e3,
-            "host_reads": stats.host_reads, "launches": launches,
+            "host_reads": stats.host_reads, "launches": launches, "tails": tails,
             "kernel_launches_per_cycle": sum(launches.values()) / stats.cycles,
             "max_memory_allocated": peak,
             "mass_drift": abs(conservation_scalar(cfg, m) - params.initial_mass)
@@ -804,6 +996,14 @@ def phase4(torch):
         raise AssertionError(f"Sod {SOD_N}^2 default route: {lc}")
     if not (ld["cycle"] and ld["cfl_finish"] and not ld["multicycle"]):
         raise AssertionError(f"Sod {SOD_N}^2 temporal_blocking=1: {ld}")
+    # One launch a cycle on the pair route (K4 with K3's tail), two
+    # per-sweep (K1, K2 with the tail); K3 once a run.
+    for name, r, last in (("Sedov pair", runs[0], "cycle"),
+                          ("Sedov per-sweep", runs[1], "y_sweep"),
+                          ("Sod pair", runs[3], "cycle")):
+        ln, tails = r["launches"], r["tails"]
+        if not (ln["cfl_finish"] == 1 and tails["cfl_tail"] == ln[last]):
+            raise AssertionError(f"{name} sequencing: {ln} {tails}")
     out["timed"] = runs
 
     # Kernels at their paths' shapes: checks against the plain versions
@@ -811,7 +1011,7 @@ def phase4(torch):
     # (those max abs differences go to the kernels line) and within the
     # fast-math gate as timed; then times (CUDA events), plain versions'
     # times and bounds. These launches are not counted as the paths'.
-    saved = dict(K.LAUNCHES)
+    saved = saved_counts(K)
     kernels = []
 
     # K4 at Sedov 2000^2 (Sequential: X then Y, the full dt each).
@@ -828,6 +1028,25 @@ def phase4(torch):
     k4_fast = _k4_vs_plain(torch, cfg, src, sedov_stats.last_dt, True, True,
                            f"K4 at Sedov {SEDOV_N}^2 fast math",
                            factors=(1.0, 1.0))
+    # K3's tail in K4's launch at Sedov 2000^2 (as timed, and f32 exact),
+    # and on grids of one block (K4 at 40^2, K2 at 96 x 20).
+    sc = dict(t=sedov_stats.final_time, cycle=sedov_stats.cycles,
+              dt_prev=sedov_stats.last_dt, lm=sedov_params._final_local_min)
+    tails = {"sedov_fast": _tail_cases(torch, cfg, ("cycle",), src, sc,
+                                       f"Sedov {SEDOV_N}^2 fast math"),
+             "sedov_f32_exact": _tail_cases(
+                 torch, _exact_cfgs("Sedov", (SEDOV_N, SEDOV_N))[0][1], ("cycle",),
+                 src, sc, f"Sedov {SEDOV_N}^2 f32 exact", nan=False)}
+    for kind, n in (("cycle", (40, 40)), ("y_sweep", (96, 20))):
+        for dtype in ("float64", "float32"):
+            tp, tfs, tdt = _state_after(torch, "Sod_circ", n, dtype, False, 3)
+            blocks = _tail_cases(torch, tp.config, (kind,), tuple(tfs[:4]),
+                                 dict(cycle=3, dt_prev=tdt, lm=1.0),
+                                 f"one block {n} {dtype}")
+            if blocks[kind] != 1:
+                raise AssertionError(f"{kind} at {n}: {blocks} blocks, not one")
+            tails[f"{kind}_{n[0]}x{n[1]}_{dtype}"] = blocks
+    out["tail_blocks"] = tails
     # K4 against K1 -> K2 on the same state: fast math as timed (reported)
     # and f32 exact (bit for bit, as the routes agree).
     e_abs, e_rel = _k4_vs_sweeps(torch, cfg, src, sedov_stats.last_dt)
@@ -898,7 +1117,7 @@ def phase4(torch):
                     "ms": k5_ms, "plain_ms": k5p_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None})
     out["fast_math_max_abs_err"] = {"cycle": k4_fast, "multicycle": k5_fast}
-    K.LAUNCHES.update(saved)
+    restore_counts(K, saved)
     out["kernel_ms"] = {"cycle": k4_ms, "multicycle": k5_ms,
                         "multicycle_per_cycle": k5_ms / len(pairs)}
     emit(out)
@@ -1198,6 +1417,23 @@ def _single(torch, test, N, dtype, cycles, **route):
                                  **route))
 
 
+def _mesh_tail(torch, cfg, mesh, res, kind, dt):
+    """`_tail_check` of one `kind` launch a shard over a one-card mesh's
+    state `res` (slab ghosts along the launch's axis), the last shard's
+    launch carrying the tail. Returns the partials it folds."""
+    import dataclasses
+    from armon_torch.parallel.halo import halo_slabs
+    from armon_torch.utils.enums import Axis
+    cfg = dataclasses.replace(cfg, maxcycle=1 << 23, maxtime=1e30)
+    cur = [tuple(c[:4]) for c in res.carry]
+    ghosts = halo_slabs(cfg, mesh, cur, Axis.X if kind == "x_sweep" else Axis.Y)
+    launches = [_launcher(kind, cfg, cur[s.index], ghosts=ghosts[s.index],
+                          n_real=s.n_real) for s in mesh]
+    sc = dict(t=res.t, cycle=res.cycles, dt_prev=res.dt_last, lm=res.lm)
+    return _tail_check(torch, cfg, launches, cur, sc,
+                       f"{kind} tail over {len(mesh)} shards")
+
+
 def _slab_pack_count(mesh, axis):
     """Slab buffers refilled per sweep along `axis` (one per side that
     faces a neighbour)."""
@@ -1240,6 +1476,20 @@ def phase7(torch, rates):
             checks.append({"test": test, "dtype": dtype, "fast": fast,
                            "sweeps_max_abs_err": e1, "cycle_max_abs_err": e4})
     out["slab_vs_plain"] = checks
+
+    # K3's tail on one-card meshes: the last shard's launch folds every
+    # shard's partials (K1 / K2 slab launches on 2x2, K4 on 1x2).
+    tails = []
+    for dtype in ("float64", "float32"):
+        for P, kind, route in (((2, 2), "x_sweep", {}), ((2, 2), "y_sweep", {}),
+                               ((1, 2), "cycle", dict(temporal_blocking=1))):
+            n = 2 * CHECK_SHARD
+            N = (n if P[0] > 1 else CHECK_SHARD, n)
+            cfg, mesh, res, dt = _mesh_mid_state(torch, "Sod_circ", N, P, dtype,
+                                                 False, **route)
+            tails.append({"P": list(P), "kernel": kind, "dtype": dtype,
+                          "blocks": _mesh_tail(torch, cfg, mesh, res, kind, dt)})
+    out["tail_on_meshes"] = tails
     emit(out)
 
     # (2) meshes against the one-device run, bit for bit, exact mode
@@ -1270,9 +1520,12 @@ def phase7(torch, rates):
     # ones, are not counted as the path's.
     sod, params, stats = _timed(torch, "Sod", MESH_N, MESH_CYCLES,
                                 **_one_card(MESH_P))
-    for name in ("x_sweep_slab", "y_sweep_slab", "cfl_finish"):
-        if not sod["launches"][name]:
+    for name in ("x_sweep_slab", "y_sweep_slab", "cfl_finish", "cfl_tail"):
+        if not {**sod["launches"], **sod["tails"]}[name]:
             raise AssertionError(f"the 2x2 mesh never launched {name}")
+    ln = sod["launches"]
+    if not (ln["cfl_finish"] == 1 and 4 * sod["tails"]["cfl_tail"] == ln["y_sweep_slab"]):
+        raise AssertionError(f"the 2x2 mesh's sequencing: {ln} {sod['tails']}")
     cfg = params.config
     mesh = make_mesh(params)
     st = stats.data
@@ -1295,7 +1548,7 @@ def phase7(torch, rates):
     bufs = {a: new_slab_buffers(cfg, mesh, cur, a) for a in (Axis.X, Axis.Y)}
     gx = halo_slabs(cfg, mesh, cur, Axis.X, bufs[Axis.X])[0]
     gy = halo_slabs(cfg, mesh, cur, Axis.Y, bufs[Axis.Y])[0]
-    saved = dict(K.LAUNCHES)
+    saved = saved_counts(K)
     ms = {
         "x_sweep_slab": time_ms(lambda i: K.x_sweep(
             cfg, src, dst, p, partials, scal, iscal, 1.0, False, gx, s0.n_real),
@@ -1304,8 +1557,12 @@ def phase7(torch, rates):
             cfg, src, dst, p, partials, scal, iscal, 1.0, True, gy, s0.n_real),
             k=20)}
     s2, i2 = scal.clone(), iscal.clone()
+
+    def reset():  # every call folds: from the same scalars
+        s2.copy_(scal)
+        i2.copy_(iscal)
     ms["cfl_finish_4_shards"] = time_ms(lambda i: K.cfl_finish(
-        cfg, partials, len(mesh) * nby, s2, i2), k=50)
+        cfg, partials, len(mesh) * nby, s2, i2), k=50, reset=reset)
     ms["slab_copies_per_cycle"] = time_ms(lambda i: (
         halo_slabs(cfg, mesh, cur, Axis.X, bufs[Axis.X]),
         halo_slabs(cfg, mesh, cur, Axis.Y, bufs[Axis.Y])), k=20)
@@ -1327,7 +1584,7 @@ def phase7(torch, rates):
         "fast_math_max_abs_err": _slab_sweep_checks(
             torch, cfg, mesh, cur, last_dt, True,
             f"K1/K2 slab at Sod {MESH_N}^2 fast math", ends)}
-    K.LAUNCHES.update(saved)
+    restore_counts(K, saved)
     sod["kernel_ms_per_shard"] = ms
     sod["slab_packs_per_cycle"] = sum(_slab_pack_count(mesh, a)
                                       for a in (Axis.X, Axis.Y))
@@ -1355,8 +1612,10 @@ def phase7(torch, rates):
 
     sedov, params, stats = _timed(torch, "Sedov", SEDOV_N, SEDOV_CYCLES,
                                   **_one_card(SEDOV_P))
-    if sedov["route"] != "pair" or not sedov["launches"]["cycle_slab"]:
-        raise AssertionError(f"Sedov over {SEDOV_P}: {sedov['launches']}")
+    ln = sedov["launches"]
+    if sedov["route"] != "pair" or not ln["cycle_slab"] or not (
+            ln["cfl_finish"] == 1 and 2 * sedov["tails"]["cfl_tail"] == ln["cycle_slab"]):
+        raise AssertionError(f"Sedov over {SEDOV_P}: {ln} {sedov['tails']}")
     cfg = params.config
     mesh = make_mesh(params)
     st = stats.data
@@ -1372,7 +1631,7 @@ def phase7(torch, rates):
     scal, iscal = K.new_scalars(cfg.dtype, dev)
     scal[K.SC_DTUSE] = stats.last_dt
     iscal[K.IS_RUN] = 1
-    saved = dict(K.LAUNCHES)
+    saved = saved_counts(K)
     k4_ms = time_ms(lambda i: C.cycle(cfg, True, 1.0, 1.0, src, dst, p,
                                            partials, scal, iscal, True,
                                            ghosts, mesh.shards[0].n_real),
@@ -1394,7 +1653,7 @@ def phase7(torch, rates):
         "fast_math_max_abs_err": _slab_cycle_checks(
             torch, cfg, mesh, cur, stats.last_dt, True,
             f"K4 slab at Sedov {SEDOV_N}^2 fast math", ends, factors=(1.0, 1.0))}
-    K.LAUNCHES.update(saved)
+    restore_counts(K, saved)
     sedov["kernel_ms_per_shard"] = {"cycle_slab": k4_ms}
     sedov["slab_packs_per_cycle"] = _slab_pack_count(mesh, Axis.Y)
     sedov["single_device"] = rates.get("small")

@@ -211,25 +211,176 @@ def test_launch_counts(card):
     stats = armon_torch.armon(params)
     assert stats.cycles == 5
     # Cycles run in batches of the stop-check interval; the ones past the
-    # end still launch (and pass through).
+    # end still launch (and pass through). K3 runs once, for the first
+    # step; every cycle's last launch (K2) carries its tail.
     assert K.LAUNCHES["x_sweep"] == K.LAUNCHES["y_sweep"] == 8
-    assert K.LAUNCHES["cfl_finish"] == 9
+    assert K.LAUNCHES["cfl_finish"] == 1
+    assert K.TAILS["cfl_tail"] == 8
 
 
 @pytest.mark.parametrize("splitting,route,expect", [
-    ("Sequential", PAIR, dict(cycle=8, cfl_finish=9)),
-    ("Strang", PAIR, dict(cycle=8, x_sweep=4, y_sweep=4, cfl_finish=9)),
+    ("Sequential", PAIR, dict(cycle=8, cfl_finish=1, cfl_tail=8)),
+    ("Strang", PAIR, dict(cycle=8, x_sweep=4, y_sweep=4, cfl_finish=1,
+                          cfl_tail=8)),
     ("Sequential", {}, dict(multicycle=1)),
-    ("X_only", {}, dict(x_sweep=8, cfl_finish=9))],
+    ("X_only", {}, dict(x_sweep=8, cfl_finish=1, cfl_tail=8))],
     ids=["pair", "pair-strang", "multicycle", "x-only"])
 def test_route_launch_counts(card, splitting, route, expect):
-    """Each route launches its kernels and no other."""
+    """Each route launches its kernels and no other; `cfl_tail` counts
+    the launches that carried K3's tail."""
+    expect = dict(expect)
+    tails = {"cfl_tail": expect.pop("cfl_tail", 0)}
     K.reset_launches()
     params = armon_torch.ArmonParameters(test="Sod", N=(64, 64), maxcycle=5,
                                          axis_splitting=splitting, silent=5,
                                          device="cuda", **route)
     assert armon_torch.armon(params).cycles == 5
     assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), **expect}
+    assert K.TAILS == tails
+
+
+# ------------------------------------------------------------ K3's tail
+
+def _bits(a, b):
+    """Equal bits (NaN payloads and signed zeros included)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def _same_values(a, b):
+    """Equal, NaN where the other is NaN (the plain version's NaN payloads
+    are the CPU's)."""
+    a, b = a.cpu(), b.cpu()
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _launcher(kind, cfg, src, x_first=True, ghosts=K.MIRRORED, n_real=None):
+    """(launch, nb): `launch(dst, p, part, scal, iscal, finish)` runs one
+    emitting K1 / K2 / K4 launch on `src`."""
+    dev, shape = src[0].device, src[0].shape
+    if kind == "cycle":
+        def launch(dst, p, part, scal, iscal, finish):
+            C.cycle(cfg, x_first, 1.0, 1.0, src, dst, p, part, scal, iscal,
+                    True, ghosts, n_real, finish)
+        return launch, C.n_partials(shape, dev, cfg.dtype)
+    axis = armon_torch.Axis.X if kind == "x_sweep" else armon_torch.Axis.Y
+    sweep = K.x_sweep if kind == "x_sweep" else K.y_sweep
+
+    def launch(dst, p, part, scal, iscal, finish):
+        sweep(cfg, src, dst, p, part, scal, iscal, 1.0, True, ghosts, n_real,
+              finish)
+    return launch, K.n_partials(axis, shape, dev)
+
+
+def _tail_vs_k3(cfg, launches, srcs, sc, runs=(1, 1, 0)):
+    """Launches `launches` (one per shard, `_launcher`s over `srcs`), the
+    last with K3's tail over every shard's partials, against the same
+    launches then K3, and K3 against its plain version: fields, stale p,
+    partials and every loop scalar, bit for bit, in rounds back to back
+    (iscal[run] set to each of `runs` before its round: a round that does
+    not run copies and still steps); the ticket is 0 after each."""
+    nb = launches[0][1]
+    S = len(launches)
+    dev, dtype = srcs[0][0].device, srcs[0][0].dtype
+    side = []
+    for _ in range(2):
+        part = torch.zeros((2, S * nb), dtype=dtype, device=dev)
+        scal, iscal = K.new_scalars(cfg.dtype, dev, **sc)
+        out = [(tuple(torch.empty_like(a) for a in src), torch.empty_like(src[0]))
+               for src in srcs]
+        side.append((part, scal, iscal, out))
+    ticket = K.new_ticket(dev)
+    for run in runs:
+        for part, scal, iscal, out in side:
+            iscal[K.IS_RUN] = run
+        (pa, sa, ia, oa), (pb, sb, ib, ob) = side
+        fin = K.Finish(pa, S * nb, ticket)
+        for k, (launch, _) in enumerate(launches):
+            launch(*oa[k], pa[:, k * nb:(k + 1) * nb], sa, ia,
+                   fin if k == S - 1 else None)
+            launch(*ob[k], pb[:, k * nb:(k + 1) * nb], sb, ib, None)
+        s0, i0 = sb.clone(), ib.clone()
+        K.cfl_finish(cfg, pb, S * nb, sb, ib)
+        K.cfl_finish_plain(cfg, pb, S * nb, s0, i0)
+        torch.cuda.synchronize()
+        assert int(ticket) == 0
+        for (da, p_a), (db, p_b) in zip(oa, ob):
+            assert all(_bits(a, b) for a, b in zip(da + (p_a,), db + (p_b,)))
+        assert _bits(pa, pb) and _bits(sa, sb) and _bits(ia, ib)
+        assert _same_values(sb, s0) and torch.equal(ib.cpu(), i0.cpu())
+    return sa, ia
+
+
+TAIL_CASES = [("x_sweep", (300, 200)), ("y_sweep", (300, 200)),
+              ("cycle", (300, 200)), ("x_sweep", (2000, 2000)),
+              ("y_sweep", (2000, 2000)), ("cycle", (2000, 2000)),
+              ("y_sweep", (96, 20)), ("cycle", (40, 40))]
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", False),
+                                        ("float32", True)],
+                         ids=["f64", "f32-exact", "f32-fast"])
+@pytest.mark.parametrize("kind,N", TAIL_CASES,
+                         ids=[f"{k}-{n[0]}x{n[1]}" for k, n in TAIL_CASES])
+def test_tail_matches_k3(card, kind, N, dtype, fast, nan):
+    """K3's tail in K1 / K2 / K4's emitting launch against the same launch
+    then K3, and K3 against its plain version, bit for bit: on grids of a
+    few hundred blocks, of thousands (K1 2134 at 2008^2), and of one (K2
+    at 96 x 20, K4 at 40 x 40); three launches back to back (the ticket
+    resets), the last past the run's end; with a NaN in u, which fails
+    the dt gate in both."""
+    import dataclasses
+    cfg, res = _advanced("Sod_circ", dtype, fast, N=N)
+    cfg = dataclasses.replace(cfg, maxcycle=1 << 20)
+    src = tuple(a.clone() for a in res.carry[:4])
+    if nan:
+        src[1][cfg.nghost + 3, cfg.nghost + 2] = float("nan")
+    launch = _launcher(kind, cfg, src)
+    if N in ((96, 20), (40, 40)):
+        assert launch[1] == 1
+    sc = dict(t=res.t, cycle=res.cycles, dt_prev=res.dt_last, lm=res.lm)
+    scal, iscal = _tail_vs_k3(cfg, [launch], [src], sc)
+    # Finite: each round steps (the copied one too). NaN: the first round's
+    # fold fails the gate; later ones do not run.
+    assert bool(iscal[K.IS_OK]) != nan
+    assert int(iscal[K.IS_CYCLE]) == res.cycles + (1 if nan else 3)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("P,kind", [((2, 2), "y_sweep"), ((2, 2), "x_sweep"),
+                                    ((1, 2), "cycle")],
+                         ids=["2x2-y", "2x2-x", "1x2-cycle"])
+def test_tail_folds_mesh_on_card(card, P, kind, dtype):
+    """On a one-card mesh the last shard's launch folds every shard's
+    partials (the earlier shards' launches wrote theirs before it):
+    against every shard's launch then K3 over all of them, bit for bit."""
+    import dataclasses
+    route = PAIR if kind == "cycle" else PER_SWEEP
+    cfg, mesh, res = _mesh_state("Sod_circ", dtype, False, P, (263, 301), **route)
+    cfg = dataclasses.replace(cfg, maxcycle=1 << 20)
+    cur = [tuple(c[:4]) for c in res.carry]
+    axis = armon_torch.Axis.X if kind == "x_sweep" else armon_torch.Axis.Y
+    ghosts = halo_slabs(cfg, mesh, cur, axis)
+    launches = [_launcher(kind, cfg, cur[s.index], ghosts=ghosts[s.index],
+                          n_real=s.n_real) for s in mesh]
+    assert len({nb for _, nb in launches}) == 1
+    sc = dict(t=res.t, cycle=res.cycles, dt_prev=res.dt_last, lm=res.lm)
+    _tail_vs_k3(cfg, launches, cur, sc)
+
+
+def test_tail_refuses_a_slice_outside_its_fold(card):
+    cfg, res = _advanced("Sod_circ", "float32", False, N=(64, 64))
+    src = tuple(res.carry[:4])
+    launch, nb = _launcher("y_sweep", cfg, src)
+    part = torch.zeros((2, 2 * nb), dtype=src[0].dtype, device=card)
+    scal, iscal = K.new_scalars(cfg.dtype, card)
+    fin = K.Finish(part, nb, K.new_ticket(card))
+    dst = tuple(torch.empty_like(a) for a in src)
+    with pytest.raises(armon_torch.SolverException):
+        launch(dst, torch.empty_like(src[0]), part[:, nb:], scal, iscal, fin)
 
 
 def _close(a, b, fast):

@@ -18,12 +18,16 @@ after one warm-up run per cell, three runs of each cell:
 - Sedov 2000^2 on the per-sweep route (`pair_threshold=0`), 1000 cycles;
 
 f32 fast math, GAD/minmod/euler_2nd, nghost 4, maxtime 1e30, the solve
-time per cycle (host clock, as `armon()` reports it). Then, on each
-cell's initial state, the launches of its cycle one by one: device ms per
+time per cycle (host clock, as `armon()` reports it), and the kernel
+launches per cycle of the last run (K3's tail, where the tree has one,
+rides on its kernel's launch and does not count). Then, on each cell's
+initial state, the launches of its cycle one by one: device ms per
 launch (CUDA events over back-to-back launches) and host us per wrapper
 call (host clock over 200 calls queued without a sync, fewer than the
-launch queue holds). It prints the card line, one JSON line per pass and,
-last, the mean and the median per root and cell.
+launch queue holds), K3 `cfl_finish` among them, and where the tree has
+K3's tail, the cycle's last launch with it (`<kernel>+tail`). It prints
+the card line, one JSON line per pass and, last, the mean and the median
+per root and cell.
 """
 
 import json
@@ -46,7 +50,8 @@ CALLS = 200
 
 def _launch_times(torch, params, route):
     """{launch: [device ms, host us]} of the cell's launches on its initial
-    state (a pair cycle is K4 + K3, a per-sweep one K1 + K2 + K3, a
+    state (a pair cycle's K4, a per-sweep one's K1 and K2, each with K3's
+    tail on the cycle's last where the tree has it, and K3 alone; a
     multicycle launch K5 alone; `route` names the cell's)."""
     from armon_torch.core.solver import make_init_fused
     from armon_torch.ops import sweep as K
@@ -84,6 +89,17 @@ def _launch_times(torch, params, route):
                                              scal, iscal, 1.0, False)
         calls["y_sweep"] = lambda: K.y_sweep(cfg, src, dst, p, partials,
                                              scal, iscal, 1.0, True)
+    if route != "multicycle" and hasattr(K, "Finish"):
+        # The cycle's last launch with K3's tail, on scalars of its own.
+        s4, i4 = scal.clone(), iscal.clone()
+        fin = K.Finish(partials, nb, K.new_ticket(dev))
+        if route == "pair":
+            calls["cycle+tail"] = lambda: C.cycle(
+                cfg, True, 1.0, 1.0, src, dst, p, partials, s4, i4, True,
+                finish=fin)
+        else:
+            calls["y_sweep+tail"] = lambda: K.y_sweep(
+                cfg, src, dst, p, partials, s4, i4, 1.0, True, finish=fin)
     out = {}
     for name, fn in calls.items():
         fn()
@@ -108,17 +124,20 @@ def worker(root):
     sys.path.insert(0, root)
     import torch
     from armon_torch import ArmonParameters, armon
+    from armon_torch.ops import sweep as K
     out = {"root": root}
     for name, test, n, cycles, route in CELLS:
         opts = dict(test=test, N=(n, n), **OPTS, **route)
         armon(ArmonParameters(maxcycle=16, **opts))
         us = []
         for _ in range(REPS):
+            K.reset_launches()
             stats = armon(ArmonParameters(maxcycle=cycles, **opts))
             if stats.cycles != cycles:
                 raise AssertionError(f"{test} {n}^2: {stats.cycles} cycles")
             us.append(stats.solve_time / stats.cycles * 1e6)
         out[name] = us
+        out[name + " launches per cycle"] = sum(K.LAUNCHES.values()) / stats.cycles
         out[name + " launches [device ms, host us]"] = _launch_times(
             torch, ArmonParameters(maxcycle=cycles, **opts), name.split()[-1])
     print(json.dumps(out), flush=True)
@@ -144,7 +163,7 @@ def main(roots):
         line = json.loads(res.stdout.strip().splitlines()[-1])
         print(json.dumps(line), flush=True)
         for cell, us in line.items():
-            if cell != "root" and "launches" not in cell:
+            if cell != "root" and "launch" not in cell:
                 runs.setdefault(root, {}).setdefault(cell, []).extend(us)
     print(json.dumps({stat: {
         root: {cell: fn(us) for cell, us in cells.items()}

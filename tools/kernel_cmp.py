@@ -4,11 +4,13 @@ kernels of two or more checkouts, timed in alternation on one NVIDIA card.
 
     python3 tools/kernel_cmp.py ROOT [ROOT ...]
     python3 tools/kernel_cmp.py --only k5 ROOT [ROOT ...]   # K5 alone
+    python3 tools/kernel_cmp.py --only tail ROOT [ROOT ...] # K3's tail alone
 
 Each ROOT is the root of a checkout that holds `armon_torch/` (its kernels
 build into ROOT/build/armon_torch on first use). The roots run in the
 order given and then in reverse (parent, change, change, parent for two),
-each pass in a process of its own. A pass, f32 fast math (GAD, minmod,
+each pass in a process of its own, every one timed by this tree's timer
+(`armon_torch/_card.py` `time_ms`). A pass, f32 fast math (GAD, minmod,
 euler_2nd, nghost 4):
 
 - builds two states through the per-sweep kernels K1/K2 (the same
@@ -32,7 +34,15 @@ euler_2nd, nghost 4):
   default `temporal_blocking`, Sequential) from the state after 50
   per-sweep cycles of Sod at 108^2, 168^2 and 248^2 padded, f32 fast
   math, and at 128^2 in f64, the calls back to back, each from the
-  state the one before left (every cycle runs).
+  state the one before left (every cycle runs);
+- K3's tail (`--only tail` runs this part alone; not in the default
+  groups): on the Sedov 2008^2 and Sod 8200^2 states, an emitting K1, K2
+  and K4 launch as the cycle's last: with K3's fold and dt step in its
+  tail where the tree has one (`ops/sweep.Finish`), else the launch then
+  K3 `cfl_finish` (`<state>_<kernel>_last_ms`); the launch alone
+  (`<state>_<kernel>_ms`); K3 alone on K2's partials
+  (`<state>_cfl_finish_ms`). Every call starts from the same loop
+  scalars (an untimed reset), so every call folds and steps.
 
 It prints the card line, one JSON line per pass and, last, the mean per
 root.
@@ -43,6 +53,9 @@ import os
 import statistics
 import subprocess
 import sys
+
+TIMER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "armon_torch", "_card.py")
 
 CHILD = r'''
 import json, sys
@@ -56,7 +69,13 @@ from armon_torch.ops import sweep as K
 from armon_torch.ops import cycle as C
 from armon_torch.probes import flip
 from armon_torch.utils.enums import Axis
-from armon_torch._card import time_ms
+# Every root is timed by this tree's timer (`armon_torch/_card.py`), so a
+# change to the timer cannot pass for a change to a kernel.
+import importlib.util
+_spec = importlib.util.spec_from_file_location("timer_card", sys.argv[3])
+_timer = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_timer)
+time_ms = _timer.time_ms
 
 OPTS = dict(data_type="float32", scheme="GAD", projection="euler_2nd",
             riemann_limiter="minmod", nghost=4, use_fast_math=True,
@@ -129,6 +148,58 @@ if "sweeps" in groups:
     out["copy__ms"] = time_ms(lambda i: o.copy_(x), k=20)
     del x, o
 
+for name, test, n, cycles in (("sedov_2008", "Sedov", 2000, 1000),
+                              ("sod_8200", "Sod", 8192, 10)):
+    if "tail" not in groups:
+        break
+    params = ArmonParameters(test=test, N=(n, n), maxcycle=cycles, **OPTS)
+    [fs], seed = make_init_fused(params)()
+    res = make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0, float(seed))
+    # Every timed call steps: no maxcycle or maxtime ends the run.
+    cfg = ArmonParameters(test=test, N=(n, n), maxcycle=1 << 23,
+                          **{**OPTS, "maxtime": 1e30}).config
+    T = np.float32
+    dt = float(min(T(cfg.cfl) * T(res.lm), T(1.05) * T(res.dt_last)))
+    src = tuple(res.carry[:4])
+    dev, shape = src[0].device, src[0].shape
+    s0, i0 = K.new_scalars(cfg.dtype, dev, t=res.t, cycle=res.cycles,
+                           dt_prev=res.dt_last, lm=res.lm)
+    s0[K.SC_DTUSE] = dt
+    i0[K.IS_RUN] = 1
+    scal, iscal = s0.clone(), i0.clone()
+
+    def reset():
+        scal.copy_(s0)
+        iscal.copy_(i0)
+    dst = tuple(torch.empty_like(a) for a in src)
+    p = torch.empty_like(src[0])
+    tail = hasattr(K, "Finish")
+    for kind, nb in (("x_sweep", K.n_partials(Axis.X, shape, dev)),
+                     ("y_sweep", K.n_partials(Axis.Y, shape, dev)),
+                     ("cycle", C.n_partials(shape, dev, cfg.dtype))):
+        part = torch.zeros((2, nb), dtype=src[0].dtype, device=dev)
+        if kind == "cycle":
+            def launch(**fin):
+                C.cycle(cfg, True, 1.0, 1.0, src, dst, p, part, scal, iscal,
+                        True, **fin)
+        else:
+            sweep = K.x_sweep if kind == "x_sweep" else K.y_sweep
+
+            def launch(**fin):
+                sweep(cfg, src, dst, p, part, scal, iscal, 1.0, True, **fin)
+        if tail:
+            fin = K.Finish(part, nb, K.new_ticket(dev))
+            last = lambda i: launch(finish=fin)
+        else:
+            last = lambda i: (launch(), K.cfl_finish(cfg, part, nb, scal, iscal))
+        out[f"{name}_{kind}_ms"] = time_ms(lambda i: launch(), k=20, reset=reset)
+        out[f"{name}_{kind}_last_ms"] = time_ms(last, k=20, reset=reset)
+        if kind == "y_sweep":
+            out[f"{name}_cfl_finish_ms"] = time_ms(
+                lambda i: K.cfl_finish(cfg, part, nb, scal, iscal), k=50,
+                reset=reset)
+    del src, dst, p, part, fs, res
+
 from armon_torch.ops.routing import temporal_pairs
 MC = {k: v for k, v in OPTS.items() if k not in ("pair_threshold", "temporal_blocking")}
 for name, n, dtype in (("k5_108", 100, "float32"), ("k5_168", 160, "float32"),
@@ -169,8 +240,8 @@ def main(argv=None):
                          text=True).stdout.strip(), flush=True)
     rows = {r: [] for r in roots}
     for root in roots + roots[::-1]:
-        res = subprocess.run([sys.executable, "-c", CHILD, root, groups], cwd=root,
-                             capture_output=True, text=True)
+        res = subprocess.run([sys.executable, "-c", CHILD, root, groups, TIMER],
+                             cwd=root, capture_output=True, text=True)
         if res.returncode:
             sys.stderr.write(res.stderr[-4000:])
             sys.exit(f"kernel_cmp: the pass in {root} failed")

@@ -7,7 +7,8 @@ Builds each tree's kernels (`armon_torch.ops._build.load()`, in a child
 process run from that tree) and prints, for every library (K1/K2
 `sweep_f*`, K3 `cfl`, K4 `cycle_f*`, K5 `multicycle_f*`, the probes'),
 how many of its kernel functions have the same SASS in both trees,
-naming those that differ. The libraries named by `--changed` (those the
+naming those that differ, and how many functions only the tree has (a
+new kernel, such as a finishing launch's). The libraries named by `--changed` (those the
 change redesigns) are listed after the others, for information; every
 other one must be identical (a library new in the tree is named as
 such), and the last line says whether it is. K4's instances carry the
@@ -37,9 +38,9 @@ def build(tree):
 
 
 def functions(tree, stem):
-    """{kernel function name: hash of its SASS} of the newest library
-    built from source `stem` in `tree`; None where the tree has no such
-    source."""
+    """{kernel function name: (hash of its SASS, its opcodes)} of the
+    newest library built from source `stem` in `tree`; None where the tree
+    has no such source."""
     libs = glob.glob(os.path.join(tree, "build", "armon_torch", f"lib{stem}_*.so"))
     if not libs:
         return None
@@ -50,8 +51,18 @@ def functions(tree, stem):
     for block in text.split("Function : ")[1:]:
         name, body = block.split("\n", 1)
         name = re.sub(r"ELi64ELi0EE", "ELi64EE", name.strip())
-        out[name] = hashlib.sha256(body.encode()).hexdigest()[:12]
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+        out[name] = (hashlib.sha256(body.encode()).hexdigest()[:12], ops)
     return out
+
+
+def _describe(a, b):
+    """How two functions' SASS differ: in operands only (the same opcodes
+    in the same order: registers, constant-bank offsets, addresses), or in
+    their instructions."""
+    if a[1] == b[1]:
+        return "operands only"
+    return f"{len(a[1])} -> {len(b[1])} instructions"
 
 
 def main(argv=None):
@@ -75,12 +86,15 @@ def main(argv=None):
             print(f"{stem}: only in {tree if a is None else parent}")
             same_all &= a is None or stem in changed
             continue
-        differ = sorted(k for k in a if a[k] != b.get(k))
+        differ = sorted(k for k in a if k not in b or a[k][0] != b[k][0])
+        new = len(set(b) - set(a))
         if stem in held:
             same_all &= not differ
         print(f"{stem}{' (changed)' if stem in changed else ''}: "
-              f"{len(a) - len(differ)}/{len(a)} functions with the same SASS",
-              differ or "")
+              f"{len(a) - len(differ)}/{len(a)} functions with the same SASS"
+              + (f", {new} only in the tree" if new else ""),
+              [f"{k} ({_describe(a[k], b[k]) if k in b else 'missing'})"
+               for k in differ] or "")
     print("sass_cmp:", "all identical" if same_all else "some differ",
           f"({', '.join(held)})")
     sys.exit(0 if same_all else 1)
