@@ -12,6 +12,9 @@ import numpy as np
 
 from ..models.cases import TestCase
 
+# kernel_tier values that select the op path.
+OP_PATH_TIERS = ("torch", "jnp")
+
 
 @dataclass(frozen=True)
 class SolverConfig:
@@ -50,12 +53,20 @@ class SolverConfig:
     # CPU reference path always divide exactly.
     fast_math: bool = True
 
+    # "torch" or "jnp": the op path (`core/step.py` `make_time_loop`);
+    # anything else: the hand-written kernels (`make_time_loop_lean`).
+    kernel_tier: str = "auto"
+
     # Domain decomposition: the shard grid (px, py); (1, 1) = one shard.
     # Every shard is padded to n_local = ceil(N/P) real cells; the hi-edge
     # shard along each axis owns the remainder n_edge, and the rest of its
     # block is dead slack (`armon_tpu/core/config.py:45-55`).
     proc_dims: Tuple[int, int] = (1, 1)
     n_edge: Optional[Tuple[int, int]] = None
+
+    @property
+    def op_path(self) -> bool:
+        return self.kernel_tier in OP_PATH_TIERS
 
     @property
     def spmd(self) -> bool:

@@ -1,11 +1,17 @@
 """Solver entry point: `armon(params) -> SolverStats`
 (`armon_tpu/core/solver.py:826-1048`, `src/solver.jl:406-516`).
 
-The lean path of the JAX package: `make_init_fused` (init, the cycle-0 EOS
-and the CFL seed, returning only the five carried fields), the lean time
-loop (`core/step.py`, per-sweep, pair or multicycle route as the JAX
-package routes), the conservation check over the carry,
-and `make_rehydrate` when the caller asks for the full State.
+Two paths, chosen by `kernel_tier` alone:
+- the lean path of the JAX package, over the hand-written kernels:
+  `make_init_fused` (init, the cycle-0 EOS and the CFL seed, returning
+  only the five carried fields), the lean time loop (`core/step.py`,
+  per-sweep, pair or multicycle route as the JAX package routes), the
+  conservation check over the carry, and `make_rehydrate` when the caller
+  asks for the full State;
+- the op path (``kernel_tier="torch"`` or ``"jnp"``), the JAX package's
+  non-lean jnp-tier run: `make_init` (the full State), the op path's loop
+  (`core/step.make_time_loop`, which runs the cycle-0 EOS), and the
+  conservation check over the final State.
 
 Every step runs on each shard of the mesh (`parallel/mesh.py`; one shard
 holding the whole grid when P = (1, 1)): the carry is a list of
@@ -29,7 +35,7 @@ from ..ops.reductions import (cfl_maxima, cfl_limit, conservation_vars,
                               conservation_scalar)
 from ..parallel.mesh import Mesh
 from .state import State, FusedCarry
-from .step import make_time_loop_lean
+from .step import make_time_loop_lean, make_time_loop
 
 
 @dataclass
@@ -71,10 +77,19 @@ def _initial_state(params, shard):
     """init_test + the cycle-0 EOS (`src/solver.jl:291-295`) of one shard."""
     cfg = params.config
     st = init_state(cfg, shard.device, shard.global_pos)
-    if cfg.maxcycle > 0:
-        p, c, g = update_eos(cfg, st.rho, st.u, st.v, st.E)
-        st = st._replace(p=p, c=c, g=g)
-    return st
+    return update_eos(cfg, st) if cfg.maxcycle > 0 else st
+
+
+def make_init(params):
+    """() -> the initial State of each shard, in the mesh's order, before
+    the cycle-0 EOS (`core/solver.py:125`; the op path's loop runs it)."""
+    cfg = params.config
+
+    def init():
+        return [init_state(cfg, shard.device, shard.global_pos)
+                for shard in make_mesh(params)]
+
+    return init
 
 
 def make_init_fused(params):
@@ -118,11 +133,12 @@ def make_rehydrate(params):
     return rehydrate
 
 
-def make_conservation_lean(params):
-    """(carry) -> (mass, energy) as host floats (`core/solver.py:247`):
-    rho and E are all it reads; f32 sums are compensated pairs, and a
-    mesh's shards (real cells only, the edge shards' slack left out) are
-    summed, in f64 on the host."""
+def make_conservation(params):
+    """(shards) -> (mass, energy) as host floats (`core/solver.py:247,282`)
+    for the lean carry or the op path's States, one per shard: rho and E
+    are all it reads; f32 sums are compensated pairs, and a mesh's shards
+    (real cells only, the edge shards' slack left out) are summed, in f64
+    on the host."""
     cfg = params.config
 
     def call(fs):
@@ -143,7 +159,8 @@ def _isapprox0(x, atol, rtol):
 
 def armon(params: ArmonParameters, checkpoint=None,
           restore_from=None) -> SolverStats:
-    """Main entry point (`src/solver.jl:406-516`), lean path."""
+    """Main entry point (`src/solver.jl:406-516`): the lean path over the
+    kernels, or the op path when `kernel_tier` asks for it."""
     if checkpoint is not None or restore_from is not None:
         solver_error("config", "checkpoint hooks and restore_from are not "
                                "available in armon_torch yet: they come with "
@@ -153,21 +170,28 @@ def armon(params: ArmonParameters, checkpoint=None,
     if params.silent < 3:
         print(params.describe())
 
+    op = cfg.op_path
     timer = {} if params.measure_time else None
     t_start = time.perf_counter()
-    fs, local0 = make_init_fused(params)()
+    if op:  # per shard: the lean carry, or the op path's full State
+        fs = make_init(params)()
+    else:
+        fs, local0 = make_init_fused(params)()
     _sync(params)
     if timer is not None:
         timer["init"] = time.perf_counter() - t_start
 
     if params.check_result:
-        m, e = make_conservation_lean(params)(fs)
+        m, e = make_conservation(params)(fs)
         params.initial_mass, params.initial_energy = m, e
 
     T = np.dtype(cfg.dtype).type
     solve_start = time.perf_counter()
-    res = make_time_loop_lean(cfg, make_mesh(params))(fs, T(0.0), 0, T(0.0),
-                                                      local0)
+    if op:
+        res = make_time_loop(cfg, make_mesh(params))(fs, T(0.0), 0, T(0.0))
+    else:
+        res = make_time_loop_lean(cfg, make_mesh(params))(fs, T(0.0), 0,
+                                                          T(0.0), local0)
     solve_time = time.perf_counter() - solve_start
     if timer is not None:
         timer["solver_cycle"] = solve_time
@@ -179,11 +203,11 @@ def armon(params: ArmonParameters, checkpoint=None,
     state = None
     if params.return_data:
         from ..interop import gather_state
-        state = gather_state(params, make_rehydrate(params)(fs))
+        state = gather_state(params, fs if op else make_rehydrate(params)(fs))
 
     # Final conservation check (src/solver.jl:467-490)
     if params.check_result and params.test.is_conservative and res.cycles > 0:
-        m, e = make_conservation_lean(params)(fs)
+        m, e = make_conservation(params)(fs)
         dm = abs(m - params.initial_mass) / params.initial_mass
         de = abs(e - params.initial_energy) / params.initial_energy
         rtol = 1e-2 * min(1.0, res.t / params.test.default_max_time)

@@ -24,6 +24,11 @@ class State(NamedTuple):
     pstar: torch.Tensor  # interface pressure
 
 
+# The fields a ghost exchange fills on the op path (`armon_tpu/core/
+# state.py:41`); the kernels' routes exchange rho/u/v/E only.
+COMM_VARS = ("rho", "u", "v", "E", "p", "c", "g")
+
+
 class FusedCarry(NamedTuple):
     """The five fields the per-sweep kernels read or write; x, y, c, g,
     ustar and pstar stay outside the time loop."""

@@ -1,6 +1,9 @@
-"""The lean time loop (`armon_tpu/core/step.py:212,308,353,412`).
+"""The time loops: the lean loop over the hand-written kernels
+(`armon_tpu/core/step.py:212,308,353,412`) and the op path's loop
+(`make_time_loop`, at the end of this module).
 
-Three routes, chosen as the JAX package chooses them (`ops/routing.py`):
+The lean loop has three routes, chosen as the JAX package chooses them
+(`ops/routing.py`):
 
 - per-sweep: one cycle is one sweep kernel per (axis, factor) of the
   splitting schedule, K1 along X and K2 along Y;
@@ -75,17 +78,23 @@ import torch
 from ..utils.enums import Axis
 from ..ops import sweep as K
 from ..ops import cycle as C
+from ..ops.eos import update_eos, scalar_like
+from ..ops.projection import projection_remap
+from ..ops.reductions import dt_cfl_min, pmin_dt
+from ..ops.riemann import numerical_fluxes
 from ..ops.routing import route, temporal_pairs
+from ..ops.update import cell_update
 from ..parallel.mesh import Mesh
-from ..parallel.halo import halo_slabs, new_slab_buffers
+from ..parallel.halo import halo_slabs, new_slab_buffers, halo_exchange_state
 from .splitting import split_schedules
-from .state import FusedCarry
+from .state import FusedCarry, State
+from .timestep import next_time_step
 
 STOP_CHECK_EVERY = 8
 
 
 class LoopResult(NamedTuple):
-    carry: object                # FusedCarry, or a list of them (one per shard)
+    carry: object                # FusedCarry or State, or a list (one per shard)
     t: float
     cycles: int
     dt_last: float
@@ -94,9 +103,10 @@ class LoopResult(NamedTuple):
     host_reads: int
 
 
-def run_schedule(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
-                 pair=False, slabs=None, finish=None):
-    """The launches of one cycle (`run_schedule_fused`) on every shard of
+def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
+                       pair=False, slabs=None, finish=None):
+    """The launches of one cycle (`armon_tpu/core/step.py`
+    `run_schedule_fused`) on every shard of
     `mesh`: each launch reads `cur[s]` and writes `nxt[s]`, then the two
     swap. With `pair`, an adjacent X/Y pair of sweeps is one K4 launch in
     the schedule's order. Before a launch along an axis in `slabs` (the
@@ -229,8 +239,9 @@ def make_time_loop_lean(cfg, mesh=None, remote=()):
         while running:
             for _ in range(check_every):
                 sched = even if cycle % 2 == 0 else odd
-                cur, nxt, nb = run_schedule(cfg, m, cur, nxt, p, parts,
-                                            scalars, sched, pair, slabs, finish)
+                cur, nxt, nb = run_schedule_fused(
+                    cfg, m, cur, nxt, p, parts, scalars, sched, pair, slabs,
+                    finish)
                 if far:
                     for k in far:
                         partials[:, k * nb:(k + 1) * nb].copy_(parts[nb][k])
@@ -276,5 +287,127 @@ def _multicycle_loop(cfg, pairs):
             running = bool(iscal[K.IS_NEXT].item())
             reads += 1
         return _result([cur], [p], scal, iscal, reads, single)
+
+    return loop
+
+
+# ------------------------------------------------------------- the op path
+#
+# The JAX package's jnp tier (`armon_tpu/core/step.py:43-104,483-598`) in
+# plain tensor ops: no hand-written kernel, IEEE arithmetic on every
+# device. Each function takes the States of every shard of `mesh` in its
+# order (one State off a mesh); only the ghost exchange and the CFL
+# minimum look across shards, and a mesh's shards run one after another
+# from this one process.
+
+def sweep(cfg, mesh, states, axis: Axis, dt):
+    """One dimensional sweep (`:52`): EOS, ghost exchange (`ghost_exchange`,
+    `:43`, is `halo_exchange_state`: the mirror at the global borders, the
+    neighbours' lines between shards), Riemann fluxes, cell update, remap.
+    `dt` is the schedule-scaled step, a 0-dim tensor of dtype T."""
+    states = halo_exchange_state(cfg, mesh,
+                                 [update_eos(cfg, st) for st in states], axis)
+    out = []
+    for s, st in zip(mesh, states):
+        d = dt.to(s.device)
+        st = numerical_fluxes(cfg, st, axis, d)
+        st = cell_update(cfg, st, axis, d)
+        out.append(projection_remap(cfg, st, axis, d))
+    return out
+
+
+def run_schedule(cfg, mesh, states, schedule, dt):
+    """The sweeps of one cycle (`:62`), each with dt times its factor."""
+    T = np.dtype(cfg.dtype).type
+    for axis, factor in schedule:
+        # state.dt = current_dt * dt_factor (src/solver_state.jl:342)
+        states = sweep(cfg, mesh, states, axis, dt * float(T(factor)))
+    return states
+
+
+def solver_cycle(cfg, mesh, states, dt_prev, cycle, seeded=False):
+    """One full cycle (`:70`): the time step from the cycle-start states,
+    then the splitting schedule of the cycle's parity. `cycle` is the
+    host's count (see `next_time_step` for `seeded`). Returns (states,
+    dt_use, dt_next, ok), the scalars 0-dim tensors on the loop's device."""
+    dt_use, dt_next, ok = next_time_step(cfg, mesh, states, dt_prev, cycle,
+                                         seeded)
+    even, odd = split_schedules(cfg.splitting)
+    states = run_schedule(cfg, mesh, states, even if cycle % 2 == 0 else odd,
+                          dt_use)
+    return states, dt_use, dt_next, ok
+
+
+def _keep_if(run, new, old):
+    """`new` where the 0-dim bool `run` holds, else `old`, field by field,
+    written over `new`'s own fields; a field `new` shares with `old` (x
+    and y) stays as it is."""
+    run = run.to(old.rho.device)
+    return type(new)(*(n if n is o else torch.where(run, n, o, out=n)
+                       for n, o in zip(new, old)))
+
+
+def make_time_loop(cfg, mesh=None):
+    """The op path's loop, the non-fused, non-restore branch of
+    `make_time_loop` (`:483-598`): (states, t0, cycle0, dt0, check_every)
+    -> LoopResult. `states` is a list of States, one per shard of `mesh`
+    in its order, and so is the result's carry; a caller that passes one
+    State gets one back. Without a `mesh`, one shard holds the whole grid.
+
+    The cycle-0 EOS runs once, before the loop (`:543-545`). t, the cycle
+    count, dt and ok stay 0-dim tensors on the first shard's device
+    (`:535-541`); the host reads the stop predicate once every
+    `check_every` cycles, and a cycle launched past the run's end keeps
+    every field and scalar as it was (each is selected by the cycle's run
+    predicate), so the result does not depend on `check_every`. At the
+    end, the carried CFL minimum is recomputed from the final states
+    (`:584-597`)."""
+    T = np.dtype(cfg.dtype).type
+
+    def loop(states, t0=0.0, cycle0=0, dt0=0.0, check_every=STOP_CHECK_EVERY):
+        single = isinstance(states, State)
+        states = [states] if single else list(states)
+        m = mesh or Mesh(cfg, [states[0].rho.device])
+        like = states[0].rho
+        t = scalar_like(like, T(t0))
+        dt_prev = scalar_like(like, T(dt0))
+        cyc = torch.full((), int(cycle0), dtype=torch.int32, device=like.device)
+        ok = torch.ones((), dtype=torch.bool, device=like.device)
+        maxtime = float(T(cfg.maxtime))
+
+        def running():
+            return (t < maxtime) & (cyc < cfg.maxcycle) & ok
+
+        if cfg.maxcycle > 0:
+            # Cycle-0 "EOS_init" (src/solver.jl:291-295)
+            states = [update_eos(cfg, st) for st in states]
+        cycle = int(cycle0)
+        reads = 0
+        go = T(t0) < T(cfg.maxtime) and cycle < cfg.maxcycle
+        while go:
+            for _ in range(check_every):
+                run = running()
+                new, dt_use, dt_next, ok_next = solver_cycle(
+                    cfg, m, states, dt_prev, cycle,
+                    seeded=cycle > cycle0 or T(dt0) != 0)
+                states = [_keep_if(run, n, o) for n, o in zip(new, states)]
+                # next_cycle!: cycle += 1; time += current_dt
+                # (src/solver_state.jl:145-147)
+                t = torch.where(run, t + dt_use, t)
+                cyc = torch.where(run, cyc + 1, cyc)
+                dt_prev = torch.where(run, dt_next, dt_prev)
+                ok = torch.where(run, ok_next, ok)
+                cycle += 1
+            go = bool(running().item())
+            reads += 1
+        if cfg.cst_dt:
+            lm = scalar_like(like, np.finfo(cfg.dtype).max)
+        else:
+            dts = [dt_cfl_min(cfg, st, s.n_real) for s, st in zip(m, states)]
+            lm = pmin_dt(dts, like.device) if cfg.spmd else dts[0]
+        tv, dtv, lmv = torch.stack([t, dt_prev, lm]).cpu().tolist()
+        cycles, okv = torch.stack([cyc, ok.to(torch.int32)]).cpu().tolist()
+        return LoopResult(states[0] if single else states, tv, cycles, dtv,
+                          lmv, bool(okv), reads + 2)
 
     return loop

@@ -1,6 +1,7 @@
 """Equations of state (`armon_tpu/ops/eos.py`, `src/kernels.jl:4-55`).
 
-Plain tensor code, used by the cycle-0 EOS of the initial state. Constants
+Plain tensor code, used by the cycle-0 EOS of the initial state and by
+every sweep of the op path (`update_eos`). Constants
 are rounded to the working dtype T before any arithmetic, and every
 operation runs in the order the JAX package writes it, so the two agree
 bit for bit. Divisions by a constant go through a tensor of dtype T:
@@ -24,8 +25,10 @@ def ieee_sqrt(x):
 
 
 def scalar_like(like, value):
-    """`value` as a 0-dim tensor of `like`'s dtype and device."""
-    return torch.tensor(float(value), dtype=like.dtype, device=like.device)
+    """`value` as a 0-dim tensor of `like`'s dtype and device. A fill,
+    not a copy from the host: on the card a copy from pageable host
+    memory would wait for the stream."""
+    return torch.full((), float(value), dtype=like.dtype, device=like.device)
 
 
 def perfect_gas_eos(gamma, rho, u, v, E, dtype):
@@ -84,9 +87,17 @@ def bizarrium_eos(rho, u, v, E, dtype):
     return p, c, g
 
 
-def update_eos(cfg, rho, u, v, E):
+def eos(cfg, rho, u, v, E):
     """Dispatch by test case (`src/kernels.jl:151-166`) over the whole
     padded array. Returns (p, c, g)."""
     if isinstance(cfg.test, Bizarrium):
         return bizarrium_eos(rho, u, v, E, cfg.dtype)
     return perfect_gas_eos(cfg.gamma, rho, u, v, E, cfg.dtype)
+
+
+def update_eos(cfg, state):
+    """The State with the p, c and g of its rho/u/v/E
+    (`armon_tpu/ops/eos.py:70`), ghost cells included: the boundary
+    exchange overwrites their values before any stencil reads them."""
+    p, c, g = eos(cfg, state.rho, state.u, state.v, state.E)
+    return state._replace(p=p, c=c, g=g)

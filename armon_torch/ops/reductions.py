@@ -12,6 +12,8 @@ its shards' sums in f64 on the host (`conservation_scalar`).
 import numpy as np
 import torch
 
+from .eos import scalar_like
+
 
 def real_slice(cfg, n_real=None):
     g = cfg.nghost
@@ -24,9 +26,8 @@ def cfl_limit(cfg, mx, my):
     restructured CFL reduction (`ops/pallas/sweep.py:968-975`). NaN in
     either maximum propagates to the result."""
     T = np.dtype(cfg.dtype).type
-    dx = torch.tensor(float(T(cfg.dx)), dtype=mx.dtype, device=mx.device)
-    dy = torch.tensor(float(T(cfg.dy)), dtype=mx.dtype, device=mx.device)
-    return torch.minimum(dx / mx, dy / my)
+    return torch.minimum(scalar_like(mx, T(cfg.dx)) / mx,
+                         scalar_like(my, T(cfg.dy)) / my)
 
 
 def cfl_maxima(cfg, u, v, c, n_real=None):
@@ -36,14 +37,25 @@ def cfl_maxima(cfg, u, v, c, n_real=None):
     return torch.amax(torch.abs(u[r]) + c), torch.amax(torch.abs(v[r]) + c)
 
 
-def dt_cfl_min(cfg, u, v, c, n_real=None):
-    """Minimum CFL-stable dt over the real cells (`src/reductions.jl:14-20`)
-    as min(dx/max(|u|+c), dy/max(|v|+c)): bitwise the per-cell form, since
-    IEEE division is monotone in the denominator (see the JAX package's
-    `dt_cfl_min`). On a mesh the shards' maxima are combined first, which
-    equals the minimum of the shards' dt (`pmin_dt`). Returns a 0-dim
-    tensor."""
-    return cfl_limit(cfg, *cfl_maxima(cfg, u, v, c, n_real))
+def dt_cfl_min(cfg, state, n_real=None):
+    """Minimum CFL-stable dt over the real cells of a State
+    (`src/reductions.jl:14-20`, `armon_tpu/ops/reductions.py:60`) as
+    min(dx/max(|u|+c), dy/max(|v|+c)): bitwise the per-cell form, since
+    IEEE division is monotone in the denominator. The real cells are a
+    slice: on the hi-edge shard of an uneven split, `n_real` leaves its
+    dead slack out, bit for bit the JAX package's masked maximum (every
+    real |u|+c is >= +0 or NaN, so the mask's zeros never win). Returns a
+    0-dim tensor."""
+    return cfl_limit(cfg, *cfl_maxima(cfg, state.u, state.v, state.c, n_real))
+
+
+def pmin_dt(dts, device):
+    """The minimum of the shards' CFL dt on `device` (`pmin_dt`,
+    `armon_tpu/ops/reductions.py:91`): a NaN is mapped to 0 first, so
+    that a diverged shard fails the dt gate instead of losing the
+    minimum to the others."""
+    d = torch.stack([x.to(device) for x in dts])
+    return torch.where(torch.isnan(d), torch.zeros_like(d), d).amin()
 
 
 def _ff_sum(x):

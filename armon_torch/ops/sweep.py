@@ -8,8 +8,9 @@ kernels (`armon_torch/csrc/`) replace the TPU's per-sweep kernels:
 - ``y_sweep`` (K2) replaces `_y_sweep_kernel` (+ `_halo_cat_bc`,
   `_dt_tile_min`);
 - ``cfl_finish`` (K3) replaces the cross-tile half of the CFL reduction
-  (`_dt_from_tiles`) and runs the dt recurrence of `core/timestep.dt_update`
-  on the device, as `_multicycle_kernel` does in-kernel.
+  (`_dt_from_tiles`) and runs the dt recurrence of
+  `core/timestep.dt_update_host` on the device, as `_multicycle_kernel`
+  does in-kernel.
 
 The cycle's last launch (K1, K2 or K4's, with `finish`, a `Finish`) runs
 K3's fold and dt step in its tail: the block that finishes last folds
@@ -50,9 +51,10 @@ import torch
 from ..models.cases import Bizarrium
 from ..utils.enums import Axis, sides_along
 from ..utils.errors import solver_error
-from ..core.timestep import dt_update
+from ..core.timestep import dt_update_host
 from ..core.state import torch_dtype
 from .eos import ieee_sqrt, scalar_like
+from .projection import sign as _sign
 
 # Scalar slots of the device state (see module doc).
 SC_T, SC_DTPREV, SC_LM, SC_DTUSE = range(4)
@@ -181,12 +183,6 @@ def fast_math_on(cfg, device) -> bool:
 
 
 # ---------------------------------------------------------- plain versions
-
-def _sign(x):
-    """jnp.sign: ±0 for ±0 and NaN for NaN (torch.sign maps both to +0)."""
-    one = torch.ones_like(x)
-    return torch.where(x > 0, one, torch.where(x < 0, -one, x))
-
 
 def _limiter(name, r):
     # src/limiters.jl:6-8
@@ -416,8 +412,8 @@ def cfl_finish_plain(cfg, partials, nblocks, scal, iscal, fold=True,
         run = bool(s[SC_T] < T(cfg.maxtime) and i[IS_CYCLE] < cfg.maxcycle
                    and i[IS_OK])
         if run:
-            dt_use, dt_next, ok = dt_update(cfg, s[SC_LM], s[SC_DTPREV],
-                                            int(i[IS_CYCLE]))
+            dt_use, dt_next, ok = dt_update_host(cfg, s[SC_LM], s[SC_DTPREV],
+                                                 int(i[IS_CYCLE]))
             s[SC_DTUSE] = dt_use
             s[SC_T] = s[SC_T] + dt_use
             s[SC_DTPREV] = dt_next

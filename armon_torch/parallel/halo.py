@@ -15,6 +15,9 @@ shard in the mesh's order.
   `MIRROR` on the global-border sides, which the kernels fill themselves;
 - `halo_exchange`: the write-back form, ghost bands replaced in copies of
   the fields. The time loop does not use it.
+- `halo_exchange_state`: the op path's write-back form over whole States
+  and any set of fields, the seven `COMM_VARS` by default, as the JAX
+  package's jnp tier exchanges them (`halo_exchange`, `:101-118`).
 
 Slabs are (4, g, cols) along Y and (4, rows, g) along X: field, then the
 g lines (Y) or the rows (X) in array order.
@@ -22,7 +25,9 @@ g lines (Y) or the rows (X) in array order.
 
 import torch
 
-from ..utils.enums import Axis
+from ..utils.enums import Axis, sides_along
+from ..core.state import COMM_VARS
+from ..ops.boundary import boundary_conditions, mirror_into
 from ..ops.sweep import MIRROR, mirror_factors, fill_ghosts_plain
 
 
@@ -114,3 +119,37 @@ def halo_exchange(cfg, mesh, fields, axis):
     axis = Axis(axis)
     return [tuple(fill_ghosts_plain(cfg, axis, fields[s.index], s.n_real, gh))
             for s, gh in zip(mesh, halo_slabs(cfg, mesh, fields, axis))]
+
+
+def halo_exchange_state(cfg, mesh, states, axis, vars=COMM_VARS):
+    """Every shard's State (`states[s]`, mesh order) with the ghost bands
+    of `vars` along `axis` filled, in copies: a neighbour's adjacent real
+    lines on the sides that face one, the mirror at a global border (the
+    hi-edge shard's band past its own real cells). A mesh flat along
+    `axis` (one shard among them) is `boundary_conditions` on each shard,
+    low side first. Along a sharded axis
+    every band is read from the fields as they were, as `lax.ppermute`
+    reads them; shards there hold at least g real lines, so no band is
+    a source of another."""
+    axis = Axis(axis)
+    k = int(axis)
+    if mesh.proc_dims[k] == 1:
+        return [boundary_conditions(cfg, st, axis, vars) for st in states]
+    g = cfg.nghost
+    out = []
+    for s in mesh:
+        n = s.n_real[k]
+        updates = {}
+        for var in vars:
+            a = getattr(states[s.index], var).clone()
+            for side, border in enumerate(sides_along(axis)):
+                nb = mesh.neighbour(s, axis, side)
+                if nb is None:
+                    mirror_into(cfg, a, var, border, n)
+                else:
+                    src = getattr(states[nb.index], var)
+                    [lines] = _real_lines(cfg, [src], nb, axis, 1 - side)
+                    _lines(a, axis, g + n if side else 0, g).copy_(lines)
+            updates[var] = a
+        out.append(states[s.index]._replace(**updates))
+    return out

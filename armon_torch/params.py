@@ -24,7 +24,7 @@ import torch
 
 from .utils.errors import solver_error
 from .models.cases import test_from_name, TestCase, _REGISTRY
-from .core.config import SolverConfig
+from .core.config import SolverConfig, OP_PATH_TIERS
 from .core.state import State
 
 
@@ -38,7 +38,10 @@ _IO = "ROADMAP queue A item 6 (I/O)"
 _DRIVERS = "ROADMAP queue A item 8 (other drivers + restart)"
 _OBSERVABILITY = "ROADMAP queue A item 9 (observability)"
 _MULTI_PROCESS = "ROADMAP queue A item 10b (multi-process runs)"
-_OP_PATH = "ROADMAP queue A item 3 (torch op path)"
+
+# kernel_tier values that select the hand-written kernels (the op path's
+# are `core/config.OP_PATH_TIERS`).
+KERNEL_TIERS = ("auto", "cuda", "pallas")
 
 
 def _stencil_width_riemann(scheme: str) -> int:
@@ -261,15 +264,17 @@ class ArmonParameters:
         self.numa_aware = bool(o.pop("numa_aware", False))
         self.lock_memory = bool(o.pop("lock_memory", False))
         self.busy_wait_limit = int(o.pop("busy_wait_limit", 100))
-        # Every accepted tier selects the hand-written kernels; "pallas" is
-        # accepted so option dicts written for the JAX package run as-is.
+        # "auto", "cuda" and "pallas" select the hand-written kernels;
+        # "torch" selects the op path (plain tensor ops, the JAX package's
+        # jnp tier). "pallas" and "jnp" are accepted so option dicts written
+        # for the JAX package run as they are. Only this option selects the
+        # op path: nothing falls back to it.
         self.kernel_tier = str(o.pop("kernel_tier", "auto"))
-        if self.kernel_tier in ("jnp", "torch"):
-            _not_ported(f"kernel_tier='{self.kernel_tier}'", _OP_PATH)
-        if self.kernel_tier not in ("auto", "cuda", "pallas"):
+        if self.kernel_tier not in KERNEL_TIERS + OP_PATH_TIERS:
             solver_error("config", f"Unknown kernel_tier: '{self.kernel_tier}'")
         # use_fast_math (src/generic_kernel.jl:3, default true): f32 CUDA
         # kernels divide through an approximate reciprocal. False = IEEE.
+        # The op path always divides in IEEE arithmetic.
         self.use_fast_math = bool(o.pop("use_fast_math", True))
         # Route selection (`ops/routing.py`): pair_threshold=0 forces the
         # per-sweep kernels, temporal_blocking=1 turns off the K5 route.
@@ -362,6 +367,7 @@ class ArmonParameters:
                 cst_dt=self.cst_dt,
                 dt_on_even_cycles=self.dt_on_even_cycles,
                 fast_math=self.use_fast_math,
+                kernel_tier=self.kernel_tier,
                 pair_threshold=self.pair_threshold,
                 temporal_blocking=self.temporal_blocking,
             )
@@ -375,7 +381,11 @@ class ArmonParameters:
         a (4, g, cols) or (4, rows, g) ghost slab for each side that faces
         a neighbour. `return_data` rebuilds the 11-field State after the
         loop, once the second field set is freed. Field bytes are one
-        shard's; a device counts every shard placed on it."""
+        shard's; a device counts every shard placed on it.
+
+        The op path holds the 11-field State and, while a cycle runs, its
+        successor: 22 fields. A sweep's temporaries come on top of that
+        and are not counted (PERF.md records the measured peak)."""
         g = self.nghost
         nx, ny = self.n_local
         rows, cols = ny + 2 * g, nx + 2 * g
@@ -388,7 +398,9 @@ class ArmonParameters:
                 slabs = ((ix > 0) + (ix < px - 1)) * rows * g \
                     + ((iy > 0) + (iy < py - 1)) * g * cols
                 dev = self.devices[iy * px + ix]
-                loop[dev] = loop.get(dev, 0) + 9 * field + 4 * slabs * itemsize
+                own = 2 * len(State._fields) * field if self.config.op_path \
+                    else 9 * field + 4 * slabs * itemsize
+                loop[dev] = loop.get(dev, 0) + own
                 state[dev] = state.get(dev, 0) + len(State._fields) * field
         return {
             "per_device_field_bytes": field,
@@ -413,12 +425,15 @@ class ArmonParameters:
                     else "every cycle"))
         from .ops.routing import route, temporal_pairs
         fast = self.use_fast_math and self.data_type.itemsize == 4 \
-            and self.device.type == "cuda"
-        kernels = {"per_sweep": "per-sweep kernels",
-                   "pair": "whole-cycle kernel (pair route)",
-                   "multicycle": "multicycle kernel (K=%d)"
-                                 % len(temporal_pairs(self.config) or ())
-                   }[route(self.config)]
+            and self.device.type == "cuda" and not self.config.op_path
+        if self.config.op_path:
+            kernels = f"torch op path (kernel_tier='{self.kernel_tier}')"
+        else:
+            kernels = {"per_sweep": "per-sweep kernels",
+                       "pair": "whole-cycle kernel (pair route)",
+                       "multicycle": "multicycle kernel (K=%d)"
+                                     % len(temporal_pairs(self.config) or ())
+                       }[route(self.config)]
         lines = [
             "Armon (PyTorch/CUDA) parameters:",
             f" - test:       {self.test!r}",

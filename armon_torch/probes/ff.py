@@ -29,7 +29,7 @@ from . import LAUNCHES, count
 from .._card import (bound, card_line, device_of, emit, kernel_entry, shown,
                      time_ms)
 from ..ops.eos import ieee_sqrt
-from ..ops.sweep import _sign
+from ..ops.projection import sign as _sign
 
 GAMMA = 1.4
 DX = 1.0 / 1024.0

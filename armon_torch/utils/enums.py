@@ -25,6 +25,16 @@ class Side(enum.IntEnum):
     TOP = 3
 
 
+def axis_of(side: Side) -> Axis:
+    """The axis a side lies along (`src/utils.jl:33-38`)."""
+    return Axis.X if side in (Side.LEFT, Side.RIGHT) else Axis.Y
+
+
+def is_first_side(side: Side) -> bool:
+    """True for Left/Bottom, the lower coordinate (`src/utils.jl:54-59`)."""
+    return side in (Side.LEFT, Side.BOTTOM)
+
+
 def sides_along(axis: Axis):
     """Both sides of `axis`, first side first (`src/utils.jl:40-45`)."""
     return (Side.LEFT, Side.RIGHT) if axis is Axis.X else (Side.BOTTOM, Side.TOP)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-8, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-9, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
     python3 chip_smoke.py --phases 0,8    # the probes only
+    python3 chip_smoke.py --phases 0,9    # the torch op path only
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), the kernels' build time,
@@ -86,7 +87,19 @@ Phases, each printing one JSON line:
      then each probe kernel against its plain version at the shapes it
      was timed at, and a small one (bit for bit where the arithmetic is
      exact, within a stated gate elsewhere; the flip kernels also at odd
-     widths, 513x1030, 7x9 and 33x1027, and on offset views).
+     widths, 513x1030, 7x9 and 33x1027, and on offset views);
+  9. the torch op path (``kernel_tier="torch"``: plain PyTorch ops, none
+     of the hand-written kernels): (a) the goldens (Sod, Sod_y, Sod_circ
+     at 100^2), zero differences in f64 and f32; (b) the main path's
+     configuration (Sod 8192^2 f32, GAD/minmod/euler_2nd, nghost 4,
+     Sequential), one warm-up run then 20 timed cycles through `armon()`,
+     with cells/s, peak memory, host reads, the CUDA kernels and their
+     device time a cycle (`torch.profiler`), the device's busy share, no
+     launch of a hand-written kernel, and the largest difference per
+     field from the per-sweep kernels in exact mode over the same cycles
+     (within 4 ulp); (c) f64 Sod_circ 1024^2, 3 cycles, against the
+     kernels in exact mode within rtol 1e-12, atol 1e-14. Its lines come
+     before phase 6's.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -460,7 +473,10 @@ def _read_golden(path, dtype):
     return np.dtype(dtype).type(dt_s), int(cyc_s), data
 
 
-def _goldens(torch, route):
+GOLDEN_MODES = (("float64", False), ("float32", False), ("float32", True))
+
+
+def _goldens(torch, route, modes=GOLDEN_MODES):
     """Sod, Sod_y and Sod_circ at 100^2 through `armon()` on one route:
     zero differences required in f64 and f32 exact; the f32 fast-math
     count is reported."""
@@ -469,8 +485,7 @@ def _goldens(torch, route):
     from armon_torch.interop import to_numpy
     rows = []
     for test in ("Sod", "Sod_y", "Sod_circ"):
-        for dtype, fast in (("float64", False), ("float32", False),
-                            ("float32", True)):
+        for dtype, fast in modes:
             bits = 64 if dtype == "float64" else 32
             ref_dt, ref_cycles, ref = _read_golden(
                 os.path.join(REF_DIR, f"ref_{test}_{bits}bits.csv"), dtype)
@@ -1719,9 +1734,156 @@ def phase8(torch):
     return kernels
 
 
+# ---------------------------------------------------------------- op path
+
+OP_CYCLES = 20
+OP_F64_N, OP_F64_CYCLES = 1024, 3
+
+
+def _op_vs_kernels(torch, test, n, dtype, cycles, timed=False):
+    """`armon()` on the op path and on the per-sweep kernels in exact mode
+    (`use_fast_math=False`) from the same initial state over the same
+    cycles: the op path's stats, params and the largest difference per
+    field (max abs, norm-relative, ulps) on the real cells; with `timed`,
+    its peak memory and its launches of the hand-written kernels (none
+    may happen)."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.ops import sweep as K
+    opts = dict(test=test, N=(n, n), data_type=dtype, scheme="GAD",
+                projection="euler_2nd", riemann_limiter="minmod", nghost=4,
+                axis_splitting="Sequential", maxcycle=cycles, maxtime=1e30,
+                silent=5, return_data=True, device="cuda")
+    out = {}
+    if timed:
+        armon(ArmonParameters(kernel_tier="torch", **dict(opts, maxcycle=2)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+    params = ArmonParameters(kernel_tier="torch", **opts)
+    op = armon(params)
+    torch.cuda.synchronize()
+    if timed:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["kernel_launches"] = sum(K.LAUNCHES.values()) + sum(K.TAILS.values())
+        if out["kernel_launches"]:
+            raise AssertionError(f"the op path launched kernels: {K.LAUNCHES}")
+    ref = armon(ArmonParameters(use_fast_math=False, **PER_SWEEP, **opts))
+    if op.cycles != cycles or ref.cycles != cycles:
+        raise AssertionError(f"op path {test} {n}^2: {op.cycles} / "
+                             f"{ref.cycles} cycles of {cycles}")
+    out["diff"] = {v: compare(torch, getattr(op.data, v), getattr(ref.data, v),
+                              params.nghost)
+                   for v in ("rho", "u", "v", "E", "p")}
+    out["t_diff"] = op.final_time - ref.final_time
+    out["dt_diff"] = op.last_dt - ref.last_dt
+    return op, params, ref, out
+
+
+def _launches_per_cycle(torch, n):
+    """What a cycle of the op path at Sod n^2 f32 launches: the CUDA
+    kernels `torch.profiler` sees (None where it sees no device event),
+    their device ms and the eight costliest kinds, each as the difference
+    between runs of one and two stop-check batches over the cycles
+    between them (a batch computes all its cycles)."""
+    from torch.profiler import profile, ProfilerActivity
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core.step import STOP_CHECK_EVERY
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+    runs = []
+    for c in (STOP_CHECK_EVERY, 2 * STOP_CHECK_EVERY):
+        params = ArmonParameters(test="Sod", N=(n, n), data_type="float32",
+                                 maxcycle=c, maxtime=1e30, silent=5,
+                                 kernel_tier="torch", device="cuda")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            armon(params)
+            torch.cuda.synchronize()
+        runs.append({e.key: (e.count, device_us(e))
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith(("Memcpy", "Memset"))})
+    k1, k2 = runs
+    per = {}  # by `_kernel_label`: [launches, ms] a cycle
+    for key, (c, us) in k2.items():
+        c0, us0 = k1.get(key, (0, 0))
+        row = per.setdefault(_kernel_label(key), [0.0, 0.0])
+        row[0] += (c - c0) / STOP_CHECK_EVERY
+        row[1] += (us - us0) / STOP_CHECK_EVERY / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"cuda_kernels_per_cycle":
+            sum(c for c, _ in per.values()) if k2 else None,
+            "device_ms_per_cycle": sum(ms for _, ms in per.values()),
+            "top_kernels_per_cycle": {k: {"launches": c, "ms": ms}
+                                      for k, (c, ms) in top}}
+
+
+_LAUNCHERS = ("vectorized_elementwise_kernel", "unrolled_elementwise_kernel",
+              "elementwise_kernel", "gpu_kernel_impl", "gpu_kernel_impl_nocast",
+              "reduce_kernel")
+
+
+def _kernel_label(key):
+    """A short name for a PyTorch CUDA kernel: the last functor, kernel or
+    implementation named in its signature that is not a generic launcher."""
+    import re
+    names = [m for m in re.findall(r"[A-Za-z_]\w*", key)
+             if m.endswith(("Functor", "kernel", "_impl", "_cuda"))
+             or "Functor_" in m]
+    names = [m for m in names if m not in _LAUNCHERS]
+    return names[-1] if names else key[:60]
+
+
+def phase9(torch):
+    """The op path (``kernel_tier="torch"``, plain PyTorch ops) on the
+    card: (a) the goldens, (b) the main path's configuration, timed and
+    held against the per-sweep kernels in exact mode, (c) f64 Sod_circ
+    against the kernels within `tests/test_fuzz.py:87`'s tolerance."""
+    import numpy as np
+    from armon_torch.ops import sweep as K
+    from armon_torch.core.step import STOP_CHECK_EVERY
+    saved = saved_counts(K)
+    golden = _goldens(torch, dict(kernel_tier="torch"), GOLDEN_MODES[:2])
+    emit({"phase": 9, "goldens": golden})
+
+    op, params, _, main = _op_vs_kernels(torch, "Sod", MAIN_N, "float32",
+                                         OP_CYCLES, timed=True)
+    if not np.isfinite(float(op.data.rho.sum())):
+        raise AssertionError("op path main configuration: not finite")
+    _gate(main["diff"], "float32", False)  # exact mode: within 4 ulp
+    cells = MAIN_N * MAIN_N
+    computed = -(-op.cycles // STOP_CHECK_EVERY) * STOP_CHECK_EVERY
+    main.update({"phase": 9, "card": card_line(), "N": MAIN_N,
+                 "cycles": op.cycles, "cycles_computed": computed,
+                 "solve_s": op.solve_time,
+                 "cells_per_s": cells * op.cycles / op.solve_time,
+                 "grind_ns": op.solve_time / op.cycles / cells * 1e9,
+                 "cycle_ms": op.solve_time / op.cycles * 1e3,
+                 "computed_cycle_ms": op.solve_time / computed * 1e3,
+                 "host_reads": op.host_reads},
+                **_launches_per_cycle(torch, MAIN_N))
+    main["device_busy_share"] = main["device_ms_per_cycle"] \
+        / main["computed_cycle_ms"]
+    emit(main)
+    del op, params
+
+    op, params, ref, f64 = _op_vs_kernels(torch, "Sod_circ", OP_F64_N,
+                                          "float64", OP_F64_CYCLES)
+    g = params.nghost
+    for v in f64["diff"]:
+        a = getattr(op.data, v)[g:-g, g:-g]
+        if not torch.allclose(a, getattr(ref.data, v)[g:-g, g:-g],
+                              rtol=1e-12, atol=1e-14):
+            raise AssertionError(f"op path f64 Sod_circ {v}: {f64['diff']}")
+    emit({"phase": 9, "f64_sod_circ": f64, "N": OP_F64_N,
+          "cycles": OP_F64_CYCLES})
+    restore_counts(K, saved)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     args = ap.parse_args(argv)
@@ -1758,6 +1920,8 @@ def main(argv=None):
         kernels += phase7(torch, rates)
     if 8 in phases:
         kernels += phase8(torch)
+    if 9 in phases:
+        phase9(torch)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})

@@ -18,7 +18,7 @@ import armon_torch
 from armon_torch.core.solver import make_init_fused, make_mesh
 from armon_torch.core.splitting import split_schedules
 from armon_torch.core.step import (LoopResult, make_time_loop_lean,
-                                   run_schedule, _result)
+                                   run_schedule_fused, _result)
 from armon_torch.ops import sweep as K
 from armon_torch.ops.routing import route
 from armon_torch.parallel.halo import new_slab_buffers
@@ -51,8 +51,9 @@ def _old_loop(cfg, mesh, shards, t0, cycle0, dt0, local0, check_every):
         for _ in range(check_every):
             K.cfl_finish_plain(cfg, partials, nb, scal, iscal, fold=True, step=True)
             sched = even if cycle % 2 == 0 else odd
-            cur, nxt, nb = run_schedule(cfg, mesh, cur, nxt, p, parts,
-                                        [(scal, iscal)] * S, sched, pair, slabs)
+            cur, nxt, nb = run_schedule_fused(cfg, mesh, cur, nxt, p, parts,
+                                              [(scal, iscal)] * S, sched,
+                                              pair, slabs)
             nb *= S
             cycle += 1
         running = bool(iscal[K.IS_NEXT].item())

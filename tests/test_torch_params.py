@@ -32,6 +32,8 @@ OPTION_SETS = [
     dict(test="Sod", N=(16, 16), cst_dt=True, Dt=1e-3, maxcycle=7,
          axis_splitting="X_only", kernel_tier="pallas", pair_threshold=0,
          temporal_blocking=1, use_fast_math=False),
+    dict(test="Sod_circ", N=(24, 40), kernel_tier="jnp",
+         axis_splitting="Godunov"),
 ]
 
 
@@ -44,7 +46,7 @@ def test_derived_config_matches_jax(opts):
                   "origin", "riemann", "limiter", "projection", "splitting",
                   "cfl", "maxtime", "maxcycle", "Dt", "cst_dt",
                   "dt_on_even_cycles", "pair_threshold",
-                  "temporal_blocking", "fast_math"):
+                  "temporal_blocking", "fast_math", "kernel_tier"):
         assert getattr(jc, field) == getattr(tc, field), field
     for prop in ("dx", "dy", "local_shape", "gamma"):
         assert getattr(jc, prop) == getattr(tc, prop), prop
@@ -85,12 +87,35 @@ def test_nghost_floor_is_stencil_sum(scheme, projection, floor):
     dict(checkpoint_step=5), dict(animation_step=2), dict(log_blocks=True),
     dict(profiling="trace"), dict(silent=1), dict(silent=0),
     dict(P=(2, 1), num_processes=2),
-    dict(kernel_tier="jnp"), dict(coordinator_address="localhost:1234"),
+    dict(coordinator_address="localhost:1234"),
     dict(block_size=(8, 128)),
 ], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))))
 def test_out_of_slice_options_raise(opt):
     with pytest.raises(SolverException, match="ROADMAP|block_size"):
         armon_torch.ArmonParameters(device="cpu", **opt)
+
+
+@pytest.mark.parametrize("tier,op_path", [
+    ("torch", True), ("jnp", True), ("auto", False), ("cuda", False),
+    ("pallas", False)])
+def test_kernel_tier_selects_path(tier, op_path, monkeypatch):
+    """"torch" and "jnp" run the op path's loop, every other tier the
+    kernels' lean loop; nothing else chooses between them."""
+    from armon_torch.core import solver
+    called = []
+    for name in ("make_time_loop", "make_time_loop_lean"):
+        def spy(*args, _real=getattr(solver, name), _name=name):
+            called.append(_name)
+            return _real(*args)
+        monkeypatch.setattr(solver, name, spy)
+    p = armon_torch.ArmonParameters(device="cpu", N=(16, 16), maxcycle=2,
+                                    kernel_tier=tier, silent=3)
+    assert p.config.op_path is op_path
+    assert ("op path" in p.describe()) is op_path
+    assert armon_torch.armon(p).cycles == 2
+    assert called == ["make_time_loop" if op_path else "make_time_loop_lean"]
+    with pytest.raises(SolverException, match="kernel_tier"):
+        armon_torch.ArmonParameters(device="cpu", kernel_tier="numpy")
 
 
 def test_restore_and_checkpoint_hooks_raise():
