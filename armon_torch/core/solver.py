@@ -1,24 +1,36 @@
 """Solver entry point: `armon(params) -> SolverStats`
 (`armon_tpu/core/solver.py:826-1048`, `src/solver.jl:406-516`).
 
-Two paths, chosen by `kernel_tier` alone:
-- the lean path of the JAX package, over the hand-written kernels:
+Four drivers, chosen as the JAX package chooses them:
+- the lean loop over the hand-written kernels (`core/step.py`
+  `make_time_loop_lean`, per-sweep, pair or multicycle route):
   `make_init_fused` (init, the cycle-0 EOS and the CFL seed, returning
-  only the five carried fields), the lean time loop (`core/step.py`,
-  per-sweep, pair or multicycle route as the JAX package routes), the
-  conservation check over the carry, and `make_rehydrate` when the caller
-  asks for the full State;
-- the op path (``kernel_tier="torch"`` or ``"jnp"``), the JAX package's
-  non-lean jnp-tier run: `make_init` (the full State), the op path's loop
-  (`core/step.make_time_loop`, which runs the cycle-0 EOS), and the
-  conservation check over the final State.
+  only the five carried fields), the loop, the conservation check over the
+  carry, and `make_rehydrate` when something reads the full State; a run
+  restored from a snapshot with its CFL carry resumes through the same
+  loop (under temporal blocking, only from an even cycle);
+- the op path's loop (``kernel_tier="torch"`` or ``"jnp"``, the JAX
+  package's jnp tier): `make_init` (the full State), `core/step.
+  make_time_loop` (the cycle-0 EOS, or a restored State with the
+  snapshot's carry for its first cycle), the check over the final State;
+- the full-state restore loop over the kernels: a restored run that the
+  lean loop cannot take (no carry in the snapshot, or an odd cycle under
+  temporal blocking) runs the lean loop's cycles, one cycle at a time
+  (pair or per-sweep, never K5), from the restored States;
+- the per-cycle driver (`_cycle_driver`), when something is to be done
+  on the host after each cycle: the `silent <= 1` line, animation frames,
+  `checkpoint_step` snapshots, and compare mode. One cycle of the kernels
+  (`core/step.KernelCycles`, the lean loop's body) or of the op path per
+  call, one host read a cycle; compare mode steps through the op path's
+  sub-steps with a hook between each (`make_file_checkpoint`).
 
 Every step runs on each shard of the mesh (`parallel/mesh.py`; one shard
 holding the whole grid when P = (1, 1)): the carry is a list of
-FusedCarry, one per shard in the mesh's order, and `return_data` gathers
-the global State (`interop.gather_state`).
+FusedCarry or State, one per shard in the mesh's order, and `return_data`
+gathers the global State (`interop.gather_state`).
 """
 
+import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -27,15 +39,25 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.enums import Axis
 from ..utils.errors import solver_error
 from ..params import ArmonParameters
+from ..ops import sweep as K
 from ..ops.init import init_state
-from ..ops.eos import update_eos
+from ..ops.eos import update_eos, scalar_like
+from ..ops.projection import projection_remap
 from ..ops.reductions import (cfl_maxima, cfl_limit, conservation_vars,
                               conservation_scalar)
+from ..ops.riemann import numerical_fluxes
+from ..ops.routing import cycle_route, temporal_pairs
+from ..ops.update import cell_update
+from ..parallel.halo import halo_exchange_state
 from ..parallel.mesh import Mesh
+from .splitting import split_schedules
 from .state import State, FusedCarry
-from .step import make_time_loop_lean, make_time_loop
+from .step import (KernelCycles, LoopResult, make_time_loop_lean,
+                   make_time_loop, solver_cycle)
+from .timestep import next_time_step, dt_update
 
 
 @dataclass
@@ -95,30 +117,45 @@ def make_init(params):
 def make_init_fused(params):
     """() -> (carry, CFL seed): the initial state, its cycle-0 EOS and the
     seed of the carried CFL minimum (`core/solver.py:149`). x, y, c, g are
-    dropped once the seed is formed. The carry is a list of FusedCarry, one
-    per shard in the mesh's order (one off a mesh), each shard initialised
-    at its global origin; the seed is formed on the first shard's device
-    from every shard's maxima: the minimum of the shards' dt (`pmin_dt`,
-    :173), bit for bit."""
-    cfg = params.config
+    dropped once the shard's maxima are formed. The carry is a list of
+    FusedCarry, one per shard in the mesh's order (one off a mesh), each
+    shard initialised at its global origin; the seed is `cfl_seed`'s."""
 
     def init():
-        carry, mx, my = [], [], []
+        carry, maxima = [], []
         for shard in make_mesh(params):
             st = _initial_state(params, shard)
             carry.append(FusedCarry(st.rho, st.u, st.v, st.E, st.p))
-            if not cfg.cst_dt:
-                a, b = cfl_maxima(cfg, st.u, st.v, st.c, shard.n_real)
-                mx.append(a.to(params.device))
-                my.append(b.to(params.device))
-        if cfg.cst_dt:
-            seed = torch.tensor(float(np.finfo(cfg.dtype).max),
-                                dtype=carry[0].rho.dtype, device=params.device)
-        else:
-            seed = cfl_limit(cfg, torch.stack(mx).amax(), torch.stack(my).amax())
-        return carry, seed
+            maxima.append(_shard_maxima(params, shard, st))
+        return carry, _seed(params, maxima, carry[0].rho.dtype)
 
     return init
+
+
+def _shard_maxima(params, shard, st):
+    """A shard's CFL maxima, on the first shard's device."""
+    if params.config.cst_dt:
+        return None
+    return tuple(a.to(params.device) for a in cfl_maxima(
+        params.config, st.u, st.v, st.c, shard.n_real))
+
+
+def _seed(params, maxima, dtype):
+    cfg = params.config
+    if cfg.cst_dt:
+        return torch.tensor(float(np.finfo(cfg.dtype).max), dtype=dtype,
+                            device=params.device)
+    mx, my = zip(*maxima)
+    return cfl_limit(cfg, torch.stack(mx).amax(), torch.stack(my).amax())
+
+
+def cfl_seed(params, states):
+    """The seed of the carried CFL minimum from every shard's State (its
+    u, v and c), on the first shard's device: the minimum of the shards'
+    dt (`pmin_dt`, `core/solver.py:173`), bit for bit."""
+    return _seed(params, [_shard_maxima(params, shard, st) for shard, st
+                          in zip(make_mesh(params), states)],
+                 states[0].rho.dtype)
 
 
 def make_rehydrate(params):
@@ -152,6 +189,354 @@ def make_conservation(params):
     return call
 
 
+
+
+def _full_states(params, fs, base=None):
+    """The full State of each shard from a kernel run's carry: the
+    restored States' other fields when the run was restored (`base`), else
+    rehydrated as a fresh run's (`make_rehydrate`)."""
+    if base is None:
+        return make_rehydrate(params)(fs)
+    return [b._replace(rho=f.rho, u=f.u, v=f.v, E=f.E, p=f.p)
+            for b, f in zip(base, fs)]
+
+
+def _carry_of(states):
+    return [FusedCarry(st.rho, st.u, st.v, st.E, st.p) for st in states]
+
+
+# ------------------------------------------------------------------ drivers
+
+def make_step_fns(params):
+    """The op path's sub-steps for compare mode (`_make_step_fns`,
+    `core/solver.py:555-604`), each over the States of every shard of the
+    mesh: the halo exchange and the CFL minimum look across shards, as the
+    reference's per-rank `step_checkpoint` does (`src/io.jl:185-227`)."""
+    cfg = params.config
+    mesh = make_mesh(params)
+
+    fns = {}
+    for axis in (Axis.X, Axis.Y):
+        fns[("eos", axis)] = lambda states: [update_eos(cfg, st)
+                                             for st in states]
+        fns[("bc", axis)] = lambda states, a=axis: halo_exchange_state(
+            cfg, mesh, states, a)
+        for name, op in (("fluxes", numerical_fluxes), ("update", cell_update),
+                         ("remap", projection_remap)):
+            fns[(name, axis)] = (lambda states, dt, a=axis, op=op:
+                                 [op(cfg, st, a, dt.to(s.device))
+                                  for s, st in zip(mesh, states)])
+    fns["dt"] = lambda states, dtp, cyc, seeded: next_time_step(
+        cfg, mesh, states, dtp, cyc, seeded)
+    fns["dt_resume"] = lambda dtp, cyc, lm: dt_update(cfg, lm, dtp, cyc)
+    return fns
+
+
+def _checkpointed_cycle(params, fns, states, dt_prev, cycle_idx, checkpoint,
+                        seeded, lm_override=None):
+    """`solver_cycle` with a checkpoint hook after every sub-step
+    (`src/solver.jl:288-320`, `core/solver.py:606-656`). `lm_override`:
+    the snapshot's CFL carry, replacing the states' minimum on the first
+    cycle resumed from a kernel run's snapshot (stale `c`). Returns
+    (states, dt_use, dt_next, ok, stop)."""
+    cfg = params.config
+    T = np.dtype(cfg.dtype).type
+    if lm_override is not None:
+        dt_use, dt_next, ok = fns["dt_resume"](dt_prev, cycle_idx, lm_override)
+    else:
+        dt_use, dt_next, ok = fns["dt"](states, dt_prev, cycle_idx, seeded)
+    even, odd = split_schedules(cfg.splitting)
+    # time_step files are tagged X at cycle 0, else with the previous
+    # cycle's last sweep axis, the reference's `state.axis` at that point
+    # (src/io.jl:193-198), so that compare mode across implementations
+    # finds the same file names.
+    ts_axis = Axis.X if cycle_idx == 0 else \
+        (even if (cycle_idx - 1) % 2 == 0 else odd)[-1][0]
+    if checkpoint("time_step", states, ts_axis, float(dt_use), cycle_idx):
+        return states, dt_use, dt_next, ok, True
+    schedule = even if cycle_idx % 2 == 0 else odd
+    seen = {}  # sweeps per axis within this cycle (Strang repeats one)
+    for axis, factor in schedule:
+        rep = seen[axis] = seen.get(axis, 0) + 1
+        # `rep` rides a keyword only for a repeated axis (Strang's third
+        # sweep), so that a five-argument hook works on every other
+        # schedule.
+        rkw = {"rep": rep} if rep > 1 else {}
+        dt = dt_use * float(T(factor))
+        dtf = float(dt)
+        states = fns[("eos", axis)](states)
+        if checkpoint("EOS", states, axis, dtf, cycle_idx, **rkw):
+            return states, dt_use, dt_next, ok, True
+        states = fns[("bc", axis)](states)
+        if checkpoint("boundary_conditions", states, axis, dtf, cycle_idx,
+                      **rkw):
+            return states, dt_use, dt_next, ok, True
+        for label, key in (("numerical_fluxes", "fluxes"),
+                           ("cell_update", "update"),
+                           ("projection_remap", "remap")):
+            states = fns[(key, axis)](states, dt)
+            if checkpoint(label, states, axis, dtf, cycle_idx, **rkw):
+                return states, dt_use, dt_next, ok, True
+    return states, dt_use, dt_next, ok, False
+
+
+def _cycle_driver(params, states, fs, local0, checkpoint, restored):
+    """The per-cycle driver (`_python_cycle_driver`, `core/solver.py:
+    403-553`): one cycle per step, then the host's work for it: a
+    `checkpoint_step` snapshot, the `silent <= 1` line (after the
+    conservation sums), an animation frame.
+
+    Over the kernels (no hook, not the op path) a step is one cycle of
+    `KernelCycles`, the lean loop's body, on the route of one cycle
+    (`cycle_route`: pair or per-sweep, never K5), and the host reads the
+    loop's int scalars once a cycle (whether the next cycle runs, and ok);
+    t, dt and lm are read only for a cycle whose snapshot or line needs
+    them. Otherwise a step is the op path's `solver_cycle`, or, with a
+    hook, its sub-steps (`_checkpointed_cycle`), and the host reads dt and
+    ok once a cycle. Returns (LoopResult, the restored States or None)."""
+    cfg = params.config
+    T = np.dtype(cfg.dtype).type
+    mesh = make_mesh(params)
+    conservation = make_conservation(params) if params.silent <= 1 else None
+    t, cycles, dt_prev, lm = T(0.0), 0, T(0.0), None
+    if restored is not None:
+        t, cycles, dt_prev, lm = T(restored[0]), int(restored[1]), \
+            T(restored[2]), restored[3]
+    base = states if restored is not None else None
+    kernels = not cfg.op_path and checkpoint is None
+    params._ran_fused = kernels
+    reads = 0
+
+    def after_cycle(full, carry, t, dt_prev, lm):
+        """The host's work after a cycle. `full` makes the full States."""
+        if params.checkpoint_step and cycles % params.checkpoint_step == 0:
+            from ..io.restart import save_checkpoint
+            os.makedirs(params.output_dir, exist_ok=True)
+            save_checkpoint(os.path.join(params.output_dir,
+                                         params.output_file + ".ckpt.npz"),
+                            params, full(), float(t), cycles, float(dt_prev),
+                            local_min=lm)
+        if conservation is not None:
+            m, e = conservation(carry)
+            dM = abs(params.initial_mass - m) / params.initial_mass * 100
+            dE = abs(params.initial_energy - e) / params.initial_energy * 100
+            # Printed after next_cycle!, where current_dt is already the
+            # next cycle's dt (src/solver.jl:366-367); '#' keeps trailing
+            # zeros as Julia's %#8.6g does.
+            print(f"Cycle {cycles:4d}: dt = {float(dt_prev):.18f}, "
+                  f"t = {float(t):.18f}, |dM| = {dM:#8.6g}%, "
+                  f"|dE| = {dE:#8.6g}%")
+        if params.animation_step != 0 and \
+                (cycles - 1) % params.animation_step == 0:
+            frame = (cycles - 1) // params.animation_step
+            anim_dir = os.path.join(params.output_dir, "anim")
+            os.makedirs(anim_dir, exist_ok=True)
+            _write_state(params, full(),
+                         os.path.join(anim_dir,
+                                      f"{params.output_file}_{frame:03d}"),
+                         per_shard=cfg.spmd and params.use_MPI)
+
+    if kernels:
+        if fs is None:  # restored: the carry, or a seed from the saved c
+            fs = _carry_of(states)
+            local0 = lm if lm is not None else float(cfl_seed(params, states))
+        run = KernelCycles(cfg, mesh, fs, t, cycles, dt_prev, local0,
+                           cycle_route(cfg) == "pair")
+        pre = run.scal.clone()
+        running = t < T(cfg.maxtime) and cycles < cfg.maxcycle
+        if running:
+            run.first_step()
+        while running:
+            pre.copy_(run.scal)  # t and dt_prev after this cycle
+            run.cycle(cycles)
+            _, ok, running, _ = run.iscal.tolist()
+            reads += 1
+            cycles += 1
+            if not running and not ok:
+                solver_error("time", f"Invalid time step for cycle "
+                                     f"{cycles - 1}")
+            if conservation is not None or (params.checkpoint_step and
+                                            cycles % params.checkpoint_step == 0):
+                tv, dtv, lmv = torch.stack([pre[K.SC_T], pre[K.SC_DTPREV],
+                                            run.scal[K.SC_LM]]).tolist()
+                reads += 1
+            else:
+                tv = dtv = lmv = None
+            after_cycle(lambda: _full_states(params, run.carry(), base),
+                        run.carry(), tv, dtv, lmv)
+        res = run.result(reads)
+        params._final_local_min = res.lm
+        return res, base
+
+    fns = make_step_fns(params) if checkpoint is not None else None
+    like = states[0].rho
+    if restored is None:
+        if checkpoint is not None and \
+                checkpoint("init_test", states, Axis.X, 0.0, 0):
+            return _op_result(states, t, cycles, dt_prev, reads), base
+        if cfg.maxcycle > 0:
+            states = [update_eos(cfg, st) for st in states]
+            if checkpoint is not None and \
+                    checkpoint("EOS_init", states, Axis.X, 0.0, 0):
+                return _op_result(states, t, cycles, dt_prev, reads), base
+    # A snapshot's carry overrides the first resumed cycle's CFL minimum.
+    resume_lm = scalar_like(like, T(lm)) if lm is not None else None
+    dt_t = scalar_like(like, dt_prev)
+    while t < T(cfg.maxtime) and cycles < cfg.maxcycle:
+        seeded = dt_prev != 0
+        if checkpoint is None:
+            states, dt_use, dt_next, ok = solver_cycle(
+                cfg, mesh, states, dt_t, cycles, seeded, resume_lm)
+            stop = False
+        else:
+            states, dt_use, dt_next, ok, stop = _checkpointed_cycle(
+                params, fns, states, dt_t, cycles, checkpoint, seeded,
+                resume_lm)
+        resume_lm = None
+        du, dn, okv = torch.stack([dt_use, dt_next, ok.to(dt_use.dtype)]
+                                  ).tolist()
+        reads += 1
+        if stop:
+            return _op_result(states, t, cycles, T(dn), reads), base
+        if not okv:
+            solver_error("time", f"Invalid time step for cycle {cycles}: {dn}")
+        t = T(t + T(du))
+        cycles += 1
+        dt_prev, dt_t = T(dn), dt_next
+        after_cycle(lambda: states, states, t, dt_prev, None)
+    return _op_result(states, t, cycles, dt_prev, reads), base
+
+
+def _op_result(states, t, cycles, dt, reads):
+    """The op path's per-cycle result: no CFL carry is recorded."""
+    return LoopResult(states, float(t), cycles, float(dt), float("nan"),
+                      True, reads)
+
+
+def _restore_loop_kernels(params, states, restored):
+    """The full-state restore loop over the kernels (`make_time_loop(
+    restore=True)`'s fused branch, `armon_tpu/core/step.py:483-598`): the
+    lean loop's cycles on the route of one cycle (never K5) from the
+    restored States, seeded with the snapshot's carry or, without one,
+    from the saved c as a fresh start is."""
+    cfg = params.config
+    T = np.dtype(cfg.dtype).type
+    t, cycles, dt_prev, lm = restored
+    local0 = lm if lm is not None else float(cfl_seed(params, states))
+    loop = make_time_loop_lean(cfg, make_mesh(params), kind=cycle_route(cfg))
+    return loop(_carry_of(states), T(t), cycles, T(dt_prev), local0)
+
+
+def _write_state(params, states, path, per_shard, with_ghosts=False,
+                 host=None):
+    """A state file of the per-shard States: one per shard (`_<cx>×<cy>`,
+    no global gather) or one of the gathered global State (`host`, where
+    the caller has gathered it already). Returns the files written."""
+    if per_shard:
+        from ..io.subdomain import write_sub_domain_files
+        return write_sub_domain_files(params, states, path,
+                                      precision=params.output_precision,
+                                      with_ghosts=with_ghosts)
+    from ..interop import gather_state
+    from ..io.output import write_state_file
+    if host is None:
+        host = gather_state(params, states)
+    write_state_file(params.config, host, path,
+                     precision=params.output_precision,
+                     with_ghosts=with_ghosts)
+    return [path]
+
+
+def make_file_checkpoint(params):
+    """The `step_checkpoint` hook (`src/io.jl:185-227`, `core/solver.py:
+    1051-1115`): with `is_ref`, write a file per sub-step; otherwise
+    compare against it, and on a difference write the differing state
+    beside the reference file as `_diff` (`src/io.jl:220-222`) and stop.
+    On a mesh, state files are per shard, `_<cx>×<cy>`, with no global
+    gather; the dt file stays global."""
+    from ..interop import gather_state
+    from ..io.output import write_state_file, read_state_file, compare_states
+    cfg = params.config
+
+    def checkpoint(label, states, axis, dt, cycle, rep=1):
+        axis_char = "X" if axis is Axis.X else "Y"
+        # `rep` tells apart an axis swept twice in one cycle (Strang's
+        # (X, Y, X)), whose two half sweeps the reference's naming puts in
+        # one file; only a repeat carries the suffix.
+        rep_tag = "" if rep == 1 else f"_{rep}"
+        name = f"{params.output_file}_{cycle:03d}_{label}_{axis_char}{rep_tag}"
+        path = os.path.join(params.output_dir, name)
+        if label == "time_step":
+            if params.is_ref:
+                with open(path, "w") as f:
+                    f.write(f"%#{params.output_precision + 7}."
+                            f"{params.output_precision}e\n" % dt)
+                return False
+            with open(path) as f:
+                # parsed in the run's dtype, as `parse(T, ...)` does
+                # (src/io.jl:198-203)
+                ref_dt = float(np.dtype(cfg.dtype).type(f.read().strip()))
+            tol = params.comparison_tolerance * max(abs(ref_dt), abs(dt))
+            diff = not (abs(ref_dt - dt) <= tol)
+            if diff:
+                print(f"Time step difference: ref dt = {ref_dt:.18f}, "
+                      f"dt = {dt:.18f}, diff = {ref_dt - dt:.18f}")
+            return diff
+
+        if cfg.spmd:
+            return _spmd_file_checkpoint(params, label, states, path, cycle)
+        host = gather_state(params, states)
+        if params.is_ref:
+            write_state_file(cfg, host, path, precision=params.output_precision,
+                             with_ghosts=params.write_ghosts)
+            return False
+        ref = read_state_file(cfg, path, with_ghosts=params.write_ghosts)
+        cnt, max_diff, details = compare_states(
+            cfg, host, ref, atol=0.0, rtol=params.comparison_tolerance,
+            with_ghosts=params.write_ghosts)
+        if cnt:
+            print(f"At {label} (cycle {cycle}): {cnt} differences "
+                  f"(max rel {max_diff:.3e}): {details}")
+            write_state_file(cfg, host, path + "_diff",
+                             precision=params.output_precision,
+                             with_ghosts=params.write_ghosts)
+        return cnt > 0
+
+    return checkpoint
+
+
+def _spmd_file_checkpoint(params, label, states, path, cycle):
+    """Per-shard write-or-compare of one sub-step on a mesh
+    (`_spmd_file_checkpoint`, `core/solver.py:1117-1150`)."""
+    from ..core.state import SAVED_VARS
+    from ..io.output import count_differences, write_cells_file
+    from ..io.subdomain import (write_sub_domain_files, read_sub_domain_file,
+                                sub_domain_file_path, shard_coords_iter,
+                                shard_real_window, ghost_window)
+    cfg = params.config
+    if params.is_ref:
+        write_sub_domain_files(params, states, path,
+                               precision=params.output_precision,
+                               with_ghosts=params.write_ghosts)
+        return False
+    win = ghost_window if params.write_ghosts else shard_real_window
+    total = 0
+    for coords, blocks in shard_coords_iter(params, states):
+        rs, cs, _, _ = win(cfg, coords)
+        ours = {v: blocks[v][rs, cs] for v in SAVED_VARS}
+        spath = sub_domain_file_path(path, coords)
+        ref = read_sub_domain_file(cfg, spath, coords,
+                                   with_ghosts=params.write_ghosts)
+        cnt, max_diff, details = count_differences(
+            cfg, ours, ref, atol=0.0, rtol=params.comparison_tolerance)
+        if cnt:
+            print(f"At {label} (cycle {cycle}, shard {coords}): {cnt} "
+                  f"differences (max rel {max_diff:.3e}): {details}")
+            write_cells_file(spath + "_diff", ours, params.output_precision)
+        total += cnt
+    return total > 0
+
+
 def _isapprox0(x, atol, rtol):
     """Julia `isapprox(x, 0; atol, rtol)` (src/solver.jl:481-482)."""
     return abs(x) <= max(atol, rtol * abs(x))
@@ -159,55 +544,93 @@ def _isapprox0(x, atol, rtol):
 
 def armon(params: ArmonParameters, checkpoint=None,
           restore_from=None) -> SolverStats:
-    """Main entry point (`src/solver.jl:406-516`): the lean path over the
-    kernels, or the op path when `kernel_tier` asks for it."""
-    if checkpoint is not None or restore_from is not None:
-        solver_error("config", "checkpoint hooks and restore_from are not "
-                               "available in armon_torch yet: they come with "
-                               "ROADMAP queue A item 8 (other drivers + "
-                               "restart)")
+    """Main entry point (`src/solver.jl:406-516`). `checkpoint`: a hook
+    called after every sub-step (see `make_file_checkpoint`), which runs
+    the op path's sub-steps; `restore_from`: a snapshot written by
+    `io.restart.save_checkpoint` or the `checkpoint_step` option, from
+    which the run resumes bit for bit."""
     cfg = params.config
+    # This run's CFL carry and the provenance of its state, recorded for
+    # snapshots saved after the run (`io/restart.save_checkpoint`): reset,
+    # so that a reused params object never lends a run's carry to another.
+    params._final_local_min = None
+    params._ran_fused = None
     if params.silent < 3:
         print(params.describe())
 
     op = cfg.op_path
+    hooks = checkpoint is not None or params.compare
+    use_python_loop = (params.silent <= 1 or params.animation_step != 0
+                       or hooks or params.checkpoint_step != 0)
+    lean = not use_python_loop and not op
+    T = np.dtype(cfg.dtype).type
     timer = {} if params.measure_time else None
     t_start = time.perf_counter()
-    if op:  # per shard: the lean carry, or the op path's full State
-        fs = make_init(params)()
-    else:
+    restored = states = fs = local0 = None
+    if restore_from is not None:
+        from ..io.restart import load_checkpoint
+        states, *restored = load_checkpoint(restore_from, params)
+        # The lean loop resumes a run as it would have gone on: it needs
+        # the snapshot's carry, and under temporal blocking an even cycle,
+        # where a K5 launch of an uninterrupted run starts
+        # (`core/solver.py:869-895`). Otherwise the full-state restore
+        # loop runs.
+        lean = lean and restored[3] is not None and (
+            temporal_pairs(cfg) is None or restored[1] % 2 == 0)
+        if lean:
+            fs, local0 = _carry_of(states), restored[3]
+            states = None
+    elif lean or (use_python_loop and not op and not hooks):
         fs, local0 = make_init_fused(params)()
+    else:
+        states = make_init(params)()
     _sync(params)
     if timer is not None:
         timer["init"] = time.perf_counter() - t_start
 
-    if params.check_result:
-        m, e = make_conservation(params)(fs)
+    if params.check_result or params.silent <= 1:
+        m, e = make_conservation(params)(fs if fs is not None else states)
         params.initial_mass, params.initial_energy = m, e
 
-    T = np.dtype(cfg.dtype).type
+    if params.compare and checkpoint is None:
+        checkpoint = make_file_checkpoint(params)
+    base = None
     solve_start = time.perf_counter()
-    if op:
-        res = make_time_loop(cfg, make_mesh(params))(fs, T(0.0), 0, T(0.0))
+    if use_python_loop:
+        res, base = _cycle_driver(params, states, fs, local0, checkpoint,
+                                  restored)
+    elif lean:
+        r = restored or (0.0, 0, 0.0)
+        res = make_time_loop_lean(cfg, make_mesh(params))(
+            fs, T(r[0]), int(r[1]), T(r[2]), local0)
+        params._ran_fused = True
+    elif op:
+        r = restored or (0.0, 0, 0.0, None)
+        res = make_time_loop(cfg, make_mesh(params), bool(restored))(
+            states, T(r[0]), int(r[1]), T(r[2]), r[3])
+        params._ran_fused = False
     else:
-        res = make_time_loop_lean(cfg, make_mesh(params))(fs, T(0.0), 0,
-                                                          T(0.0), local0)
+        res = _restore_loop_kernels(params, states, restored)
+        base = states
+        params._ran_fused = True
     solve_time = time.perf_counter() - solve_start
     if timer is not None:
         timer["solver_cycle"] = solve_time
-    params._final_local_min = res.lm
-    fs = res.carry
+    if params._ran_fused or not use_python_loop:
+        params._final_local_min = res.lm
     if not res.ok:
         solver_error("time", f"Invalid time step at cycle {res.cycles}")
 
-    state = None
-    if params.return_data:
-        from ..interop import gather_state
-        state = gather_state(params, fs if op else make_rehydrate(params)(fs))
+    final = res.carry  # a FusedCarry or a State per shard
+    states = None
+    if params.return_data or params.write_output or params.write_slices:
+        # A kernel run's full State is made only when something reads it.
+        states = _full_states(params, final, base) \
+            if isinstance(final[0], FusedCarry) else final
 
     # Final conservation check (src/solver.jl:467-490)
     if params.check_result and params.test.is_conservative and res.cycles > 0:
-        m, e = make_conservation(params)(fs)
+        m, e = make_conservation(params)(final)
         dm = abs(m - params.initial_mass) / params.initial_mass
         de = abs(e - params.initial_energy) / params.initial_energy
         rtol = 1e-2 * min(1.0, res.t / params.test.default_max_time)
@@ -216,6 +639,10 @@ def armon(params: ArmonParameters, checkpoint=None,
                 f"Mass and energy are not constant, the solution might not be "
                 f"valid!\n|dM|/M = {dm:.6g}\n|dE|/E = {de:.6g}")
 
+    data = None
+    if params.return_data:
+        from ..interop import gather_state
+        data = gather_state(params, states)
     cell_count = cfg.n_global[0] * cfg.n_global[1]
     grind = solve_time / max(res.cycles, 1) / cell_count
     stats = SolverStats(
@@ -225,10 +652,33 @@ def armon(params: ArmonParameters, checkpoint=None,
         solve_time=solve_time,
         cell_count=cell_count,
         giga_cells_per_sec=1.0 / grind / 1e9 if res.cycles > 0 else 0.0,
-        data=state,
+        data=data,
         timer=timer,
         host_reads=res.host_reads,
     )
+
+    # The final writes come last (`core/solver.py:1017-1043`).
+    if params.write_output or params.write_slices:
+        os.makedirs(params.output_dir, exist_ok=True)
+        path = os.path.join(params.output_dir, params.output_file)
+        # Per shard: one `_<cx>×<cy>` file per shard, no global gather
+        # (`src/io.jl:46-75`).
+        per_shard = cfg.spmd and params.use_MPI
+        host = data
+        if host is None and (params.write_slices or not per_shard):
+            from ..interop import gather_state
+            host = gather_state(params, states)
+        if params.write_output:
+            paths = _write_state(params, states, path, per_shard,
+                                 params.write_ghosts, host=host)
+            if params.silent < 2:
+                print(f"\nWrote to files {paths[0]} .. {paths[-1]}"
+                      if per_shard else f"\nWrote to file {path}")
+        if params.write_slices:
+            from ..io.slices import write_slices_files
+            write_slices_files(cfg, host, path,
+                               precision=params.output_precision)
+
     if params.silent < 3 and res.cycles > 0:
         _print_summary(stats, params)
     return stats

@@ -28,6 +28,10 @@ class State(NamedTuple):
 # state.py:41`); the kernels' routes exchange rho/u/v/E only.
 COMM_VARS = ("rho", "u", "v", "E", "p", "c", "g")
 
+# The fields an output file holds, in its column order (`armon_tpu/core/
+# state.py:41`, `src/blocking/blocks.jl:49`).
+SAVED_VARS = ("x", "y", "rho", "u", "v", "p")
+
 
 class FusedCarry(NamedTuple):
     """The five fields the per-sweep kernels read or write; x, y, c, g,

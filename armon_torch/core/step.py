@@ -88,7 +88,7 @@ from ..parallel.mesh import Mesh
 from ..parallel.halo import halo_slabs, new_slab_buffers, halo_exchange_state
 from .splitting import split_schedules
 from .state import FusedCarry, State
-from .timestep import next_time_step
+from .timestep import next_time_step, dt_update
 
 STOP_CHECK_EVERY = 8
 
@@ -167,35 +167,42 @@ def _result(cur, p, scal, iscal, reads, single):
                       float(s[K.SC_LM]), bool(i[K.IS_OK]), reads + 2)
 
 
-def make_time_loop_lean(cfg, mesh=None, remote=()):
-    """The lean loop (`make_time_loop_lean`):
-    (fs, t0, cycle0, dt0, local0, check_every) -> LoopResult. `fs` is a
-    list of FusedCarry, one per shard of `mesh` in its order, and so is the
-    result's carry; a caller that passes one FusedCarry gets one back.
-    Without a `mesh`, one shard holds the whole grid on the carry's
-    device. A shard on another device than the first shard's is remote:
+class KernelCycles:
+    """The lean loop's buffers and device scalars over the kernels, run one
+    cycle at a time: the body that the lean loop and the per-cycle driver
+    (`core/solver.py`) share, so that the two cannot drift apart; the
+    counterpart of `solver_cycle_fused` (`armon_tpu/core/step.py:353`).
+
+    `fs` is a list of FusedCarry, one per shard of `mesh` in its order (or
+    one FusedCarry). Without a `mesh`, one shard holds the whole grid on
+    the carry's device. With `pair`, adjacent X/Y sweeps are one K4
+    launch. A shard on another device than the first shard's is remote:
     its CFL partials go to a buffer of its own, copied in after each
     cycle for K3 to fold. `remote` names shards to treat so on the first
-    shard's device too, which runs a mesh across cards' sequencing on
-    one device."""
-    T = np.dtype(cfg.dtype).type
-    kind = route(cfg)
-    if kind == "multicycle":
-        return _multicycle_loop(cfg, temporal_pairs(cfg))
-    pair = kind == "pair"
-    even, odd = split_schedules(cfg.splitting)
+    shard's device too, which runs a mesh across cards' sequencing on one
+    device.
 
-    def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
-        shards, single = _shard_list(fs)
-        m = mesh or Mesh(cfg, [shards[0].rho.device])
+    `first_step` runs K3 once (no fold, one step): the first cycle's run
+    predicate and dt. Then each `cycle` launches one cycle; its last
+    launch folds the cycle's partials into lm and steps for the next
+    cycle (see the module doc), so after it `scal` and `iscal` already
+    describe the next cycle, and iscal[run] says whether it runs."""
+
+    def __init__(self, cfg, mesh, fs, t0, cycle0, dt0, local0, pair,
+                 remote=()):
+        self.cfg = cfg
+        self.pair = pair
+        self.even, self.odd = split_schedules(cfg.splitting)
+        shards, self.single = _shard_list(fs)
+        m = self.mesh = mesh or Mesh(cfg, [shards[0].rho.device])
         # Where each shard's tensors are ("cuda" places them on cuda:0).
         devs = [f.rho.device for f in shards]
         dev0 = devs[0]
         shape = shards[0].rho.shape
         dtype = shards[0].rho.dtype
-        cur = [tuple(f[:4]) for f in shards]
-        nxt = [tuple(torch.empty_like(a) for a in c) for c in cur]
-        p = [f.p for f in shards]
+        self.cur = [tuple(f[:4]) for f in shards]
+        self.nxt = [tuple(torch.empty_like(a) for a in c) for c in self.cur]
+        self.p = [f.p for f in shards]
         nbs = {K.n_partials(Axis.X, shape, dev0),
                K.n_partials(Axis.Y, shape, dev0)}
         if pair:
@@ -204,57 +211,97 @@ def make_time_loop_lean(cfg, mesh=None, remote=()):
         # nb per shard, shard s writes columns [s*nb, (s+1)*nb) of
         # `partials`, or, if remote, a buffer of its own copied in after
         # the cycle. Each shard's operand is made once per nb.
-        far = sorted({k for k, d in enumerate(devs) if d != dev0} | set(remote))
-        partials = torch.zeros((2, len(m) * max(nbs)), dtype=dtype, device=dev0)
-        parts = {nb: [torch.zeros((2, nb), dtype=dtype, device=d) if k in far
-                      else partials[:, k * nb:(k + 1) * nb]
-                      for k, d in enumerate(devs)]
-                 for nb in nbs}
+        self.far = sorted({k for k, d in enumerate(devs) if d != dev0}
+                          | set(remote))
+        self.partials = torch.zeros((2, len(m) * max(nbs)), dtype=dtype,
+                                    device=dev0)
+        self.parts = {nb: [torch.zeros((2, nb), dtype=dtype, device=d)
+                           if k in self.far
+                           else self.partials[:, k * nb:(k + 1) * nb]
+                           for k, d in enumerate(devs)]
+                      for nb in nbs}
         # On one card the cycle's last launch folds and steps in its tail;
         # across cards K3 does, after the remote partials are copied in.
-        finish = None
-        if not far:
+        self.finish = None
+        if not self.far:
             ticket = K.new_ticket(dev0)
-            finish = {nb: K.Finish(partials, len(m) * nb, ticket) for nb in nbs}
-        scal, iscal = K.new_scalars(cfg.dtype, dev0, t=float(t0),
-                                    cycle=int(cycle0), dt_prev=float(dt0),
-                                    lm=float(local0))
-        copies = {d: (scal.to(d), iscal.to(d))
-                  for d in dict.fromkeys(devs) if d != dev0}
-        scalars = [copies.get(d, (scal, iscal)) for d in devs]
-        slabs = {axis: new_slab_buffers(cfg, m, cur, axis)
-                 for axis in (Axis.X, Axis.Y) if m.proc_dims[axis] > 1}
+            self.finish = {nb: K.Finish(self.partials, len(m) * nb, ticket)
+                           for nb in nbs}
+        self.scal, self.iscal = K.new_scalars(
+            cfg.dtype, dev0, t=float(t0), cycle=int(cycle0),
+            dt_prev=float(dt0), lm=float(local0))
+        self.copies = {d: (self.scal.to(d), self.iscal.to(d))
+                       for d in dict.fromkeys(devs) if d != dev0}
+        self.scalars = [self.copies.get(d, (self.scal, self.iscal))
+                        for d in devs]
+        self.slabs = {axis: new_slab_buffers(cfg, m, self.cur, axis)
+                      for axis in (Axis.X, Axis.Y) if m.proc_dims[axis] > 1}
 
-        def share_scalars():
-            for sc, isc in copies.values():
-                sc.copy_(scal)
-                isc.copy_(iscal)
+    def _share_scalars(self):
+        for sc, isc in self.copies.values():
+            sc.copy_(self.scal)
+            isc.copy_(self.iscal)
 
+    def first_step(self):
+        """The run's one K3: the first cycle's run predicate and dt."""
+        K.cfl_finish(self.cfg, self.partials, 0, self.scal, self.iscal,
+                     fold=False, step=True)
+        self._share_scalars()
+
+    def cycle(self, cycle):
+        """One cycle's launches; `cycle` (the host's count) picks the
+        schedule's parity."""
+        sched = self.even if cycle % 2 == 0 else self.odd
+        self.cur, self.nxt, nb = run_schedule_fused(
+            self.cfg, self.mesh, self.cur, self.nxt, self.p, self.parts,
+            self.scalars, sched, self.pair, self.slabs, self.finish)
+        if self.far:
+            for k in self.far:
+                self.partials[:, k * nb:(k + 1) * nb].copy_(self.parts[nb][k])
+            K.cfl_finish(self.cfg, self.partials, len(self.mesh) * nb,
+                         self.scal, self.iscal, fold=True, step=True)
+            self._share_scalars()
+
+    def carry(self):
+        """The current fields, a FusedCarry per shard."""
+        return [FusedCarry(*c, pp) for c, pp in zip(self.cur, self.p)]
+
+    def result(self, reads):
+        return _result(self.cur, self.p, self.scal, self.iscal, reads,
+                       self.single)
+
+
+def make_time_loop_lean(cfg, mesh=None, remote=(), kind=None):
+    """The lean loop (`make_time_loop_lean`):
+    (fs, t0, cycle0, dt0, local0, check_every) -> LoopResult. `fs` is a
+    list of FusedCarry, one per shard of `mesh` in its order, and so is the
+    result's carry; a caller that passes one FusedCarry gets one back.
+    `kind` is the route, `routing.route(cfg)` by default; the full-state
+    restore loop passes `routing.cycle_route(cfg)`, which never runs K5.
+    See `KernelCycles` for `mesh` and `remote`."""
+    T = np.dtype(cfg.dtype).type
+    kind = kind or route(cfg)
+    if kind == "multicycle":
+        return _multicycle_loop(cfg, temporal_pairs(cfg))
+
+    def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
+        run = KernelCycles(cfg, mesh, fs, t0, cycle0, dt0, local0,
+                           kind == "pair", remote)
         cycle = int(cycle0)
         reads = 0
         running = T(t0) < T(cfg.maxtime) and cycle < cfg.maxcycle
-        if running:  # the first cycle's step: its run predicate and dt
-            K.cfl_finish(cfg, partials, 0, scal, iscal, fold=False, step=True)
-            share_scalars()
+        if running:
+            run.first_step()
         while running:
             for _ in range(check_every):
-                sched = even if cycle % 2 == 0 else odd
-                cur, nxt, nb = run_schedule_fused(
-                    cfg, m, cur, nxt, p, parts, scalars, sched, pair, slabs,
-                    finish)
-                if far:
-                    for k in far:
-                        partials[:, k * nb:(k + 1) * nb].copy_(parts[nb][k])
-                    K.cfl_finish(cfg, partials, len(m) * nb, scal, iscal,
-                                 fold=True, step=True)
-                    share_scalars()
+                run.cycle(cycle)
                 cycle += 1
             # The next cycle's predicate; after the last cycle that ran,
             # lm is the CFL minimum of the final state, the carry a resumed
             # run would start from.
-            running = bool(iscal[K.IS_RUN].item())
+            running = bool(run.iscal[K.IS_RUN].item())
             reads += 1
-        return _result(cur, p, scal, iscal, reads, single)
+        return run.result(reads)
 
     return loop
 
@@ -304,7 +351,12 @@ def sweep(cfg, mesh, states, axis: Axis, dt):
     """One dimensional sweep (`:52`): EOS, ghost exchange (`ghost_exchange`,
     `:43`, is `halo_exchange_state`: the mirror at the global borders, the
     neighbours' lines between shards), Riemann fluxes, cell update, remap.
-    `dt` is the schedule-scaled step, a 0-dim tensor of dtype T."""
+    `dt` is the schedule-scaled step, a 0-dim tensor of dtype T.
+
+    Compare mode runs these sub-steps, and `solver_cycle`'s dt choice, a
+    second time in `core/solver._checkpointed_cycle` (over
+    `make_step_fns`), with a hook after each: a change to the order here
+    is made there too."""
     states = halo_exchange_state(cfg, mesh,
                                  [update_eos(cfg, st) for st in states], axis)
     out = []
@@ -325,13 +377,24 @@ def run_schedule(cfg, mesh, states, schedule, dt):
     return states
 
 
-def solver_cycle(cfg, mesh, states, dt_prev, cycle, seeded=False):
+def solver_cycle(cfg, mesh, states, dt_prev, cycle, seeded=False,
+                 lm_override=None):
     """One full cycle (`:70`): the time step from the cycle-start states,
     then the splitting schedule of the cycle's parity. `cycle` is the
     host's count (see `next_time_step` for `seeded`). Returns (states,
-    dt_use, dt_next, ok), the scalars 0-dim tensors on the loop's device."""
-    dt_use, dt_next, ok = next_time_step(cfg, mesh, states, dt_prev, cycle,
-                                         seeded)
+    dt_use, dt_next, ok), the scalars 0-dim tensors on the loop's device.
+
+    `lm_override` (a 0-dim tensor of dtype T, or None): a CFL minimum,
+    already reduced over the mesh, to use in place of the states'. It is
+    for the first cycle resumed from a snapshot of a kernel run, whose
+    `c` is stale (the kernels never write c back; the snapshot's carry
+    holds the right minimum); from the second cycle on, the sweeps' EOS
+    has refreshed c (`armon_tpu/core/step.py:70-98`)."""
+    if lm_override is not None:
+        dt_use, dt_next, ok = dt_update(cfg, lm_override, dt_prev, cycle)
+    else:
+        dt_use, dt_next, ok = next_time_step(cfg, mesh, states, dt_prev,
+                                             cycle, seeded)
     even, odd = split_schedules(cfg.splitting)
     states = run_schedule(cfg, mesh, states, even if cycle % 2 == 0 else odd,
                           dt_use)
@@ -347,14 +410,17 @@ def _keep_if(run, new, old):
                        for n, o in zip(new, old)))
 
 
-def make_time_loop(cfg, mesh=None):
-    """The op path's loop, the non-fused, non-restore branch of
-    `make_time_loop` (`:483-598`): (states, t0, cycle0, dt0, check_every)
-    -> LoopResult. `states` is a list of States, one per shard of `mesh`
-    in its order, and so is the result's carry; a caller that passes one
+def make_time_loop(cfg, mesh=None, restore=False):
+    """The op path's loop, the non-fused branches of `make_time_loop`
+    (`:483-598`): (states, t0, cycle0, dt0, lm0, check_every) ->
+    LoopResult. `states` is a list of States, one per shard of `mesh` in
+    its order, and so is the result's carry; a caller that passes one
     State gets one back. Without a `mesh`, one shard holds the whole grid.
 
-    The cycle-0 EOS runs once, before the loop (`:543-545`). t, the cycle
+    The cycle-0 EOS runs once, before the loop (`:543-545`), unless
+    `restore`: a restored run's States come from a snapshot, and `lm0`
+    (a float, or None when the snapshot has no carry) overrides the CFL
+    minimum of its first cycle (`solver_cycle`). t, the cycle
     count, dt and ok stay 0-dim tensors on the first shard's device
     (`:535-541`); the host reads the stop predicate once every
     `check_every` cycles, and a cycle launched past the run's end keeps
@@ -364,7 +430,8 @@ def make_time_loop(cfg, mesh=None):
     (`:584-597`)."""
     T = np.dtype(cfg.dtype).type
 
-    def loop(states, t0=0.0, cycle0=0, dt0=0.0, check_every=STOP_CHECK_EVERY):
+    def loop(states, t0=0.0, cycle0=0, dt0=0.0, lm0=None,
+             check_every=STOP_CHECK_EVERY):
         single = isinstance(states, State)
         states = [states] if single else list(states)
         m = mesh or Mesh(cfg, [states[0].rho.device])
@@ -378,9 +445,11 @@ def make_time_loop(cfg, mesh=None):
         def running():
             return (t < maxtime) & (cyc < cfg.maxcycle) & ok
 
-        if cfg.maxcycle > 0:
+        if cfg.maxcycle > 0 and not restore:
             # Cycle-0 "EOS_init" (src/solver.jl:291-295)
             states = [update_eos(cfg, st) for st in states]
+        lmo = scalar_like(like, T(lm0)) if restore and lm0 is not None \
+            else None
         cycle = int(cycle0)
         reads = 0
         go = T(t0) < T(cfg.maxtime) and cycle < cfg.maxcycle
@@ -389,7 +458,8 @@ def make_time_loop(cfg, mesh=None):
                 run = running()
                 new, dt_use, dt_next, ok_next = solver_cycle(
                     cfg, m, states, dt_prev, cycle,
-                    seeded=cycle > cycle0 or T(dt0) != 0)
+                    seeded=cycle > cycle0 or T(dt0) != 0,
+                    lm_override=lmo if cycle == cycle0 else None)
                 states = [_keep_if(run, n, o) for n, o in zip(new, states)]
                 # next_cycle!: cycle += 1; time += current_dt
                 # (src/solver_state.jl:145-147)

@@ -17,6 +17,10 @@ launch raises `SolverException`; nothing falls back to another path.
 
 `-fmad=false` keeps every multiply and add separately rounded, which is
 what makes exact mode bit-comparable with the plain PyTorch versions.
+
+The native I/O library (`armon_torch/native/armon_io.cc`, host code, no
+kernel) is built the same way by the host C++ compiler (`load_io`), on
+first use, into the same directory.
 """
 
 import ctypes
@@ -48,12 +52,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
 
+IO_SOURCE = os.path.join(_PKG, "native", "armon_io.cc")
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
+
 # Filled by `load()`: build seconds (0 when every library was cached) and
 # the compiler's output per source (ptxas registers / spills).
 BUILD_INFO = {"seconds": None, "logs": {}}
 
 _LOCK = threading.Lock()
 _LIBS = None
+_IO_LIB = None
 
 # Must match `armon::EosConst` in csrc/sweep.cuh.
 EOS_KEYS = ("GM", "GM1", "RHO0", "S", "SK", "Q", "R", "2Q", "3R", "6R",
@@ -284,6 +292,54 @@ def load():
         libs["cfl"].armon_error_string.restype = ctypes.c_char_p
         _LIBS = libs
         return libs
+
+
+def _cxx():
+    path = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if path is None:
+        solver_error("cpp", "no host C++ compiler (c++) found: the native I/O "
+                            "library is built from armon_torch/native on "
+                            "first use")
+    return path
+
+
+def load_io():
+    """Build (if needed) and load the native I/O library
+    (`armon_torch/native/armon_io.cc`) with the host C++ compiler, into
+    ``build/armon_torch/`` under a name that hashes the source and flags.
+    A failed build raises with the compiler's message."""
+    global _IO_LIB
+    with _LOCK:
+        if _IO_LIB is not None:
+            return _IO_LIB
+        h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+        with open(IO_SOURCE, "rb") as f:
+            h.update(f.read())
+        out = os.path.join(BUILD_DIR, f"libarmon_io_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, IO_SOURCE],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                solver_error("cpp", f"native I/O build failed (exit "
+                                    f"{proc.returncode}):\n"
+                                    f"{(proc.stdout + proc.stderr)[-4000:]}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(out)
+        vp, cl, ci, dp = (ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_double))
+        for name, res, args in (
+                ("armon_write_cells", ci, [ctypes.c_char_p, ctypes.POINTER(vp),
+                                           cl, cl, cl, ci, ci, ctypes.c_char_p]),
+                ("armon_read_cells", cl, [ctypes.c_char_p, dp, cl, cl]),
+                ("armon_read_window", cl, [ctypes.c_char_p, dp] + [cl] * 7),
+                ("armon_count_differences", cl,
+                 [dp, dp, cl, ctypes.c_double, ctypes.c_double, dp])):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = res, args
+        _IO_LIB = lib
+        return lib
 
 
 def eos_constants(cfg):

@@ -101,12 +101,19 @@ def temporal_pairs(cfg):
     return tuple(pairs)
 
 
-def route(cfg) -> str:
-    """"multicycle", "pair" or "per_sweep": the kernels `armon()` runs."""
-    if temporal_pairs(cfg) is not None:
-        return "multicycle"
+def cycle_route(cfg) -> str:
+    """"pair" or "per_sweep": the kernels of one cycle at a time, which
+    the per-cycle driver and the full-state restore loop run (never K5,
+    as in the JAX package: `solver_cycle_fused`)."""
     if pair_routing_on(cfg) and any(
             {s[i][0], s[i + 1][0]} == {Axis.X, Axis.Y}
             for s in split_schedules(cfg.splitting) for i in range(len(s) - 1)):
         return "pair"
     return "per_sweep"
+
+
+def route(cfg) -> str:
+    """"multicycle", "pair" or "per_sweep": the kernels `armon()` runs."""
+    if temporal_pairs(cfg) is not None:
+        return "multicycle"
+    return cycle_route(cfg)

@@ -34,8 +34,6 @@ _DTYPE_NAMES = {
 }
 
 # ROADMAP items that bring the routes this package does not run yet.
-_IO = "ROADMAP queue A item 6 (I/O)"
-_DRIVERS = "ROADMAP queue A item 8 (other drivers + restart)"
 _OBSERVABILITY = "ROADMAP queue A item 9 (observability)"
 _MULTI_PROCESS = "ROADMAP queue A item 10b (multi-process runs)"
 
@@ -316,28 +314,25 @@ class ArmonParameters:
                          f"{self.nghost} cells along each axis")
 
     def _init_output(self, o):
-        """src/parameters.jl:700-728. `silent` defaults to 2 here: levels
-        0 and 1 need the per-cycle driver, which is not ported yet."""
-        self.silent = int(o.pop("silent", 2))
-        if self.silent <= 1:
-            _not_ported(f"silent={self.silent}", _DRIVERS)
+        """src/parameters.jl:700-728, the JAX package's defaults
+        (`armon_tpu/params.py:324-341`). `silent <= 1`, `animation_step`,
+        `checkpoint_step` and `compare` run the per-cycle driver
+        (`core/solver.py`), one host read a cycle."""
+        self.silent = int(o.pop("silent", 0))
         self.output_dir = str(o.pop("output_dir", "."))
         self.output_file = str(o.pop("output_file", "output"))
-        for key in ("write_output", "write_ghosts", "write_slices"):
-            if o.pop(key, False):
-                _not_ported(key, _IO)
-        self.write_output = self.write_ghosts = self.write_slices = False
+        self.write_output = bool(o.pop("write_output", False))
+        self.write_ghosts = bool(o.pop("write_ghosts", False))
+        self.write_slices = bool(o.pop("write_slices", False))
         p = o.pop("output_precision", None)
         self.output_precision = int(p) if p is not None else \
             (17 if self.data_type.itemsize == 8 else 9)
-        for key in ("animation_step", "checkpoint_step"):
-            if int(o.pop(key, 0)) != 0:
-                _not_ported(key, _DRIVERS)
-        self.animation_step = self.checkpoint_step = 0
-        for key in ("compare", "is_ref"):
-            if o.pop(key, False):
-                _not_ported(key, _DRIVERS)
-        self.compare = self.is_ref = False
+        self.animation_step = int(o.pop("animation_step", 0))
+        # A restartable snapshot every N cycles (`io/restart.py`; resume
+        # with armon(..., restore_from=path)).
+        self.checkpoint_step = int(o.pop("checkpoint_step", 0))
+        self.compare = bool(o.pop("compare", False))
+        self.is_ref = bool(o.pop("is_ref", False))
         self.comparison_tolerance = float(o.pop("comparison_tolerance", 1e-10))
         self.check_result = bool(o.pop("check_result", False))
         self.return_data = bool(o.pop("return_data", False))

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-9, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-10, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
     python3 chip_smoke.py --phases 0,8    # the probes only
     python3 chip_smoke.py --phases 0,9    # the torch op path only
+    python3 chip_smoke.py --phases 0,10   # drivers, I/O and restart only
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), the kernels' build time,
@@ -99,7 +100,31 @@ Phases, each printing one JSON line:
      field from the per-sweep kernels in exact mode over the same cycles
      (within 4 ulp); (c) f64 Sod_circ 1024^2, 3 cycles, against the
      kernels in exact mode within rtol 1e-12, atol 1e-14. Its lines come
-     before phase 6's.
+     before phase 6's;
+ 10. drivers, I/O and restart, through `armon()`, every check bit for
+     bit unless said: (a) the main path's configuration (Sod 8192^2 f32
+     fast math) 16 cycles on the lean loop, 8 through the per-cycle
+     driver with a `checkpoint_step` snapshot (its bytes, save and load
+     seconds, the free disk space before it), the snapshot resumed to 16
+     through the lean loop, and 16 cycles through the per-cycle driver
+     (its cells/s and host reads a cycle against the lean loop's); (b)
+     Sedov 2000^2 resumed at 500 of 1000 from the per-cycle driver's
+     snapshot (K4); Sod 100^2 resumed at 16 (K5) and 17 (K4, one cycle at
+     a time) of 40 in f32 exact and f64, and in fast math with the
+     difference printed; a snapshot the port wrote on the CPU (f64
+     Sod_circ 200^2, 10 of 20 cycles) resumed on the card; (c) Sod, Sod_y
+     and Sod_circ 100^2 written with `write_output` in f64 and f32 exact:
+     0 golden differences read back, and each file equal to the CPU's byte
+     for byte; Sod 1024^2 f32 `write_output` and `write_slices`, timed,
+     read back equal to the state; (d) compare mode: step files written on
+     the CPU (f64 Sod 100^2, 2 cycles), a clean run on the card, a
+     `cfl=0.5` run stopping at cycle 0; (e) Sod_circ 1000^2 over 2x2 on
+     cuda:0 with `use_MPI`: per-shard files against the one-device file's
+     windows, a per-shard snapshot resumed on 2x2, 1x1 and 3x2 against the
+     one-device run (f64, f32 exact). Each path runs with the launch
+     counts set to 0 just before it and must launch its kernels; phase
+     10's launches are added to the `kernels` line. Files go under a
+     temporary directory, removed at the end.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -1881,9 +1906,393 @@ def phase9(torch):
     restore_counts(K, saved)
 
 
+# ------------------------------------------------- drivers, I/O, restart
+
+RESTART_CYCLES = 16        # the 8192^2 restart: snapshot at 8, resume to 16
+SEDOV_CUT = 500            # Sedov 2000^2: resume at cycle 500 of 1000
+K5_CYCLES, K5_EVEN, K5_ODD = 40, 16, 17
+CPU_N, CPU_CYCLES = 200, 20
+MESH_N, MESH_CYCLES = 1000, 20
+
+
+class _Counted:
+    """Launch counts of the paths phase 10 drives: each path runs with the
+    counts set to 0 just before it, and is read just after; each path's
+    counts go into phase 10's lines, and their sums into the `kernels`
+    line's `launches_phase10` (never into `launches`). Runs outside `path` (the
+    uninterrupted references) leave the counts as they were."""
+
+    def __init__(self, torch):
+        from armon_torch.ops import sweep as K
+        self.torch, self.K = torch, K
+        self.total = {}
+
+    def path(self, what, fn, expect):
+        K = self.K
+        saved = saved_counts(K)
+        K.reset_launches()
+        out = fn()
+        self.torch.cuda.synchronize()
+        counts = {**K.LAUNCHES, **K.TAILS}
+        restore_counts(K, saved)
+        missing = [k for k in expect if not counts[k]]
+        if missing:
+            raise AssertionError(f"{what}: never launched {missing}: {counts}")
+        for k, n in counts.items():
+            self.total[k] = self.total.get(k, 0) + n
+        return out, {k: n for k, n in counts.items() if n}
+
+    def quiet(self, fn):
+        saved = saved_counts(self.K)
+        out = fn()
+        self.torch.cuda.synchronize()
+        restore_counts(self.K, saved)
+        return out
+
+
+def _same_run(torch, a, b, what, real=False, report=False,
+              fields=("rho", "u", "v", "E", "p")):
+    """Bit for bit: cycles, t, dt and `fields` (on the real cells with
+    `real`: a mesh's gathered ghosts are not the one-device run's). With
+    `report`, the differences are returned, not raised: {"scalars_equal",
+    "max_abs_diff"}."""
+    sa = (a.cycles, a.final_time, a.last_dt)
+    sb = (b.cycles, b.final_time, b.last_dt)
+    r = (slice(4, -4), slice(4, -4)) if real else (slice(None),) * 2
+    err = 0.0
+    for f in fields:
+        x = getattr(a.data, f)[r]
+        y = getattr(b.data, f)[r].to(x.device)
+        if not torch.equal(x, y):
+            err = max(err, float((x - y).abs().max()))
+    if report:
+        return {"scalars_equal": sa == sb, "max_abs_diff": err}
+    if sa != sb or err:
+        raise AssertionError(f"{what}: {sa} vs {sb}, fields differ by {err}")
+    return None
+
+
+def _p10_restart_main(torch, tmp, cnt):
+    """The 8192^2 restart through the main path's configuration."""
+    import shutil
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.io import restart
+    opts = dict(test="Sod", N=(MAIN_N, MAIN_N), data_type="float32",
+                scheme="GAD", projection="euler_2nd", riemann_limiter="minmod",
+                nghost=4, axis_splitting="Sequential", use_fast_math=True,
+                device="cuda", return_data=True, output_dir=tmp,
+                output_file="main")
+    cnt.quiet(lambda: armon(ArmonParameters(maxcycle=2, silent=5, **opts)))
+    lean = cnt.quiet(lambda: armon(ArmonParameters(
+        maxcycle=RESTART_CYCLES, silent=5, **opts)))
+    saves = []
+    real_save = restart.save_checkpoint
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        real_save(*a, **k)
+        saves.append(time.perf_counter() - t0)
+    free = shutil.disk_usage(tmp).free
+    print(f"chip_smoke: {free / 1e9:.2f} GB free in {tmp} before the "
+          f"{MAIN_N}^2 snapshot", file=sys.stderr)
+    restart.save_checkpoint = timed_save
+    try:
+        half = RESTART_CYCLES // 2
+        _, c_save = cnt.path("8192^2 per-cycle run with checkpoint_step",
+                             lambda: armon(ArmonParameters(
+                                 maxcycle=half, silent=2, checkpoint_step=half,
+                                 **opts)),
+                             ("x_sweep", "y_sweep", "cfl_finish", "cfl_tail"))
+    finally:
+        restart.save_checkpoint = real_save
+    ckpt = os.path.join(tmp, "main.ckpt.npz")
+    size = os.path.getsize(ckpt)
+    rp = ArmonParameters(maxcycle=RESTART_CYCLES, silent=5, **opts)
+    resumed, c_res = cnt.path("8192^2 lean resume",
+                              lambda: armon(rp, restore_from=ckpt),
+                              ("x_sweep", "y_sweep", "cfl_finish", "cfl_tail"))
+    _same_run(torch, lean, resumed, "8192^2 resume vs uninterrupted")
+    load_s = resumed.timer["init"]
+    os.remove(ckpt)
+    del resumed
+    per, c_per = cnt.path("8192^2 per-cycle run",
+                          lambda: armon(ArmonParameters(
+                              maxcycle=RESTART_CYCLES, silent=2,
+                              checkpoint_step=10 * RESTART_CYCLES, **opts)),
+                          ("x_sweep", "y_sweep", "cfl_finish", "cfl_tail"))
+    _same_run(torch, lean, per, "8192^2 per-cycle vs lean")
+    cells = MAIN_N * MAIN_N
+    out = {"N": MAIN_N, "cycles": RESTART_CYCLES, "snapshot_bytes": size,
+           "disk_free_bytes_before": free, "save_s": saves,
+           "load_s": load_s, "resume_bitwise": True,
+           "per_cycle_bitwise": True,
+           "lean_cells_per_s": cells * lean.cycles / lean.solve_time,
+           "lean_cycle_ms": lean.solve_time / lean.cycles * 1e3,
+           "lean_host_reads_per_cycle": lean.host_reads / lean.cycles,
+           "per_cycle_cells_per_s": cells * per.cycles / per.solve_time,
+           "per_cycle_cycle_ms": per.solve_time / per.cycles * 1e3,
+           "per_cycle_host_reads_per_cycle": per.host_reads / per.cycles,
+           "launches": {"per_cycle_with_save": c_save, "resume": c_res,
+                        "per_cycle": c_per}}
+    del lean, per
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cut_and_resume(torch, cnt, what, opts, total, cut, expect, tmp,
+                    report=False):
+    """A lean run to `cut` cycles, saved through the params that ran it,
+    resumed to `total`; against the uninterrupted run, bit for bit unless
+    `report`. Returns (launch counts of the resume, the differences with
+    `report`)."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.io import restart
+    full = cnt.quiet(lambda: armon(ArmonParameters(maxcycle=total, **opts)))
+    p1 = ArmonParameters(maxcycle=cut, **opts)
+    s1 = cnt.quiet(lambda: armon(p1))
+    ckpt = os.path.join(tmp, "cut.npz")
+    restart.save_checkpoint(ckpt, p1, s1.data, s1.final_time, s1.cycles,
+                            s1.last_dt)
+    s2, c = cnt.path(what, lambda: armon(ArmonParameters(maxcycle=total, **opts),
+                                         restore_from=ckpt), expect)
+    return c, _same_run(torch, full, s2, what, report=report)
+
+
+def _p10_routes(torch, tmp, cnt):
+    """Sedov 2000^2 (pair, K4) through the per-cycle driver's snapshot;
+    Sod 100^2 (K5) at an even and an odd cycle; a CPU snapshot on the
+    card."""
+    from armon_torch import ArmonParameters, armon
+    out = {}
+    sedov = dict(SMALL_OPTS, test="Sedov", N=(SEDOV_N, SEDOV_N),
+                 return_data=True, output_dir=tmp, output_file="sedov")
+    full = cnt.quiet(lambda: armon(ArmonParameters(maxcycle=SEDOV_CYCLES,
+                                                   **sedov)))
+    _, c_cut = cnt.path("Sedov per-cycle run", lambda: armon(ArmonParameters(
+        maxcycle=SEDOV_CUT, checkpoint_step=SEDOV_CUT, **dict(sedov, silent=2))),
+        ("cycle", "cfl_finish", "cfl_tail"))
+    res, c_res = cnt.path("Sedov resume", lambda: armon(
+        ArmonParameters(maxcycle=SEDOV_CYCLES, **sedov),
+        restore_from=os.path.join(tmp, "sedov.ckpt.npz")),
+        ("cycle", "cfl_finish", "cfl_tail"))
+    _same_run(torch, full, res, "Sedov 2000^2 resume at 500")
+    out["sedov_pair"] = {"N": SEDOV_N, "cut": SEDOV_CUT, "cycles": SEDOV_CYCLES,
+                         "bitwise": True, "launches": {"per_cycle": c_cut,
+                                                       "resume": c_res}}
+    del full, res
+
+    sod = []
+    modes = (("float32", False), ("float64", False), ("float32", True))
+    for dtype, fast in modes:
+        opts = dict(SMALL_OPTS, test="Sod", N=(SOD_N, SOD_N), data_type=dtype,
+                    use_fast_math=fast, return_data=True)
+        c_even, even_diff = _cut_and_resume(torch, cnt, f"Sod 100^2 {dtype} fast={fast}"
+                                    f" even resume", opts, K5_CYCLES, K5_EVEN,
+                                    ("multicycle",), tmp, report=fast)
+        c_odd, diff = _cut_and_resume(torch, cnt, f"Sod 100^2 {dtype} fast={fast}"
+                                     f" odd resume", opts, K5_CYCLES, K5_ODD,
+                                     ("cycle", "cfl_finish", "cfl_tail"), tmp,
+                                     report=fast)
+        if even_diff and (not even_diff["scalars_equal"]
+                          or even_diff["max_abs_diff"]):
+            raise AssertionError(f"K5 even resume in fast math: {even_diff}")
+        sod.append({"dtype": dtype, "fast": fast, "even": K5_EVEN,
+                    "odd": K5_ODD, "cycles": K5_CYCLES,
+                    "odd_vs_uninterrupted": diff or "bit for bit",
+                    "launches": {"even": c_even,
+                                                          "odd": c_odd}})
+    out["sod_multicycle"] = sod
+
+    # A snapshot the port writes on the CPU, resumed on the card.
+    cpu = dict(test="Sod_circ", N=(CPU_N, CPU_N), data_type="float64",
+               silent=5, return_data=True, maxtime=1e30)
+    full = armon(ArmonParameters(maxcycle=CPU_CYCLES, device="cpu", **cpu))
+    armon(ArmonParameters(maxcycle=CPU_CYCLES // 2, device="cpu",
+                          checkpoint_step=CPU_CYCLES // 2, output_dir=tmp,
+                          output_file="cpu", **cpu))
+    res, c = cnt.path("CPU snapshot resumed on the card", lambda: armon(
+        ArmonParameters(maxcycle=CPU_CYCLES, device="cuda", **cpu),
+        restore_from=os.path.join(tmp, "cpu.ckpt.npz")),
+        ("cycle", "cfl_finish", "cfl_tail"))
+    _same_run(torch, full, res, "CPU snapshot resumed on the card")
+    out["cpu_to_card"] = {"N": CPU_N, "cycles": CPU_CYCLES, "bitwise": True,
+                          "launches": c}
+    return out
+
+
+def _p10_files(torch, tmp, cnt):
+    """Goldens through written files, card files against CPU files, and a
+    1024^2 write."""
+    import numpy as np
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.io import output
+    from armon_torch.interop import to_numpy
+    rows = []
+    for test in ("Sod", "Sod_y", "Sod_circ"):
+        for dtype in ("float64", "float32"):
+            bits = 64 if dtype == "float64" else 32
+            opts = dict(test=test, N=(100, 100), data_type=dtype,
+                        use_fast_math=False, maxcycle=1000, silent=5,
+                        write_output=True)
+            cnt.quiet(lambda: armon(ArmonParameters(
+                device="cuda", output_dir=tmp, output_file="card", **opts)))
+            armon(ArmonParameters(device="cpu", output_dir=tmp,
+                                  output_file="cpu", **opts))
+            cfg = ArmonParameters(device="cpu", **opts).config
+            ours = output.read_state_file(cfg, os.path.join(tmp, "card"))
+            _, cyc, ref = output.read_reference_csv(
+                cfg, os.path.join(REF_DIR, f"ref_{test}_{bits}bits.csv"))
+            atol = 1e-13 if bits == 64 else 1e-5
+            rtol = 4 * np.finfo(np.float64).eps if bits == 64 \
+                else 20 * np.finfo(np.float32).eps
+            diffs, _, _ = output.count_differences(cfg, ours, ref, atol, rtol)
+            with open(os.path.join(tmp, "card"), "rb") as a, \
+                    open(os.path.join(tmp, "cpu"), "rb") as b:
+                same = a.read() == b.read()
+            rows.append({"test": test, "dtype": dtype, "golden_diffs": diffs,
+                         "card_file_equals_cpu_file": same})
+            if diffs or not same:
+                raise AssertionError(f"written golden {test} {dtype}: {rows[-1]}")
+
+    opts = dict(test="Sod", N=(1024, 1024), data_type="float32",
+                use_fast_math=True, maxcycle=20, silent=5, device="cuda",
+                write_output=True, write_slices=True, return_data=True,
+                output_dir=tmp, output_file="big")
+    t0 = time.perf_counter()
+    stats = cnt.quiet(lambda: armon(ArmonParameters(**opts)))
+    total_s = time.perf_counter() - t0
+    params = ArmonParameters(**opts)
+    path = os.path.join(tmp, "big")
+    t0 = time.perf_counter()
+    back = output.read_state_file(params.config, path)
+    read_s = time.perf_counter() - t0
+    st = to_numpy(stats.data)
+    g = params.nghost
+    for v, a in back.items():
+        if not np.array_equal(a, getattr(st, v)[g:-g, g:-g]):
+            raise AssertionError(f"1024^2 file read back: {v} differs")
+    t0 = time.perf_counter()
+    output.write_state_file(params.config, stats.data, path + ".again")
+    write_s = time.perf_counter() - t0
+    sizes = {name: os.path.getsize(os.path.join(tmp, name))
+             for name in ("big", "big_X_slice", "big_Y_slice", "big_D_slice")}
+    return {"goldens": rows,
+            "big": {"N": 1024, "run_and_write_s": total_s,
+                    "solve_s": stats.solve_time, "write_s": write_s,
+                    "read_s": read_s, "bytes": sizes,
+                    "read_back_equals_state": True}}
+
+
+def _p10_compare(torch, tmp):
+    """Step files written by the port on the CPU, compared on the card
+    (the op path's sub-steps)."""
+    import contextlib
+    import io
+    from armon_torch import ArmonParameters, armon
+    opts = dict(test="Sod", N=(100, 100), data_type="float64", maxcycle=2,
+                silent=5, compare=True, output_dir=tmp, output_file="cmp")
+    armon(ArmonParameters(device="cpu", is_ref=True, **opts))
+    files = len(os.listdir(tmp))
+    out = {}
+    for name, extra in (("clean", {}), ("cfl_0.5", dict(cfl=0.5))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stats = armon(ArmonParameters(device="cuda", **opts, **extra))
+        text = buf.getvalue()
+        out[name] = {"cycles": stats.cycles,
+                     "differences_reported": "difference" in text}
+    if out["clean"] != {"cycles": 2, "differences_reported": False}:
+        raise AssertionError(f"compare mode on the card: {out}")
+    if out["cfl_0.5"]["cycles"] != 0:
+        raise AssertionError(f"compare mode, cfl=0.5: {out}")
+    out["step_files"] = files
+    return out
+
+
+def _p10_meshes(torch, tmp, cnt):
+    """Sod_circ 1000^2 over 2x2 on cuda:0 with `use_MPI`: per-shard files
+    against the one-device file's windows, and per-shard snapshots resumed
+    on 2x2, 1x1 and 3x2."""
+    import numpy as np
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.io import output, subdomain
+    out = []
+    for dtype in ("float64", "float32"):
+        opts = dict(test="Sod_circ", N=(MESH_N, MESH_N), data_type=dtype,
+                    use_fast_math=False, silent=5, return_data=True,
+                    output_dir=tmp, maxtime=1e30)
+        files = dtype == "float64"
+        one = cnt.quiet(lambda: armon(ArmonParameters(
+            maxcycle=MESH_CYCLES, device="cuda", write_output=files,
+            output_file="one", **opts)))
+        half = MESH_CYCLES // 2
+        _, c_cut = cnt.path(f"2x2 per-cycle run {dtype}", lambda: armon(
+            ArmonParameters(maxcycle=half, checkpoint_step=half, use_MPI=True,
+                            output_file="mesh", **_one_card((2, 2)),
+                            **dict(opts, silent=2))),
+            ("x_sweep_slab", "y_sweep_slab", "cfl_finish", "cfl_tail"))
+        ckpt = os.path.join(tmp, "mesh.ckpt.npz")
+        row = {"dtype": dtype, "launches": {"per_cycle": c_cut}}
+        for P in ((2, 2), (1, 1), (3, 2)):
+            extra = _one_card(P) if P != (1, 1) else dict(device="cuda")
+            w = files and P == (2, 2)
+            res, c = cnt.path(f"{dtype} resume on {P}", lambda: armon(
+                ArmonParameters(maxcycle=MESH_CYCLES, use_MPI=True,
+                                write_output=w, output_file="shards",
+                                **extra, **opts),
+                restore_from=ckpt), ("cfl_finish", "cfl_tail"))
+            _same_run(torch, one, res, f"{dtype} resume on {P}", real=True)
+            row["launches"][f"resume_{P[0]}x{P[1]}"] = c
+            if w:
+                mp = ArmonParameters(maxcycle=MESH_CYCLES, use_MPI=True,
+                                     **_one_card(P), **opts)
+                for s in range(4):
+                    coords = (s % 2, s // 2)
+                    mine = subdomain.read_sub_domain_file(
+                        mp.config, subdomain.sub_domain_file_path(
+                            os.path.join(tmp, "shards"), coords), coords)
+                    _, win = subdomain.read_global_file_window(
+                        mp.config, os.path.join(tmp, "one"), coords)
+                    for v in mine:
+                        if not np.array_equal(mine[v], win[v]):
+                            raise AssertionError(f"shard file {coords} {v}")
+                row["shard_files_equal_windows"] = True
+        row["resumes_bitwise"] = ["2x2", "1x1", "3x2"]
+        out.append(row)
+        del one, res
+    return out
+
+
+def phase10(torch):
+    """Drivers, I/O and restart: the per-cycle driver and resumed runs
+    through `armon()` on the card, bit for bit against the uninterrupted
+    runs; written files against the goldens and the CPU's; compare mode
+    across devices; meshes. Returns phase 10's launch counts by kernel."""
+    import shutil
+    import tempfile
+    cnt = _Counted(torch)
+    tmp = tempfile.mkdtemp(prefix="armon_p10_")
+    try:
+        out = {"phase": 10, "card": card_line()}
+        out["restart_main"] = _p10_restart_main(torch, tmp, cnt)
+        emit(out)
+        routes = _p10_routes(torch, tmp, cnt)
+        files = _p10_files(torch, tmp, cnt)
+        cmp_dir = os.path.join(tmp, "cmp")
+        os.makedirs(cmp_dir)
+        compare_mode = _p10_compare(torch, cmp_dir)
+        meshes = _p10_meshes(torch, tmp, cnt)
+        emit({"phase": 10, "routes": routes, "files": files,
+              "compare": compare_mode, "meshes": meshes,
+              "launches": cnt.total})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return cnt.total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     args = ap.parse_args(argv)
@@ -1922,6 +2331,13 @@ def main(argv=None):
         kernels += phase8(torch)
     if 9 in phases:
         phase9(torch)
+    if 10 in phases:
+        # `launches` stays the count of the entry's own path; phase 10's
+        # paths (the per-cycle driver, resumed runs) are reported per path
+        # in phase 10's lines and, summed, under a key of their own.
+        p10 = phase10(torch)
+        for entry in kernels:
+            entry["launches_phase10"] = p10.get(entry["name"], 0)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})

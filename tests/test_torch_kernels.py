@@ -677,6 +677,78 @@ def test_mesh_run_matches_single_on_card(card, P, N, route, dtype):
         assert torch.equal(x, y), name
 
 
+@pytest.mark.parametrize("dtype,fast", [("float64", False), ("float32", True)],
+                         ids=["f64", "f32-fast"])
+@pytest.mark.parametrize("route", [PER_SWEEP, PAIR, {},
+                                   dict(P=(2, 2), devices=["cuda:0"] * 4)],
+                         ids=["per_sweep", "pair", "multicycle", "mesh-2x2"])
+def test_per_cycle_driver_matches_lean_on_card(card, route, dtype, fast):
+    """The per-cycle driver (`silent=1`) launches the lean loop's kernels
+    in the same order (K4 one cycle at a time where the lean loop runs
+    K5): its bits, t, dt and cycles, one host read a cycle."""
+    import contextlib
+    import io
+    opts = dict(test="Sod_circ", N=(100, 100), data_type=dtype, maxcycle=24,
+                use_fast_math=fast, return_data=True, device="cuda", **route)
+    lean = armon_torch.armon(armon_torch.ArmonParameters(silent=5, **opts))
+    K.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        per = armon_torch.armon(armon_torch.ArmonParameters(silent=1, **opts))
+    assert K.LAUNCHES["multicycle"] == 0 and K.TAILS["cfl_tail"] == 24
+    assert (per.cycles, per.final_time, per.last_dt) == \
+        (lean.cycles, lean.final_time, lean.last_dt)
+    assert per.host_reads == 2 * per.cycles + 2
+    exact = not fast or route != {}
+    g = 4
+    for name in ("rho", "u", "v", "E", "p"):
+        x = getattr(per.data, name)[g:-g, g:-g]
+        y = getattr(lean.data, name)[g:-g, g:-g]
+        if exact:
+            assert torch.equal(x, y), name
+        else:  # K4 against K5 in fast math
+            assert torch.allclose(x, y, rtol=0, atol=1e-4 * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("route,cut", [(PER_SWEEP, 7), (PAIR, 7), ({}, 8),
+                                       ({}, 9)],
+                         ids=["per_sweep", "pair", "multicycle-even",
+                              "multicycle-odd"])
+def test_resume_on_card(card, tmp_path, route, cut):
+    """A snapshot at `cut` cycles resumed to 24, f32 exact: the
+    uninterrupted run's bits (K5 at an even cycle, K4 one cycle at a time
+    at an odd one)."""
+    from armon_torch.io.restart import save_checkpoint
+    opts = dict(test="Sod_circ", N=(100, 100), data_type="float32",
+                use_fast_math=False, return_data=True, device="cuda",
+                silent=5, **route)
+    full = armon_torch.armon(armon_torch.ArmonParameters(maxcycle=24, **opts))
+    p1 = armon_torch.ArmonParameters(maxcycle=cut, **opts)
+    s1 = armon_torch.armon(p1)
+    save_checkpoint(tmp_path / "s.npz", p1, s1.data, s1.final_time, s1.cycles,
+                    s1.last_dt)
+    K.reset_launches()
+    s2 = armon_torch.armon(armon_torch.ArmonParameters(maxcycle=24, **opts),
+                           restore_from=str(tmp_path / "s.npz"))
+    assert (K.LAUNCHES["multicycle"] > 0) == (route == {} and cut % 2 == 0)
+    assert (s2.cycles, s2.final_time, s2.last_dt) == \
+        (full.cycles, full.final_time, full.last_dt)
+    for name in ("rho", "u", "v", "E", "p"):
+        assert torch.equal(getattr(s2.data, name), getattr(full.data, name)), name
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_card_file_equals_cpu_file(card, tmp_path, dtype):
+    """`write_output` of the same exact-mode run on the card and on the
+    CPU: the same bytes."""
+    opts = dict(test="Sod_circ", N=(100, 100), data_type=dtype, maxcycle=30,
+                use_fast_math=False, silent=5, write_output=True,
+                output_dir=str(tmp_path))
+    for device in ("cuda", "cpu"):
+        armon_torch.armon(armon_torch.ArmonParameters(
+            device=device, output_file=device, **opts))
+    assert (tmp_path / "cuda").read_bytes() == (tmp_path / "cpu").read_bytes()
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("P,devices,route", [
     ((2, 2), None, {}), ((1, 4), None, PAIR),

@@ -83,9 +83,7 @@ def test_nghost_floor_is_stencil_sum(scheme, projection, floor):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(write_output=True), dict(write_slices=True), dict(compare=True),
-    dict(checkpoint_step=5), dict(animation_step=2), dict(log_blocks=True),
-    dict(profiling="trace"), dict(silent=1), dict(silent=0),
+    dict(log_blocks=True), dict(profiling="trace"),
     dict(P=(2, 1), num_processes=2),
     dict(coordinator_address="localhost:1234"),
     dict(block_size=(8, 128)),
@@ -93,6 +91,33 @@ def test_nghost_floor_is_stencil_sum(scheme, projection, floor):
 def test_out_of_slice_options_raise(opt):
     with pytest.raises(SolverException, match="ROADMAP|block_size"):
         armon_torch.ArmonParameters(device="cpu", **opt)
+
+
+@pytest.mark.parametrize("opt", [
+    dict(write_output=True), dict(write_slices=True), dict(compare=True),
+    dict(checkpoint_step=5), dict(animation_step=2), dict(silent=1),
+    dict(silent=0),
+], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))))
+def test_ported_options_accepted(opt):
+    """The I/O and per-cycle driver options are accepted and kept as the
+    JAX package keeps them."""
+    ours = armon_torch.ArmonParameters(device="cpu", **opt)
+    theirs = armon_tpu.ArmonParameters(**opt)
+    key, value = next(iter(opt.items()))
+    assert getattr(ours, key) == getattr(theirs, key) == value
+
+
+def test_output_defaults_match_jax():
+    """`silent` defaults to 0, as in the JAX package, and so does every
+    other output option."""
+    ours = armon_torch.ArmonParameters(device="cpu")
+    theirs = armon_tpu.ArmonParameters()
+    assert ours.silent == 0
+    for key in ("silent", "output_dir", "output_file", "write_output",
+                "write_ghosts", "write_slices", "output_precision",
+                "animation_step", "checkpoint_step", "compare", "is_ref",
+                "comparison_tolerance", "check_result", "return_data"):
+        assert getattr(ours, key) == getattr(theirs, key), key
 
 
 @pytest.mark.parametrize("tier,op_path", [
@@ -118,12 +143,20 @@ def test_kernel_tier_selects_path(tier, op_path, monkeypatch):
         armon_torch.ArmonParameters(device="cpu", kernel_tier="numpy")
 
 
-def test_restore_and_checkpoint_hooks_raise():
-    p = armon_torch.ArmonParameters(device="cpu", N=(8, 8), maxcycle=1)
-    with pytest.raises(SolverException, match="ROADMAP"):
-        armon_torch.armon(p, restore_from="snapshot.npz")
-    with pytest.raises(SolverException, match="ROADMAP"):
-        armon_torch.armon(p, checkpoint=lambda *a: False)
+def test_restore_and_checkpoint_hooks_raise(tmp_path):
+    """`restore_from` and `checkpoint` run (ROADMAP A8): a missing snapshot
+    raises, a hook's own error comes through, and a hook that finds
+    nothing lets the run end."""
+    p = armon_torch.ArmonParameters(device="cpu", N=(8, 8), maxcycle=1,
+                                    silent=5)
+    with pytest.raises(SolverException, match="not found"):
+        armon_torch.armon(p, restore_from=str(tmp_path / "snapshot.npz"))
+
+    def hook(label, *args, **kw):
+        raise RuntimeError(label)
+    with pytest.raises(RuntimeError, match="init_test"):
+        armon_torch.armon(p, checkpoint=hook)
+    assert armon_torch.armon(p, checkpoint=lambda *a, **k: False).cycles == 1
 
 
 def test_cuda_device_without_card_raises():
