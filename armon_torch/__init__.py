@@ -6,14 +6,16 @@ reference). Plain tensor code is PyTorch; the kernels (per-sweep,
 whole-cycle and K-cycles) are hand-written CUDA (`armon_torch/csrc/`),
 built with nvcc on first use.
 Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``, which runs every kernel's plain PyTorch version.
+``device="cpu"``, which runs every kernel's plain PyTorch version. The
+command line is ``python -m armon_torch key=value ...``.
 
 This package imports neither `jax` nor `armon_tpu`.
 """
 
 from .params import ArmonParameters, data_type, memory_required
-from .core.solver import armon, SolverStats
-from .core.state import State, FusedCarry
+from .core.solver import armon, SolverStats, device_to_host, host_to_device
+from .interop import gather_state
+from .core.state import State, FusedCarry, MAIN_VARS, SAVED_VARS, COMM_VARS
 from .core.config import SolverConfig
 from .utils.errors import SolverException
 from .utils.enums import Axis, Side
@@ -25,7 +27,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ArmonParameters", "armon", "SolverStats", "data_type", "memory_required",
-    "State", "FusedCarry", "SolverConfig",
+    "device_to_host", "host_to_device", "gather_state",
+    "State", "FusedCarry", "MAIN_VARS", "SAVED_VARS", "COMM_VARS",
+    "SolverConfig",
     "SolverException", "Axis", "Side",
     "TestCase", "Sod", "SodY", "SodCirc", "Bizarrium", "Sedov",
     "DebugIndexes", "test_from_name",

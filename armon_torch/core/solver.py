@@ -28,8 +28,18 @@ Every step runs on each shard of the mesh (`parallel/mesh.py`; one shard
 holding the whole grid when P = (1, 1)): the carry is a list of
 FusedCarry or State, one per shard in the mesh's order, and `return_data`
 gathers the global State (`interop.gather_state`).
+
+Observability (`armon_tpu/core/solver.py:848-1014`): `armon()` times its
+sections `init`, `conservation_vars` and `solver_cycle` (`utils/
+profiling.section`, reported in `SolverStats.timer`); `profiling=
+["trace"]` profiles `solver_cycle` into `output_dir/profile`;
+`log_blocks` runs the per-cycle driver, which logs each cycle's t, dt and
+wall time (`utils/solver_log.SolverLog`, `SolverStats.grid_log`), and
+after the loop `measure_sections` times a cycle's pieces on copies of
+the final state, beside the trace's per-kernel table.
 """
 
+import contextlib
 import os
 import time
 import warnings
@@ -41,6 +51,8 @@ import torch
 
 from ..utils.enums import Axis
 from ..utils.errors import solver_error
+from ..utils.profiling import Timer, section, trace, kernel_times
+from ..utils.solver_log import SolverLog
 from ..params import ArmonParameters
 from ..ops import sweep as K
 from ..ops.init import init_state
@@ -51,10 +63,10 @@ from ..ops.reductions import (cfl_maxima, cfl_limit, conservation_vars,
 from ..ops.riemann import numerical_fluxes
 from ..ops.routing import cycle_route, temporal_pairs
 from ..ops.update import cell_update
-from ..parallel.halo import halo_exchange_state
+from ..parallel.halo import halo_exchange_state, halo_slabs
 from ..parallel.mesh import Mesh
 from .splitting import split_schedules
-from .state import State, FusedCarry
+from .state import State, FusedCarry, torch_dtype
 from .step import (KernelCycles, LoopResult, make_time_loop_lean,
                    make_time_loop, solver_cycle)
 from .timestep import next_time_step, dt_update
@@ -71,6 +83,7 @@ class SolverStats:
     giga_cells_per_sec: float    # cell-cycles per second / 1e9
     data: Optional[State] = None
     timer: Optional[dict] = None
+    grid_log: Optional[SolverLog] = None
     host_reads: int = 0          # device-to-host scalar reads in the loop
 
     def __repr__(self):
@@ -232,6 +245,91 @@ def make_step_fns(params):
     return fns
 
 
+def _section_timer(params, reps):
+    """fn -> the best of `reps` timed calls of fn(), in seconds, after one
+    untimed call: CUDA events on the card when every shard is on one card
+    (`_card.time_ms`), else the host clock after waiting for every
+    device."""
+    devices = set(params.devices)
+    if params.device.type == "cuda" and len(devices) == 1:
+        from .._card import time_ms
+
+        def timed(fn):
+            with torch.cuda.device(params.device):
+                return time_ms(lambda i: fn(), params.device, k=1,
+                               passes=reps) / 1e3
+        return timed
+
+    def timed(fn):
+        fn()
+        _sync(params)
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            _sync(params)
+            best = min(best, time.perf_counter() - t0)
+        return best
+    return timed
+
+
+def measure_sections(params, states, reps=3):
+    """Per-section seconds of one cycle (`measure_sections`, `core/
+    solver.py:658-730`): the cycle's pieces run apart, each the best of
+    `reps`, on copies of `states` (one FusedCarry or State per shard, mesh
+    order), which stay as they are. Kernel tiers: `ghost_exchange_X/Y`
+    (`halo_exchange_state` over rho/u/v/E: the neighbours' lines on a
+    mesh, the mirror at global borders) and `sweep_X/Y` (one K1 or K2
+    launch a shard, writing the stale p and the CFL partials). The op
+    path: `eos/bc/fluxes/update/remap` per axis (`make_step_fns`) and
+    `time_step`. Indicative shares: the in-loop cycle overlaps and fuses
+    what these run apart."""
+    cfg = params.config
+    T = np.dtype(cfg.dtype).type
+    timed = _section_timer(params, reps)
+    mesh = make_mesh(params)
+    like = states[0].rho
+    dt = scalar_like(like, T(1e-6))
+    sections = {}
+    if not cfg.op_path:
+        fields = [(st.rho, st.u, st.v, st.E) for st in states]
+        dst = [tuple(torch.empty_like(a) for a in f) for f in fields]
+        p = [torch.empty_like(f[0]) for f in fields]
+        for axis in (Axis.X, Axis.Y):
+            sections[f"ghost_exchange_{axis.name}"] = timed(
+                lambda a=axis: halo_exchange_state(
+                    cfg, mesh, states, a, FusedCarry._fields[:4]))
+            nb = K.n_partials(axis, like.shape, like.device)
+            bufs = [(torch.zeros((2, nb), dtype=like.dtype, device=s.device),
+                     *K.new_scalars(cfg.dtype, s.device)) for s in mesh]
+            for _, scal, iscal in bufs:
+                scal[K.SC_DTUSE] = float(T(1e-6))
+                iscal[K.IS_RUN] = 1
+            launch = K.x_sweep if axis is Axis.X else K.y_sweep
+            ghosts = halo_slabs(cfg, mesh, fields, axis) \
+                if mesh.proc_dims[axis] > 1 else [K.MIRRORED] * len(mesh)
+
+            def sweep(launch=launch, bufs=bufs, ghosts=ghosts):
+                for s in mesh:
+                    part, scal, iscal = bufs[s.index]
+                    launch(cfg, fields[s.index], dst[s.index], p[s.index],
+                           part, scal, iscal, 1.0, True, ghosts[s.index],
+                           s.n_real)
+            sections[f"sweep_{axis.name}"] = timed(sweep)
+        return sections
+    fns = make_step_fns(params)
+    for axis in (Axis.X, Axis.Y):
+        sections[f"eos_{axis.name}"] = timed(
+            lambda a=axis: fns[("eos", a)](states))
+        sections[f"bc_{axis.name}"] = timed(
+            lambda a=axis: fns[("bc", a)](states))
+        for name in ("fluxes", "update", "remap"):
+            sections[f"{name}_{axis.name}"] = timed(
+                lambda a=axis, n=name: fns[(n, a)](states, dt))
+    sections["time_step"] = timed(lambda: fns["dt"](states, dt, 2, True))
+    return sections
+
+
 def _checkpointed_cycle(params, fns, states, dt_prev, cycle_idx, checkpoint,
                         seeded, lm_override=None):
     """`solver_cycle` with a checkpoint hook after every sub-step
@@ -280,9 +378,11 @@ def _checkpointed_cycle(params, fns, states, dt_prev, cycle_idx, checkpoint,
     return states, dt_use, dt_next, ok, False
 
 
-def _cycle_driver(params, states, fs, local0, checkpoint, restored):
+def _cycle_driver(params, states, fs, local0, checkpoint, restored,
+                  solver_log=None):
     """The per-cycle driver (`_python_cycle_driver`, `core/solver.py:
-    403-553`): one cycle per step, then the host's work for it: a
+    403-553`): one cycle per step, then the host's work for it: the
+    `solver_log` event (cycle, t, dt used, wall seconds), a
     `checkpoint_step` snapshot, the `silent <= 1` line (after the
     conservation sums), an animation frame.
 
@@ -290,10 +390,11 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored):
     `KernelCycles`, the lean loop's body, on the route of one cycle
     (`cycle_route`: pair or per-sweep, never K5), and the host reads the
     loop's int scalars once a cycle (whether the next cycle runs, and ok);
-    t, dt and lm are read only for a cycle whose snapshot or line needs
-    them. Otherwise a step is the op path's `solver_cycle`, or, with a
-    hook, its sub-steps (`_checkpointed_cycle`), and the host reads dt and
-    ok once a cycle. Returns (LoopResult, the restored States or None)."""
+    t and dt are read only for a cycle whose log event, snapshot or line
+    needs them. Otherwise a step is the op path's `solver_cycle`, or, with
+    a hook, its sub-steps (`_checkpointed_cycle`), and the host reads dt
+    and ok once a cycle. Returns (LoopResult, the restored States or
+    None)."""
     cfg = params.config
     T = np.dtype(cfg.dtype).type
     mesh = make_mesh(params)
@@ -347,7 +448,8 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored):
         if running:
             run.first_step()
         while running:
-            pre.copy_(run.scal)  # t and dt_prev after this cycle
+            cycle_start = time.perf_counter()
+            pre.copy_(run.scal)  # t, dt_prev and dt_use after this cycle
             run.cycle(cycles)
             _, ok, running, _ = run.iscal.tolist()
             reads += 1
@@ -355,6 +457,11 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored):
             if not running and not ok:
                 solver_error("time", f"Invalid time step for cycle "
                                      f"{cycles - 1}")
+            if solver_log is not None:
+                sc = pre.tolist()
+                reads += 1
+                solver_log.push(cycles, sc[K.SC_T], sc[K.SC_DTUSE],
+                                time.perf_counter() - cycle_start)
             if conservation is not None or (params.checkpoint_step and
                                             cycles % params.checkpoint_step == 0):
                 tv, dtv, lmv = torch.stack([pre[K.SC_T], pre[K.SC_DTPREV],
@@ -383,6 +490,7 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored):
     resume_lm = scalar_like(like, T(lm)) if lm is not None else None
     dt_t = scalar_like(like, dt_prev)
     while t < T(cfg.maxtime) and cycles < cfg.maxcycle:
+        cycle_start = time.perf_counter()
         seeded = dt_prev != 0
         if checkpoint is None:
             states, dt_use, dt_next, ok = solver_cycle(
@@ -403,6 +511,9 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored):
         t = T(t + T(du))
         cycles += 1
         dt_prev, dt_t = T(dn), dt_next
+        if solver_log is not None:
+            solver_log.push(cycles, float(t), float(T(du)),
+                            time.perf_counter() - cycle_start)
         after_cycle(lambda: states, states, t, dt_prev, None)
     return _op_result(states, t, cycles, dt_prev, reads), base
 
@@ -560,66 +671,87 @@ def armon(params: ArmonParameters, checkpoint=None,
 
     op = cfg.op_path
     hooks = checkpoint is not None or params.compare
+    solver_log = SolverLog(cfg.n_global[0] * cfg.n_global[1]) \
+        if params.log_blocks else None
     use_python_loop = (params.silent <= 1 or params.animation_step != 0
-                       or hooks or params.checkpoint_step != 0)
+                       or hooks or params.checkpoint_step != 0
+                       or solver_log is not None)
     lean = not use_python_loop and not op
     T = np.dtype(cfg.dtype).type
-    timer = {} if params.measure_time else None
-    t_start = time.perf_counter()
+    timer = Timer() if params.measure_time else None
     restored = states = fs = local0 = None
-    if restore_from is not None:
-        from ..io.restart import load_checkpoint
-        states, *restored = load_checkpoint(restore_from, params)
-        # The lean loop resumes a run as it would have gone on: it needs
-        # the snapshot's carry, and under temporal blocking an even cycle,
-        # where a K5 launch of an uninterrupted run starts
-        # (`core/solver.py:869-895`). Otherwise the full-state restore
-        # loop runs.
-        lean = lean and restored[3] is not None and (
-            temporal_pairs(cfg) is None or restored[1] % 2 == 0)
-        if lean:
-            fs, local0 = _carry_of(states), restored[3]
-            states = None
-    elif lean or (use_python_loop and not op and not hooks):
-        fs, local0 = make_init_fused(params)()
-    else:
-        states = make_init(params)()
-    _sync(params)
-    if timer is not None:
-        timer["init"] = time.perf_counter() - t_start
+    with section("init", timer):
+        if restore_from is not None:
+            from ..io.restart import load_checkpoint
+            states, *restored = load_checkpoint(restore_from, params)
+            # The lean loop resumes a run as it would have gone on: it
+            # needs the snapshot's carry, and under temporal blocking an
+            # even cycle, where a K5 launch of an uninterrupted run starts
+            # (`core/solver.py:869-895`). Otherwise the full-state restore
+            # loop runs.
+            lean = lean and restored[3] is not None and (
+                temporal_pairs(cfg) is None or restored[1] % 2 == 0)
+            if lean:
+                fs, local0 = _carry_of(states), restored[3]
+                states = None
+        elif lean or (use_python_loop and not op and not hooks):
+            fs, local0 = make_init_fused(params)()
+        else:
+            states = make_init(params)()
+        # The loop's clock starts on an idle device, so every section here
+        # ends on the device's work whatever `time_async` says (the JAX
+        # package passes it to this section alone).
+        _sync(params)
 
     if params.check_result or params.silent <= 1:
-        m, e = make_conservation(params)(fs if fs is not None else states)
-        params.initial_mass, params.initial_energy = m, e
+        with section("conservation_vars", timer):
+            m, e = make_conservation(params)(fs if fs is not None else states)
+            params.initial_mass, params.initial_energy = m, e
 
     if params.compare and checkpoint is None:
         checkpoint = make_file_checkpoint(params)
     base = None
-    solve_start = time.perf_counter()
-    if use_python_loop:
-        res, base = _cycle_driver(params, states, fs, local0, checkpoint,
-                                  restored)
-    elif lean:
-        r = restored or (0.0, 0, 0.0)
-        res = make_time_loop_lean(cfg, make_mesh(params))(
-            fs, T(r[0]), int(r[1]), T(r[2]), local0)
-        params._ran_fused = True
-    elif op:
-        r = restored or (0.0, 0, 0.0, None)
-        res = make_time_loop(cfg, make_mesh(params), bool(restored))(
-            states, T(r[0]), int(r[1]), T(r[2]), r[3])
-        params._ran_fused = False
-    else:
-        res = _restore_loop_kernels(params, states, restored)
-        base = states
-        params._ran_fused = True
-    solve_time = time.perf_counter() - solve_start
-    if timer is not None:
-        timer["solver_cycle"] = solve_time
+    traced = "trace" in params.profiling
+    profile_ctx = trace(os.path.join(params.output_dir, "profile"),
+                        params.device) if traced \
+        else contextlib.nullcontext()
+    with profile_ctx as prof, section("solver_cycle", timer):
+        solve_start = time.perf_counter()
+        if use_python_loop:
+            res, base = _cycle_driver(params, states, fs, local0, checkpoint,
+                                      restored, solver_log)
+        elif lean:
+            r = restored or (0.0, 0, 0.0)
+            res = make_time_loop_lean(cfg, make_mesh(params))(
+                fs, T(r[0]), int(r[1]), T(r[2]), local0)
+            params._ran_fused = True
+        elif op:
+            r = restored or (0.0, 0, 0.0, None)
+            res = make_time_loop(cfg, make_mesh(params), bool(restored))(
+                states, T(r[0]), int(r[1]), T(r[2]), r[3])
+            params._ran_fused = False
+        else:
+            res = _restore_loop_kernels(params, states, restored)
+            base = states
+            params._ran_fused = True
+        solve_time = time.perf_counter() - solve_start
     if params._ran_fused or not use_python_loop:
         params._final_local_min = res.lm
     if not res.ok:
         solver_error("time", f"Invalid time step at cycle {res.cycles}")
+
+    if solver_log is not None and res.cycles > 0:
+        # The cycle's pieces timed apart on copies of the final state, and
+        # the trace's per-kernel table (`core/solver.py:967-986`).
+        try:
+            solver_log.sections = measure_sections(params, res.carry)
+        except Exception as e:  # a probe failure must not kill the run
+            warnings.warn(f"section probe failed: {type(e).__name__}: {e}")
+        if traced:
+            try:
+                solver_log.trace_sections = kernel_times(prof)
+            except Exception as e:
+                warnings.warn(f"trace table failed: {type(e).__name__}: {e}")
 
     final = res.carry  # a FusedCarry or a State per shard
     states = None
@@ -653,7 +785,8 @@ def armon(params: ArmonParameters, checkpoint=None,
         cell_count=cell_count,
         giga_cells_per_sec=1.0 / grind / 1e9 if res.cycles > 0 else 0.0,
         data=data,
-        timer=timer,
+        timer=timer.report() if timer is not None else None,
+        grid_log=solver_log,
         host_reads=res.host_reads,
     )
 
@@ -694,3 +827,28 @@ def _print_summary(stats, params):
     print(f"Cells/sec:   {stats.giga_cells_per_sec * 1e3:.5f} Mega cells/sec")
     print(f"Cycles:      {stats.cycles}")
     print(f"Last cycle:  {stats.final_time:.18f} sec, dt={stats.last_dt:.18f} sec")
+
+
+# Reference API parity (`src/Armon.jl:15-16` exports,
+# `armon_tpu/core/solver.py:1181-1227`).
+def device_to_host(params, shards):
+    """The global padded grid as numpy arrays (a NamedTuple like each
+    shard's) from per-shard blocks in the mesh's order, or from the one
+    State or FusedCarry of a run off a mesh (`device_to_host!`,
+    `src/blocking/block_grid.jl:712-737`)."""
+    from ..interop import gather_state, to_numpy
+    shards = [shards] if hasattr(shards, "_fields") else list(shards)
+    return to_numpy(gather_state(params, shards))
+
+
+def host_to_device(params, host_state):
+    """Per-shard blocks, in the mesh's order and each on its shard's
+    device, of a global padded grid given as a NamedTuple of numpy arrays
+    or tensors: the inverse of `device_to_host` (`host_to_device!`). On an
+    uneven split the edge shards' slack repeats the grid's last line."""
+    from ..interop import scatter_state
+    tdt = torch_dtype(params.data_type)
+    return scatter_state(params, type(host_state)(*(
+        torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
+                        else a).to(device=params.device, dtype=tdt)
+        for a in host_state)))

@@ -24,6 +24,10 @@ class State(NamedTuple):
     pstar: torch.Tensor  # interface pressure
 
 
+# The fields the reference's blocks hold besides ustar/pstar
+# (`armon_tpu/core/state.py:39`).
+MAIN_VARS = ("x", "y", "rho", "u", "v", "E", "p", "c", "g")
+
 # The fields a ghost exchange fills on the op path (`armon_tpu/core/
 # state.py:41`); the kernels' routes exchange rho/u/v/E only.
 COMM_VARS = ("rho", "u", "v", "E", "p", "c", "g")

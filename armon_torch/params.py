@@ -33,9 +33,26 @@ _DTYPE_NAMES = {
     "float32": np.float32, "Float32": np.float32, "f32": np.float32,
 }
 
-# ROADMAP items that bring the routes this package does not run yet.
-_OBSERVABILITY = "ROADMAP queue A item 9 (observability)"
+# ROADMAP item that brings the route this package does not run yet.
 _MULTI_PROCESS = "ROADMAP queue A item 10b (multi-process runs)"
+
+# Field-sized arrays alive at the peaks `memory_required` counts, one
+# shard on its device. Measured, not derived: Sod 8192^2 f32, the peak of
+# `torch.cuda.max_memory_allocated` over the allocation before, in arrays
+# of 8200^2 x 4 B, rounded up (NVIDIA H100 80GB HBM3, 700.00 W;
+# `chip_smoke.py` phases 3, 9 and 11):
+# - the op path's run, 20 cycles: 69.25 (18,625,504,768 B), the 11-field
+#   State, its successor and a sweep's temporaries;
+OP_PATH_PEAK_FIELDS = 70
+# - a kernel run's initialisation (`make_init_fused`: init_state, the
+#   cycle-0 EOS, the CFL maxima): 11.996 (3,226,473,984 B), over the time
+#   loop's 9;
+KERNEL_INIT_PEAK_FIELDS = 12
+# - a kernel run that rebuilds the full State after its loop
+#   (`return_data`, `write_output`, `write_slices`; `make_rehydrate`: the
+#   carry's 5 and a re-run of init and EOS), 100 cycles: 16.00002
+#   (4,303,364,608 B).
+REHYDRATE_PEAK_FIELDS = 17
 
 # kernel_tier values that select the hand-written kernels (the op path's
 # are `core/config.OP_PATH_TIERS`).
@@ -251,11 +268,9 @@ class ArmonParameters:
         self.use_simd = bool(o.pop("use_simd", True))
         self.use_cache_blocking = bool(o.pop("use_cache_blocking", True))
         self.async_cycle = bool(o.pop("async_cycle", False))
+        # A tile-size hint in the JAX package; the CUDA kernels' launch
+        # shapes are fixed, so it is kept and has no effect.
         self.block_size = o.pop("block_size", None)
-        if self.block_size is not None:
-            solver_error("config", "block_size has no effect on the CUDA "
-                                   "kernels' fixed launch shapes; leave it "
-                                   "unset")
         self.use_two_step_reduction = bool(o.pop("use_two_step_reduction", False))
         self.workload_distribution = o.pop("workload_distribution", "simple")
         o.pop("distrib_params", None)
@@ -282,17 +297,22 @@ class ArmonParameters:
             "temporal_blocking", os.environ.get("ARMON_TEMPORAL_K", 8)))
 
     def _init_profiling(self, o):
-        """src/parameters.jl:532-575"""
+        """src/parameters.jl:532-575. Known profilers: 'trace'
+        (`torch.profiler`, a Chrome trace under `output_dir/profile`).
+        `log_blocks` runs the per-cycle driver and keeps the solver log
+        (`utils/solver_log.py`)."""
         prof = o.pop("profiling", [])
-        prof = [prof] if isinstance(prof, str) else list(prof)
-        if prof:
-            _not_ported("profiling", _OBSERVABILITY)
-        self.profiling = prof
+        # A bare string ('profiling=trace', the natural CLI spelling) is
+        # ONE profiler name, not an iterable of characters.
+        self.profiling = [prof] if isinstance(prof, str) else list(prof)
+        unknown = set(map(str, self.profiling)) - {"trace"}
+        if unknown:
+            solver_error("config", "Unknown profiler" +
+                         ("s" if len(unknown) > 1 else "") + ": " +
+                         ", ".join(sorted(unknown)))
         self.measure_time = bool(o.pop("measure_time", True))
         self.time_async = bool(o.pop("time_async", True))
-        if o.pop("log_blocks", False):
-            _not_ported("log_blocks", _OBSERVABILITY)
-        self.log_blocks = False
+        self.log_blocks = bool(o.pop("log_blocks", False))
         o.pop("estimated_blk_log_size", None)
 
     def _init_indexing(self, o):
@@ -369,40 +389,90 @@ class ArmonParameters:
         return self._config
 
     def memory_required(self) -> dict:
-        """Device bytes of the port's buffers (`src/blocking/block_grid.jl:
-        598-709` analog), on the device that holds the most. Each shard's
-        time loop holds two sets of rho/u/v/E (the sweeps write out of
-        place, ping-pong) plus p: 9 fields, the per-block CFL partials, and
-        a (4, g, cols) or (4, rows, g) ghost slab for each side that faces
-        a neighbour. `return_data` rebuilds the 11-field State after the
-        loop, once the second field set is freed. Field bytes are one
-        shard's; a device counts every shard placed on it.
+        """Device bytes of the run's buffers (`armon_tpu/params.py:
+        374-387`, `src/blocking/block_grid.jl:598-709`), on the device that
+        holds the most (`per_device_*`) and summed over devices
+        (`total_bytes`, `fused_total_bytes`). A device counts every shard
+        placed on it. Both paths are reported, with the JAX package's keys:
 
-        The op path holds the 11-field State and, while a cycle runs, its
-        successor: 22 fields. A sweep's temporaries come on top of that
-        and are not counted (PERF.md records the measured peak)."""
+        - `per_device_total_bytes`, the op path's footprint (the full-state
+          path): each shard's 11-field State and its successor, 22 fields,
+          and the temporaries of the one shard a sweep works on, up to
+          `OP_PATH_PEAK_FIELDS` fields in all; `per_device_transient_bytes`
+          is what it holds besides the States (`per_device_state_bytes`);
+        - `per_device_fused_total_bytes`, the kernel path's: the largest of
+          its time loop, where each shard holds two sets of rho/u/v/E (the
+          sweeps write out of place) plus p, 9 fields, a (4, g, cols) or
+          (4, rows, g) ghost slab for each side that faces a neighbour
+          (`per_device_halo_bytes`), and the CFL partials of the cycle's
+          last launch, one column per block a shard; a shard's
+          initialisation (`KERNEL_INIT_PEAK_FIELDS`) beside the earlier
+          shards' 5-field carries; and, when the run rebuilds the full
+          State after the loop, the rebuild (`REHYDRATE_PEAK_FIELDS` for
+          one shard, 10 more for each other: its carry and its rebuilt x,
+          y, c, g and zeros), and on a mesh that gathers the global State
+          (`return_data`, `write_slices`, a global `write_output`), the
+          shards' States and the global one on the first device;
+        - `per_device_loop_bytes`: the time loop's fields and slabs on the
+          path this run takes (22 fields a shard on the op path)."""
+        from .ops import cycle as C, sweep as K
+        from .ops.routing import cycle_route
+        from .utils.enums import Axis
+        cfg = self.config
         g = self.nghost
         nx, ny = self.n_local
-        rows, cols = ny + 2 * g, nx + 2 * g
+        shape = rows, cols = ny + 2 * g, nx + 2 * g
         itemsize = self.data_type.itemsize
         field = rows * cols * itemsize
         px, py = self.P
-        loop, state = {}, {}
+        dev0 = self.devices[0]
+        nb = max(K.n_partials(Axis.X, shape, dev0),
+                 K.n_partials(Axis.Y, shape, dev0),
+                 C.n_partials(shape, dev0, cfg.dtype)
+                 if cycle_route(cfg) == "pair" else 0)
+        n_state = len(State._fields)
+        shards, halo = {}, {}
         for iy in range(py):
             for ix in range(px):
                 slabs = ((ix > 0) + (ix < px - 1)) * rows * g \
                     + ((iy > 0) + (iy < py - 1)) * g * cols
                 dev = self.devices[iy * px + ix]
-                own = 2 * len(State._fields) * field if self.config.op_path \
-                    else 9 * field + 4 * slabs * itemsize
-                loop[dev] = loop.get(dev, 0) + own
-                state[dev] = state.get(dev, 0) + len(State._fields) * field
+                shards[dev] = shards.get(dev, 0) + 1
+                halo[dev] = halo.get(dev, 0) + 4 * slabs * itemsize
+        rebuild = self.return_data or self.write_output or self.write_slices
+        gather = len(self.devices) > 1 and (
+            self.return_data or self.write_slices
+            or (self.write_output and not (cfg.spmd and self.use_MPI)))
+        gx, gy = self.N
+        global_state = n_state * (gy + 2 * g) * (gx + 2 * g) * itemsize
+        op, fused = {}, {}
+        for dev, k in shards.items():
+            op[dev] = (2 * n_state * k + OP_PATH_PEAK_FIELDS
+                       - 2 * n_state) * field
+            loop = 9 * k * field + halo[dev] + (
+                2 * len(self.devices) * nb * itemsize if dev == dev0 else 0)
+            fields = max(5 * (k - 1) + KERNEL_INIT_PEAK_FIELDS,
+                         10 * (k - 1) + REHYDRATE_PEAK_FIELDS if rebuild
+                         else 0)
+            fused[dev] = max(loop, fields * field)
+        if gather:
+            fused[dev0] = max(fused[dev0], n_state * shards[dev0] * field
+                              + global_state)
+        state = max(n_state * k * field for k in shards.values())
+        total = max(op.values())
         return {
             "per_device_field_bytes": field,
-            "per_device_loop_bytes": max(loop.values()),
-            "per_device_state_bytes": max(state.values()),
-            "per_device_total_bytes": max(loop.values()),
-            "total_bytes": sum(loop.values()),
+            "per_device_state_bytes": state,
+            "per_device_transient_bytes": total - state,
+            "per_device_halo_bytes": max(halo.values()),
+            "per_device_total_bytes": total,
+            "per_device_fused_total_bytes": max(fused.values()),
+            "per_device_loop_bytes": max(
+                2 * n_state * k * field for k in shards.values())
+            if cfg.op_path else max(9 * k * field + halo[d]
+                                    for d, k in shards.items()),
+            "total_bytes": sum(op.values()),
+            "fused_total_bytes": sum(fused.values()),
         }
 
     def __repr__(self):
@@ -452,8 +522,10 @@ class ArmonParameters:
                 f"{self.n_local[0]}x{self.n_local[1]} cells (edge "
                 f"{self.n_edge[0]}x{self.n_edge[1]}) on "
                 f"{', '.join(str(d) for d in self.devices)}")
-        lines.append(f" - memory:     {mem['per_device_total_bytes'] / 1e6:.1f}"
-                     f" MB in the time loop, on the busiest device")
+        key = "per_device_total_bytes" if self.config.op_path \
+            else "per_device_fused_total_bytes"
+        lines.append(f" - memory:     {mem[key] / 1e6:.1f} MB in the time "
+                     f"loop, on the busiest device")
         return "\n".join(lines)
 
 

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-10, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-11, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
     python3 chip_smoke.py --phases 0,8    # the probes only
     python3 chip_smoke.py --phases 0,9    # the torch op path only
     python3 chip_smoke.py --phases 0,10   # drivers, I/O and restart only
+    python3 chip_smoke.py --phases 0,11   # observability and the public API only
+                                          # (add 3, 7 and 9 for the times and
+                                          # peaks it is held to)
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), the kernels' build time,
@@ -124,7 +127,31 @@ Phases, each printing one JSON line:
      one-device run (f64, f32 exact). Each path runs with the launch
      counts set to 0 just before it and must launch its kernels; phase
      10's launches are added to the `kernels` line. Files go under a
-     temporary directory, removed at the end.
+     temporary directory, removed at the end;
+ 11. observability and the public API, the solver's probe warnings
+     turned into errors: (a) the main path's configuration (Sod 8192^2
+     f32 fast math) 20 cycles on the lean loop, plain, traced
+     (`profiling=["trace"]`), traced, plain: the Chrome trace's launches
+     of K1 (`x_sweep_kernel`), K2 with K3's tail (`y_sweep_finish_kernel`)
+     and K3 equal to the wrappers' counts, none of K4 or K5, each
+     launch's device time in the trace within 10% of phase 3's CUDA-event
+     time (K3's, once a run and a few us, printed beside a CUDA-event
+     time of the same call), cells/s with and without the trace, the
+     device's busy share; (b) the same through the per-cycle driver with
+     `log_blocks` and the trace: 20 events whose t and dt equal the
+     device scalars of a run without `log_blocks` bit for bit, sections
+     from the trace, the probes' four sections, the timer's three
+     sections once each; (c) Sod 16384^2 over 2x2 on cuda:0 (phase 7's
+     mesh), 10 cycles with `log_blocks` and the trace: the slab copies'
+     device time (`collective_seconds`) beside phase 7's slab-copy ms a
+     cycle; (e) `host_to_device(device_to_host(...))` on the shards of
+     Sod_circ 1000^2 runs on 1x1, 2x2 and 3x2 one-card meshes, bit for
+     bit; (f) `python -m armon_torch test=Sod N=1024,1024 maxcycle=10
+     silent=4` in a subprocess; (d) `memory_required()` against the
+     peaks measured on the card (one shard's initialisation and the lean
+     run here, phase 3's, phase 7's 2x2 and phase 9's runs), each peak at
+     or under its total within `MEM_MARGIN`. Its files go under a
+     temporary directory.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -559,6 +586,7 @@ def phase3(torch):
     armon(ArmonParameters(maxcycle=2, **opts))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     params = ArmonParameters(maxcycle=MAIN_CYCLES, check_result=True,
                              return_data=True, **opts)
     cfg = params.config
@@ -595,7 +623,7 @@ def phase3(torch):
             "host_reads": stats.host_reads, "launches": launches, "tails": tails,
             "launches_per_cycle": sum(launches.values()) / stats.cycles,
             "mass_drift": mass_drift, "energy_drift": energy_drift,
-            "max_memory_allocated": peak}
+            "max_memory_allocated": peak, "memory_allocated_before": before}
 
     # Kernels at the main path's shapes: times (CUDA events), their plain
     # versions' times, bounds, and the check against the plain versions.
@@ -726,7 +754,8 @@ def phase3(torch):
     main["cycle_8200_fast_math_max_abs_err"] = k4_err
     emit(main)
     return kernels + [{"cells_per_s": main["cells_per_s"],
-                       "kernel_ms": main["kernel_ms"]}]
+                       "kernel_ms": main["kernel_ms"],
+                       "memory": {"peak": peak, "before": before}}]
 
 
 # ------------------------------------------------------- small-grid routes
@@ -929,6 +958,7 @@ def _timed(torch, test, n, cycles, **route):
     armon(ArmonParameters(maxcycle=16, **opts))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     params = ArmonParameters(maxcycle=cycles, check_result=True,
                              return_data=True, **opts)
     cfg = params.config
@@ -950,7 +980,7 @@ def _timed(torch, test, n, cycles, **route):
             "cycle_ms": stats.solve_time / stats.cycles * 1e3,
             "host_reads": stats.host_reads, "launches": launches, "tails": tails,
             "kernel_launches_per_cycle": sum(launches.values()) / stats.cycles,
-            "max_memory_allocated": peak,
+            "max_memory_allocated": peak, "memory_allocated_before": before,
             "mass_drift": abs(conservation_scalar(cfg, m) - params.initial_mass)
             / params.initial_mass,
             "energy_drift": abs(conservation_scalar(cfg, e) - params.initial_energy)
@@ -1626,6 +1656,9 @@ def phase7(torch, rates):
             f"K1/K2 slab at Sod {MESH_N}^2 fast math", ends)}
     restore_counts(K, saved)
     sod["kernel_ms_per_shard"] = ms
+    rates["mesh_slab_copies_ms"] = ms["slab_copies_per_cycle"]
+    rates["mesh_memory"] = {"peak": sod["max_memory_allocated"],
+                            "before": sod["memory_allocated_before"]}
     sod["slab_packs_per_cycle"] = sum(_slab_pack_count(mesh, a)
                                       for a in (Axis.X, Axis.Y))
     sod["single_device_8192_cells_per_s"] = rates.get("main", {}).get("cells_per_s")
@@ -1783,6 +1816,7 @@ def _op_vs_kernels(torch, test, n, dtype, cycles, timed=False):
         armon(ArmonParameters(kernel_tier="torch", **dict(opts, maxcycle=2)))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        out["memory_allocated_before"] = torch.cuda.memory_allocated()
         K.reset_launches()
     params = ArmonParameters(kernel_tier="torch", **opts)
     op = armon(params)
@@ -1904,6 +1938,8 @@ def phase9(torch):
     emit({"phase": 9, "f64_sod_circ": f64, "N": OP_F64_N,
           "cycles": OP_F64_CYCLES})
     restore_counts(K, saved)
+    return {"peak": main["max_memory_allocated"],
+            "before": main["memory_allocated_before"]}
 
 
 # ------------------------------------------------- drivers, I/O, restart
@@ -1912,7 +1948,8 @@ RESTART_CYCLES = 16        # the 8192^2 restart: snapshot at 8, resume to 16
 SEDOV_CUT = 500            # Sedov 2000^2: resume at cycle 500 of 1000
 K5_CYCLES, K5_EVEN, K5_ODD = 40, 16, 17
 CPU_N, CPU_CYCLES = 200, 20
-MESH_N, MESH_CYCLES = 1000, 20
+# Phase 10's meshes (not phase 7's MESH_N: each phase keeps its own names).
+P10_MESH_N, P10_MESH_CYCLES = 1000, 20
 
 
 class _Counted:
@@ -2012,7 +2049,7 @@ def _p10_restart_main(torch, tmp, cnt):
                               lambda: armon(rp, restore_from=ckpt),
                               ("x_sweep", "y_sweep", "cfl_finish", "cfl_tail"))
     _same_run(torch, lean, resumed, "8192^2 resume vs uninterrupted")
-    load_s = resumed.timer["init"]
+    load_s = resumed.timer["init"]["seconds"]
     os.remove(ckpt)
     del resumed
     per, c_per = cnt.path("8192^2 per-cycle run",
@@ -2218,14 +2255,14 @@ def _p10_meshes(torch, tmp, cnt):
     from armon_torch.io import output, subdomain
     out = []
     for dtype in ("float64", "float32"):
-        opts = dict(test="Sod_circ", N=(MESH_N, MESH_N), data_type=dtype,
+        opts = dict(test="Sod_circ", N=(P10_MESH_N, P10_MESH_N), data_type=dtype,
                     use_fast_math=False, silent=5, return_data=True,
                     output_dir=tmp, maxtime=1e30)
         files = dtype == "float64"
         one = cnt.quiet(lambda: armon(ArmonParameters(
-            maxcycle=MESH_CYCLES, device="cuda", write_output=files,
+            maxcycle=P10_MESH_CYCLES, device="cuda", write_output=files,
             output_file="one", **opts)))
-        half = MESH_CYCLES // 2
+        half = P10_MESH_CYCLES // 2
         _, c_cut = cnt.path(f"2x2 per-cycle run {dtype}", lambda: armon(
             ArmonParameters(maxcycle=half, checkpoint_step=half, use_MPI=True,
                             output_file="mesh", **_one_card((2, 2)),
@@ -2237,14 +2274,14 @@ def _p10_meshes(torch, tmp, cnt):
             extra = _one_card(P) if P != (1, 1) else dict(device="cuda")
             w = files and P == (2, 2)
             res, c = cnt.path(f"{dtype} resume on {P}", lambda: armon(
-                ArmonParameters(maxcycle=MESH_CYCLES, use_MPI=True,
+                ArmonParameters(maxcycle=P10_MESH_CYCLES, use_MPI=True,
                                 write_output=w, output_file="shards",
                                 **extra, **opts),
                 restore_from=ckpt), ("cfl_finish", "cfl_tail"))
             _same_run(torch, one, res, f"{dtype} resume on {P}", real=True)
             row["launches"][f"resume_{P[0]}x{P[1]}"] = c
             if w:
-                mp = ArmonParameters(maxcycle=MESH_CYCLES, use_MPI=True,
+                mp = ArmonParameters(maxcycle=P10_MESH_CYCLES, use_MPI=True,
                                      **_one_card(P), **opts)
                 for s in range(4):
                     coords = (s % 2, s // 2)
@@ -2290,9 +2327,391 @@ def phase10(torch):
     return cnt.total
 
 
+# ----------------------------------------------------------- observability
+
+OBS_CYCLES = 20          # the main path under the profiler, (a) and (b)
+OBS_MESH_CYCLES = 10     # the 2x2 mesh under the profiler, (c)
+A12_N, A12_CYCLES = 1000, 10
+# A measured peak may exceed `memory_required()`'s total by this share:
+# the caching allocator rounds each block up to 2 MiB and keeps small
+# tensors (scalars, partials, slabs of K3's tail) in pools of their own.
+MEM_MARGIN = 0.02
+# The main path's kernels by the names CUPTI gives them (the template's
+# base name, `csrc/*.cuh`): K1, K2 carrying K3's tail, K3; K4 and K5
+# must not run.
+OBS_KERNELS = {"x_sweep_kernel": "x_sweep", "y_sweep_finish_kernel": "y_sweep",
+               "cfl_finish_kernel": "cfl_finish"}
+OBS_ABSENT = ("cycle_kernel", "cycle_finish_kernel", "multicycle_kernel",
+              "x_sweep_finish_kernel", "y_sweep_kernel")
+
+
+def _base_kernel(name):
+    """`x_sweep_kernel` of 'void armon::x_sweep_kernel<float, true, ...>'."""
+    import re
+    m = re.search(r"\b(\w+_kernel)<", name)
+    return m.group(1) if m else name
+
+
+def _trace_events(log_dir):
+    """{kernel or copy name: [device us, in start order]} of the Chrome
+    trace that `profiling=["trace"]` wrote under `log_dir/profile`, and
+    the span in us from the first device event's start to the last's
+    end."""
+    import glob
+    import json
+    [path] = glob.glob(os.path.join(log_dir, "profile", "trace_*.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    events.sort(key=lambda e: e["ts"])
+    out = {}
+    for e in events:
+        out.setdefault(e["name"], []).append(float(e["dur"]))
+    span = max(e["ts"] + e["dur"] for e in events) - events[0]["ts"] \
+        if events else 0.0
+    return out, span
+
+
+def _by_base(table):
+    """Sum a {name: value} table over `_base_kernel` names."""
+    out = {}
+    for k, v in table.items():
+        b = _base_kernel(k)
+        out[b] = out.get(b, 0) + v
+    return out
+
+
+def _p11_main_traced(torch, tmp, opts, rates):
+    """(a) the main path's lean loop under the profiler: plain, traced,
+    traced, plain; the first traced run's kernels against the wrapper
+    counts and phase 3's CUDA-event times."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.ops import sweep as K
+    cells = MAIN_N * MAIN_N
+    armon(ArmonParameters(**dict(opts, maxcycle=2)))
+    armon(ArmonParameters(**dict(opts, maxcycle=2, profiling=["trace"],
+                                 output_dir=os.path.join(tmp, "warm"))))
+    runs, traced = {"plain": [], "trace": []}, []
+    for i, kind in enumerate(("plain", "trace", "trace", "plain")):
+        d = os.path.join(tmp, f"a{i}")
+        extra = dict(profiling=["trace"], output_dir=d) if kind == "trace" \
+            else {}
+        K.reset_launches()
+        st = armon(ArmonParameters(**opts, **extra))
+        counts = {**K.LAUNCHES, **K.TAILS}
+        if st.cycles != OBS_CYCLES:
+            raise AssertionError(f"phase 11 (a): {st.cycles} cycles")
+        runs[kind].append(cells * st.cycles / st.solve_time)
+        if kind == "trace":
+            traced.append((st, counts, d))
+    st, counts, d = traced[0]
+    events, span = _trace_events(d)
+    calls = _by_base({k: len(v) for k, v in events.items()})
+    for base, name in OBS_KERNELS.items():
+        if calls.get(base, 0) != counts[name]:
+            raise AssertionError(f"trace: {base} x{calls.get(base, 0)}, "
+                                 f"wrapper {name} x{counts[name]}")
+    if counts["cfl_finish"] != 1 or counts["x_sweep"] != counts["cfl_tail"] \
+            or counts["x_sweep"] < st.cycles:
+        raise AssertionError(f"main path sequencing under the trace: {counts}")
+    for base in OBS_ABSENT:
+        if calls.get(base, 0):
+            raise AssertionError(f"the main path ran {base}: {calls}")
+    # Per launch: the launches that computed a cycle (the last stop-check
+    # batch launches past the run's end, passing the fields through).
+    per = {}
+    for base in OBS_KERNELS:
+        durs = [u for k, v in events.items() if _base_kernel(k) == base
+                for u in v][:st.cycles]
+        per[base] = sum(durs) / len(durs) / 1e3
+    p3 = rates.get("main", {}).get("kernel_ms")
+    k3_ms = _k3_step_ms(torch, opts)
+    ref = {"x_sweep_kernel": p3 and p3["x_sweep"],
+           "y_sweep_finish_kernel": p3 and min(
+               p3["with_and_without_tail_from_reset"]["y_sweep"]["with"]),
+           "cfl_finish_kernel": k3_ms}
+    within = {}
+    for base in ("x_sweep_kernel", "y_sweep_finish_kernel"):
+        if ref[base] is None:
+            within[base] = "not measured: phase 3 did not run"
+            continue
+        within[base] = abs(per[base] - ref[base]) / ref[base]
+        if within[base] > 0.10:
+            raise AssertionError(f"{base}: {per[base]} ms a launch in the "
+                                 f"trace, {ref[base]} ms by CUDA events")
+    busy = sum(u for v in events.values() for u in v) / 1e6
+    return {"cycles": st.cycles, "launches": counts,
+            "trace_calls": {b: calls.get(b, 0)
+                            for b in tuple(OBS_KERNELS) + OBS_ABSENT},
+            "trace_ms_per_launch": per, "event_ms_per_launch": ref,
+            "relative_difference": within,
+            "cells_per_s": runs, "trace_overhead": 1 - (
+                sum(runs["trace"]) / sum(runs["plain"])),
+            "device_busy_share_of_solve": busy / st.solve_time,
+            "device_busy_share_of_span": busy * 1e6 / span if span else None,
+            "trace_names": sorted(events)}
+
+
+def _k3_step_ms(torch, opts):
+    """CUDA-event ms of K3 as the main path runs it, once a run: no fold,
+    one dt step, from the same scalars each call."""
+    from armon_torch import ArmonParameters
+    from armon_torch.ops import sweep as K
+    cfg = ArmonParameters(**opts).config
+    saved = saved_counts(K)
+    dev = torch.device("cuda")
+    partials = torch.zeros((2, 1), dtype=torch.float32, device=dev)
+    s0, i0 = K.new_scalars(cfg.dtype, dev, lm=1e-4)
+    s, i = s0.clone(), i0.clone()
+
+    def reset():
+        s.copy_(s0)
+        i.copy_(i0)
+    ms = time_ms(lambda _: K.cfl_finish(cfg, partials, 0, s, i, fold=False,
+                                        step=True), k=50, reset=reset)
+    restore_counts(K, saved)
+    return ms
+
+
+def _p11_logged(torch, tmp, opts, main):
+    """(b) the same configuration through the per-cycle driver with
+    `log_blocks` and the trace: the log against the device scalars of a
+    run without it, the sections, the timer."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core import step
+    from armon_torch.ops import sweep as K
+    # The scalars before each cycle of an unlogged lean run: t after the
+    # cycle and the dt it uses (the previous launch's tail stepped them).
+    seen = []
+    real_cycle = step.KernelCycles.cycle
+
+    def spy(self, cycle):
+        seen.append(tuple(self.scal.tolist()))
+        return real_cycle(self, cycle)
+    step.KernelCycles.cycle = spy
+    try:
+        armon(ArmonParameters(**opts))
+    finally:
+        step.KernelCycles.cycle = real_cycle
+    want = [(sc[K.SC_T], sc[K.SC_DTUSE]) for sc in seen[:OBS_CYCLES]]
+    d = os.path.join(tmp, "b")
+    K.reset_launches()
+    st = armon(ArmonParameters(**opts, log_blocks=True, profiling=["trace"],
+                               check_result=True, output_dir=d))
+    log = st.grid_log
+    got = [(e.t, e.dt) for e in log.events]
+    if len(log.events) != OBS_CYCLES or got != want:
+        raise AssertionError(f"solver log: {len(log.events)} events, "
+                             f"{got[:3]} against {want[:3]}")
+    a = log.analyse()
+    probes = a.get("probe_sections", {})
+    for key in ("sweep_X", "sweep_Y", "ghost_exchange_X", "ghost_exchange_Y"):
+        if not probes.get(key, 0) > 0:
+            raise AssertionError(f"probe section {key}: {probes}")
+    if a["sections_source"] != "trace":
+        raise AssertionError(f"sections from {a['sections_source']}")
+    if set(st.timer) != {"init", "conservation_vars", "solver_cycle"} or \
+            any(v["calls"] != 1 for v in st.timer.values()):
+        raise AssertionError(f"timer {st.timer}")
+    calls = _by_base({k: v["calls"] for k, v in log.trace_sections.items()})
+    secs = _by_base({k: v["seconds"] for k, v in log.trace_sections.items()})
+    expect = {"x_sweep_kernel": OBS_CYCLES, "y_sweep_finish_kernel": OBS_CYCLES,
+              "cfl_finish_kernel": 1}
+    for base, n in expect.items():
+        if calls.get(base) != n:
+            raise AssertionError(f"per-cycle trace: {base} x{calls.get(base)}")
+    for base in OBS_ABSENT:
+        if calls.get(base, 0):
+            raise AssertionError(f"the per-cycle driver ran {base}")
+    return {"events": len(log.events), "bitwise_vs_unlogged": True,
+            "host_reads": st.host_reads, "timer": st.timer,
+            "mean_cycle_ms": a["mean_cycle_seconds"] * 1e3,
+            "cycle_time_trend": a.get("cycle_time_trend"),
+            "probe_sections_ms": {k: v * 1e3 for k, v in probes.items()},
+            "trace_ms_per_launch": {b: secs[b] / calls[b] * 1e3
+                                    for b in expect},
+            "lean_trace_ms_per_launch": main["trace_ms_per_launch"],
+            "wrapper_launches_with_probes": {**K.LAUNCHES, **K.TAILS},
+            "trace_kernels": {k: v for k, v in list(
+                log.trace_sections.items())[:12]}}
+
+
+def _p11_mesh(torch, tmp, rates):
+    """(c) Sod 16384^2 over 2x2 on one card with `log_blocks` and the
+    trace: the slab copies' share of device time."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.utils.solver_log import _is_collective
+    d = os.path.join(tmp, "c")
+    st = armon(ArmonParameters(test="Sod", N=(MESH_N, MESH_N), **SMALL_OPTS,
+                               **_one_card(MESH_P), maxcycle=OBS_MESH_CYCLES,
+                               log_blocks=True, profiling=["trace"],
+                               output_dir=d))
+    a = st.grid_log.analyse()
+    coll = {k: v for k, v in st.grid_log.trace_sections.items()
+            if _is_collective(k)}
+    if st.cycles != OBS_MESH_CYCLES or not a["collective_seconds"] > 0:
+        raise AssertionError(f"2x2 mesh under the trace: {st.cycles} cycles, "
+                             f"collective {a['collective_seconds']}")
+    return {"N": MESH_N, "P": list(MESH_P), "cycles": st.cycles,
+            "collective_seconds": a["collective_seconds"],
+            "collective_ms_per_cycle": a["collective_seconds"] / st.cycles * 1e3,
+            "collective_wait_share": a["collective_wait_share"],
+            "phase7_slab_copies_ms_per_cycle": rates.get(
+                "mesh_slab_copies_ms", "not measured: phase 7 did not run"),
+            "collective_kernels": coll,
+            "trace_names": sorted(st.grid_log.trace_sections)}
+
+
+def _p11_roundtrip(torch):
+    """(e) `host_to_device(device_to_host(s))` on the shards of a run: each
+    shard's real cells bit for bit, and the gathered grid (ghost bands
+    included) bit for bit through gather, scatter, gather. A run's
+    shards hold stale copies in the ghost bands they share with a
+    neighbour (the kernels read the neighbour's slab), and an uneven
+    split's edge shards dead slack: neither is state."""
+    import numpy as np
+    from armon_torch import (ArmonParameters, device_to_host,
+                             host_to_device)
+    from armon_torch.core.solver import (make_init_fused, make_mesh,
+                                         make_rehydrate)
+    from armon_torch.core.step import make_time_loop_lean
+    out = {}
+    for P in ((1, 1), (2, 2), (3, 2)):
+        extra = _one_card(P) if P != (1, 1) else {}
+        params = ArmonParameters(test="Sod_circ", N=(A12_N, A12_N),
+                                 **SMALL_OPTS, **extra, maxcycle=A12_CYCLES)
+        fs, local0 = make_init_fused(params)()
+        res = make_time_loop_lean(params.config, make_mesh(params))(
+            fs, np.float32(0), 0, np.float32(0), local0)
+        shards = make_rehydrate(params)(res.carry)
+        host = device_to_host(params, shards)
+        back = host_to_device(params, host)
+        g = params.nghost
+        for shard, a, b in zip(make_mesh(params), shards, back):
+            wx, hy = shard.n_real
+            real = (slice(g, g + hy), slice(g, g + wx))
+            if not all(torch.equal(x[real], y[real]) for x, y in zip(a, b)):
+                raise AssertionError(f"round trip on {P}, shard {shard.index}")
+        if not all(np.array_equal(x, y) for x, y in
+                   zip(host, device_to_host(params, back))):
+            raise AssertionError(f"gather, scatter, gather on {P}")
+        out[f"{P[0]}x{P[1]}"] = {"shards": len(shards), "cycles": A12_CYCLES,
+                                 "bitwise": True}
+    return out
+
+
+def _p11_cli(torch):
+    """(f) `python -m armon_torch` on the card, as a user runs it."""
+    import subprocess
+    args = [sys.executable, "-m", "armon_torch", "test=Sod", "N=1024,1024",
+            "maxcycle=10", "silent=4"]
+    t0 = time.perf_counter()
+    out = subprocess.run(args, cwd=HERE, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=HERE))
+    if out.returncode != 0 or "cycles:      10" not in out.stdout:
+        raise AssertionError(f"CLI: rc {out.returncode}\n{out.stdout}\n"
+                             f"{out.stderr}")
+    return {"argv": args[1:], "rc": out.returncode,
+            "stdout": out.stdout.strip().splitlines(),
+            "seconds": time.perf_counter() - t0}
+
+
+def _p11_memory(torch, opts, rates):
+    """(d) `memory_required()` against the peaks measured on the card:
+    one shard's initialisation and the main path's lean loop here, phase
+    3's run (kernels, `return_data`), phase 7's 2x2 mesh on one card
+    (`return_data`) and phase 9's (the op path); each peak over the
+    allocation before its run."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core.solver import make_init_fused
+    kern = ArmonParameters(**opts).memory_required()
+    kern_data = ArmonParameters(**opts, return_data=True).memory_required()
+    op = ArmonParameters(**opts, kernel_tier="torch").memory_required()
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        del r
+        return peak
+    field = kern["per_device_field_bytes"]
+    init = peak_of(lambda: make_init_fused(ArmonParameters(**opts))())
+    lean = peak_of(lambda: armon(ArmonParameters(**opts)))
+    rows = {"kernels_init": (init, kern["per_device_fused_total_bytes"]),
+            "kernels_lean_run": (lean, kern["per_device_fused_total_bytes"])}
+    p3, p9 = rates.get("main", {}).get("memory"), rates.get("op_memory")
+    p7 = rates.get("mesh_memory")
+    if p3:
+        rows["kernels_phase3_return_data"] = (
+            p3["peak"] - p3["before"], kern_data["per_device_fused_total_bytes"])
+    if p9:
+        rows["op_path_phase9"] = (p9["peak"] - p9["before"],
+                                  op["per_device_total_bytes"])
+    if p7:
+        mesh = ArmonParameters(test="Sod", N=(MESH_N, MESH_N), **SMALL_OPTS,
+                               **_one_card(MESH_P), return_data=True)
+        rows["kernels_phase7_2x2_return_data"] = (
+            p7["peak"] - p7["before"],
+            mesh.memory_required()["per_device_fused_total_bytes"])
+    out = {name: {"peak_bytes": peak, "reported_total_bytes": total,
+                  "peak_fields": peak / field, "total_fields": total / field,
+                  "peak_over_total": peak / total}
+           for name, (peak, total) in rows.items()}
+    out["margin"] = MEM_MARGIN
+    out["not_measured"] = [n for n, r in (("phase 3", p3), ("phase 7", p7),
+                                          ("phase 9", p9)) if not r]
+    out["memory_required"] = {"kernels": kern, "kernels_return_data": kern_data,
+                              "op_path": op}
+    return out
+
+
+def phase11(torch, rates):
+    """Observability and the public API on the card (see the module doc).
+    The solver's probe warnings are errors here."""
+    import shutil
+    import tempfile
+    import warnings
+    opts = dict(test="Sod", N=(MAIN_N, MAIN_N), data_type="float32",
+                scheme="GAD", projection="euler_2nd", riemann_limiter="minmod",
+                nghost=4, axis_splitting="Sequential", use_fast_math=True,
+                silent=5, device="cuda", maxcycle=OBS_CYCLES)
+    tmp = tempfile.mkdtemp(prefix="armon_p11_")
+    card = card_line()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            # f32 runs with check_result warn that mass and energy moved
+            # (their 1e-12 gate is an f64 gate, ROADMAP C2); (b) checks.
+            warnings.filterwarnings("ignore", message="Mass and energy")
+            main = _p11_main_traced(torch, tmp, opts, rates)
+            emit({"phase": 11, "card": card, "main_traced": main})
+            logged = _p11_logged(torch, tmp, opts, main)
+            emit({"phase": 11, "card": card, "per_cycle_logged": logged})
+            mesh = _p11_mesh(torch, tmp, rates)
+            emit({"phase": 11, "card": card, "mesh_traced": mesh})
+            emit({"phase": 11, "roundtrip": _p11_roundtrip(torch),
+                  "cli": _p11_cli(torch)})
+            torch.cuda.empty_cache()
+            mem = _p11_memory(torch, opts, rates)
+            emit({"phase": 11, "card": card, "memory": mem})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, row in mem.items():
+        if isinstance(row, dict) and "peak_over_total" in row \
+                and row["peak_over_total"] > 1 + MEM_MARGIN:
+            raise AssertionError(f"memory: {name} peaks at {row['peak_bytes']}"
+                                 f" B over memory_required's "
+                                 f"{row['reported_total_bytes']} B")
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     args = ap.parse_args(argv)
@@ -2330,7 +2749,7 @@ def main(argv=None):
     if 8 in phases:
         kernels += phase8(torch)
     if 9 in phases:
-        phase9(torch)
+        rates["op_memory"] = phase9(torch)
     if 10 in phases:
         # `launches` stays the count of the entry's own path; phase 10's
         # paths (the per-cycle driver, resumed runs) are reported per path
@@ -2338,6 +2757,8 @@ def main(argv=None):
         p10 = phase10(torch)
         for entry in kernels:
             entry["launches_phase10"] = p10.get(entry["name"], 0)
+    if 11 in phases:
+        phase11(torch, rates)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})

@@ -34,6 +34,7 @@ from armon_torch.core.step import make_time_loop_lean
 from armon_torch.interop import (to_numpy, shards_from_blocked, gather_state,
                                  scatter_state)
 from armon_torch.ops import routing
+from armon_torch.params import OP_PATH_PEAK_FIELDS
 from armon_torch.ops import sweep as K
 from armon_torch.ops.cycle import cycle_plain
 from armon_torch.ops.reductions import real_slice
@@ -113,7 +114,11 @@ def test_memory_counts_shards_and_slabs():
     slabs = 4 * (rows * 4 + 4 * cols) * 4  # one X and one Y side per shard
     assert mem["per_device_field_bytes"] == field
     assert mem["per_device_loop_bytes"] == 4 * (9 * field + slabs)
-    assert mem["total_bytes"] == 4 * (9 * field + slabs)
+    # one CPU device: the kernel path's 4 shards and one (2, 4) CFL
+    # partials buffer; the op path's 4 x 22 fields and one shard's sweep
+    # temporaries
+    assert mem["fused_total_bytes"] == 4 * (9 * field + slabs) + 2 * 4 * 4
+    assert mem["total_bytes"] == (4 * 22 + OP_PATH_PEAK_FIELDS - 22) * field
 
 
 def test_routing_on_meshes_matches_jax():
