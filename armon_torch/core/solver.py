@@ -27,7 +27,11 @@ Four drivers, chosen as the JAX package chooses them:
 Every step runs on each shard of the mesh (`parallel/mesh.py`; one shard
 holding the whole grid when P = (1, 1)): the carry is a list of
 FusedCarry or State, one per shard in the mesh's order, and `return_data`
-gathers the global State (`interop.gather_state`).
+gathers the global State (`interop.gather_state`). Over several processes
+(`parallel/dist.py`) each process runs the same driver on its own shards
+(`Mesh.local`): the carry and `return_data` hold those, output and
+snapshots are per shard, and every process prints, as the JAX package's
+do.
 
 Observability (`armon_tpu/core/solver.py:848-1014`): `armon()` times its
 sections `init`, `conservation_vars` and `solver_cycle` (`utils/
@@ -63,6 +67,8 @@ from ..ops.reductions import (cfl_maxima, cfl_limit, conservation_vars,
 from ..ops.riemann import numerical_fluxes
 from ..ops.routing import cycle_route, temporal_pairs
 from ..ops.update import cell_update
+from ..parallel import dist
+from ..parallel.dist import gather_shards
 from ..parallel.halo import halo_exchange_state, halo_slabs
 from ..parallel.mesh import Mesh
 from .splitting import split_schedules
@@ -104,8 +110,8 @@ def _sync(params):
 
 def make_mesh(params):
     """The shard grid of the run: one shard holding the whole grid off a
-    mesh."""
-    return Mesh(params.config, params.devices)
+    mesh; over several processes, this process's shards are `local`."""
+    return Mesh.of(params)
 
 
 def _initial_state(params, shard):
@@ -122,7 +128,7 @@ def make_init(params):
 
     def init():
         return [init_state(cfg, shard.device, shard.global_pos)
-                for shard in make_mesh(params)]
+                for shard in make_mesh(params).local]
 
     return init
 
@@ -135,39 +141,44 @@ def make_init_fused(params):
     shard initialised at its global origin; the seed is `cfl_seed`'s."""
 
     def init():
+        mesh = make_mesh(params)
         carry, maxima = [], []
-        for shard in make_mesh(params):
+        for shard in mesh.local:
             st = _initial_state(params, shard)
             carry.append(FusedCarry(st.rho, st.u, st.v, st.E, st.p))
             maxima.append(_shard_maxima(params, shard, st))
-        return carry, _seed(params, maxima, carry[0].rho.dtype)
+        return carry, _seed(params, mesh, maxima, carry[0].rho.dtype)
 
     return init
 
 
 def _shard_maxima(params, shard, st):
-    """A shard's CFL maxima, on the first shard's device."""
+    """A shard's CFL maxima (max |u|+c, max |v|+c), on the first shard's
+    device."""
     if params.config.cst_dt:
         return None
-    return tuple(a.to(params.device) for a in cfl_maxima(
-        params.config, st.u, st.v, st.c, shard.n_real))
+    return torch.stack(cfl_maxima(params.config, st.u, st.v, st.c,
+                                  shard.n_real)).to(params.device)
 
 
-def _seed(params, maxima, dtype):
+def _seed(params, mesh, maxima, dtype):
+    """The CFL seed from the maxima of this process's shards, gathered
+    over every shard of the mesh."""
     cfg = params.config
     if cfg.cst_dt:
         return torch.tensor(float(np.finfo(cfg.dtype).max), dtype=dtype,
                             device=params.device)
-    mx, my = zip(*maxima)
-    return cfl_limit(cfg, torch.stack(mx).amax(), torch.stack(my).amax())
+    m = torch.stack(gather_shards(mesh, maxima))
+    return cfl_limit(cfg, m[:, 0].amax(), m[:, 1].amax())
 
 
 def cfl_seed(params, states):
     """The seed of the carried CFL minimum from every shard's State (its
     u, v and c), on the first shard's device: the minimum of the shards'
     dt (`pmin_dt`, `core/solver.py:173`), bit for bit."""
-    return _seed(params, [_shard_maxima(params, shard, st) for shard, st
-                          in zip(make_mesh(params), states)],
+    mesh = make_mesh(params)
+    return _seed(params, mesh, [_shard_maxima(params, shard, st)
+                                for shard, st in zip(mesh.local, states)],
                  states[0].rho.dtype)
 
 
@@ -178,26 +189,31 @@ def make_rehydrate(params):
     def rehydrate(fs):
         return [_initial_state(params, shard)._replace(
                     rho=f.rho, u=f.u, v=f.v, E=f.E, p=f.p)
-                for shard, f in zip(make_mesh(params), fs)]
+                for shard, f in zip(make_mesh(params).local, fs)]
 
     return rehydrate
 
 
 def make_conservation(params):
     """(shards) -> (mass, energy) as host floats (`core/solver.py:247,282`)
-    for the lean carry or the op path's States, one per shard: rho and E
-    are all it reads; f32 sums are compensated pairs, and a mesh's shards
-    (real cells only, the edge shards' slack left out) are summed, in f64
-    on the host."""
+    for the lean carry or the op path's States, one per shard this process
+    drives: rho and E are all it reads; f32 sums are compensated pairs,
+    and a mesh's shards (real cells only, the edge shards' slack left out)
+    are summed in mesh order, in f64 on the host. Over several processes
+    every process gathers every shard's pair and sums them in that order,
+    so each gets the one-process run's values, bit for bit."""
     cfg = params.config
 
     def call(fs):
-        ms, es = [], []
-        for shard, f in zip(make_mesh(params), fs):
+        mesh = make_mesh(params)
+        pairs = []
+        for shard, f in zip(mesh.local, fs):
             m, e = conservation_vars(cfg, f.rho, f.E, shard.n_real)
-            ms.append(m)
-            es.append(e)
-        return conservation_scalar(cfg, ms), conservation_scalar(cfg, es)
+            pairs.append(torch.tensor([conservation_scalar(cfg, m),
+                                       conservation_scalar(cfg, e)],
+                                      dtype=torch.float64))
+        ms, es = zip(*(p.tolist() for p in gather_shards(mesh, pairs)))
+        return float(sum(ms)), float(sum(es))
 
     return call
 
@@ -238,7 +254,7 @@ def make_step_fns(params):
                          ("remap", projection_remap)):
             fns[(name, axis)] = (lambda states, dt, a=axis, op=op:
                                  [op(cfg, st, a, dt.to(s.device))
-                                  for s, st in zip(mesh, states)])
+                                  for s, st in zip(mesh.local, states)])
     fns["dt"] = lambda states, dtp, cyc, seeded: next_time_step(
         cfg, mesh, states, dtp, cyc, seeded)
     fns["dt_resume"] = lambda dtp, cyc, lm: dt_update(cfg, lm, dtp, cyc)
@@ -301,20 +317,20 @@ def measure_sections(params, states, reps=3):
                     cfg, mesh, states, a, FusedCarry._fields[:4]))
             nb = K.n_partials(axis, like.shape, like.device)
             bufs = [(torch.zeros((2, nb), dtype=like.dtype, device=s.device),
-                     *K.new_scalars(cfg.dtype, s.device)) for s in mesh]
+                     *K.new_scalars(cfg.dtype, s.device)) for s in mesh.local]
             for _, scal, iscal in bufs:
                 scal[K.SC_DTUSE] = float(T(1e-6))
                 iscal[K.IS_RUN] = 1
             launch = K.x_sweep if axis is Axis.X else K.y_sweep
             ghosts = halo_slabs(cfg, mesh, fields, axis) \
-                if mesh.proc_dims[axis] > 1 else [K.MIRRORED] * len(mesh)
+                if mesh.proc_dims[axis] > 1 else [K.MIRRORED] * len(mesh.local)
 
             def sweep(launch=launch, bufs=bufs, ghosts=ghosts):
-                for s in mesh:
-                    part, scal, iscal = bufs[s.index]
-                    launch(cfg, fields[s.index], dst[s.index], p[s.index],
-                           part, scal, iscal, 1.0, True, ghosts[s.index],
-                           s.n_real)
+                for s in mesh.local:
+                    k = s.slot
+                    part, scal, iscal = bufs[k]
+                    launch(cfg, fields[k], dst[k], p[k], part, scal, iscal,
+                           1.0, True, ghosts[k], s.n_real)
             sections[f"sweep_{axis.name}"] = timed(sweep)
         return sections
     fns = make_step_fns(params)
@@ -645,7 +661,9 @@ def _spmd_file_checkpoint(params, label, states, path, cycle):
                   f"differences (max rel {max_diff:.3e}): {details}")
             write_cells_file(spath + "_diff", ours, params.output_precision)
         total += cnt
-    return total > 0
+    # Every process stops at the same sub-step, or none does.
+    return int(dist.all_gather_rows(torch.tensor([total]),
+                                    params.device).sum()) > 0
 
 
 def _isapprox0(x, atol, rtol):
@@ -773,8 +791,11 @@ def armon(params: ArmonParameters, checkpoint=None,
 
     data = None
     if params.return_data:
+        # Over several processes, this process's shards (`interop.
+        # gather_state` raises there, as the JAX package's does).
         from ..interop import gather_state
-        data = gather_state(params, states)
+        data = states if params.process_count > 1 \
+            else gather_state(params, states)
     cell_count = cfg.n_global[0] * cfg.n_global[1]
     grind = solve_time / max(res.cycles, 1) / cell_count
     stats = SolverStats(
@@ -797,7 +818,7 @@ def armon(params: ArmonParameters, checkpoint=None,
         # Per shard: one `_<cx>×<cy>` file per shard, no global gather
         # (`src/io.jl:46-75`).
         per_shard = cfg.spmd and params.use_MPI
-        host = data
+        host = data if params.process_count == 1 else None
         if host is None and (params.write_slices or not per_shard):
             from ..interop import gather_state
             host = gather_state(params, states)

@@ -52,7 +52,11 @@ the last shard's last launch carries the tail, and its fold covers every
 shard's columns: the earlier shards' launches wrote theirs before it in
 stream order. A mesh across cards copies the remote shards' partials to
 the first shard's device after the cycle and then launches K3 (fold,
-step): the one case that keeps a K3 per cycle. The loop scalars live on
+step): the one case that keeps a K3 per cycle, with a mesh over several
+processes, where each process gathers every shard's partials in mesh
+order (`dist.all_gather_rows`) and runs the same K3 on the same inputs,
+so every process takes the same dt and the same stop decision at the
+same host read, with no other collective. The loop scalars live on
 the first shard's device; a shard on another device reads a copy made
 after each K3. Ordering across devices: PyTorch's copy between two cards
 waits for the work queued before it on both cards' current streams, and
@@ -84,6 +88,7 @@ from ..ops.reductions import dt_cfl_min, pmin_dt
 from ..ops.riemann import numerical_fluxes
 from ..ops.routing import route, temporal_pairs
 from ..ops.update import cell_update
+from ..parallel.dist import all_gather_rows, gather_shards
 from ..parallel.mesh import Mesh
 from ..parallel.halo import halo_slabs, new_slab_buffers, halo_exchange_state
 from .splitting import split_schedules
@@ -106,8 +111,9 @@ class LoopResult(NamedTuple):
 def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
                        pair=False, slabs=None, finish=None):
     """The launches of one cycle (`armon_tpu/core/step.py`
-    `run_schedule_fused`) on every shard of
-    `mesh`: each launch reads `cur[s]` and writes `nxt[s]`, then the two
+    `run_schedule_fused`) on every shard of `mesh` this process drives
+    (`mesh.local`; per-shard lists are indexed by `Shard.slot`): each
+    launch reads `cur[s]` and writes `nxt[s]`, then the two
     swap. With `pair`, an adjacent X/Y pair of sweeps is one K4 launch in
     the schedule's order. Before a launch along an axis in `slabs` (the
     sharded ones), the shards' slab buffers `slabs[axis]` are refilled from
@@ -133,10 +139,11 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
                 else K.n_partials(axis, shape, device)
             ops = parts[nb]
         ghosts = halo_slabs(cfg, mesh, cur, axis, slabs[axis]) \
-            if axis in slabs else [K.MIRRORED] * len(mesh)
-        for s in mesh:
-            k = s.index
-            fin = finish[nb] if last and finish and k == len(mesh) - 1 else None
+            if axis in slabs else [K.MIRRORED] * len(mesh.local)
+        for s in mesh.local:
+            k = s.slot
+            fin = finish[nb] if last and finish and s is mesh.local[-1] \
+                else None
             if is_pair:
                 (a0, f0), (_, f1) = schedule[i], schedule[i + 1]
                 x_first = a0 is Axis.X
@@ -178,9 +185,13 @@ class KernelCycles:
     the carry's device. With `pair`, adjacent X/Y sweeps are one K4
     launch. A shard on another device than the first shard's is remote:
     its CFL partials go to a buffer of its own, copied in after each
-    cycle for K3 to fold. `remote` names shards to treat so on the first
-    shard's device too, which runs a mesh across cards' sequencing on one
-    device.
+    cycle for K3 to fold. `remote` names shards (by `Shard.index`) to
+    treat so on the first shard's device too, which runs a mesh across
+    cards' sequencing on one device. Over several processes, `fs` holds
+    this process's shards (`mesh.local`); after each cycle every process
+    gathers every shard's partials and runs the same K3 on the same
+    inputs, so each holds the same t, dt, lm and ok and stops at the same
+    host read.
 
     `first_step` runs K3 once (no fold, one step): the first cycle's run
     predicate and dt. Then each `cycle` launches one cycle; its last
@@ -209,21 +220,24 @@ class KernelCycles:
             nbs.add(C.n_partials(shape, dev0, cfg.dtype))
         # One fold covers every shard's partials: for a last launch writing
         # nb per shard, shard s writes columns [s*nb, (s+1)*nb) of
-        # `partials`, or, if remote, a buffer of its own copied in after
-        # the cycle. Each shard's operand is made once per nb.
-        self.far = sorted({k for k, d in enumerate(devs) if d != dev0}
-                          | set(remote))
+        # `partials`, or, if far, a buffer of its own copied in after the
+        # cycle. Each shard's operand is made once per nb. Over several
+        # processes every process gathers every shard's columns after the
+        # cycle (`_gather_partials`).
+        self.far = [s for s, d in zip(m.local, devs)
+                    if d != dev0 or s.index in remote]
         self.partials = torch.zeros((2, len(m) * max(nbs)), dtype=dtype,
                                     device=dev0)
         self.parts = {nb: [torch.zeros((2, nb), dtype=dtype, device=d)
-                           if k in self.far
-                           else self.partials[:, k * nb:(k + 1) * nb]
-                           for k, d in enumerate(devs)]
+                           if s in self.far
+                           else self.partials[:, s.index * nb:(s.index + 1) * nb]
+                           for s, d in zip(m.local, devs)]
                       for nb in nbs}
         # On one card the cycle's last launch folds and steps in its tail;
-        # across cards K3 does, after the remote partials are copied in.
+        # across cards or processes K3 does, after the other shards'
+        # partials are copied in.
         self.finish = None
-        if not self.far:
+        if not self.far and m.nprocs == 1:
             ticket = K.new_ticket(dev0)
             self.finish = {nb: K.Finish(self.partials, len(m) * nb, ticket)
                            for nb in nbs}
@@ -242,6 +256,16 @@ class KernelCycles:
             sc.copy_(self.scal)
             isc.copy_(self.iscal)
 
+    def _gather_partials(self, nb):
+        """Every process's local columns of `partials`, gathered into
+        every process's copy in mesh order: the shards of a process are
+        contiguous in mesh order, and rank order is mesh order."""
+        local = self.mesh.local
+        lo, hi = local[0].index * nb, (local[-1].index + 1) * nb
+        rows = all_gather_rows(self.partials[:, lo:hi].contiguous())
+        self.partials[:, :len(self.mesh) * nb].copy_(
+            rows.transpose(0, 1).flatten(1))
+
     def first_step(self):
         """The run's one K3: the first cycle's run predicate and dt."""
         K.cfl_finish(self.cfg, self.partials, 0, self.scal, self.iscal,
@@ -255,9 +279,12 @@ class KernelCycles:
         self.cur, self.nxt, nb = run_schedule_fused(
             self.cfg, self.mesh, self.cur, self.nxt, self.p, self.parts,
             self.scalars, sched, self.pair, self.slabs, self.finish)
-        if self.far:
-            for k in self.far:
-                self.partials[:, k * nb:(k + 1) * nb].copy_(self.parts[nb][k])
+        if self.finish is None:
+            for s in self.far:
+                self.partials[:, s.index * nb:(s.index + 1) * nb].copy_(
+                    self.parts[nb][s.slot])
+            if self.mesh.nprocs > 1:
+                self._gather_partials(nb)
             K.cfl_finish(self.cfg, self.partials, len(self.mesh) * nb,
                          self.scal, self.iscal, fold=True, step=True)
             self._share_scalars()
@@ -342,10 +369,10 @@ def _multicycle_loop(cfg, pairs):
 #
 # The JAX package's jnp tier (`armon_tpu/core/step.py:43-104,483-598`) in
 # plain tensor ops: no hand-written kernel, IEEE arithmetic on every
-# device. Each function takes the States of every shard of `mesh` in its
-# order (one State off a mesh); only the ghost exchange and the CFL
-# minimum look across shards, and a mesh's shards run one after another
-# from this one process.
+# device. Each function takes the States of every shard of `mesh` this
+# process drives, in its order (one State off a mesh); only the ghost
+# exchange and the CFL minimum look across shards (and processes), and a
+# process's shards run one after another.
 
 def sweep(cfg, mesh, states, axis: Axis, dt):
     """One dimensional sweep (`:52`): EOS, ghost exchange (`ghost_exchange`,
@@ -360,7 +387,7 @@ def sweep(cfg, mesh, states, axis: Axis, dt):
     states = halo_exchange_state(cfg, mesh,
                                  [update_eos(cfg, st) for st in states], axis)
     out = []
-    for s, st in zip(mesh, states):
+    for s, st in zip(mesh.local, states):
         d = dt.to(s.device)
         st = numerical_fluxes(cfg, st, axis, d)
         st = cell_update(cfg, st, axis, d)
@@ -473,8 +500,10 @@ def make_time_loop(cfg, mesh=None, restore=False):
         if cfg.cst_dt:
             lm = scalar_like(like, np.finfo(cfg.dtype).max)
         else:
-            dts = [dt_cfl_min(cfg, st, s.n_real) for s, st in zip(m, states)]
-            lm = pmin_dt(dts, like.device) if cfg.spmd else dts[0]
+            dts = [dt_cfl_min(cfg, st, s.n_real)
+                   for s, st in zip(m.local, states)]
+            lm = pmin_dt(gather_shards(m, dts), like.device) if cfg.spmd \
+                else dts[0]
         tv, dtv, lmv = torch.stack([t, dt_prev, lm]).cpu().tolist()
         cycles, okv = torch.stack([cyc, ok.to(torch.int32)]).cpu().tolist()
         return LoopResult(states[0] if single else states, tv, cycles, dtv,

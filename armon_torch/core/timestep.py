@@ -23,6 +23,7 @@ import torch
 
 from ..ops.eos import scalar_like
 from ..ops.reductions import dt_cfl_min, pmin_dt
+from ..parallel.dist import gather_shards
 
 
 def dt_update(cfg, local_min, dt_prev, cycle):
@@ -50,8 +51,9 @@ def dt_update(cfg, local_min, dt_prev, cycle):
 
 def next_time_step(cfg, mesh, states, dt_prev, cycle, seeded=False):
     """The op path's step (`armon_tpu/core/timestep.py:77`): the CFL
-    minimum of the cycle-start states (one per shard of `mesh`; on a mesh
-    the minimum over the shards, `pmin_dt`), then `dt_update`.
+    minimum of the cycle-start states (one per shard of `mesh` this
+    process drives; on a mesh the minimum over every shard's, gathered
+    across processes, `pmin_dt`), then `dt_update`.
 
     Under `dt_on_even_cycles` an odd cycle skips the reduction, as the
     JAX package's `lax.cond` does (`:81-97`), unless it may be the run's
@@ -64,8 +66,9 @@ def next_time_step(cfg, mesh, states, dt_prev, cycle, seeded=False):
     if cfg.dt_on_even_cycles and cycle % 2 == 1 and seeded:
         ok = torch.isfinite(dt_prev) & (dt_prev > 0)
         return dt_prev, dt_prev, ok
-    dts = [dt_cfl_min(cfg, st, s.n_real) for s, st in zip(mesh, states)]
-    local_min = pmin_dt(dts, dt_prev.device) if cfg.spmd else dts[0]
+    dts = [dt_cfl_min(cfg, st, s.n_real) for s, st in zip(mesh.local, states)]
+    local_min = pmin_dt(gather_shards(mesh, dts), dt_prev.device) \
+        if cfg.spmd else dts[0]
     return dt_update(cfg, local_min, dt_prev, cycle)
 
 

@@ -11,7 +11,9 @@ shards' blocks side by side in a (py * rows, px * cols) array
 (`armon_tpu/parallel/mesh.py:9-13`); `shards_from_blocked` cuts such
 arrays into the port's per-shard tensors. `gather_state` and
 `scatter_state` go between per-shard blocks and the global padded grid
-(`armon_tpu/core/solver.py:736-821,1187-1215`).
+(`armon_tpu/core/solver.py:736-821,1187-1215`). Over several processes a
+process holds its own shards only: `gather_state` raises there, and
+`scatter_state` returns this process's blocks.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from .core.state import State, FusedCarry
 from .parallel.mesh import Mesh
+from .utils.errors import solver_error
 
 
 def _field(arrays, name, k):
@@ -58,9 +61,9 @@ def to_numpy(x):
 
 
 def shards_from_blocked(params, arrays, kind=FusedCarry):
-    """Per-shard NamedTuples of `kind` (mesh order, each on its shard's
-    device) from blocked (py * rows, px * cols) arrays of its fields, given
-    like `carry_from_numpy`'s input."""
+    """Per-shard NamedTuples of `kind` (this process's shards in mesh
+    order, each on its shard's device) from blocked (py * rows, px * cols)
+    arrays of its fields, given like `carry_from_numpy`'s input."""
     cfg = params.config
     rows, cols = cfg.local_shape
     px, py = cfg.proc_dims
@@ -68,7 +71,7 @@ def shards_from_blocked(params, arrays, kind=FusedCarry):
               for k, n in enumerate(kind._fields)]
     return [kind(*(_tensor(params, b[s.iy, :, s.ix, :]).to(s.device)
                    for b in blocks))
-            for s in Mesh(cfg, params.devices)]
+            for s in Mesh.of(params).local]
 
 
 def gather_state(params, shards):
@@ -77,7 +80,18 @@ def gather_state(params, shards):
     real cells, and the global ghost bands and corners from the border
     shards, which hold them just past their real cells (so an edge shard's
     slack is skipped). A one-shard mesh's block is the global grid, and
-    comes back as it is."""
+    comes back as it is. Over several processes the other processes'
+    shards are out of reach, and it raises (`armon_tpu/core/solver.py:
+    746-755`)."""
+    if params.process_count > 1:
+        solver_error("config",
+                     f"gather_state cannot assemble the global state of a "
+                     f"run over {params.process_count} processes: each holds "
+                     f"only its own shards. Use the per-shard paths: "
+                     f"write_output with use_MPI (one file per shard), "
+                     f"io.subdomain.shard_coords_iter / "
+                     f"compare_sub_domain_with_golden, and per-shard "
+                     f"snapshots (io.restart.save_checkpoint)")
     if len(shards) == 1:
         return shards[0]
     cfg = params.config
@@ -89,7 +103,7 @@ def gather_state(params, shards):
         a0 = getattr(shards[0], name)
         full = torch.zeros((ny + 2 * g, nx + 2 * g), dtype=a0.dtype,
                            device=params.device)
-        for s in Mesh(cfg, params.devices):
+        for s in Mesh.of(params):
             blk = getattr(shards[s.index], name)
             wx, hy = s.n_real
             r_lo, c_lo = (0 if s.iy == 0 else g), (0 if s.ix == 0 else g)
@@ -103,8 +117,9 @@ def gather_state(params, shards):
 
 
 def scatter_state(params, state):
-    """Per-shard blocks (mesh order, each on its shard's device) of a global
-    padded grid given as a NamedTuple of tensors (`host_to_device`). An
+    """Per-shard blocks (this process's shards in mesh order, each on its
+    shard's device) of a global padded grid given as a NamedTuple of
+    tensors (`host_to_device`). An
     edge shard's slack, which lies past the global grid, repeats the
     grid's last line (its values are dead)."""
     cfg = params.config
@@ -119,4 +134,4 @@ def scatter_state(params, state):
     return [type(state)(*(a[s.iy * nyl:s.iy * nyl + rows,
                             s.ix * nxl:s.ix * nxl + cols].to(s.device).clone()
                           for a in padded))
-            for s in Mesh(cfg, params.devices)]
+            for s in Mesh.of(params).local]

@@ -24,7 +24,10 @@ Two layouts:
   the saving mesh; written one shard at a time, with no global gather. A
   load onto the same layout reads each block back as it was; onto
   another layout (`_reshard_load`) each target block is assembled from
-  the windows of the source files that cover it.
+  the windows of the source files that cover it. Over several processes
+  each process writes and reads its own shards' files, and a save ends on
+  a barrier, so a snapshot written by N processes restores on any number
+  of processes and any layout.
 
 Snapshots are neutral to the mesh (the fingerprint pins the numerics
 only) and to the path. The kernels never write the sound speed back, so a
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core.state import State
+from ..parallel import dist
 from ..parallel.mesh import Mesh
 from ..utils.errors import solver_error
 
@@ -127,6 +131,11 @@ def save_checkpoint(path, params, state, t, cycles, dt_prev,
             np.savez(_shard_ckpt_path(path, coords),
                      **scalars, __geom=_geom(cfg),
                      **{f"field_{v}": blocks[v] for v in State._fields})
+        # The save is collective: each process wrote its own shards, and a
+        # process that restores right after its return must not read a
+        # neighbour's half-written file (`armon_tpu/io/restart.py:154-161`).
+        dist.barrier(f"save_checkpoint {os.path.basename(str(path))}",
+                     params.device)
         return
 
     from .output import host_array
@@ -161,7 +170,8 @@ def load_checkpoint(path, params):
     """Read a snapshot back, whichever its layout; only the numerics
     fingerprint must match, the device layout is free. Returns (a list of
     per-shard States in the mesh's order, each on its shard's device, t,
-    cycles, dt_prev, local_min or None)."""
+    cycles, dt_prev, local_min or None); over several processes, this
+    process's shards, read from the windows that cover them."""
     cfg = params.config
     if os.path.exists(path) and not (
             cfg.spmd and os.path.exists(_shard_ckpt_path(path, (0, 0)))):
@@ -203,7 +213,7 @@ def _load_per_shard(path, params):
     """Each shard's block from its own file, as it was saved."""
     meta = None
     shards = []
-    for s in Mesh(params.config, params.devices):
+    for s in Mesh.of(params).local:
         spath = _shard_ckpt_path(path, (s.ix, s.iy))
         if not os.path.exists(spath):
             solver_error("config", f"checkpoint shard file {spath} not found")
@@ -314,7 +324,7 @@ def _reshard_load(path, params, geom):
         nxl_t, nyl_t = cfg.n_local
         shards = [_on_device(params, target_block(s.iy * nyl_t, s.ix * nxl_t,
                                                   lr_t, lc_t), s.device)
-                  for s in Mesh(cfg, params.devices)]
+                  for s in Mesh.of(params).local]
         return (shards,) + meta_box[0]
     finally:
         for z in zcache.values():

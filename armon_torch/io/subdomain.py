@@ -11,7 +11,9 @@
 The shards are the port's `parallel/mesh.Mesh` blocks: a run's state is a
 list of per-shard NamedTuples in the mesh's order, each on its shard's
 device, and comes off the device one shard at a time, so host memory stays
-O(shard).
+O(shard). Over several processes each process has, reads and writes its
+own shards only (`Mesh.local`); counts are per process, as in the JAX
+package.
 """
 
 import numpy as np
@@ -23,9 +25,9 @@ from .output import host_array, precision_of
 
 
 def shard_states(params, state):
-    """The per-shard NamedTuples (mesh order) of `state`: a list of them
-    as the drivers hold it, or one global State (`stats.data`), which is
-    cut into blocks (`interop.scatter_state`)."""
+    """The per-shard NamedTuples (this process's, in mesh order) of
+    `state`: a list of them as the drivers hold it, or one global State
+    (`stats.data`), which is cut into blocks (`interop.scatter_state`)."""
     if isinstance(state, (list, tuple)) and not hasattr(state, "_fields"):
         return list(state)
     if not params.config.spmd:
@@ -36,10 +38,10 @@ def shard_states(params, state):
 
 def shard_coords_iter(params, state, vars=SAVED_VARS):
     """Yield ((bx, by), {var: padded (rows, cols) numpy block}) for every
-    shard, one at a time."""
+    shard this process drives, one at a time."""
     shards = shard_states(params, state)
-    for s in Mesh(params.config, params.devices):
-        blk = shards[s.index]
+    for s in Mesh.of(params).local:
+        blk = shards[s.slot]
         yield (s.ix, s.iy), {v: host_array(getattr(blk, v)) for v in vars}
 
 

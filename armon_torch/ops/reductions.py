@@ -6,7 +6,7 @@ block, (nx, ny) its real extent: `cfg.n_local`, or less on the hi-edge
 shard of an uneven split, whose dead slack is left out. Max and min are
 exact, so the CFL minimum is the same in any reduction order and over any
 split; the conservation sums feed tolerance checks only, and a mesh adds
-its shards' sums in f64 on the host (`conservation_scalar`).
+its shards' sums in f64 on the host (`core/solver.make_conservation`).
 """
 
 import numpy as np
@@ -101,11 +101,8 @@ def conservation_vars(cfg, rho, E, n_real=None):
 
 
 def conservation_scalar(cfg, v) -> float:
-    """Host f64 value of a `conservation_vars` output, or of a list of
-    them (one per shard, summed in f64): a compensated (hi, lo) pair is
-    combined and scaled by the cell area in f64."""
-    if isinstance(v, list):
-        return float(sum(conservation_scalar(cfg, x) for x in v))
+    """Host f64 value of a `conservation_vars` output: a compensated
+    (hi, lo) pair is combined and scaled by the cell area in f64."""
     a = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v, np.float64)
     if a.ndim >= 1 and a.shape[-1] == 2:
         return float((a[..., 0] + a[..., 1]).sum() * (cfg.dx * cfg.dy))

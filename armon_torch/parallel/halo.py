@@ -4,9 +4,12 @@ A shard's ghost band along an axis holds its neighbour's g real lines next
 to the shared border, or, at a global border, the mirror of its own first
 (last) g real lines times the variable's +-1 factor. The JAX package moves
 the neighbours' lines with `lax.ppermute`; here they are tensor copies
-(`Tensor.copy_`, across devices where the shards sit on different cards).
+(`Tensor.copy_`, across devices where the shards sit on different cards)
+between the shards of one process, and messages between processes
+(`dist.exchange`, one batch an exchange: each side that faces another
+process's shard sends this shard's g lines and receives the neighbour's).
 Every function works on the fused exchange set (rho, u, v, E), given per
-shard in the mesh's order.
+shard of this process (`mesh.local`, indexed by `Shard.slot`).
 
 - `ghost_slabs`: a shard's (lo, hi) ghost content along an axis, with the
   mirror selected at global borders (`_ghost_slabs`);
@@ -29,6 +32,7 @@ from ..utils.enums import Axis, sides_along
 from ..core.state import COMM_VARS
 from ..ops.boundary import boundary_conditions, mirror_into
 from ..ops.sweep import MIRROR, mirror_factors, fill_ghosts_plain
+from . import dist
 
 
 def _lines(a, axis, start, g):
@@ -52,11 +56,11 @@ def ghost_slabs(cfg, mesh, fields, shard, axis):
     for side, facs in enumerate(mirror_factors(cfg, axis)):
         nb = mesh.neighbour(shard, axis, side)
         if nb is None:
-            own = _real_lines(cfg, fields[shard.index], shard, axis, side)
+            own = _real_lines(cfg, fields[shard.slot], shard, axis, side)
             lines = [torch.flip(a, (d,)) * f for a, f in zip(own, facs)]
         else:
             lines = [a.to(shard.device)
-                     for a in _real_lines(cfg, fields[nb.index], nb, axis, 1 - side)]
+                     for a in _real_lines(cfg, fields[nb.slot], nb, axis, 1 - side)]
         out.append(torch.stack(lines))
     return tuple(out)
 
@@ -70,21 +74,47 @@ def _pack(dst, lines):
             d.copy_(a)
 
 
+def _slab_shape(cfg, axis, field, depth):
+    rows, cols = field.shape
+    g = cfg.nghost
+    return (depth, g, cols) if Axis(axis) is Axis.Y else (depth, rows, g)
+
+
+def _tag(shard, side):
+    """The tag of the message that fills `shard`'s ghosts on `side`."""
+    return 2 * shard.index + side
+
+
+def _swap_remote(cfg, mesh, fields, axis, into):
+    """The exchange with the other processes along `axis`: each local
+    shard sends, stacked, its g real lines of `fields[slot]` next to each
+    side whose neighbour lives on another process, and receives that
+    neighbour's into `into(shard, side)`. Every process walks the same
+    mesh, so a send of one is a receive of the other, in the same order
+    between any two processes."""
+    if mesh.nprocs == 1:
+        return
+    sends, recvs = [], []
+    for s in mesh.local:
+        for side in (0, 1):
+            nb = mesh.neighbour(s, axis, side)
+            if nb is None or mesh.is_local(nb):
+                continue
+            lines = _real_lines(cfg, fields[s.slot], s, axis, side)
+            sends.append((torch.stack(lines), nb.rank, _tag(nb, 1 - side)))
+            recvs.append((into(s, side), nb.rank, _tag(s, side)))
+    dist.exchange(sends, recvs, mesh.local[0].device)
+
+
 def new_slab_buffers(cfg, mesh, fields, axis):
-    """Per shard, (lo, hi) slab buffers for the sides that face a
+    """Per local shard, (lo, hi) slab buffers for the sides that face a
     neighbour along `axis` (None at a global border), on the shard's
     device."""
-    axis = Axis(axis)
-    g = cfg.nghost
-    out = []
-    for s in mesh:
-        rows, cols = fields[s.index][0].shape
-        shape = (4, g, cols) if axis is Axis.Y else (4, rows, g)
-        out.append(tuple(
-            torch.empty(shape, dtype=fields[s.index][0].dtype, device=s.device)
-            if mesh.neighbour(s, axis, side) is not None else None
-            for side in (0, 1)))
-    return out
+    return [tuple(
+        torch.empty(_slab_shape(cfg, axis, fields[s.slot][0], 4),
+                    dtype=fields[s.slot][0].dtype, device=s.device)
+        if mesh.neighbour(s, axis, side) is not None else None
+        for side in (0, 1)) for s in mesh.local]
 
 
 def halo_slabs(cfg, mesh, fields, axis, out=None):
@@ -98,17 +128,20 @@ def halo_slabs(cfg, mesh, fields, axis, out=None):
     if out is None:
         out = new_slab_buffers(cfg, mesh, fields, axis)
     res = []
-    for s in mesh:
+    for s in mesh.local:
         sides = []
         for side in (0, 1):
             nb = mesh.neighbour(s, axis, side)
             if nb is None:
                 sides.append(MIRROR)
                 continue
-            buf = out[s.index][side]
-            _pack(buf, _real_lines(cfg, fields[nb.index], nb, axis, 1 - side))
+            buf = out[s.slot][side]
+            if mesh.is_local(nb):
+                _pack(buf, _real_lines(cfg, fields[nb.slot], nb, axis,
+                                       1 - side))
             sides.append(buf)
         res.append(tuple(sides))
+    _swap_remote(cfg, mesh, fields, axis, lambda s, side: out[s.slot][side])
     return res
 
 
@@ -117,12 +150,12 @@ def halo_exchange(cfg, mesh, fields, axis):
     from its neighbours, and mirrored at global borders (low side, then
     high side); returns new tensors per shard."""
     axis = Axis(axis)
-    return [tuple(fill_ghosts_plain(cfg, axis, fields[s.index], s.n_real, gh))
-            for s, gh in zip(mesh, halo_slabs(cfg, mesh, fields, axis))]
+    return [tuple(fill_ghosts_plain(cfg, axis, fields[s.slot], s.n_real, gh))
+            for s, gh in zip(mesh.local, halo_slabs(cfg, mesh, fields, axis))]
 
 
 def halo_exchange_state(cfg, mesh, states, axis, vars=COMM_VARS):
-    """Every shard's State (`states[s]`, mesh order) with the ghost bands
+    """Every local shard's State (`states[slot]`) with the ghost bands
     of `vars` along `axis` filled, in copies: a neighbour's adjacent real
     lines on the sides that face one, the mirror at a global border (the
     hi-edge shard's band past its own real cells). A mesh flat along
@@ -136,20 +169,34 @@ def halo_exchange_state(cfg, mesh, states, axis, vars=COMM_VARS):
     if mesh.proc_dims[k] == 1:
         return [boundary_conditions(cfg, st, axis, vars) for st in states]
     g = cfg.nghost
+    fields = [tuple(getattr(st, v) for v in vars) for st in states]
+    recv = {}
+
+    def into(s, side):
+        f = fields[s.slot][0]
+        buf = recv[s.slot, side] = torch.empty(
+            _slab_shape(cfg, axis, f, len(vars)), dtype=f.dtype,
+            device=f.device)
+        return buf
+
+    _swap_remote(cfg, mesh, fields, axis, into)
     out = []
-    for s in mesh:
+    for s in mesh.local:
         n = s.n_real[k]
         updates = {}
-        for var in vars:
-            a = getattr(states[s.index], var).clone()
+        for i, var in enumerate(vars):
+            a = fields[s.slot][i].clone()
             for side, border in enumerate(sides_along(axis)):
                 nb = mesh.neighbour(s, axis, side)
                 if nb is None:
                     mirror_into(cfg, a, var, border, n)
+                    continue
+                if mesh.is_local(nb):
+                    [lines] = _real_lines(cfg, [fields[nb.slot][i]], nb, axis,
+                                          1 - side)
                 else:
-                    src = getattr(states[nb.index], var)
-                    [lines] = _real_lines(cfg, [src], nb, axis, 1 - side)
-                    _lines(a, axis, g + n if side else 0, g).copy_(lines)
+                    lines = recv[s.slot, side][i]
+                _lines(a, axis, g + n if side else 0, g).copy_(lines)
             updates[var] = a
-        out.append(states[s.index]._replace(**updates))
+        out.append(states[s.slot]._replace(**updates))
     return out

@@ -2,19 +2,29 @@
 
 The same keyword cascade as the JAX package: each init step consumes its
 options, and any leftover raises an error naming the unknown options
-(`src/parameters.jl:359-372`). Options whose route in the JAX package is
-not ported yet raise a `SolverException` that names the ROADMAP item which
-brings them; none is accepted and ignored.
+(`src/parameters.jl:359-372`). Every option of the JAX package is taken;
+the x86 and MPI machinery with no card counterpart (threads, SIMD, NUMA,
+`reorder_grid`, `global_comm`) is recorded and has no effect, as there.
 
 PyTorch additions:
 - ``device``: where the tensors live and the kernels run, ``"cuda"`` by
   default. ``"cpu"`` runs every kernel's plain PyTorch version in exact
   arithmetic (the tests use it). ``"cuda"`` without a card raises.
 - ``devices``: with ``P=(px, py)``, the device of each shard, a list of
-  px*py torch devices in row-major (py, px) order. Repeats are allowed:
+  px*py torch devices in row-major (py, px) order (over several
+  processes, of this process's shards). Repeats are allowed:
   ``["cuda:0"] * 4`` runs a 2x2 mesh on one card. Without it, a mesh on
   ``"cuda"`` puts its shards on cuda:0..n-1 and raises when the machine
   has fewer cards; on ``"cpu"`` every shard is on the CPU.
+
+Runs over several processes (`parallel/dist.py`): ``coordinator_address``
+("host:port") joins the processes through `torch.distributed`, with
+``num_processes`` and ``process_id`` (or the launcher's WORLD_SIZE and
+RANK); a default process group the caller set up is used as it is. The
+px*py shards are cut, in mesh order, into equal contiguous blocks, one a
+process in rank order. Shards on CUDA talk over NCCL, or over gloo through
+host copies with ``gpu_aware=False``, which two processes on one card
+need; CPU shards talk over gloo.
 """
 
 import os
@@ -26,15 +36,13 @@ from .utils.errors import solver_error
 from .models.cases import test_from_name, TestCase, _REGISTRY
 from .core.config import SolverConfig, OP_PATH_TIERS
 from .core.state import State
+from .parallel import dist
 
 
 _DTYPE_NAMES = {
     "float64": np.float64, "Float64": np.float64, "f64": np.float64,
     "float32": np.float32, "Float32": np.float32, "f32": np.float32,
 }
-
-# ROADMAP item that brings the route this package does not run yet.
-_MULTI_PROCESS = "ROADMAP queue A item 10b (multi-process runs)"
 
 # Field-sized arrays alive at the peaks `memory_required` counts, one
 # shard on its device. Measured, not derived: Sod 8192^2 f32, the peak of
@@ -67,11 +75,6 @@ def _stencil_width_riemann(scheme: str) -> int:
 def _stencil_width_projection(projection: str) -> int:
     # src/projection_schemes.jl:11-12
     return {"euler": 1, "euler_2nd": 2}[projection]
-
-
-def _not_ported(option, item):
-    solver_error("config", f"option '{option}' is not available in "
-                           f"armon_torch yet: it comes with {item}")
 
 
 def resolve_device(name) -> torch.device:
@@ -199,47 +202,80 @@ class ArmonParameters:
 
     def _init_mesh(self, o):
         """src/parameters.jl:408-467 (`armon_tpu/params.py:194-229`): the
-        shard grid P = (px, py). One process drives every shard of the mesh;
-        runs over several processes are not ported yet."""
+        shard grid P = (px, py), and the processes that drive it (joined
+        in `_init_device`, once the device type is known)."""
         self.use_MPI = bool(o.pop("use_MPI", False))
         self.P = tuple(o.pop("P", (1, 1)))
         # The H100s of a host are joined all to all (NVLink switch), so no
         # shard placement beats another: the given order is always kept.
         self.reorder_grid = bool(o.pop("reorder_grid", True))
+        o.pop("global_comm", None)  # the default process group is the one
         self.gpu_aware = bool(o.pop("gpu_aware", True))
         if len(self.P) != 2 or any(int(p) != p or p <= 0 for p in self.P):
             solver_error("config", f"Invalid process grid P: {self.P}")
         self.P = (int(self.P[0]), int(self.P[1]))
-        for key in ("global_comm", "coordinator_address", "num_processes",
-                    "process_id"):
-            if o.pop(key, None) is not None:
-                _not_ported(key, _MULTI_PROCESS)
+        self.coordinator_address = o.pop("coordinator_address", None)
+        self.num_processes = o.pop("num_processes", None)
+        self.process_id = o.pop("process_id", None)
         self._devices_option = o.pop("devices", None)
 
+    def _init_processes(self, device_type):
+        """Join the run's processes (`armon_tpu/params.py:213-229`):
+        `coordinator_address` starts `torch.distributed` on the backend the
+        device type and `gpu_aware` select (`dist.backend_for`); a default
+        process group that already exists is used as it is. Over several
+        processes the shard count must be a multiple of theirs, and
+        `use_MPI` is forced: per-shard output and snapshots are the only
+        routes when shards live on other processes (the gather paths
+        raise there)."""
+        if self.coordinator_address is not None:
+            dist.init_distributed(self.coordinator_address, self.num_processes,
+                                  self.process_id,
+                                  dist.backend_for(device_type, self.gpu_aware))
+        self.process_count = dist.process_count()
+        self.process_index = dist.process_index()
+        if self.process_count > 1:
+            px, py = self.P
+            if px * py % self.process_count:
+                solver_error("config",
+                             f"mesh {px}x{py} has {px * py} shards, not a "
+                             f"multiple of the {self.process_count} processes")
+            self.use_MPI = True
+
     def _place_shards(self, device, devices):
-        """The device of each shard, in row-major (py, px) order."""
+        """The device of each of this process's shards, in row-major
+        (py, px) order: process r of n drives shards [r*k, (r+1)*k), k =
+        px*py / n."""
         px, py = self.P
         n = px * py
+        k = n // self.process_count
         if devices is not None:
             devs = [resolve_device(d) for d in devices]
-            if len(devs) < n:
-                solver_error("config", f"mesh {px}x{py} needs {n} devices, "
-                                       f"got {len(devs)}")
+            if len(devs) < k:
+                solver_error("config", f"mesh {px}x{py} needs {k} devices"
+                             + (" a process" if k < n else "")
+                             + f", got {len(devs)}")
             # A bare "cuda" is the current card, named so that the shards
             # of a one-card mesh compare equal to their tensors' devices.
             devs = [torch.device("cuda", torch.cuda.current_device())
                     if d.type == "cuda" and d.index is None and n > 1 else d
-                    for d in devs[:n]]
+                    for d in devs[:k]]
             if device is not None and resolve_device(device).type != devs[0].type:
                 solver_error("config", f"device={device!r} disagrees with "
                                        f"devices={list(devices)!r}")
         else:
             dev = resolve_device("cuda" if device is None else device)
+            first = dev.index or 0
+            have = torch.cuda.device_count() if dev.type == "cuda" else 0
             if dev.type == "cpu" or n == 1:
-                devs = [dev] * n
+                devs = [dev] * k
+            elif k < n:
+                # Process r's shards on the cards after the earlier
+                # processes' ones, wrapping round the machine's cards.
+                r = self.process_index
+                devs = [torch.device("cuda", (first + r * k + j) % have)
+                        for j in range(k)]
             else:
-                first = dev.index or 0
-                have = torch.cuda.device_count()
                 if first + n > have:
                     solver_error("config",
                                  f"mesh {px}x{py} needs {n} CUDA cards from "
@@ -250,16 +286,42 @@ class ArmonParameters:
         if len({d.type for d in devs}) > 1:
             solver_error("config", f"a mesh cannot mix CPU and CUDA devices: "
                                    f"{[str(d) for d in devs]}")
+        if k < n and devs[0].type == "cuda" and self.gpu_aware:
+            self._check_one_process_a_card(devices is None, k)
         return tuple(devs)
+
+    def _check_one_process_a_card(self, default_placement, k):
+        """NCCL cannot put two processes on one card: say so before NCCL
+        does. The machine's card count tells where there are more
+        processes than cards, and the default placement where it wraps
+        round them."""
+        nprocs = self.process_count
+        have = torch.cuda.device_count()
+        cards = {(q * k) % have for q in range(nprocs)} \
+            if default_placement else range(have)
+        if nprocs > len(cards):
+            solver_error("config",
+                         f"{nprocs} processes would share {have} CUDA "
+                         f"card(s), and NCCL cannot put two processes on one "
+                         f"card: pass gpu_aware=False to exchange through "
+                         f"host memory over gloo")
 
     def _init_device(self, o):
         """src/parameters.jl:470-530. Threading/SIMD/NUMA/cache-blocking are
         x86 machinery with no GPU counterpart; accepted as no-ops for
         configuration compatibility, as the JAX package does."""
-        self.devices = self._place_shards(o.pop("device", None),
-                                          self._devices_option)
+        device = o.pop("device", None)
+        devices = self._devices_option
         del self._devices_option
+        self._init_processes(resolve_device(
+            devices[0] if devices else
+            "cuda" if device is None else device).type)
+        self.devices = self._place_shards(device, devices)
         self.device = self.devices[0]
+        if self.process_count > 1:
+            # Every process agrees on the mesh before any exchange (and
+            # NCCL's communicator is made here, by every process at once).
+            dist.barrier(f"ArmonParameters N={self.N} P={self.P}", self.device)
         self.use_gpu = bool(o.pop("use_gpu", False))
         if o.pop("use_kokkos", False):
             solver_error("config", "use_kokkos is not supported: the native "
@@ -393,7 +455,8 @@ class ArmonParameters:
         374-387`, `src/blocking/block_grid.jl:598-709`), on the device that
         holds the most (`per_device_*`) and summed over devices
         (`total_bytes`, `fused_total_bytes`). A device counts every shard
-        placed on it. Both paths are reported, with the JAX package's keys:
+        placed on it; over several processes, this process's shards only.
+        Both paths are reported, with the JAX package's keys:
 
         - `per_device_total_bytes`, the op path's footprint (the full-state
           path): each shard's 11-field State and its successor, 22 fields,
@@ -417,6 +480,7 @@ class ArmonParameters:
           path this run takes (22 fields a shard on the op path)."""
         from .ops import cycle as C, sweep as K
         from .ops.routing import cycle_route
+        from .parallel.mesh import Mesh
         from .utils.enums import Axis
         cfg = self.config
         g = self.nghost
@@ -432,13 +496,12 @@ class ArmonParameters:
                  if cycle_route(cfg) == "pair" else 0)
         n_state = len(State._fields)
         shards, halo = {}, {}
-        for iy in range(py):
-            for ix in range(px):
-                slabs = ((ix > 0) + (ix < px - 1)) * rows * g \
-                    + ((iy > 0) + (iy < py - 1)) * g * cols
-                dev = self.devices[iy * px + ix]
-                shards[dev] = shards.get(dev, 0) + 1
-                halo[dev] = halo.get(dev, 0) + 4 * slabs * itemsize
+        for s in Mesh.of(self).local:
+            ix, iy = s.ix, s.iy
+            slabs = ((ix > 0) + (ix < px - 1)) * rows * g \
+                + ((iy > 0) + (iy < py - 1)) * g * cols
+            shards[s.device] = shards.get(s.device, 0) + 1
+            halo[s.device] = halo.get(s.device, 0) + 4 * slabs * itemsize
         rebuild = self.return_data or self.write_output or self.write_slices
         gather = len(self.devices) > 1 and (
             self.return_data or self.write_slices
@@ -450,7 +513,7 @@ class ArmonParameters:
             op[dev] = (2 * n_state * k + OP_PATH_PEAK_FIELDS
                        - 2 * n_state) * field
             loop = 9 * k * field + halo[dev] + (
-                2 * len(self.devices) * nb * itemsize if dev == dev0 else 0)
+                2 * px * py * nb * itemsize if dev == dev0 else 0)
             fields = max(5 * (k - 1) + KERNEL_INIT_PEAK_FIELDS,
                          10 * (k - 1) + REHYDRATE_PEAK_FIELDS if rebuild
                          else 0)
@@ -522,6 +585,12 @@ class ArmonParameters:
                 f"{self.n_local[0]}x{self.n_local[1]} cells (edge "
                 f"{self.n_edge[0]}x{self.n_edge[1]}) on "
                 f"{', '.join(str(d) for d in self.devices)}")
+        if self.process_count > 1:
+            lines.append(
+                f" - processes:  {self.process_count} over "
+                f"{dist.backend()}, "
+                f"this one {self.process_index}, with "
+                f"{len(self.devices)} shard(s)")
         key = "per_device_total_bytes" if self.config.op_path \
             else "per_device_fused_total_bytes"
         lines.append(f" - memory:     {mem[key] / 1e6:.1f} MB in the time "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-11, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-12, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
@@ -11,6 +11,9 @@
     python3 chip_smoke.py --phases 0,11   # observability and the public API only
                                           # (add 3, 7 and 9 for the times and
                                           # peaks it is held to)
+    python3 chip_smoke.py --phases 0,12   # runs over several processes only
+                                          # (add 3 and 7 for the one-process
+                                          # rates it is set beside)
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), the kernels' build time,
@@ -151,7 +154,27 @@ Phases, each printing one JSON line:
      peaks measured on the card (one shard's initialisation and the lean
      run here, phase 3's, phase 7's 2x2 and phase 9's runs), each peak at
      or under its total within `MEM_MARGIN`. Its files go under a
-     temporary directory.
+     temporary directory;
+ 12. runs over several processes (`torch.distributed`), each job's
+     workers this script run with `--mp-worker` (a failing worker kills
+     its peers and fails the phase): (a) two processes on cuda:0 over
+     gloo (`gpu_aware=False`, host copies): Sod_circ 1000^2 over 2x1 and
+     2x2 and N=(1000, 999) over 3x2, 20 cycles, and Sedov 2000^2 over 1x2
+     on the pair route (K4 slab), 50 cycles, in f64 and f32 exact, every
+     shard's real cells bit for bit against a one-process run on the
+     card (SHA-256 of each shard's window); Sod, Sod_y and Sod_circ 100^2
+     over 2x2 in f64 and f32 exact, 0 per-shard golden differences; a
+     per-shard snapshot at cycle 10 resumed to 20 bit for bit;
+     `gather_state` refusing; Sod 16384^2 over 2x2 (two 8192^2 shards a
+     process) f32 fast math, 100 timed cycles: cells/s, launches a cycle
+     (K1 slab, K2 slab, K3 once a cycle a process), host copies a cycle,
+     the exchange's and the partials' gather's ms a cycle timed apart,
+     beside phase 7's one-process cycle; (b) where the machine has two
+     cards, the same checks over NCCL, a card a process (2x1, Sedov 1x2),
+     and with four, 2x2 over four processes (checks, goldens, snapshot,
+     the timed run); otherwise a line says it did not run. Each run's
+     launches are counted in its worker (each of its kernels must
+     launch); their sums go to the `kernels` line's `launches_phase12`.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -1657,6 +1680,7 @@ def phase7(torch, rates):
     restore_counts(K, saved)
     sod["kernel_ms_per_shard"] = ms
     rates["mesh_slab_copies_ms"] = ms["slab_copies_per_cycle"]
+    rates["mesh_cycle_ms"] = sod["cycle_ms"]
     rates["mesh_memory"] = {"peak": sod["max_memory_allocated"],
                             "before": sod["memory_allocated_before"]}
     sod["slab_packs_per_cycle"] = sum(_slab_pack_count(mesh, a)
@@ -2709,11 +2733,330 @@ def phase11(torch, rates):
 
 
 
+# ------------------------------------------------------------ processes
+
+# Phase 12's jobs: (a) two processes on cuda:0 over gloo (host copies,
+# `gpu_aware=False`); (b) NCCL, a card a process. Each job's workers are
+# this script run with `--mp-worker JOB RANK PORT DIR`; every leg of a
+# job runs in one process group.
+MP_JOBS = {
+    "a": dict(nprocs=2, one_card=True, sedov=True, goldens=True,
+              snapshot=True, timed=True,
+              agree=(((AGREE_N, AGREE_N), (2, 1)), ((AGREE_N, AGREE_N), (2, 2)),
+                     ((AGREE_N, AGREE_N - 1), (3, 2)))),
+    "b2": dict(nprocs=2, one_card=False, sedov=True, goldens=False,
+               snapshot=False, timed=False,
+               agree=(((AGREE_N, AGREE_N), (2, 1)),)),
+    "b4": dict(nprocs=4, one_card=False, sedov=False, goldens=True,
+               snapshot=True, timed=True,
+               agree=(((AGREE_N, AGREE_N), (2, 2)),)),
+}
+MP_TIMEOUT = 400       # seconds a job may take, its workers' start included
+MP_SNAPSHOT_AT = AGREE_CYCLES // 2
+MP_FIELDS = ("rho", "u", "v", "E", "p")
+
+
+def _mp_place(job, P):
+    """Where a job's processes put their shards."""
+    spec = MP_JOBS[job]
+    if spec["one_card"]:
+        return dict(devices=["cuda:0"] * (P[0] * P[1] // spec["nprocs"]),
+                    gpu_aware=False)
+    return dict(device="cuda")
+
+
+def _digests(params, data):
+    """{"cx,cy": {field: SHA-256 of the shard's real window}} of the
+    shards of `data` (this process's, or one process's global State cut
+    into `params`' layout): bit-for-bit comparisons across processes
+    without moving the fields."""
+    import hashlib
+    import numpy as np
+    from armon_torch.io.subdomain import shard_coords_iter, shard_real_window
+    out = {}
+    for coords, blk in shard_coords_iter(params, data, vars=MP_FIELDS):
+        rs, cs, _, _ = shard_real_window(params.config, coords)
+        out[f"{coords[0]},{coords[1]}"] = {
+            v: hashlib.sha256(np.ascontiguousarray(blk[v][rs, cs]).tobytes()
+                              ).hexdigest() for v in MP_FIELDS}
+    return out
+
+
+def _mp_expect(P, pair=False):
+    """The kernels a mesh's run must launch across processes (K3 once a
+    cycle, no tail)."""
+    if pair:
+        return ("cycle_slab", "cfl_finish")
+    return (("x_sweep_slab",) if P[0] > 1 else ()) + (
+        "y_sweep_slab" if P[1] > 1 else "y_sweep", "cfl_finish")
+
+
+def _mp_worker(job, rank, port, tmp):
+    """One process of a phase-12 job: its legs' results as one JSON
+    line (digests, counts, times); the parent compares them."""
+    import numpy as np
+    import torch
+    from armon_torch import ArmonParameters, armon, gather_state, SolverException
+    from armon_torch.io.restart import save_checkpoint
+    from armon_torch.io.subdomain import compare_sub_domain_with_golden, shard_states
+    from armon_torch.ops import sweep as K
+    from armon_torch.parallel import dist
+    from armon_torch.parallel.halo import halo_slabs, new_slab_buffers
+    from armon_torch.parallel.mesh import Mesh
+    from armon_torch.scaling import _time_rounds
+    from armon_torch.utils.enums import Axis
+    spec = MP_JOBS[job]
+    base = dict(coordinator_address=f"localhost:{port}",
+                num_processes=spec["nprocs"], process_id=rank, silent=5,
+                measure_time=False)
+    cnt = _Counted(torch)
+    out = {"rank": rank, "agree": [], "launches": {}}
+
+    def run(what, expect, P, restore_from=None, **opts):
+        params = ArmonParameters(P=P, **base, **_mp_place(job, P), **opts)
+        stats, c = cnt.path(f"{job} {what}", lambda: armon(
+            params, restore_from=restore_from), expect)
+        out["launches"][what] = c
+        return params, stats
+
+    for dtype in ("float64", "float32"):
+        cases = [("Sod_circ", N, P, AGREE_CYCLES, {}) for N, P in spec["agree"]]
+        if spec["sedov"]:
+            cases.append(("Sedov", (SEDOV_N, SEDOV_N), SEDOV_P,
+                          SEDOV_AGREE_CYCLES, PAIR))
+        for test, N, P, cycles, route in cases:
+            what = f"{test} {N} {P} {dtype}"
+            params, stats = run(what, _mp_expect(P, bool(route)), P,
+                                test=test, N=N, data_type=dtype,
+                                use_fast_math=False, maxcycle=cycles,
+                                return_data=True, **route)
+            out["agree"].append({
+                "test": test, "N": list(N), "P": list(P), "dtype": dtype,
+                "scalars": [stats.cycles, stats.final_time, stats.last_dt],
+                "digests": _digests(params, stats.data)})
+    try:
+        gather_state(params, stats.data)
+        raise AssertionError("gather_state did not raise across processes")
+    except SolverException as e:
+        if "per-shard" not in str(e):
+            raise
+    out["gather_refused"] = True
+
+    if spec["goldens"]:
+        golden = []
+        for test in ("Sod", "Sod_y", "Sod_circ"):
+            for dtype in ("float64", "float32"):
+                bits = 64 if dtype == "float64" else 32
+                params, stats = run(
+                    f"golden {test} {dtype}", _mp_expect((2, 2)), (2, 2),
+                    test=test, N=(100, 100), data_type=dtype,
+                    use_fast_math=False, maxcycle=1000, return_data=True)
+                _, ref_cycles, diffs, _ = compare_sub_domain_with_golden(
+                    params, stats.data,
+                    os.path.join(REF_DIR, f"ref_{test}_{bits}bits.csv"),
+                    1e-13 if bits == 64 else 1e-5,
+                    4 * np.finfo(np.float64).eps if bits == 64
+                    else 20 * np.finfo(np.float32).eps)
+                golden.append({"test": test, "dtype": dtype, "diffs": diffs,
+                               "cycles": stats.cycles,
+                               "ref_cycles": ref_cycles})
+        out["goldens_2x2"] = golden
+
+    if spec["snapshot"]:
+        opts = dict(test="Sod_circ", N=(AGREE_N, AGREE_N), data_type="float64",
+                    use_fast_math=False, return_data=True)
+        P = (2, 2)
+        p1, s1 = run("snapshot run", _mp_expect(P), P,
+                     maxcycle=MP_SNAPSHOT_AT, **opts)
+        ckpt = os.path.join(tmp, f"mp12_{job}.ckpt.npz")
+        save_checkpoint(ckpt, p1, s1.data, s1.final_time, s1.cycles,
+                        s1.last_dt)
+        p2, s2 = run("resume", _mp_expect(P), P, restore_from=ckpt,
+                     maxcycle=AGREE_CYCLES, **opts)
+        out["resumed"] = {"scalars": [s2.cycles, s2.final_time, s2.last_dt],
+                          "digests": _digests(p2, s2.data)}
+
+    if spec["timed"]:
+        P = MESH_P
+        opts = dict(test="Sod", N=(MESH_N, MESH_N),
+                    **{k: v for k, v in SMALL_OPTS.items()
+                       if k not in ("silent", "device")})
+        armon(ArmonParameters(P=P, maxcycle=16, **base, **_mp_place(job, P),
+                              **opts))
+        torch.cuda.synchronize()
+        staged = dict(dist.STAGED)
+        params, stats = run("timed", _mp_expect(P), P,
+                            maxcycle=MESH_CYCLES, return_data=True, **opts)
+        cyc, solve_s = stats.cycles, stats.solve_time
+        cfg, dev = params.config, params.device
+        mesh = Mesh.of(params)
+        cur = [(st.rho, st.u, st.v, st.E)
+               for st in shard_states(params, stats.data)]
+        del stats
+        bufs = {a: new_slab_buffers(cfg, mesh, cur, a) for a in (Axis.X, Axis.Y)}
+        timed = {
+            "cycles": cyc, "solve_s": solve_s,
+            "staged_per_cycle": {k: (dist.STAGED[k] - staged[k]) / cyc
+                                 for k in staged},
+            "exchange_ms_per_cycle": _time_rounds(
+                lambda: [halo_slabs(cfg, mesh, cur, a, bufs[a]) for a in bufs],
+                dev, 3),
+            "gather_ms_per_cycle": _time_rounds(
+                lambda: dist.all_gather_rows(torch.zeros(
+                    (2, len(mesh.local) * K.n_partials(Axis.Y, cur[0][0].shape, dev)),
+                    dtype=cur[0][0].dtype, device=dev)), dev, 3)}
+        out["timed"] = timed
+    print(dist.result_line(out), flush=True)
+    dist.shutdown()
+    return 0
+
+
+def _ref_digests(torch, test, N, P, dtype, single):
+    """`_digests` of a one-process run `single` cut into P's layout."""
+    from armon_torch import ArmonParameters
+    params = ArmonParameters(test=test, N=N, P=P, data_type=dtype,
+                             devices=["cuda:0"] * (P[0] * P[1]))
+    return _digests(params, single.data)
+
+
+def _mp_job(torch, job, tmp):
+    """Run one job's workers; their JSON results in rank order."""
+    from armon_torch.parallel.dist import run_workers
+    return run_workers(
+        lambda rank, port: [sys.executable, os.path.abspath(__file__),
+                            "--mp-worker", job, rank, port, tmp],
+        MP_JOBS[job]["nprocs"], MP_TIMEOUT, tmp, cwd=HERE)
+
+
+def _mp_check(torch, job, results, singles):
+    """Every agree run's shards, over the job's processes, bit for bit
+    against the one-process run; the goldens with 0 differences; the
+    resumed snapshot bit for bit; every worker's launches. Returns the
+    job's line and its launches by kernel."""
+    spec = MP_JOBS[job]
+    line = {"job": job, "processes": spec["nprocs"],
+            "transport": "gloo (host copies), cuda:0" if spec["one_card"]
+            else "nccl, a card a process"}
+    agree = []
+    for k, row in enumerate(results[0]["agree"]):
+        test, N, P, dtype = row["test"], tuple(row["N"]), tuple(row["P"]), row["dtype"]
+        single = singles[test, N, dtype]
+        want = _ref_digests(torch, test, N, P, dtype, single)
+        got = {}
+        for r in results:
+            rr = r["agree"][k]
+            if rr["scalars"] != [single.cycles, single.final_time, single.last_dt]:
+                raise AssertionError(f"{job} {row['test']} {N} {P} {dtype}: "
+                                     f"scalars {rr['scalars']} vs one process")
+            got.update(rr["digests"])
+        if got != want:
+            bad = sorted(c for c in want if got.get(c) != want[c])
+            raise AssertionError(f"{job} {test} {N} {P} {dtype}: shards {bad} "
+                                 f"differ from the one-process run")
+        agree.append({"test": test, "N": list(N), "P": list(P), "dtype": dtype,
+                      "cycles": single.cycles, "bitwise": True})
+    line["processes_vs_one_process"] = agree
+    line["gather_state_refused"] = all(r["gather_refused"] for r in results)
+    if spec["goldens"]:
+        rows = []
+        for k, g in enumerate(results[0]["goldens_2x2"]):
+            diffs = sum(r["goldens_2x2"][k]["diffs"] for r in results)
+            if diffs or g["cycles"] != g["ref_cycles"]:
+                raise AssertionError(f"{job} golden {g}: {diffs} differences")
+            rows.append(dict(g, diffs=diffs))
+        line["goldens_2x2"] = rows
+    if spec["snapshot"]:
+        single = singles["Sod_circ", (AGREE_N, AGREE_N), "float64"]
+        want = _ref_digests(torch, "Sod_circ", (AGREE_N, AGREE_N), (2, 2),
+                            "float64", single)
+        got = {}
+        for r in results:
+            got.update(r["resumed"]["digests"])
+            if r["resumed"]["scalars"] != [single.cycles, single.final_time,
+                                           single.last_dt]:
+                raise AssertionError(f"{job} resume: {r['resumed']['scalars']}")
+        if got != want:
+            raise AssertionError(f"{job}: the per-shard snapshot resumed at "
+                                 f"{MP_SNAPSHOT_AT} differs")
+        line["snapshot_resumed_bitwise"] = f"at {MP_SNAPSHOT_AT} of {AGREE_CYCLES}"
+    launches = {}
+    for r in results:
+        for counts in r["launches"].values():
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+    line["launches"] = launches
+    return line, launches
+
+
+def _mp_timed(results, rates):
+    """The timed run's line: cells/s from the slowest process's solve."""
+    t = [r["timed"] for r in results]
+    solve = max(x["solve_s"] for x in t)
+    cells = MESH_N * MESH_N * MESH_CYCLES
+    launches = {}
+    for r in results:
+        for name, n in r["launches"]["timed"].items():
+            launches[name] = launches.get(name, 0) + n
+    out = {"test": "Sod", "N": MESH_N, "P": list(MESH_P), "cycles": MESH_CYCLES,
+           "cells_per_s": cells / solve, "cycle_ms": solve / MESH_CYCLES * 1e3,
+           "launches_per_cycle": {k: n / MESH_CYCLES for k, n in launches.items()},
+           "exchange_ms_per_cycle": max(x["exchange_ms_per_cycle"] for x in t),
+           "gather_ms_per_cycle": max(x["gather_ms_per_cycle"] for x in t),
+           "staged_copies_per_cycle_per_process": t[0]["staged_per_cycle"],
+           "one_process_mesh_cycle_ms": rates.get("mesh_cycle_ms"),
+           "one_card_8192_cells_per_s": rates.get("main", {}).get("cells_per_s")}
+    if out["one_process_mesh_cycle_ms"]:
+        out["over_one_process_ms_per_cycle"] = \
+            out["cycle_ms"] - out["one_process_mesh_cycle_ms"]
+    return out
+
+
+def phase12(torch, rates):
+    """Runs over several processes (see the module doc); returns phase
+    12's launches by kernel."""
+    import shutil
+    import tempfile
+    torch.cuda.empty_cache()
+    singles = {}
+    for dtype in ("float64", "float32"):
+        for N in ((AGREE_N, AGREE_N), (AGREE_N, AGREE_N - 1)):
+            singles["Sod_circ", N, dtype] = _single(torch, "Sod_circ", N, dtype,
+                                                   AGREE_CYCLES)
+        singles["Sedov", (SEDOV_N, SEDOV_N), dtype] = _single(
+            torch, "Sedov", (SEDOV_N, SEDOV_N), dtype, SEDOV_AGREE_CYCLES)
+    total = {}
+    tmp = tempfile.mkdtemp(prefix="armon_p12_")
+    try:
+        jobs = ["a"]
+        cards = torch.cuda.device_count()
+        jobs += [j for j, need in (("b2", 2), ("b4", 4)) if cards >= need]
+        for job in jobs:
+            t0 = time.perf_counter()
+            results = _mp_job(torch, job, tmp)
+            line, launches = _mp_check(torch, job, results, singles)
+            if MP_JOBS[job]["timed"]:
+                line["timed"] = _mp_timed(results, rates)
+            line["seconds"] = time.perf_counter() - t0
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            emit({"phase": 12, "card": card_line(), **line})
+        if cards < 4:
+            emit({"phase": 12, "nccl": "not run" + (" on four cards" if cards >= 2
+                                                     else "") +
+                  f": the machine has {cards} card(s)"})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
+    ap.add_argument("--mp-worker", nargs=4, metavar=("JOB", "RANK", "PORT",
+                                                     "DIR"),
+                    help=argparse.SUPPRESS)  # phase 12's worker processes
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -2725,6 +3068,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
+    if args.mp_worker:
+        job, rank, port, tmp = args.mp_worker
+        return _mp_worker(job, int(rank), int(port), tmp)
     t0 = time.perf_counter()
     occupancy = phase0(torch) if 0 in phases else {}
     if 1 in phases:
@@ -2759,6 +3105,12 @@ def main(argv=None):
             entry["launches_phase10"] = p10.get(entry["name"], 0)
     if 11 in phases:
         phase11(torch, rates)
+    if 12 in phases:
+        # Phase 12's runs over processes, summed over its workers, under
+        # a key of their own, as phase 10's are.
+        p12 = phase12(torch, rates)
+        for entry in kernels:
+            entry["launches_phase12"] = p12.get(entry["name"], 0)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})

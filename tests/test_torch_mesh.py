@@ -39,6 +39,7 @@ from armon_torch.ops import sweep as K
 from armon_torch.ops.cycle import cycle_plain
 from armon_torch.ops.reductions import real_slice
 from armon_torch.parallel import halo
+from armon_torch.parallel.mesh import Mesh
 from armon_torch.utils.enums import Axis
 
 G = 4
@@ -86,14 +87,51 @@ def test_device_placement(monkeypatch):
     assert len(p.devices) == 2
     with pytest.raises(SolverException, match="needs 4 devices"):
         _tparams((2, 2), devices=["cpu"] * 3)
-    for key, val in (("coordinator_address", "localhost:1234"),
-                     ("num_processes", 2), ("process_id", 0),
+    # The multi-process options are taken (without a coordinator, the run
+    # is one process, as in the JAX package); `global_comm` has no effect.
+    for key, val in (("num_processes", 2), ("process_id", 0),
                      ("global_comm", object())):
-        with pytest.raises(SolverException, match="10b"):
-            _tparams((2, 2), **{key: val})
+        p = _tparams((2, 2), **{key: val})
+        assert (p.process_count, p.devices, p.use_MPI) == \
+            (1, (torch.device("cpu"),) * 4, False)
+    assert _tparams((2, 2), num_processes=2).num_processes == 2
+    # The shard count must be a multiple of the process count.
+    with pytest.raises(SolverException, match="not a multiple"):
+        Mesh(_tparams((2, 2)).config, ["cpu"], 0, 3)
+    # Over several processes (a stand-in for two: process 1 of 2), each
+    # drives a contiguous block of shards and `use_MPI` is forced.
+    from armon_torch.parallel import dist
+    monkeypatch.setattr(dist, "process_count", lambda: 2)
+    monkeypatch.setattr(dist, "process_index", lambda: 1)
+    monkeypatch.setattr(dist, "barrier", lambda name, device=None: None)
+    p = _tparams((2, 2))
+    assert (p.process_count, p.process_index, p.use_MPI) == (2, 1, True)
+    assert p.devices == (torch.device("cpu"),) * 2
+    mesh = Mesh.of(p)
+    assert [s.index for s in mesh.local] == [2, 3]
+    assert [(s.rank, s.slot, s.device) for s in mesh] == \
+        [(0, None, None)] * 2 + [(1, 0, p.device), (1, 1, p.device)]
+    with pytest.raises(SolverException, match="not a multiple"):
+        _tparams((3, 1), N=(100, 100))
+    with pytest.raises(SolverException, match="needs 2 devices a process"):
+        _tparams((2, 2), devices=["cpu"])
     # The CUDA rules, with a stand-in for cards this machine does not have.
     import armon_torch.params as tparams_mod
     monkeypatch.setattr(tparams_mod, "resolve_device", torch.device)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    # Process 1 of 2 puts its 2 shards on the cards after process 0's.
+    p = _tparams((2, 2), device="cuda")
+    assert p.devices == (torch.device("cuda", 2), torch.device("cuda", 3))
+    # Two processes on one card: not over NCCL, over gloo they may.
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SolverException, match="gpu_aware=False"):
+        _tparams((2, 2), device="cuda")
+    with pytest.raises(SolverException, match="gpu_aware=False"):
+        _tparams((2, 2), device="cuda", devices=["cuda:0"] * 2)
+    p = _tparams((2, 2), device="cuda", gpu_aware=False)
+    assert p.devices == (torch.device("cuda", 0),) * 2
+    monkeypatch.setattr(dist, "process_count", lambda: 1)
+    monkeypatch.setattr(dist, "process_index", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     with pytest.raises(SolverException, match="needs 4 CUDA cards"):

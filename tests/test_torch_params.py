@@ -10,10 +10,12 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.distributed as td
 
 import armon_tpu
 import armon_torch
 from armon_torch import SolverException
+from armon_torch.parallel import dist
 from armon_torch.core.splitting import split_schedules as torch_schedules
 from armon_tpu.core.splitting import split_schedules as jax_schedules
 
@@ -82,16 +84,46 @@ def test_nghost_floor_is_stencil_sum(scheme, projection, floor):
                                     projection=projection, nghost=floor - 1)
 
 
+@pytest.fixture
+def process_group():
+    """A free coordinator address for an in-process run of one process;
+    the default process group it starts is left after the test."""
+    yield f"localhost:{dist.free_port()}"
+    dist.shutdown()
+
+
 @pytest.mark.parametrize("opt", [
     dict(P=(2, 1), num_processes=2),
     dict(coordinator_address="localhost:1234"),
 ], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))))
-def test_out_of_slice_options_raise(opt):
-    """Multi-process runs (ROADMAP A10b) are the one route not ported: its
-    options raise. `log_blocks`, `profiling` and `block_size` are accepted
-    (`tests/test_torch_observability.py`)."""
-    with pytest.raises(SolverException, match="ROADMAP queue A item 10b"):
-        armon_torch.ArmonParameters(device="cpu", **opt)
+def test_out_of_slice_options_raise(opt, process_group):
+    """The multi-process options (ROADMAP A10b) are taken, as the JAX
+    package takes them: without a coordinator they are recorded and the
+    run is one process; `coordinator_address` joins the processes
+    (`torch.distributed` over gloo on the CPU; here a run of one, on a
+    free port), idempotently, and a second, different coordinator raises.
+    `use_MPI` is forced and the shard count checked only over several
+    processes (`tests/test_torch_multiprocess.py`)."""
+    if "coordinator_address" not in opt:
+        ours = armon_torch.ArmonParameters(device="cpu", **opt)
+        theirs = armon_tpu.ArmonParameters(**opt)
+        assert (ours.num_processes, ours.P, ours.use_MPI) == \
+            (theirs.num_processes, theirs.P, theirs.use_MPI) == (2, (2, 1), False)
+        assert (ours.process_count, ours.process_index) == (1, 0)
+        return
+    addr = process_group
+    kw = dict(device="cpu", coordinator_address=addr, num_processes=1,
+              process_id=0)
+    with pytest.raises(SolverException, match="outside"):
+        armon_torch.ArmonParameters(**dict(kw, process_id=1))
+    p = armon_torch.ArmonParameters(P=(2, 1), **kw)
+    assert td.is_initialized() and td.get_backend() == "gloo"
+    assert (p.coordinator_address, p.process_count, p.process_index) == \
+        (addr, 1, 0)
+    assert not p.use_MPI  # one process: the gathers still work
+    armon_torch.ArmonParameters(**kw)  # the same coordinator: nothing
+    with pytest.raises(SolverException, match="already initialized"):
+        armon_torch.ArmonParameters(**dict(kw, coordinator_address="localhost:1"))
 
 
 @pytest.mark.parametrize("opt", [
