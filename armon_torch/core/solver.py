@@ -395,7 +395,7 @@ def _checkpointed_cycle(params, fns, states, dt_prev, cycle_idx, checkpoint,
 
 
 def _cycle_driver(params, states, fs, local0, checkpoint, restored,
-                  solver_log=None):
+                  solver_log=None, graphs=None):
     """The per-cycle driver (`_python_cycle_driver`, `core/solver.py:
     403-553`): one cycle per step, then the host's work for it: the
     `solver_log` event (cycle, t, dt used, wall seconds), a
@@ -407,7 +407,10 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored,
     (`cycle_route`: pair or per-sweep, never K5), and the host reads the
     loop's int scalars once a cycle (whether the next cycle runs, and ok);
     t and dt are read only for a cycle whose log event, snapshot or line
-    needs them. Otherwise a step is the op path's `solver_cycle`, or, with
+    needs them. A cycle of the kernels is one replay of a one-cycle CUDA
+    graph where graphs run (`core/graphs.py`; `graphs` as there), the
+    counterpart of `make_cycle`. Otherwise a step is the op path's
+    `solver_cycle`, or, with
     a hook, its sub-steps (`_checkpointed_cycle`), and the host reads dt
     and ok once a cycle. Returns (LoopResult, the restored States or
     None)."""
@@ -458,7 +461,7 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored,
             fs = _carry_of(states)
             local0 = lm if lm is not None else float(cfl_seed(params, states))
         run = KernelCycles(cfg, mesh, fs, t, cycles, dt_prev, local0,
-                           cycle_route(cfg) == "pair")
+                           cycle_route(cfg) == "pair", graphs=graphs)
         pre = run.scal.clone()
         running = t < T(cfg.maxtime) and cycles < cfg.maxcycle
         if running:
@@ -466,7 +469,7 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored,
         while running:
             cycle_start = time.perf_counter()
             pre.copy_(run.scal)  # t, dt_prev and dt_use after this cycle
-            run.cycle(cycles)
+            run.window(cycles, 1)
             _, ok, running, _ = run.iscal.tolist()
             reads += 1
             cycles += 1
@@ -540,7 +543,7 @@ def _op_result(states, t, cycles, dt, reads):
                       True, reads)
 
 
-def _restore_loop_kernels(params, states, restored):
+def _restore_loop_kernels(params, states, restored, graphs=None):
     """The full-state restore loop over the kernels (`make_time_loop(
     restore=True)`'s fused branch, `armon_tpu/core/step.py:483-598`): the
     lean loop's cycles on the route of one cycle (never K5) from the
@@ -550,7 +553,8 @@ def _restore_loop_kernels(params, states, restored):
     T = np.dtype(cfg.dtype).type
     t, cycles, dt_prev, lm = restored
     local0 = lm if lm is not None else float(cfl_seed(params, states))
-    loop = make_time_loop_lean(cfg, make_mesh(params), kind=cycle_route(cfg))
+    loop = make_time_loop_lean(cfg, make_mesh(params), kind=cycle_route(cfg),
+                               graphs=graphs)
     return loop(_carry_of(states), T(t), cycles, T(dt_prev), local0)
 
 
@@ -672,12 +676,15 @@ def _isapprox0(x, atol, rtol):
 
 
 def armon(params: ArmonParameters, checkpoint=None,
-          restore_from=None) -> SolverStats:
+          restore_from=None, graphs=None) -> SolverStats:
     """Main entry point (`src/solver.jl:406-516`). `checkpoint`: a hook
     called after every sub-step (see `make_file_checkpoint`), which runs
     the op path's sub-steps; `restore_from`: a snapshot written by
     `io.restart.save_checkpoint` or the `checkpoint_step` option, from
-    which the run resumes bit for bit."""
+    which the run resumes bit for bit. `graphs`: whether the kernels'
+    loops replay CUDA graphs (`core/graphs.py`): None, where they can (a
+    run of one process on one card), False never (the eager loop), True
+    raises where they cannot."""
     cfg = params.config
     # This run's CFL carry and the provenance of its state, recorded for
     # snapshots saved after the run (`io/restart.save_checkpoint`): reset,
@@ -695,6 +702,9 @@ def armon(params: ArmonParameters, checkpoint=None,
                        or hooks or params.checkpoint_step != 0
                        or solver_log is not None)
     lean = not use_python_loop and not op
+    if graphs and (op or hooks):
+        solver_error("config", "graphs=True cannot run here: the op path "
+                               "and compare mode run eagerly")
     T = np.dtype(cfg.dtype).type
     timer = Timer() if params.measure_time else None
     restored = states = fs = local0 = None
@@ -737,11 +747,12 @@ def armon(params: ArmonParameters, checkpoint=None,
         solve_start = time.perf_counter()
         if use_python_loop:
             res, base = _cycle_driver(params, states, fs, local0, checkpoint,
-                                      restored, solver_log)
+                                      restored, solver_log, graphs)
         elif lean:
             r = restored or (0.0, 0, 0.0)
-            res = make_time_loop_lean(cfg, make_mesh(params))(
-                fs, T(r[0]), int(r[1]), T(r[2]), local0)
+            res = make_time_loop_lean(cfg, make_mesh(params), (), None,
+                                      graphs)(fs, T(r[0]), int(r[1]), T(r[2]),
+                                              local0)
             params._ran_fused = True
         elif op:
             r = restored or (0.0, 0, 0.0, None)
@@ -749,7 +760,7 @@ def armon(params: ArmonParameters, checkpoint=None,
                 states, T(r[0]), int(r[1]), T(r[2]), r[3])
             params._ran_fused = False
         else:
-            res = _restore_loop_kernels(params, states, restored)
+            res = _restore_loop_kernels(params, states, restored, graphs)
             base = states
             params._ran_fused = True
         solve_time = time.perf_counter() - solve_start

@@ -72,6 +72,13 @@ launched past the run's end pass every field and scalar through unchanged
 (see `ops/sweep.py`), the guarantee the TPU's `_multicycle_kernel` gives
 (`sweep.py:1951,2004-2014`), so the result does not depend on
 `check_every`. In exact mode the three routes give the same bits.
+
+Graphs. On the card the loop runs the cycles between two host reads as
+one window (`KernelCycles.window`, `MultiCycles.window`): their launches
+are captured once into a CUDA graph and replayed with one host call, the
+counterpart of the JAX package's one compiled program (`core/graphs.py`
+says when graphs run and what their keys hold). `run_schedule_fused`
+is what a graph records; the eager loop runs it as it is.
 """
 
 from typing import NamedTuple
@@ -91,6 +98,7 @@ from ..ops.update import cell_update
 from ..parallel.dist import all_gather_rows, gather_shards
 from ..parallel.mesh import Mesh
 from ..parallel.halo import halo_slabs, new_slab_buffers, halo_exchange_state
+from .graphs import CycleGraphs, eager_reason, use_graphs
 from .splitting import split_schedules
 from .state import FusedCarry, State
 from .timestep import next_time_step, dt_update
@@ -127,13 +135,11 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
     device = cur[0][0].device
     ops = next(iter(parts.values()))  # a launch that does not emit ignores them
     nb = 0
-    i = 0
-    while i < len(schedule):
-        is_pair = (pair and i + 1 < len(schedule)
-                   and {schedule[i][0], schedule[i + 1][0]} == {Axis.X, Axis.Y})
-        step = 2 if is_pair else 1
-        last = i + step == len(schedule)
-        axis = Axis.Y if is_pair else schedule[i][0]
+    groups = launch_groups(schedule, pair)
+    for j, group in enumerate(groups):
+        is_pair = len(group) == 2
+        last = j + 1 == len(groups)
+        axis = Axis.Y if is_pair else group[0][0]
         if last:
             nb = C.n_partials(shape, device, cfg.dtype) if is_pair \
                 else K.n_partials(axis, shape, device)
@@ -145,7 +151,7 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
             fin = finish[nb] if last and finish and s is mesh.local[-1] \
                 else None
             if is_pair:
-                (a0, f0), (_, f1) = schedule[i], schedule[i + 1]
+                (a0, f0), (_, f1) = group
                 x_first = a0 is Axis.X
                 C.cycle(cfg, x_first, f0 if x_first else f1,
                         f1 if x_first else f0, cur[k], nxt[k], p[k], ops[k],
@@ -153,10 +159,23 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
             else:
                 sweep = K.x_sweep if axis is Axis.X else K.y_sweep
                 sweep(cfg, cur[k], nxt[k], p[k], ops[k], *scalars[k],
-                      schedule[i][1], last, ghosts[k], s.n_real, fin)
+                      group[0][1], last, ghosts[k], s.n_real, fin)
         cur, nxt = nxt, cur
-        i += step
     return cur, nxt, nb
+
+
+def launch_groups(schedule, pair=False):
+    """The launches of one cycle's `schedule`, in order: each a tuple of
+    one sweep, or, with `pair`, of an adjacent X/Y pair of sweeps that is
+    one K4 launch."""
+    groups, i = [], 0
+    while i < len(schedule):
+        step = 2 if (pair and i + 1 < len(schedule) and
+                     {schedule[i][0], schedule[i + 1][0]} == {Axis.X, Axis.Y}) \
+            else 1
+        groups.append(tuple(schedule[i:i + step]))
+        i += step
+    return groups
 
 
 def _shard_list(fs):
@@ -174,7 +193,29 @@ def _result(cur, p, scal, iscal, reads, single):
                       float(s[K.SC_LM]), bool(i[K.IS_OK]), reads + 2)
 
 
-class KernelCycles:
+class _Windows:
+    """What the loop bodies below share: `window`, steps start .. start +
+    n - 1 (`cycle(i)` each), one replay of a CUDA graph where `graphs`
+    holds a `CycleGraphs`; the buffer roles its keys hold; the result."""
+
+    def window(self, start, n):
+        if self.graphs is not None:
+            self.graphs.window(self, start, n)
+            return
+        for i in range(start, start + n):
+            self.cycle(i)
+
+    def roles(self):
+        """0 while the fields are in their first buffer set (`home` is
+        its first tensor), 1 in the second."""
+        return 0 if self.cur[0][0] is self.home else 1
+
+    def result(self, reads):
+        return _result(self.cur, self.p, self.scal, self.iscal, reads,
+                       self.single)
+
+
+class KernelCycles(_Windows):
     """The lean loop's buffers and device scalars over the kernels, run one
     cycle at a time: the body that the lean loop and the per-cycle driver
     (`core/solver.py`) share, so that the two cannot drift apart; the
@@ -197,10 +238,13 @@ class KernelCycles:
     predicate and dt. Then each `cycle` launches one cycle; its last
     launch folds the cycle's partials into lm and steps for the next
     cycle (see the module doc), so after it `scal` and `iscal` already
-    describe the next cycle, and iscal[run] says whether it runs."""
+    describe the next cycle, and iscal[run] says whether it runs.
+    `window` runs several cycles: one replay of a captured CUDA graph of
+    their launches where graphs run (`core/graphs.py`; `graphs` as there),
+    their `cycle` calls otherwise."""
 
     def __init__(self, cfg, mesh, fs, t0, cycle0, dt0, local0, pair,
-                 remote=()):
+                 remote=(), graphs=None):
         self.cfg = cfg
         self.pair = pair
         self.even, self.odd = split_schedules(cfg.splitting)
@@ -250,6 +294,9 @@ class KernelCycles:
                         for d in devs]
         self.slabs = {axis: new_slab_buffers(cfg, m, self.cur, axis)
                       for axis in (Axis.X, Axis.Y) if m.proc_dims[axis] > 1}
+        self.home = self.cur[0][0]
+        self.graphs = CycleGraphs(dev0) if use_graphs(
+            graphs, eager_reason(dev0, self.far, m.nprocs)) else None
 
     def _share_scalars(self):
         for sc, isc in self.copies.values():
@@ -289,40 +336,47 @@ class KernelCycles:
                          self.scal, self.iscal, fold=True, step=True)
             self._share_scalars()
 
+    def parity(self, cycle):
+        return cycle % 2
+
+    def swaps(self, cycle):
+        """The buffer swaps of a cycle: one a launch."""
+        return len(launch_groups(self.even if cycle % 2 == 0 else self.odd,
+                                 self.pair))
+
     def carry(self):
         """The current fields, a FusedCarry per shard."""
         return [FusedCarry(*c, pp) for c, pp in zip(self.cur, self.p)]
 
-    def result(self, reads):
-        return _result(self.cur, self.p, self.scal, self.iscal, reads,
-                       self.single)
 
 
-def make_time_loop_lean(cfg, mesh=None, remote=(), kind=None):
+def make_time_loop_lean(cfg, mesh=None, remote=(), kind=None, graphs=None):
     """The lean loop (`make_time_loop_lean`):
     (fs, t0, cycle0, dt0, local0, check_every) -> LoopResult. `fs` is a
     list of FusedCarry, one per shard of `mesh` in its order, and so is the
     result's carry; a caller that passes one FusedCarry gets one back.
     `kind` is the route, `routing.route(cfg)` by default; the full-state
     restore loop passes `routing.cycle_route(cfg)`, which never runs K5.
-    See `KernelCycles` for `mesh` and `remote`."""
+    See `KernelCycles` for `mesh` and `remote`. Between two host reads the
+    loop runs one window of `check_every` cycles: one CUDA graph replay
+    where graphs run (`core/graphs.py`: `graphs` None runs them wherever
+    they can, False never, True raises where they cannot)."""
     T = np.dtype(cfg.dtype).type
     kind = kind or route(cfg)
     if kind == "multicycle":
-        return _multicycle_loop(cfg, temporal_pairs(cfg))
+        return _multicycle_loop(cfg, temporal_pairs(cfg), graphs)
 
     def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
         run = KernelCycles(cfg, mesh, fs, t0, cycle0, dt0, local0,
-                           kind == "pair", remote)
+                           kind == "pair", remote, graphs)
         cycle = int(cycle0)
         reads = 0
         running = T(t0) < T(cfg.maxtime) and cycle < cfg.maxcycle
         if running:
             run.first_step()
         while running:
-            for _ in range(check_every):
-                run.cycle(cycle)
-                cycle += 1
+            run.window(cycle, check_every)
+            cycle += check_every
             # The next cycle's predicate; after the last cycle that ran,
             # lm is the CFL minimum of the final state, the carry a resumed
             # run would start from.
@@ -333,34 +387,65 @@ def make_time_loop_lean(cfg, mesh=None, remote=(), kind=None):
     return loop
 
 
-def _multicycle_loop(cfg, pairs):
+class MultiCycles(_Windows):
+    """The multicycle route's buffers and device scalars (one shard: the
+    route never runs on a mesh), run one K5 launch of len(pairs) cycles at
+    a time (`cycle`), lm kept folded in-kernel. `window` runs several
+    launches, as `KernelCycles.window` runs cycles: one graph replay where
+    graphs run."""
+
+    def __init__(self, cfg, pairs, fs, t0, cycle0, dt0, local0, graphs=None):
+        (fs,), self.single = _shard_list(fs)
+        self.cfg, self.pairs = cfg, pairs
+        device = fs.rho.device
+        self.cur = [(fs.rho, fs.u, fs.v, fs.E)]
+        self.nxt = [tuple(torch.empty_like(a) for a in self.cur[0])]
+        self.p = [fs.p]
+        self.home = fs.rho
+        self.partials = C.new_multicycle_partials(fs.rho.shape, cfg.dtype,
+                                                  device)
+        self.scal, self.iscal = K.new_scalars(
+            cfg.dtype, device, t=float(t0), cycle=int(cycle0),
+            dt_prev=float(dt0), lm=float(local0))
+        self.graphs = CycleGraphs(device) if use_graphs(
+            graphs, eager_reason(device)) else None
+
+    def cycle(self, launch):
+        """One K5 launch, whatever its index `launch`: each of its cycles
+        takes its schedule from the device's cycle count."""
+        C.multicycle(self.cfg, self.pairs, self.cur[0], self.nxt[0],
+                     self.p[0], self.partials, self.scal, self.iscal)
+        if self.swaps(launch):
+            self.cur, self.nxt = self.nxt, self.cur
+
+    def parity(self, launch):
+        return 0
+
+    def swaps(self, launch):
+        """The fields ping-pong in-kernel: a launch of an odd number of
+        cycles leaves them in the other buffer set."""
+        return len(self.pairs) % 2
+
+
+
+def _multicycle_loop(cfg, pairs, graphs=None):
     """The temporal-blocking branch of the lean loop (`make_time_loop_lean`'s
-    `fused_multicycle` loop): K5 launches of len(pairs) cycles each, lm
-    kept folded in-kernel. It never runs on a mesh: the carry is one
-    shard."""
+    `fused_multicycle` loop): windows of max(1, check_every // len(pairs))
+    K5 launches (`MultiCycles`), one host read each."""
     T = np.dtype(cfg.dtype).type
     n = len(pairs)
 
     def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
-        (fs,), single = _shard_list(fs)
-        device = fs.rho.device
-        cur = (fs.rho, fs.u, fs.v, fs.E)
-        nxt = tuple(torch.empty_like(a) for a in cur)
-        p = fs.p
-        partials = C.new_multicycle_partials(fs.rho.shape, cfg.dtype, device)
-        scal, iscal = K.new_scalars(cfg.dtype, device, t=float(t0),
-                                    cycle=int(cycle0), dt_prev=float(dt0),
-                                    lm=float(local0))
-        reads = 0
+        run = MultiCycles(cfg, pairs, fs, t0, cycle0, dt0, local0, graphs)
+        launches = max(1, check_every // n)
+        reads = launch = 0
         running = T(t0) < T(cfg.maxtime) and int(cycle0) < cfg.maxcycle
         while running:
-            for _ in range(max(1, check_every // n)):
-                C.multicycle(cfg, pairs, cur, nxt, p, partials, scal, iscal)
-                if n % 2:
-                    cur, nxt = nxt, cur
-            running = bool(iscal[K.IS_NEXT].item())
+            run.window(launch, launches)
+            launch += launches
+            running = bool(run.iscal[K.IS_NEXT].item())
             reads += 1
-        return _result([cur], [p], scal, iscal, reads, single)
+        return run.result(reads)
 
     return loop
 

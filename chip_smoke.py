@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-12, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-13, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
@@ -14,9 +14,13 @@
     python3 chip_smoke.py --phases 0,12   # runs over several processes only
                                           # (add 3 and 7 for the one-process
                                           # rates it is set beside)
+    python3 chip_smoke.py --phases 0,13   # CUDA graphs against the eager loop
 
 Phases, each printing one JSON line:
-  0. the card (nvidia-smi name and power limit), the kernels' build time,
+  0. the card (nvidia-smi name and power limit), torch's CUDA version, the
+     NVIDIA driver's version and the CUDA version it supports, whether
+     K5's cooperative launch captures into a CUDA graph (one launch
+     replayed against its eager launch, bit for bit), the kernels' build time,
      ptxas's registers and spills per kernel instance, the resident
      blocks per SM of each K4 instance, and the cluster probe's plan
      (CTAs, rows and columns a CTA holds, shared memory a CTA uses, the
@@ -174,7 +178,23 @@ Phases, each printing one JSON line:
      and with four, 2x2 over four processes (checks, goldens, snapshot,
      the timed run); otherwise a line says it did not run. Each run's
      launches are counted in its worker (each of its kernels must
-     launch); their sums go to the `kernels` line's `launches_phase12`.
+     launch); their sums go to the `kernels` line's `launches_phase12`;
+ 13. the compile-once loop layer (`armon_torch/core/graphs.py`: each
+     window of cycles between two host reads captured once as a CUDA
+     graph and replayed), which every other phase's one-process, one-card
+     runs take by default: (a) graphs against the eager loop
+     (`graphs=False`), bit for bit in f64 and f32 exact, with the same
+     launch counts and host reads, on Sod_circ 1000^2 per-sweep, Sedov
+     2000^2 pair, Sod 100^2 multicycle (K5 captured), Strang on the pair
+     route resumed at an odd cycle, SequentialSym with `check_every=3`,
+     Sod_circ 1000^2 over 2x2 on one card and the per-cycle driver
+     (`silent=1`, a one-cycle graph replayed a cycle); (b) in one process,
+     eager, graphs, graphs, eager, the us a cycle through `armon()` of Sod
+     100^2 pair and multicycle, Sedov 2000^2 per-sweep and over 1x2 on
+     one card, and the main path (Sod 8192^2, f32 fast math) through the
+     lean loop and through the per-cycle driver, each with
+     the capture ms, the graphs captured and replayed, host reads and
+     launches a cycle (equal in both).
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -295,6 +315,75 @@ def _cluster_plan(torch, dtype, N):
     return cluster.occupancy(cfg, src)
 
 
+def _versions():
+    """The NVIDIA driver's version (nvidia-smi), the CUDA version it
+    supports (`cuDriverGetVersion`, e.g. 12040 for 12.4) and nvcc's, which
+    builds the kernels."""
+    import ctypes
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    v = ctypes.c_int()
+    rc = ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(v))
+    from armon_torch.ops import _build
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60, check=True)
+    return {"driver": out.stdout.strip().splitlines()[0],
+            "driver_cuda": v.value if rc == 0 else f"error {rc}",
+            "nvcc": nvcc.stdout.strip().splitlines()[-1]}
+
+
+def _k5_capture(torch):
+    """Whether the card's CUDA captures K5's cooperative launch into a
+    CUDA graph: one K5 launch (8 cycles of Sod 100^2 f32 exact from its
+    initial state) made eagerly and replayed from a graph, each on its own
+    copy of the same inputs, held bit for bit; where the capture fails, its
+    error. The launches are not a path's."""
+    from armon_torch import ArmonParameters
+    from armon_torch.core.solver import make_init_fused
+    from armon_torch.ops import cycle as C
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops.routing import temporal_pairs
+    params = ArmonParameters(test="Sod", N=(SOD_N, SOD_N), data_type="float32",
+                             use_fast_math=False, silent=5, device="cuda")
+    cfg = params.config
+    [fs], seed = make_init_fused(params)()
+    pairs = temporal_pairs(cfg)
+    saved = saved_counts(K)
+    outs = []
+    try:
+        for graphed in (False, True):
+            src = tuple(a.clone() for a in fs[:4])
+            dst = tuple(torch.empty_like(a) for a in src)
+            p = fs.p.clone()
+            part = C.new_multicycle_partials(src[0].shape, cfg.dtype, "cuda")
+            scal, iscal = K.new_scalars(cfg.dtype, "cuda", lm=float(seed))
+
+            def launch():
+                C.multicycle(cfg, pairs, src, dst, p, part, scal, iscal)
+            if graphed:
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph):
+                        launch()
+                except Exception as e:  # the finding phase 0 records
+                    return {"captures": False,
+                            "error": f"{type(e).__name__}: {e}"}
+                graph.replay()
+            else:
+                launch()
+            outs.append(src + (p, scal, iscal))
+        torch.cuda.synchronize()
+    finally:
+        restore_counts(K, saved)
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    if not same:
+        raise AssertionError("K5 replayed from a graph differs from its "
+                             "eager launch")
+    return {"captures": True, "bitwise_vs_eager": same}
+
+
 def phase0(torch):
     from armon_torch.ops import _build
     t0 = time.perf_counter()
@@ -311,7 +400,8 @@ def phase0(torch):
     plans = {f"{dtype} {N[0]}x{N[1]}": _cluster_plan(torch, dtype, N)
              for dtype, N in K5_GRIDS}
     emit({"phase": 0, "card": card_line(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": regs,
+          "cuda": torch.version.cuda, **_versions(), "build_s": build_s,
+          "k5_graph_capture": _k5_capture(torch), "ptxas": regs,
           "k4_occupancy": occupancy, "cluster_plan": plans})
     return occupancy
 
@@ -2506,6 +2596,8 @@ def _p11_logged(torch, tmp, opts, main):
     from armon_torch.ops import sweep as K
     # The scalars before each cycle of an unlogged lean run: t after the
     # cycle and the dt it uses (the previous launch's tail stepped them).
+    # The spy reads them to the host before each cycle, which a graph's
+    # capture cannot do, so this reference run is the eager loop's.
     seen = []
     real_cycle = step.KernelCycles.cycle
 
@@ -2514,7 +2606,7 @@ def _p11_logged(torch, tmp, opts, main):
         return real_cycle(self, cycle)
     step.KernelCycles.cycle = spy
     try:
-        armon(ArmonParameters(**opts))
+        armon(ArmonParameters(**opts), graphs=False)
     finally:
         step.KernelCycles.cycle = real_cycle
     want = [(sc[K.SC_T], sc[K.SC_DTUSE]) for sc in seen[:OBS_CYCLES]]
@@ -2711,6 +2803,10 @@ def phase11(torch, rates):
             # f32 runs with check_result warn that mass and energy moved
             # (their 1e-12 gate is an f64 gate, ROADMAP C2); (b) checks.
             warnings.filterwarnings("ignore", message="Mass and energy")
+            # torch.profiler's own notice, given once a process, by the
+            # first trace: phase 9's where it runs, else (a)'s.
+            warnings.filterwarnings("ignore",
+                                    message="Warning: Profiler clears events")
             main = _p11_main_traced(torch, tmp, opts, rates)
             emit({"phase": 11, "card": card, "main_traced": main})
             logged = _p11_logged(torch, tmp, opts, main)
@@ -3049,9 +3145,189 @@ def phase12(torch, rates):
     return total
 
 
+# ------------------------------------------------------------ graphs
+
+GRAPH_CYCLES = 40        # phase 13 (a)'s runs
+GRAPH_RESUME_AT = 7      # (a)'s resumed run starts at this odd cycle
+# (b)'s cells: (name, armon() options, cycles).
+GRAPH_CELLS = (
+    ("Sod 100^2 pair", dict(test="Sod", N=(SOD_N, SOD_N), **PAIR), 2000),
+    ("Sod 100^2 multicycle", dict(test="Sod", N=(SOD_N, SOD_N)), 4000),
+    ("Sedov 2000^2 per-sweep", dict(test="Sedov", N=(SEDOV_N, SEDOV_N),
+                                    **PER_SWEEP), 500),
+    ("Sedov 2000^2 over 1x2", dict(test="Sedov", N=(SEDOV_N, SEDOV_N),
+                                   **_one_card(SEDOV_P)), 500),
+    ("main path Sod 8192^2", dict(test="Sod", N=(MAIN_N, MAIN_N)), MAIN_CYCLES),
+    # The per-cycle driver with no host work but its read a cycle (a
+    # snapshot step it never reaches).
+    ("per-cycle driver Sod 8192^2", dict(test="Sod", N=(MAIN_N, MAIN_N),
+                                         checkpoint_step=1 << 30), 32),
+)
+
+
+def _outcome(res):
+    """(the scalars, host reads included, and the fields) of an `armon()`
+    result with its data or of a loop's `LoopResult`."""
+    if hasattr(res, "data"):
+        d = res.data
+        return ((res.cycles, res.final_time, res.last_dt, res.host_reads),
+                [d.rho, d.u, d.v, d.E, d.p])
+    carry = res.carry if isinstance(res.carry, list) else [res.carry]
+    return ((res.cycles, res.t, res.dt_last, res.lm, res.ok, res.host_reads),
+            [a for c in carry for a in c])
+
+
+def _graphs_vs_eager(torch, what, run):
+    """`run(graphs)` eager (graphs=False), then with graphs (None, the
+    default): the same scalars and host reads, every field bit for bit,
+    the same launch counts, graphs replayed only in the second."""
+    from armon_torch.core import graphs as G
+    from armon_torch.ops import sweep as K
+    got = []
+    for graphs in (False, None):
+        K.reset_launches()
+        G.reset_stats()
+        res = run(graphs)
+        torch.cuda.synchronize()
+        got.append((_outcome(res), {**K.LAUNCHES, **K.TAILS}, dict(G.STATS)))
+    ((sc_e, f_e), n_e, g_e), ((sc_g, f_g), n_g, g_g) = got
+    if sc_e != sc_g or not all(_bits_equal(torch, a, b)
+                               for a, b in zip(f_e, f_g)):
+        raise AssertionError(f"graphs against eager, {what}: {sc_g} "
+                             f"against {sc_e}")
+    if n_e != n_g or g_e["replays"] or not g_g["replays"]:
+        raise AssertionError(f"graphs against eager, {what}: launches "
+                             f"{n_g} against {n_e}, graphs {g_g}, eager {g_e}")
+    return {"case": what, "cycles": sc_g[0], "host_reads": sc_g[-1],
+            "launches": {k: v for k, v in n_g.items() if v},
+            "graphs": g_g["graphs"], "replays": g_g["replays"],
+            "capture_ms": g_g["capture_ms"], "bitwise": True}
+
+
+def _p13_agree(torch):
+    """(a) graphs against the eager loop on every path, f64 and f32 exact."""
+    import contextlib
+    import dataclasses
+    import io
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core.solver import make_init_fused
+    from armon_torch.core.step import make_time_loop_lean
+    rows = []
+    for dtype in ("float64", "float32"):
+        base = dict(data_type=dtype, use_fast_math=False, silent=5,
+                    device="cuda", maxcycle=GRAPH_CYCLES, return_data=True)
+
+        def through_armon(quiet=False, **opts):
+            def run(graphs):
+                params = ArmonParameters(**{**base, **opts})
+                if not quiet:
+                    return armon(params, graphs=graphs)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return armon(params, graphs=graphs)
+            return run
+
+        def through_loop(start, every, **opts):
+            """The lean loop with `check_every=every` from cycle `start`,
+            the carry of an eager run that far (a resume)."""
+            params = ArmonParameters(**{**base, **opts})
+            cfg = params.config
+            [fs], seed = make_init_fused(params)()
+            fs, t, dt, lm = fs, 0.0, 0.0, float(seed)
+            if start:
+                first = make_time_loop_lean(dataclasses.replace(
+                    cfg, maxcycle=start), graphs=False)(fs, t, 0, dt, lm)
+                fs, t, dt, lm = first.carry, first.t, first.dt_last, first.lm
+
+            def run(graphs):
+                carry = type(fs)(*(a.clone() for a in fs))
+                return make_time_loop_lean(cfg, graphs=graphs)(
+                    carry, t, start, dt, lm, check_every=every)
+            return run
+
+        cases = (
+            ("Sod_circ 1000^2 per-sweep", through_armon(
+                test="Sod_circ", N=(AGREE_N, AGREE_N), **PER_SWEEP)),
+            ("Sedov 2000^2 pair", through_armon(
+                test="Sedov", N=(SEDOV_N, SEDOV_N), **PAIR)),
+            ("Sod 100^2 multicycle", through_armon(
+                test="Sod", N=(SOD_N, SOD_N), maxcycle=4 * GRAPH_CYCLES)),
+            (f"Strang pair resumed at cycle {GRAPH_RESUME_AT}", through_loop(
+                GRAPH_RESUME_AT, 8, test="Sod_circ", N=(AGREE_N, AGREE_N),
+                axis_splitting="Strang", **PAIR)),
+            ("SequentialSym pair, check_every=3", through_loop(
+                0, 3, test="Sod_circ", N=(AGREE_N, AGREE_N),
+                axis_splitting="SequentialSym", **PAIR)),
+            ("Sod_circ 1000^2 over 2x2 on one card", through_armon(
+                test="Sod_circ", N=(AGREE_N, AGREE_N), **_one_card((2, 2)))),
+            ("per-cycle driver, Sod_circ 1000^2 pair, silent=1",
+             through_armon(True, test="Sod_circ", N=(AGREE_N, AGREE_N),
+                           silent=1, **PAIR)),
+        )
+        for what, run in cases:
+            row = _graphs_vs_eager(torch, what, run)
+            row["dtype"] = dtype
+            rows.append(row)
+    driver = [r for r in rows if r["case"].startswith("per-cycle")]
+    if any(r["replays"] != r["cycles"] for r in driver):
+        raise AssertionError(f"the per-cycle driver: {driver}")
+    return rows
+
+
+def _p13_timed(torch):
+    """(b) us a cycle through `armon()` on the host-bound cells and the
+    main path, f32 fast math: eager, graphs, graphs, eager in one process,
+    after a warm-up run of each."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core import graphs as G
+    from armon_torch.ops import sweep as K
+    from armon_torch.ops.routing import route as route_of
+    out = []
+    for name, opts, cycles in GRAPH_CELLS:
+        opts = {**SMALL_OPTS, **opts}
+        for graphs in (False, None):
+            armon(ArmonParameters(maxcycle=16, **opts), graphs=graphs)
+        runs = []
+        for graphs in (False, None, None, False):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            G.reset_stats()
+            st = armon(ArmonParameters(maxcycle=cycles, **opts),
+                       graphs=graphs)
+            launches = sum(K.LAUNCHES.values())
+            runs.append({"graphs": graphs is None, "cycles": st.cycles,
+                         "cycle_us": st.solve_time / st.cycles * 1e6,
+                         "cycle_us_without_capture":
+                             (st.solve_time - G.STATS["capture_ms"] / 1e3)
+                             / st.cycles * 1e6,
+                         "capture_ms": G.STATS["capture_ms"],
+                         "graphs_captured": G.STATS["graphs"],
+                         "replays": G.STATS["replays"],
+                         "host_reads": st.host_reads,
+                         "launches_per_cycle": launches / st.cycles})
+        same = {(r["cycles"], r["host_reads"], r["launches_per_cycle"])
+                for r in runs}
+        if len(same) != 1:
+            raise AssertionError(f"{name}: graphs changed the run: {runs}")
+        eager = [r["cycle_us"] for r in runs if not r["graphs"]]
+        graphed = [r["cycle_us"] for r in runs if r["graphs"]]
+        out.append({"cell": name, "route": route_of(
+            ArmonParameters(maxcycle=cycles, **opts).config),
+            "eager_cycle_us": eager, "graph_cycle_us": graphed,
+            "speedup_of_means": sum(eager) / sum(graphed), "runs": runs})
+    return out
+
+
+def phase13(torch):
+    """The compile-once loop layer: graphs against the eager loop, bit
+    for bit, and the time a cycle with and without them."""
+    card = card_line()
+    emit({"phase": 13, "card": card, "graphs_vs_eager": _p13_agree(torch)})
+    emit({"phase": 13, "card": card, "timed": _p13_timed(torch)})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     ap.add_argument("--mp-worker", nargs=4, metavar=("JOB", "RANK", "PORT",
@@ -3105,6 +3381,8 @@ def main(argv=None):
             entry["launches_phase10"] = p10.get(entry["name"], 0)
     if 11 in phases:
         phase11(torch, rates)
+    if 13 in phases:
+        phase13(torch)
     if 12 in phases:
         # Phase 12's runs over processes, summed over its workers, under
         # a key of their own, as phase 10's are.
