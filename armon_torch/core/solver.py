@@ -543,18 +543,19 @@ def _op_result(states, t, cycles, dt, reads):
                       True, reads)
 
 
-def _restore_loop_kernels(params, states, restored, graphs=None):
+def _restore_loop_kernels(params, states, restored, graphs=None, whole=True):
     """The full-state restore loop over the kernels (`make_time_loop(
     restore=True)`'s fused branch, `armon_tpu/core/step.py:483-598`): the
     lean loop's cycles on the route of one cycle (never K5) from the
     restored States, seeded with the snapshot's carry or, without one,
-    from the saved c as a fresh start is."""
+    from the saved c as a fresh start is. `graphs` and `whole` as
+    `make_time_loop_lean` takes them."""
     cfg = params.config
     T = np.dtype(cfg.dtype).type
     t, cycles, dt_prev, lm = restored
     local0 = lm if lm is not None else float(cfl_seed(params, states))
     loop = make_time_loop_lean(cfg, make_mesh(params), kind=cycle_route(cfg),
-                               graphs=graphs)
+                               graphs=graphs, whole=whole)
     return loop(_carry_of(states), T(t), cycles, T(dt_prev), local0)
 
 
@@ -682,9 +683,10 @@ def armon(params: ArmonParameters, checkpoint=None,
     the op path's sub-steps; `restore_from`: a snapshot written by
     `io.restart.save_checkpoint` or the `checkpoint_step` option, from
     which the run resumes bit for bit. `graphs`: whether the kernels'
-    loops replay CUDA graphs (`core/graphs.py`): None, where they can (a
-    run of one process on one card), False never (the eager loop), True
-    raises where they cannot."""
+    loops run as CUDA graphs (`core/graphs.py`): None, where they can (a
+    run of one process on one card: a lean run is one whole-run graph,
+    the per-cycle driver a graph a cycle), False never (the eager loop),
+    True raises where they cannot."""
     cfg = params.config
     # This run's CFL carry and the provenance of its state, recorded for
     # snapshots saved after the run (`io/restart.save_checkpoint`): reset,
@@ -740,6 +742,12 @@ def armon(params: ArmonParameters, checkpoint=None,
         checkpoint = make_file_checkpoint(params)
     base = None
     traced = "trace" in params.profiling
+    # A traced run replays window graphs, not the whole-run graph: on the
+    # card the trace (CUPTI under `torch.profiler`) was seen to lose the
+    # kernel records of the last cycles of a whole-run graph's one launch,
+    # never a window graph's, for a cause not yet known (PERF.md). So a
+    # trace observes the window form, not the whole-run graph.
+    whole = not traced
     profile_ctx = trace(os.path.join(params.output_dir, "profile"),
                         params.device) if traced \
         else contextlib.nullcontext()
@@ -751,8 +759,8 @@ def armon(params: ArmonParameters, checkpoint=None,
         elif lean:
             r = restored or (0.0, 0, 0.0)
             res = make_time_loop_lean(cfg, make_mesh(params), (), None,
-                                      graphs)(fs, T(r[0]), int(r[1]), T(r[2]),
-                                              local0)
+                                      graphs, whole)(
+                fs, T(r[0]), int(r[1]), T(r[2]), local0)
             params._ran_fused = True
         elif op:
             r = restored or (0.0, 0, 0.0, None)
@@ -760,7 +768,8 @@ def armon(params: ArmonParameters, checkpoint=None,
                 states, T(r[0]), int(r[1]), T(r[2]), r[3])
             params._ran_fused = False
         else:
-            res = _restore_loop_kernels(params, states, restored, graphs)
+            res = _restore_loop_kernels(params, states, restored, graphs,
+                                        whole)
             base = states
             params._ran_fused = True
         solve_time = time.perf_counter() - solve_start

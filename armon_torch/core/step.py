@@ -65,20 +65,24 @@ neighbour's previous sweep and precedes the sweep that reads it. On one
 device, the launch order of its stream is the only ordering needed.
 
 t, cycle, dt, the CFL minimum and ok never leave the device inside the
-loop. The host reads the stop predicate once every `check_every` cycles
-(`STOP_CHECK_EVERY` by default; on the multicycle route once every
-max(1, check_every // K) launches, so at most once per launch). Cycles
-launched past the run's end pass every field and scalar through unchanged
-(see `ops/sweep.py`), the guarantee the TPU's `_multicycle_kernel` gives
-(`sweep.py:1951,2004-2014`), so the result does not depend on
-`check_every`. In exact mode the three routes give the same bits.
+loop. The eager loop reads the stop predicate to the host once every
+`check_every` cycles (`STOP_CHECK_EVERY` by default; on the multicycle
+route once every max(1, check_every // K) launches, so at most once per
+launch). Cycles launched past the run's end pass every field and scalar
+through unchanged (see `ops/sweep.py`), the guarantee the TPU's
+`_multicycle_kernel` gives (`sweep.py:1951,2004-2014`), so the result
+does not depend on `check_every`. In exact mode the three routes give the
+same bits.
 
-Graphs. On the card the loop runs the cycles between two host reads as
-one window (`KernelCycles.window`, `MultiCycles.window`): their launches
-are captured once into a CUDA graph and replayed with one host call, the
-counterpart of the JAX package's one compiled program (`core/graphs.py`
-says when graphs run and what their keys hold). `run_schedule_fused`
-is what a graph records; the eager loop runs it as it is.
+Graphs. On the card the whole lean run is one CUDA graph (`_Windows.drive`,
+`core/graphs.py`): a WHILE node whose body is one or two cycles' launches
+(one or two K5 launches), then a condition kernel that reads the same
+predicate on the device, the counterpart of the JAX package's
+`lax.while_loop`; the host reads once, at the run's end. With
+`whole=False` the loop runs the cycles between two host reads as one
+window (`KernelCycles.window`, `MultiCycles.window`) replayed from a
+captured graph. `run_schedule_fused` is what a graph records; the eager
+loop runs it as it is.
 """
 
 from typing import NamedTuple
@@ -98,7 +102,7 @@ from ..ops.update import cell_update
 from ..parallel.dist import all_gather_rows, gather_shards
 from ..parallel.mesh import Mesh
 from ..parallel.halo import halo_slabs, new_slab_buffers, halo_exchange_state
-from .graphs import CycleGraphs, eager_reason, use_graphs
+from .graphs import CycleGraphs, body_steps, eager_reason, use_graphs
 from .splitting import split_schedules
 from .state import FusedCarry, State
 from .timestep import next_time_step, dt_update
@@ -194,9 +198,28 @@ def _result(cur, p, scal, iscal, reads, single):
 
 
 class _Windows:
-    """What the loop bodies below share: `window`, steps start .. start +
-    n - 1 (`cycle(i)` each), one replay of a CUDA graph where `graphs`
-    holds a `CycleGraphs`; the buffer roles its keys hold; the result."""
+    """What the loop bodies below share: `drive`, the loop; `window`,
+    steps start .. start + n - 1 (`cycle(i)` each), one replay of a CUDA
+    graph where `graphs` holds a `CycleGraphs`; the buffer roles its keys
+    hold; the result."""
+
+    def drive(self, start, every, pred, whole=True):
+        """Steps from `start` while the predicate `iscal[pred]` holds after
+        them (the caller has checked the first step runs); returns the
+        host reads. Where graphs run and `whole` holds, one launch of the
+        whole-run graph (`core/graphs.py`) and one read at its end;
+        otherwise windows of `every` steps, one read each."""
+        if whole and self.graphs is not None:
+            self.graphs.run(self, start, body_steps(self, start), pred)
+            return 1
+        reads = 0
+        running = True
+        while running:
+            self.window(start, every)
+            start += every
+            running = bool(self.iscal[pred].item())
+            reads += 1
+        return reads
 
     def window(self, start, n):
         if self.graphs is not None:
@@ -241,7 +264,7 @@ class KernelCycles(_Windows):
     describe the next cycle, and iscal[run] says whether it runs.
     `window` runs several cycles: one replay of a captured CUDA graph of
     their launches where graphs run (`core/graphs.py`; `graphs` as there),
-    their `cycle` calls otherwise."""
+    their `cycle` calls otherwise; `drive` runs the loop."""
 
     def __init__(self, cfg, mesh, fs, t0, cycle0, dt0, local0, pair,
                  remote=(), graphs=None):
@@ -337,7 +360,8 @@ class KernelCycles(_Windows):
             self._share_scalars()
 
     def parity(self, cycle):
-        return cycle % 2
+        """The schedule's parity: 0 where even and odd cycles share one."""
+        return cycle % 2 if self.even != self.odd else 0
 
     def swaps(self, cycle):
         """The buffer swaps of a cycle: one a launch."""
@@ -350,38 +374,34 @@ class KernelCycles(_Windows):
 
 
 
-def make_time_loop_lean(cfg, mesh=None, remote=(), kind=None, graphs=None):
+def make_time_loop_lean(cfg, mesh=None, remote=(), kind=None, graphs=None,
+                        whole=True):
     """The lean loop (`make_time_loop_lean`):
     (fs, t0, cycle0, dt0, local0, check_every) -> LoopResult. `fs` is a
     list of FusedCarry, one per shard of `mesh` in its order, and so is the
     result's carry; a caller that passes one FusedCarry gets one back.
     `kind` is the route, `routing.route(cfg)` by default; the full-state
     restore loop passes `routing.cycle_route(cfg)`, which never runs K5.
-    See `KernelCycles` for `mesh` and `remote`. Between two host reads the
-    loop runs one window of `check_every` cycles: one CUDA graph replay
-    where graphs run (`core/graphs.py`: `graphs` None runs them wherever
-    they can, False never, True raises where they cannot)."""
+    See `KernelCycles` for `mesh` and `remote`. Where graphs run
+    (`core/graphs.py`: `graphs` None runs them wherever they can, False
+    never, True raises where they cannot) the run is one launch of the
+    whole-run graph, or with `whole=False` one window graph replay per
+    `check_every` cycles."""
     T = np.dtype(cfg.dtype).type
     kind = kind or route(cfg)
     if kind == "multicycle":
-        return _multicycle_loop(cfg, temporal_pairs(cfg), graphs)
+        return _multicycle_loop(cfg, temporal_pairs(cfg), graphs, whole)
 
     def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
         run = KernelCycles(cfg, mesh, fs, t0, cycle0, dt0, local0,
                            kind == "pair", remote, graphs)
-        cycle = int(cycle0)
         reads = 0
-        running = T(t0) < T(cfg.maxtime) and cycle < cfg.maxcycle
-        if running:
+        if T(t0) < T(cfg.maxtime) and int(cycle0) < cfg.maxcycle:
             run.first_step()
-        while running:
-            run.window(cycle, check_every)
-            cycle += check_every
-            # The next cycle's predicate; after the last cycle that ran,
-            # lm is the CFL minimum of the final state, the carry a resumed
-            # run would start from.
-            running = bool(run.iscal[K.IS_RUN].item())
-            reads += 1
+            # After the last cycle that ran, iscal[run] is 0 and lm the CFL
+            # minimum of the final state, the carry a resumed run would
+            # start from.
+            reads = run.drive(int(cycle0), check_every, K.IS_RUN, whole)
         return run.result(reads)
 
     return loop
@@ -428,23 +448,19 @@ class MultiCycles(_Windows):
 
 
 
-def _multicycle_loop(cfg, pairs, graphs=None):
+def _multicycle_loop(cfg, pairs, graphs=None, whole=True):
     """The temporal-blocking branch of the lean loop (`make_time_loop_lean`'s
-    `fused_multicycle` loop): windows of max(1, check_every // len(pairs))
-    K5 launches (`MultiCycles`), one host read each."""
+    `fused_multicycle` loop) over K5 launches (`MultiCycles`), stopped on
+    iscal[next]: the whole-run graph, or windows of max(1, check_every //
+    len(pairs)) launches, one host read each."""
     T = np.dtype(cfg.dtype).type
     n = len(pairs)
 
     def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
         run = MultiCycles(cfg, pairs, fs, t0, cycle0, dt0, local0, graphs)
-        launches = max(1, check_every // n)
-        reads = launch = 0
-        running = T(t0) < T(cfg.maxtime) and int(cycle0) < cfg.maxcycle
-        while running:
-            run.window(launch, launches)
-            launch += launches
-            running = bool(run.iscal[K.IS_NEXT].item())
-            reads += 1
+        reads = 0
+        if T(t0) < T(cfg.maxtime) and int(cycle0) < cfg.maxcycle:
+            reads = run.drive(0, max(1, check_every // n), K.IS_NEXT, whole)
         return run.result(reads)
 
     return loop

@@ -8,7 +8,8 @@ and the probes' kernels (`armon_torch/probes/`): the mirror fill, copy
 and I/O ladder (`probe_stream.cu`), the sweep chain in f32, f64 and
 float-float (`probe_ff.cu`, `chain.cuh`), the per-class rate chains
 (`probe_rates.cu`), K4's measurement variants (`probe_cycle.cu`) and K5
-as one thread-block cluster (`probe_cluster.cu`, `cluster.cuh`).
+as one thread-block cluster (`probe_cluster.cu`, `cluster.cuh`), and
+the whole-run graph's WHILE node with its condition kernel (`graph.cu`).
 The sources are compiled in
 parallel (one nvcc each) on first use, into ``build/armon_torch/`` at the
 root of the checkout, under a name that hashes the sources and flags, so
@@ -46,7 +47,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "armon_torch")
 SOURCES = ("sweep_f32.cu", "sweep_f64.cu", "cfl.cu", "cycle_f32.cu",
            "cycle_f64.cu", "multicycle_f32.cu", "multicycle_f64.cu",
            "probe_stream.cu", "probe_ff.cu", "probe_rates.cu",
-           "probe_cycle.cu", "probe_cluster.cu")
+           "probe_cycle.cu", "probe_cluster.cu", "graph.cu")
 HEADERS = ("common.cuh", "sweep.cuh", "cycle.cuh", "cluster.cuh", "chain.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -288,6 +289,13 @@ def load():
             fn = getattr(libs[stem], name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        pp = ctypes.POINTER(vp)
+        for name, args in (("armon_while_build", [vp, vp, vp, pp, pp]),
+                           ("armon_while_launch", [vp, vp]),
+                           ("armon_while_destroy", [vp, vp])):
+            fn = getattr(libs["graph"], name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
         libs["cfl"].armon_error_string.argtypes = [ctypes.c_int]
         libs["cfl"].armon_error_string.restype = ctypes.c_char_p
         _LIBS = libs
@@ -421,6 +429,33 @@ def _check_status(rc, what):
     if rc != 0:
         msg = load()["cfl"].armon_error_string(rc).decode()
         solver_error("cpp", f"{what} launch failed: code {rc} ({msg})")
+
+
+def while_build(child, pred, count):
+    """Build and instantiate a whole-run graph (csrc/graph.cu): one WHILE
+    node whose body is a copy of the CUDA graph `child` (a handle, an
+    int), then `while_cond` on the int32 tensors `pred` (the predicate
+    slot) and `count` (the iteration count). Returns the (graph, exec)
+    handles, for `while_launch` and `while_destroy`."""
+    _require(pred, torch.int32, pred.device, 1, "the WHILE predicate")
+    _require(count, torch.int32, pred.device, 1, "the WHILE count")
+    graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+    rc = load()["graph"].armon_while_build(child, _ptr(pred), _ptr(count),
+                                           ctypes.byref(graph),
+                                           ctypes.byref(exe))
+    _check_status(rc, "whole-run graph build")
+    return graph.value, exe.value
+
+
+def while_launch(exe, device):
+    """Launch a whole-run graph on the current stream of `device`."""
+    _check_status(_launch(load()["graph"].armon_while_launch, device, exe),
+                  "whole-run graph")
+
+
+def while_destroy(graph, exe):
+    _check_status(load()["graph"].armon_while_destroy(graph, exe),
+                  "whole-run graph destroy")
 
 
 def _set_common(a, cfg, src, dst, scal, iscal, grid, n_real):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-13, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-14, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
@@ -14,11 +14,16 @@
     python3 chip_smoke.py --phases 0,12   # runs over several processes only
                                           # (add 3 and 7 for the one-process
                                           # rates it is set beside)
-    python3 chip_smoke.py --phases 0,13   # CUDA graphs against the eager loop
+    python3 chip_smoke.py --phases 0,13   # window graphs against the eager loop
+    python3 chip_smoke.py --phases 0,14   # the whole-run graph (add 3 for
+                                          # `while_cond`'s main-path launches)
 
 Phases, each printing one JSON line:
-  0. the card (nvidia-smi name and power limit), torch's CUDA version, the
-     NVIDIA driver's version and the CUDA version it supports, whether
+  0. the card (nvidia-smi name and power limit), torch's version and its
+     CUDA version, the NVIDIA driver's version and the CUDA version it
+     supports, whether torch's `CUDAGraph` offers `keep_graph` and
+     `raw_cuda_graph` (the whole-run graph's body), a two-iteration WHILE
+     graph on its own against its plain version, whether
      K5's cooperative launch captures into a CUDA graph (one launch
      replayed against its eager launch, bit for bit), the kernels' build time,
      ptxas's registers and spills per kernel instance, the resident
@@ -41,7 +46,8 @@ Phases, each printing one JSON line:
   3. the main path: Sod 8192^2 f32 fast math (GAD/minmod/euler_2nd, nghost
      4, Sequential), one warm-up run then 100 timed cycles through
      `armon()`, with launch counts (K4/K5 must stay at 0; two launches a
-     cycle, K3 once a run, K2 carrying K3's tail), kernel times from CUDA
+     cycle, K3 once a run, K2 carrying K3's tail; one whole-run graph,
+     `while_cond` once a cycle, 3 host reads), kernel times from CUDA
      events, host reads, conservation drift and peak memory; then every
      kernel against its plain version at the main path's shapes, K3's
      tail in K1, K2 and K4 at 8200^2 (thousands of blocks) as in phase 1,
@@ -68,8 +74,8 @@ Phases, each printing one JSON line:
      `pair_threshold` and `temporal_blocking` on this card: per-sweep
      against pair at 256^2-8192^2, K1/K2/K4 times at 8192^2, pair against
      multicycle on small grids;
-  6. the per-kernel summary line (the eight solver kernels, K3's tail and
-     the probe kernels; printed last, after phase 8);
+  6. the per-kernel summary line (the eight solver kernels, K3's tail,
+     the probe kernels and `while_cond`; printed last);
   7. domain-decomposed runs (P != (1, 1)), every shard on cuda:0: the slab
      variants of K1/K2 (X/Y slabs, a 3x3 mesh of 1024^2 shards) and of K4
      (Y slabs with the X mirror after the splice, corner cells, a 1x3
@@ -137,14 +143,18 @@ Phases, each printing one JSON line:
      temporary directory, removed at the end;
  11. observability and the public API, the solver's probe warnings
      turned into errors: (a) the main path's configuration (Sod 8192^2
-     f32 fast math) 20 cycles on the lean loop, plain, traced
-     (`profiling=["trace"]`), traced, plain: the Chrome trace's launches
+     f32 fast math) 20 cycles on the lean loop: untraced with the
+     whole-run graph, untraced with window graphs, traced
+     (`profiling=["trace"]`, which replays window graphs: the trace is
+     not held to the whole-run graph), traced, then the two untraced
+     runs again in reverse; the Chrome trace's launches
      of K1 (`x_sweep_kernel`), K2 with K3's tail (`y_sweep_finish_kernel`)
      and K3 equal to the wrappers' counts, none of K4 or K5, each
      launch's device time in the trace within 10% of phase 3's CUDA-event
      time (K3's, once a run and a few us, printed beside a CUDA-event
-     time of the same call), cells/s with and without the trace, the
-     device's busy share; (b) the same through the per-cycle driver with
+     time of the same call), cells/s with and without the trace (its cost
+     against the untraced window graphs, the same form), the device's
+     busy share; (b) the same through the per-cycle driver with
      `log_blocks` and the trace: 20 events whose t and dt equal the
      device scalars of a run without `log_blocks` bit for bit, sections
      from the trace, the probes' four sections, the timer's three
@@ -179,22 +189,42 @@ Phases, each printing one JSON line:
      the timed run); otherwise a line says it did not run. Each run's
      launches are counted in its worker (each of its kernels must
      launch); their sums go to the `kernels` line's `launches_phase12`;
- 13. the compile-once loop layer (`armon_torch/core/graphs.py`: each
-     window of cycles between two host reads captured once as a CUDA
-     graph and replayed), which every other phase's one-process, one-card
-     runs take by default: (a) graphs against the eager loop
-     (`graphs=False`), bit for bit in f64 and f32 exact, with the same
-     launch counts and host reads, on Sod_circ 1000^2 per-sweep, Sedov
-     2000^2 pair, Sod 100^2 multicycle (K5 captured), Strang on the pair
-     route resumed at an odd cycle, SequentialSym with `check_every=3`,
-     Sod_circ 1000^2 over 2x2 on one card and the per-cycle driver
-     (`silent=1`, a one-cycle graph replayed a cycle); (b) in one process,
-     eager, graphs, graphs, eager, the us a cycle through `armon()` of Sod
+ 13. window graphs (`armon_torch/core/graphs.py`: the cycles between two
+     host reads captured once as a CUDA graph and replayed), which the
+     per-cycle driver takes and the lean loop with `whole=False`: (a)
+     window graphs against the eager loop (`graphs=False`), bit for bit
+     in f64 and f32 exact, with the same launch counts and host reads,
+     on Sod_circ 1000^2 per-sweep, Sedov 2000^2 pair, Sod 100^2
+     multicycle (K5 captured), Strang on the pair route resumed at an odd
+     cycle, SequentialSym with `check_every=3`, Sod_circ 1000^2 over 2x2
+     on one card and the per-cycle driver (`silent=1`, a one-cycle graph
+     replayed a cycle), with the capture ms; (b) in one process,
+     eager, graphs, graphs, eager, the us a cycle through `armon()` of the
+     per-cycle driver at the main path's size, with the capture ms, the
+     graphs captured and replayed, host reads and launches a cycle (equal
+     in both);
+ 14. the whole-run graph (`CycleGraphs.run`, `armon_torch/csrc/graph.cu`:
+     a conditional WHILE node whose body is 1-2 steps' launches then
+     `while_cond`), which every other phase's one-process, one-card lean
+     runs take by default: (a) against the eager loop and window graphs
+     bit for bit in f64 and f32 exact, one graph launch and 3 host reads a
+     run, launches equal to the eager loop's at `check_every` = the
+     body's length, on Sod_circ 1000^2 per-sweep, Sequential resumed at
+     an odd cycle, Sedov 2000^2 pair, Sod 100^2 multicycle with K 8 and 3,
+     Strang resumed at an odd cycle, SequentialSym, 2x2 and 1x2 meshes on
+     one card, the full-state restore loop from an odd cycle, a run whose
+     dt gate fails (a NaN), and a restore through `armon()`; (b) in one
+     process, eager, window graphs and the whole-run graph, four runs
+     each in mirrored order, the us a cycle through the lean loop of Sod
      100^2 pair and multicycle, Sedov 2000^2 per-sweep and over 1x2 on
-     one card, and the main path (Sod 8192^2, f32 fast math) through the
-     lean loop and through the per-cycle driver, each with
-     the capture ms, the graphs captured and replayed, host reads and
-     launches a cycle (equal in both).
+     one card, and the main path, with the capture ms, host reads,
+     iterations, launches a cycle, the card's clock after each main-path
+     run; (c) `while_cond` alone: a WHILE of 1000 iterations whose body
+     takes one from the predicate, against its plain version (the
+     iterations and the predicate it ends with), timed an iteration with
+     the decrement, its `kernels` entry. The body's length (1-2 steps
+     against a `check_every` window), a process's first calls and the
+     stalls of a capture are measured by `tools/graph_costs.py`.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -384,6 +414,65 @@ def _k5_capture(torch):
     return {"captures": True, "bitwise_vs_eager": same}
 
 
+class _Countdown:
+    """A loop body for the WHILE node on its own: each step takes one from
+    the predicate slot `iscal[0]` (int32, on the card); no buffers, so
+    its parity and buffer roles never change."""
+
+    def __init__(self, torch, n):
+        self.iscal = torch.tensor([n], dtype=torch.int32, device="cuda")
+        self.cur, self.nxt = [(self.iscal,)], [(self.iscal,)]
+
+    def cycle(self, i):
+        self.iscal.sub_(1)
+
+    def parity(self, i):
+        return 0
+
+    def swaps(self, i):
+        return 0
+
+    def roles(self):
+        return 0
+
+
+def _graph_api(torch):
+    """What the card's torch offers for building on a captured graph."""
+    import inspect
+    G = torch.cuda.CUDAGraph
+    try:
+        keep = "keep_graph" in inspect.signature(G).parameters
+    except (TypeError, ValueError):
+        keep = None
+    return {"keep_graph": keep,
+            **{name: hasattr(G, name) for name in
+               ("raw_cuda_graph", "raw_cuda_graph_exec", "instantiate",
+                "begin_capture_to_if_node", "begin_capture_to_while_loop")}}
+
+
+def _while_alone(torch, n=2):
+    """The whole-run graph on its own (`core/graphs.CycleGraphs.run`): a
+    WHILE node whose body takes one from its predicate, started at `n`,
+    against its plain version (`graphs.while_plain`): `n` iterations and
+    the predicate at 0 in both. Its launches are not a path's."""
+    from armon_torch.core import graphs as G
+    saved = dict(G.LAUNCHES)
+    try:
+        run = _Countdown(torch, n)
+        iters = G.CycleGraphs("cuda").run(run, 0, 1, 0)
+        plain = _Countdown(torch, n)
+        plain_iters = G.while_plain(plain, 0, 1, 0)
+        torch.cuda.synchronize()
+    finally:
+        G.LAUNCHES.update(saved)
+    got = (iters, int(run.iscal.item()))
+    if got != (plain_iters, int(plain.iscal.item())) or got != (n, 0):
+        raise AssertionError(f"WHILE of {n}: (iterations, predicate) {got}, "
+                             f"plain ({plain_iters}, {int(plain.iscal.item())})")
+    return {"iterations": iters, "plain_iterations": plain_iters,
+            "predicate": got[1], "bitwise_vs_plain": True}
+
+
 def phase0(torch):
     from armon_torch.ops import _build
     t0 = time.perf_counter()
@@ -401,6 +490,7 @@ def phase0(torch):
              for dtype, N in K5_GRIDS}
     emit({"phase": 0, "card": card_line(), "torch": torch.__version__,
           "cuda": torch.version.cuda, **_versions(), "build_s": build_s,
+          "graph_api": _graph_api(torch), "while_alone": _while_alone(torch),
           "k5_graph_capture": _k5_capture(torch), "ptxas": regs,
           "k4_occupancy": occupancy, "cluster_plan": plans})
     return occupancy
@@ -688,6 +778,7 @@ def phase2(torch):
 def phase3(torch):
     import numpy as np
     from armon_torch import ArmonParameters, armon
+    from armon_torch.core import graphs as G
     from armon_torch.ops import sweep as K
     from armon_torch.ops.reductions import conservation_vars, conservation_scalar
     from armon_torch.utils.enums import Axis
@@ -704,9 +795,11 @@ def phase3(torch):
                              return_data=True, **opts)
     cfg = params.config
     K.reset_launches()
+    G.reset_launches()
     stats = armon(params)
     torch.cuda.synchronize()
     launches, tails = saved_counts(K)
+    conds = G.LAUNCHES["while_cond"]  # the whole-run graph's iterations
     peak = torch.cuda.max_memory_allocated()
     st = stats.data
     m, e = conservation_vars(cfg, st.rho, st.E)
@@ -722,10 +815,13 @@ def phase3(torch):
     if launches["cycle"] or launches["multicycle"]:
         raise AssertionError(f"8192^2 left the per-sweep route: {launches}")
     # Two launches a cycle: K1, then K2 with K3's tail; K3 once, for the
-    # first step.
+    # first step; the run is one whole-run graph, `while_cond` once a body.
     if not (launches["cfl_finish"] == 1 and launches["x_sweep"]
             == launches["y_sweep"] == tails["cfl_tail"]):
         raise AssertionError(f"main path sequencing: {launches} {tails}")
+    if conds == 0 or stats.host_reads != 3:
+        raise AssertionError(f"main path: {conds} WHILE iterations, "
+                             f"{stats.host_reads} host reads")
     if mass_drift > 1e-6 or energy_drift > 1e-6:
         raise AssertionError(f"conservation drift {mass_drift} {energy_drift}")
     cells = MAIN_N * MAIN_N
@@ -735,6 +831,7 @@ def phase3(torch):
             "grind_ns": stats.solve_time / stats.cycles / cells * 1e9,
             "host_reads": stats.host_reads, "launches": launches, "tails": tails,
             "launches_per_cycle": sum(launches.values()) / stats.cycles,
+            "while_cond": conds,
             "mass_drift": mass_drift, "energy_drift": energy_drift,
             "max_memory_allocated": peak, "memory_allocated_before": before}
 
@@ -867,7 +964,7 @@ def phase3(torch):
     main["cycle_8200_fast_math_max_abs_err"] = k4_err
     emit(main)
     return kernels + [{"cells_per_s": main["cells_per_s"],
-                       "kernel_ms": main["kernel_ms"],
+                       "kernel_ms": main["kernel_ms"], "while_cond": conds,
                        "memory": {"peak": peak, "before": before}}]
 
 
@@ -2495,27 +2592,52 @@ def _by_base(table):
     return out
 
 
+def _windows_run(torch, opts):
+    """The lean loop with window graphs (`whole=False`, the form a traced
+    run takes) on `opts`' initial state, timed as `armon()` times its
+    solve: (cycles, seconds)."""
+    from armon_torch import ArmonParameters
+    from armon_torch.core.solver import make_init_fused, make_mesh
+    from armon_torch.core.step import make_time_loop_lean
+    params = ArmonParameters(**opts)
+    fs, seed = make_init_fused(params)()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = make_time_loop_lean(params.config, make_mesh(params),
+                              whole=False)(fs, 0.0, 0, 0.0, float(seed))
+    return res.cycles, time.perf_counter() - t0
+
+
 def _p11_main_traced(torch, tmp, opts, rates):
-    """(a) the main path's lean loop under the profiler: plain, traced,
-    traced, plain; the first traced run's kernels against the wrapper
-    counts and phase 3's CUDA-event times."""
+    """(a) the main path's lean loop under the profiler: untraced with the
+    whole-run graph ("whole") and with window graphs ("plain"), traced
+    (window graphs), traced, then the untraced runs in reverse; the
+    trace's cost against the untraced runs of its own form; the first
+    traced run's kernels against the wrapper counts and phase 3's
+    CUDA-event times."""
     from armon_torch import ArmonParameters, armon
     from armon_torch.ops import sweep as K
     cells = MAIN_N * MAIN_N
     armon(ArmonParameters(**dict(opts, maxcycle=2)))
+    _windows_run(torch, dict(opts, maxcycle=2))
     armon(ArmonParameters(**dict(opts, maxcycle=2, profiling=["trace"],
                                  output_dir=os.path.join(tmp, "warm"))))
-    runs, traced = {"plain": [], "trace": []}, []
-    for i, kind in enumerate(("plain", "trace", "trace", "plain")):
+    runs, traced = {"whole": [], "plain": [], "trace": []}, []
+    for i, kind in enumerate(("whole", "plain", "trace", "trace", "plain",
+                              "whole")):
         d = os.path.join(tmp, f"a{i}")
-        extra = dict(profiling=["trace"], output_dir=d) if kind == "trace" \
-            else {}
         K.reset_launches()
-        st = armon(ArmonParameters(**opts, **extra))
+        if kind == "plain":
+            cycles, secs = _windows_run(torch, opts)
+        else:
+            extra = dict(profiling=["trace"], output_dir=d) \
+                if kind == "trace" else {}
+            st = armon(ArmonParameters(**opts, **extra))
+            cycles, secs = st.cycles, st.solve_time
         counts = {**K.LAUNCHES, **K.TAILS}
-        if st.cycles != OBS_CYCLES:
-            raise AssertionError(f"phase 11 (a): {st.cycles} cycles")
-        runs[kind].append(cells * st.cycles / st.solve_time)
+        if cycles != OBS_CYCLES:
+            raise AssertionError(f"phase 11 (a): {cycles} cycles")
+        runs[kind].append(cells * cycles / secs)
         if kind == "trace":
             traced.append((st, counts, d))
     st, counts, d = traced[0]
@@ -2561,6 +2683,8 @@ def _p11_main_traced(torch, tmp, opts, rates):
             "relative_difference": within,
             "cells_per_s": runs, "trace_overhead": 1 - (
                 sum(runs["trace"]) / sum(runs["plain"])),
+            "trace_against_whole_run": 1 - (
+                sum(runs["trace"]) / sum(runs["whole"])),
             "device_busy_share_of_solve": busy / st.solve_time,
             "device_busy_share_of_span": busy * 1e6 / span if span else None,
             "trace_names": sorted(events)}
@@ -3177,6 +3301,16 @@ def _outcome(res):
             [a for c in carry for a in c])
 
 
+def _same_scalars(a, b):
+    """Two tuples of a run's scalars equal bit for bit (a NaN equals the
+    same NaN)."""
+    import struct
+    return len(a) == len(b) and all(
+        struct.pack("<d", x) == struct.pack("<d", y)
+        if isinstance(x, float) and isinstance(y, float) else x == y
+        for x, y in zip(a, b))
+
+
 def _graphs_vs_eager(torch, what, run):
     """`run(graphs)` eager (graphs=False), then with graphs (None, the
     default): the same scalars and host reads, every field bit for bit,
@@ -3191,7 +3325,7 @@ def _graphs_vs_eager(torch, what, run):
         torch.cuda.synchronize()
         got.append((_outcome(res), {**K.LAUNCHES, **K.TAILS}, dict(G.STATS)))
     ((sc_e, f_e), n_e, g_e), ((sc_g, f_g), n_g, g_g) = got
-    if sc_e != sc_g or not all(_bits_equal(torch, a, b)
+    if not _same_scalars(sc_e, sc_g) or not all(_bits_equal(torch, a, b)
                                for a, b in zip(f_e, f_g)):
         raise AssertionError(f"graphs against eager, {what}: {sc_g} "
                              f"against {sc_e}")
@@ -3204,64 +3338,86 @@ def _graphs_vs_eager(torch, what, run):
             "capture_ms": g_g["capture_ms"], "bitwise": True}
 
 
+class _Lean:
+    """A lean run ready to go again: ``run(graphs, whole, every)`` is the
+    lean loop (`make_time_loop_lean` with those arguments, `check_every`
+    = `every`) on a copy of the carry, from cycle `start` (the carry of an
+    eager run that far: a resume), with `kind` as the loop builder takes
+    it, the shards where the options place them, and `poison(carry)`
+    applied after the initialisation. `k` is the cycles of one step (K on
+    the multicycle route, else 1)."""
+
+    def __init__(self, base, start=0, every=8, whole=True, kind=None,
+                 poison=None, **opts):
+        import dataclasses
+        from armon_torch import ArmonParameters
+        from armon_torch.core.solver import make_init_fused, make_mesh
+        from armon_torch.core.step import make_time_loop_lean
+        from armon_torch.ops.routing import route, temporal_pairs
+        params = ArmonParameters(**{**base, **opts})
+        self.cfg = cfg = params.config
+        self.mesh, self.kind = make_mesh(params), kind
+        self.every, self.whole, self.start = every, whole, start
+        multi = (kind or route(cfg)) == "multicycle"
+        self.k = len(temporal_pairs(cfg)) if multi else 1
+        fs, seed = make_init_fused(params)()
+        if poison:
+            poison(fs)
+        t, dt, lm = 0.0, 0.0, float(seed)
+        if start:
+            first = make_time_loop_lean(
+                dataclasses.replace(cfg, maxcycle=start), self.mesh, kind=kind,
+                graphs=False)(fs, t, 0, dt, lm)
+            fs, t, dt, lm = first.carry, first.t, first.dt_last, first.lm
+        self.fs, self.t, self.dt, self.lm = fs, t, dt, lm
+        self.build = make_time_loop_lean
+
+    def __call__(self, graphs, whole=..., every=None):
+        carry = [type(f)(*(a.clone() for a in f)) for f in self.fs]
+        return self.build(self.cfg, self.mesh, kind=self.kind, graphs=graphs,
+                          whole=self.whole if whole is ... else whole)(
+            carry, self.t, self.start, self.dt, self.lm,
+            check_every=every or self.every)
+
+
 def _p13_agree(torch):
-    """(a) graphs against the eager loop on every path, f64 and f32 exact."""
+    """(a) window graphs against the eager loop on every path, f64 and
+    f32 exact."""
     import contextlib
-    import dataclasses
     import io
     from armon_torch import ArmonParameters, armon
-    from armon_torch.core.solver import make_init_fused
-    from armon_torch.core.step import make_time_loop_lean
     rows = []
     for dtype in ("float64", "float32"):
         base = dict(data_type=dtype, use_fast_math=False, silent=5,
                     device="cuda", maxcycle=GRAPH_CYCLES, return_data=True)
 
-        def through_armon(quiet=False, **opts):
+        def windows(start=0, every=8, **opts):
+            return _Lean(base, start, every, whole=False, **opts)
+
+        def driver(**opts):
             def run(graphs):
-                params = ArmonParameters(**{**base, **opts})
-                if not quiet:
-                    return armon(params, graphs=graphs)
                 with contextlib.redirect_stdout(io.StringIO()):
-                    return armon(params, graphs=graphs)
-            return run
-
-        def through_loop(start, every, **opts):
-            """The lean loop with `check_every=every` from cycle `start`,
-            the carry of an eager run that far (a resume)."""
-            params = ArmonParameters(**{**base, **opts})
-            cfg = params.config
-            [fs], seed = make_init_fused(params)()
-            fs, t, dt, lm = fs, 0.0, 0.0, float(seed)
-            if start:
-                first = make_time_loop_lean(dataclasses.replace(
-                    cfg, maxcycle=start), graphs=False)(fs, t, 0, dt, lm)
-                fs, t, dt, lm = first.carry, first.t, first.dt_last, first.lm
-
-            def run(graphs):
-                carry = type(fs)(*(a.clone() for a in fs))
-                return make_time_loop_lean(cfg, graphs=graphs)(
-                    carry, t, start, dt, lm, check_every=every)
+                    return armon(ArmonParameters(**{**base, **opts}),
+                                 graphs=graphs)
             return run
 
         cases = (
-            ("Sod_circ 1000^2 per-sweep", through_armon(
+            ("Sod_circ 1000^2 per-sweep", windows(
                 test="Sod_circ", N=(AGREE_N, AGREE_N), **PER_SWEEP)),
-            ("Sedov 2000^2 pair", through_armon(
+            ("Sedov 2000^2 pair", windows(
                 test="Sedov", N=(SEDOV_N, SEDOV_N), **PAIR)),
-            ("Sod 100^2 multicycle", through_armon(
+            ("Sod 100^2 multicycle", windows(
                 test="Sod", N=(SOD_N, SOD_N), maxcycle=4 * GRAPH_CYCLES)),
-            (f"Strang pair resumed at cycle {GRAPH_RESUME_AT}", through_loop(
+            (f"Strang pair resumed at cycle {GRAPH_RESUME_AT}", windows(
                 GRAPH_RESUME_AT, 8, test="Sod_circ", N=(AGREE_N, AGREE_N),
                 axis_splitting="Strang", **PAIR)),
-            ("SequentialSym pair, check_every=3", through_loop(
+            ("SequentialSym pair, check_every=3", windows(
                 0, 3, test="Sod_circ", N=(AGREE_N, AGREE_N),
                 axis_splitting="SequentialSym", **PAIR)),
-            ("Sod_circ 1000^2 over 2x2 on one card", through_armon(
+            ("Sod_circ 1000^2 over 2x2 on one card", windows(
                 test="Sod_circ", N=(AGREE_N, AGREE_N), **_one_card((2, 2)))),
             ("per-cycle driver, Sod_circ 1000^2 pair, silent=1",
-             through_armon(True, test="Sod_circ", N=(AGREE_N, AGREE_N),
-                           silent=1, **PAIR)),
+             driver(test="Sod_circ", N=(AGREE_N, AGREE_N), silent=1, **PAIR)),
         )
         for what, run in cases:
             row = _graphs_vs_eager(torch, what, run)
@@ -3274,15 +3430,17 @@ def _p13_agree(torch):
 
 
 def _p13_timed(torch):
-    """(b) us a cycle through `armon()` on the host-bound cells and the
-    main path, f32 fast math: eager, graphs, graphs, eager in one process,
-    after a warm-up run of each."""
+    """(b) us a cycle through `armon()` of the per-cycle driver at the
+    main path's size (one-cycle window graphs), f32 fast math: eager,
+    graphs, graphs, eager in one process, after a warm-up run of each.
+    The lean cells are timed by phase 14 (b), eager, window graphs and
+    the whole-run graph."""
     from armon_torch import ArmonParameters, armon
     from armon_torch.core import graphs as G
     from armon_torch.ops import sweep as K
     from armon_torch.ops.routing import route as route_of
     out = []
-    for name, opts, cycles in GRAPH_CELLS:
+    for name, opts, cycles in GRAPH_CELLS[-1:]:
         opts = {**SMALL_OPTS, **opts}
         for graphs in (False, None):
             armon(ArmonParameters(maxcycle=16, **opts), graphs=graphs)
@@ -3325,9 +3483,280 @@ def phase13(torch):
     emit({"phase": 13, "card": card, "timed": _p13_timed(torch)})
 
 
+# ------------------------------------------------------ whole-run graphs
+
+WHOLE_FORMS = ("eager", "windows", "whole")  # phase 14's forms
+# (b)'s order: each form four times, mirrored, so drift in the card's
+# state or the host's load falls on every form alike.
+WHOLE_ORDER = (WHOLE_FORMS + WHOLE_FORMS[::-1]) * 2
+WHILE_N = 1000  # (c): iterations of the WHILE timed alone
+
+
+def _form_args(form):
+    """(graphs, whole) of a phase 14 form."""
+    return {"eager": (False, False), "windows": (None, False),
+            "whole": (None, True)}[form]
+
+
+def _run_form(torch, lean, form, every=None):
+    """`lean` run once in `form`, from zeroed counts: (result, launch
+    counts, graph statistics and `while_cond`'s count)."""
+    from armon_torch.core import graphs as G
+    from armon_torch.ops import sweep as K
+    K.reset_launches()
+    G.reset_launches()
+    G.reset_stats()
+    graphs, whole = _form_args(form)
+    res = lean(graphs, whole, every)
+    torch.cuda.synchronize()
+    return res, {**K.LAUNCHES, **K.TAILS}, {**G.STATS, **G.LAUNCHES}
+
+
+def _whole_vs_eager(torch, what, lean):
+    """(a) one case: eager, window graphs and the whole-run graph, bit
+    for bit; a whole run is one graph launch and one host read (3 with
+    the result's two), its launches those of the eager loop with
+    `check_every` the body's length, `while_cond` once a body."""
+    sc_e, f_e = _outcome(_run_form(torch, lean, "eager")[0])
+    out = {"case": what, "cycles": sc_e[0]}
+    for form in WHOLE_FORMS[1:]:
+        res, counts, st = _run_form(torch, lean, form)
+        sc, f = _outcome(res)
+        if not _same_scalars(sc[:-1], sc_e[:-1]) or not all(
+                _bits_equal(torch, a, b) for a, b in zip(f, f_e)):
+            raise AssertionError(f"{what}, {form}: {sc} against eager {sc_e}")
+        if form == "windows":
+            continue
+        body = st["body_steps"]
+        _, n_eager, _ = _run_form(torch, lean, "eager", body * lean.k)
+        bodies = -(-(sc[0] - lean.start) // (body * lean.k))
+        if (st["runs"], st["replays"], st["graphs"], sc[-1]) != (1, 1, 1, 3) \
+                or counts != n_eager or \
+                st["while_cond"] != st["iterations"] or \
+                (sc[4] is not False and st["iterations"] != bodies):
+            raise AssertionError(f"{what}, {form}: {st}, host reads {sc[-1]}, "
+                                 f"launches {counts} against {n_eager}")
+        out.update({"body_steps": body, "iterations": st["iterations"],
+                    "host_reads": sc[-1], "capture_ms": st["capture_ms"],
+                    "launches": {k: v for k, v in counts.items() if v}})
+    out["bitwise"] = True
+    return out
+
+
+def _p14_restore_armon(torch, dtype):
+    """(a) through `armon()`: Sod 100^2 (a K5 grid) saved at the odd cycle
+    7 by the per-cycle driver, resumed to 40 through the full-state
+    restore loop with graphs and without: bit for bit, one whole run."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core import graphs as G
+    tmp = tempfile.mkdtemp(prefix="armon_p14_")
+    try:
+        opts = dict(test="Sod", N=(SOD_N, SOD_N), data_type=dtype,
+                    use_fast_math=False, silent=5, device="cuda",
+                    output_dir=tmp, output_file="snap")
+        with contextlib.redirect_stdout(io.StringIO()):
+            armon(ArmonParameters(maxcycle=GRAPH_RESUME_AT,
+                                  checkpoint_step=GRAPH_RESUME_AT, **opts))
+        snap = os.path.join(tmp, "snap.ckpt.npz")
+        runs = []
+        for graphs in (False, None):
+            G.reset_stats()
+            st = armon(ArmonParameters(maxcycle=GRAPH_CYCLES,
+                                       return_data=True, **opts),
+                       restore_from=snap, graphs=graphs)
+            torch.cuda.synchronize()
+            runs.append((_outcome(st), dict(G.STATS)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ((sc_e, f_e), _), ((sc_w, f_w), g) = runs
+    if not _same_scalars(sc_w[:-1], sc_e[:-1]) or sc_w[-1] != 3 or \
+            g["runs"] != 1 or \
+            not all(_bits_equal(torch, a, b) for a, b in zip(f_w, f_e)):
+        raise AssertionError(f"restore through armon(): {sc_w} {g} against "
+                             f"{sc_e}")
+    return {"case": f"Sod 100^2 restored at {GRAPH_RESUME_AT} through armon()",
+            "dtype": dtype, "cycles": sc_w[0], "host_reads": sc_w[-1],
+            "iterations": g["iterations"], "bitwise": True}
+
+
+def _p14_agree(torch):
+    """(a) the whole-run graph against the eager loop and window graphs on
+    every path, f64 and f32 exact."""
+    from armon_torch.ops.routing import cycle_route
+    from armon_torch import ArmonParameters
+    rows = []
+    for dtype in ("float64", "float32"):
+        base = dict(data_type=dtype, use_fast_math=False, silent=5,
+                    device="cuda", maxcycle=GRAPH_CYCLES)
+        sod = dict(test="Sod", N=(SOD_N, SOD_N))
+        restore = cycle_route(ArmonParameters(**base, **sod).config)
+        g = 4
+
+        def nan_u(fs):
+            fs[0].u[g + 5, g + 7] = float("nan")
+        cases = (
+            ("Sod_circ 1000^2 per-sweep", _Lean(
+                base, test="Sod_circ", N=(AGREE_N, AGREE_N), **PER_SWEEP)),
+            ("Sod 1000^2 per-sweep, Sequential (a body of one cycle), "
+             f"resumed at {GRAPH_RESUME_AT}", _Lean(
+                 base, GRAPH_RESUME_AT, test="Sod", N=(AGREE_N, AGREE_N),
+                 **PER_SWEEP)),
+            ("Sedov 2000^2 pair", _Lean(
+                base, test="Sedov", N=(SEDOV_N, SEDOV_N), **PAIR)),
+            ("Sod 100^2 multicycle", _Lean(
+                base, maxcycle=4 * GRAPH_CYCLES, **sod)),
+            ("Sod 100^2 multicycle, K = 3", _Lean(
+                base, maxcycle=4 * GRAPH_CYCLES, temporal_blocking=3, **sod)),
+            (f"Strang pair resumed at cycle {GRAPH_RESUME_AT}", _Lean(
+                base, GRAPH_RESUME_AT, test="Sod_circ", N=(AGREE_N, AGREE_N),
+                axis_splitting="Strang", **PAIR)),
+            ("SequentialSym pair, check_every=3", _Lean(
+                base, 0, 3, test="Sod_circ", N=(AGREE_N, AGREE_N),
+                axis_splitting="SequentialSym", **PAIR)),
+            ("Sod_circ 1000^2 over 2x2 on one card", _Lean(
+                base, test="Sod_circ", N=(AGREE_N, AGREE_N),
+                **_one_card((2, 2)))),
+            ("Sedov 2000^2 over 1x2 on one card, pair", _Lean(
+                base, test="Sedov", N=(SEDOV_N, SEDOV_N),
+                **_one_card(SEDOV_P))),
+            (f"full-state restore loop, Sod 100^2 from {GRAPH_RESUME_AT}",
+             _Lean(base, GRAPH_RESUME_AT, kind=restore, **sod)),
+            ("failing dt gate (a NaN in u), Sod_circ 1000^2 per-sweep", _Lean(
+                base, test="Sod_circ", N=(AGREE_N, AGREE_N), poison=nan_u,
+                **PER_SWEEP)),
+        )
+        for what, lean in cases:
+            row = _whole_vs_eager(torch, what, lean)
+            row["dtype"] = dtype
+            if what.startswith("failing") and (row["cycles"] >= GRAPH_CYCLES):
+                raise AssertionError(f"{what}: ran {row['cycles']} cycles")
+            rows.append(row)
+        rows.append(_p14_restore_armon(torch, dtype))
+    return rows
+
+
+def _card_state():
+    """The card's SM clock, power draw and temperature (nvidia-smi)."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def _p14_timed(torch):
+    """(b) us a cycle of phase 13's lean cells through the lean loop (the
+    solve `armon()` times), f32 fast math: eager, window graphs and the
+    whole-run graph, each four times in `WHOLE_ORDER`, after a warm-up run of each;
+    the bits of every run against the first eager run's; on the main
+    path, the card's SM clock, power and temperature after each run."""
+    from armon_torch.ops.routing import route as route_of
+    out = []
+    for name, opts, cycles in GRAPH_CELLS[:-1]:
+        lean = _Lean({**SMALL_OPTS, "maxcycle": cycles}, **opts)
+        for form in WHOLE_FORMS:
+            _run_form(torch, lean, form)
+        runs, ref = [], None
+        for form in WHOLE_ORDER:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, counts, st = _run_form(torch, lean, form)
+            secs = time.perf_counter() - t0
+            sc, f = _outcome(res)
+            if ref is None:
+                ref = sc, f
+            elif not _same_scalars(sc[:-1], ref[0][:-1]) or not all(
+                    _bits_equal(torch, a, b) for a, b in zip(f, ref[1])):
+                raise AssertionError(f"{name}, {form}: {sc} against {ref[0]}")
+            runs.append({"form": form, "cycle_us": secs / sc[0] * 1e6,
+                         "cycle_us_without_capture":
+                             (secs - st["capture_ms"] / 1e3) / sc[0] * 1e6,
+                         "capture_ms": st["capture_ms"],
+                         "graphs": st["graphs"], "replays": st["replays"],
+                         "iterations": st["iterations"],
+                         "host_reads": sc[-1],
+                         "launches_per_cycle": sum(
+                             v for k, v in counts.items() if k != "cfl_tail")
+                         / sc[0]})
+            if opts["N"][0] == MAIN_N:
+                runs[-1]["card_after"] = _card_state()
+        by = {form: [r["cycle_us"] for r in runs if r["form"] == form]
+              for form in WHOLE_FORMS}
+        less = {form: [r["cycle_us_without_capture"] for r in runs
+                       if r["form"] == form] for form in WHOLE_FORMS}
+        out.append({"cell": name, "route": route_of(lean.cfg),
+                    "cycles": cycles, "cycle_us": by,
+                    "cycle_us_without_capture": less, "runs": runs})
+    return out
+
+
+def _p14_while(torch, launches):
+    """(c) `while_cond` alone: a WHILE of `WHILE_N` iterations whose body
+    takes one from the predicate (`_Countdown`), built by the solver's own
+    `CycleGraphs.run`, then relaunched and timed a launch (an untimed reset
+    of the predicate before each), against its plain version
+    (`graphs.while_plain`, a host read an iteration); per iteration. Its
+    kernels-line entry, with the main path's `launches` (phase 3):
+    `max_abs_err` is the largest difference of the iterations and of the
+    predicate it ends with from the plain version's; `ms` and `plain_ms`
+    are a whole iteration, the decrement with `while_cond` and, on the
+    card, the node's turn-around (`ms_covers`), and `bound_ms` the bytes
+    of both kernels."""
+    from armon_torch._card import kernel_entry
+    from armon_torch.core import graphs as G
+    from armon_torch.ops import _build
+    saved = dict(G.LAUNCHES)
+    try:
+        run = _Countdown(torch, WHILE_N)
+        graphs = G.CycleGraphs("cuda")
+        iters = graphs.run(run, 0, 1, 0)
+        plain = _Countdown(torch, WHILE_N)
+        plain_iters = G.while_plain(plain, 0, 1, 0)
+        got = iters, int(run.iscal.item())
+        want = plain_iters, int(plain.iscal.item())
+        err = max(abs(a - b) for a, b in zip(got, want))
+        if err:
+            raise AssertionError(f"WHILE of {WHILE_N}: (iterations, "
+                                 f"predicate) {got} against {want}")
+        exe = graphs.whole[1].exec
+        ms = time_ms(lambda i: _build.while_launch(exe, run.iscal.device),
+                     k=5, reset=lambda: run.iscal.fill_(WHILE_N)) / WHILE_N
+        plain_ms = time_ms(lambda i: G.while_plain(plain, 0, 1, 0), k=2,
+                           reset=lambda: plain.iscal.fill_(WHILE_N)) / WHILE_N
+        torch.cuda.synchronize()
+    finally:
+        G.LAUNCHES.update(saved)
+    # An iteration: the decrement reads and writes the predicate (8
+    # bytes); `while_cond` reads the predicate and the count and writes
+    # the count (12).
+    entry = kernel_entry(
+        "while_cond", "armon_torch/csrc/graph.cu",
+        "none: the cond of lax.while_loop, armon_tpu/core/step.py:461-478",
+        launches, float(err), ms, plain_ms, bound(20, {"float32": 3}))
+    entry["ms_covers"] = ("one WHILE iteration: a one-element decrement, "
+                          "while_cond and the node's turn-around")
+    return entry
+
+
+def phase14(torch, rates):
+    """The whole-run graph: against the eager loop and window graphs, bit
+    for bit; the time a cycle in each form; `while_cond`'s kernels-line
+    entry."""
+    card = card_line()
+    emit({"phase": 14, "card": card, "whole_vs_eager": _p14_agree(torch)})
+    emit({"phase": 14, "card": card, "timed": _p14_timed(torch)})
+    entry = _p14_while(torch, rates.get("main", {}).get("while_cond", 0))
+    emit({"phase": 14, "card": card, "while_cond": entry})
+    return [entry]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     ap.add_argument("--mp-worker", nargs=4, metavar=("JOB", "RANK", "PORT",
@@ -3383,6 +3812,8 @@ def main(argv=None):
         phase11(torch, rates)
     if 13 in phases:
         phase13(torch)
+    if 14 in phases:
+        kernels += phase14(torch, rates)
     if 12 in phases:
         # Phase 12's runs over processes, summed over its workers, under
         # a key of their own, as phase 10's are.

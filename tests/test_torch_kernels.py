@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import armon_torch
+from armon_torch.core import graphs as G
 from armon_torch.core.solver import make_init_fused
 from armon_torch.core.step import make_time_loop_lean
 from armon_torch.ops import sweep as K
@@ -172,7 +173,7 @@ def test_stop_check_interval_on_card(card, route):
     out = []
     for every in (1, 8):
         [fs], seed = make_init_fused(params)()
-        out.append(make_time_loop_lean(params.config)(
+        out.append(make_time_loop_lean(params.config, whole=False)(
             fs, 0.0, 0, 0.0, float(seed), check_every=every))
     assert out[0].cycles % 8 != 0
     assert (out[0].t, out[0].cycles, out[0].lm) == (out[1].t, out[1].cycles, out[1].lm)
@@ -206,37 +207,49 @@ def test_card_run_matches_cpu_run(card, dtype, N, route):
 
 def test_launch_counts(card):
     K.reset_launches()
+    G.reset_launches()
     params = armon_torch.ArmonParameters(test="Sod", N=(64, 64), maxcycle=5,
                                          silent=5, device="cuda", **PER_SWEEP)
     stats = armon_torch.armon(params)
     assert stats.cycles == 5
-    # Cycles run in batches of the stop-check interval; the ones past the
-    # end still launch (and pass through). K3 runs once, for the first
-    # step; every cycle's last launch (K2) carries its tail.
-    assert K.LAUNCHES["x_sweep"] == K.LAUNCHES["y_sweep"] == 8
+    # The run is one whole-run graph whose body is one cycle here
+    # (Sequential per-sweep), so no cycle launches past the end; cycles
+    # run in whole bodies, and a cycle past the end passes through. K3
+    # runs once, for the first step; every cycle's last launch (K2)
+    # carries its tail; `while_cond` ends each body.
+    assert K.LAUNCHES["x_sweep"] == K.LAUNCHES["y_sweep"] == 5
     assert K.LAUNCHES["cfl_finish"] == 1
-    assert K.TAILS["cfl_tail"] == 8
+    assert K.TAILS["cfl_tail"] == 5
+    assert G.LAUNCHES["while_cond"] == 5
 
 
 @pytest.mark.parametrize("splitting,route,expect", [
-    ("Sequential", PAIR, dict(cycle=8, cfl_finish=1, cfl_tail=8)),
-    ("Strang", PAIR, dict(cycle=8, x_sweep=4, y_sweep=4, cfl_finish=1,
-                          cfl_tail=8)),
-    ("Sequential", {}, dict(multicycle=1)),
-    ("X_only", {}, dict(x_sweep=8, cfl_finish=1, cfl_tail=8))],
+    ("Sequential", PAIR, dict(cycle=6, cfl_finish=1, cfl_tail=6,
+                              while_cond=3)),
+    ("Strang", PAIR, dict(cycle=6, x_sweep=3, y_sweep=3, cfl_finish=1,
+                          cfl_tail=6, while_cond=3)),
+    ("Sequential", {}, dict(multicycle=1, while_cond=1)),
+    ("X_only", {}, dict(x_sweep=6, cfl_finish=1, cfl_tail=6,
+                        while_cond=3))],
     ids=["pair", "pair-strang", "multicycle", "x-only"])
 def test_route_launch_counts(card, splitting, route, expect):
     """Each route launches its kernels and no other; `cfl_tail` counts
-    the launches that carried K3's tail."""
+    the launches that carried K3's tail. The run is one whole-run graph
+    whose body is two cycles on these routes (one K5 launch of 8 on the
+    multicycle route), so 5 cycles launch 6; `while_cond` ends each
+    body."""
     expect = dict(expect)
     tails = {"cfl_tail": expect.pop("cfl_tail", 0)}
+    conds = {"while_cond": expect.pop("while_cond")}
     K.reset_launches()
+    G.reset_launches()
     params = armon_torch.ArmonParameters(test="Sod", N=(64, 64), maxcycle=5,
                                          axis_splitting=splitting, silent=5,
                                          device="cuda", **route)
     assert armon_torch.armon(params).cycles == 5
     assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), **expect}
     assert K.TAILS == tails
+    assert G.LAUNCHES == conds
 
 
 # ------------------------------------------------------------ K3's tail
