@@ -18,8 +18,8 @@ included), recorded once:
   between two host reads, replayed with one host call a window. The
   per-cycle driver replays a one-cycle window a cycle, and a lean loop
   runs windows where it is asked to (`whole=False`): `armon()` asks so
-  for a traced run, whose trace on the card was seen to lose the kernel
-  records of a whole-run graph's last cycles (why is not known).
+  for a traced run, whose trace on the card was seen to lose kernel
+  records of a whole-run graph's first bodies (why is not known).
 A step is a cycle (`core/step.KernelCycles`), or on the multicycle route
 a K5 launch of K cycles (`MultiCycles`; K5's cooperative launch
 captures: `chip_smoke.py` phase 0 checks it on the card).
@@ -60,17 +60,33 @@ the device with the run's one host read (`while_cond` counts them, in
 `LAUNCHES`). So `ops/sweep.LAUNCHES` and `TAILS` count what ran on the
 card: those of the eager loop with `check_every` the body's length.
 
-Where graphs run: a run of one process whose shards all sit on one card
-(one device, or a mesh placed on one card). A mesh across cards and a run
-over several processes keep the eager loop: their cycle ends with K3
-after host-driven copies or gathers of the CFL partials (ROADMAP lists
-their graphs as later work). The CPU has no graphs; the plain versions
-run eagerly there (`while_plain` is the whole-run graph's). The layout
-decides (`eager_reason`), never a caught failure. The `graphs` argument
-of `armon()` and of the loops that take it: None runs graphs wherever
-they can run, False the eager loop (the yardstick), True raises where
-they cannot run; where graphs run, the lean loops' `whole` (True by
-default) picks the whole-run graph, False window graphs.
+Where graphs run: a run whose shards each sit on their process's one
+card: one process (one device, or a mesh placed on one card), or
+several processes over NCCL, a card a process. Over NCCL a cycle's
+collectives are in its capture: each halo exchange (one
+`batch_isend_irecv`) and the CFL partials' gather, then K3, on buffers
+the loop made once (`KernelCycles`; NCCL's first calls, which make its
+communicators, run at the loop's set-up). Every process folds the same
+gathered partials with the same K3, so every process stops after the
+same window: no process can leave the loop a window earlier than
+another, whose collectives would then wait on it. Over NCCL processes a
+lean run takes window graphs, one replay and one host read a
+`check_every` window, and never the whole-run graph (`whole_reason`):
+NCCL's capture holds event nodes, which a WHILE body refuses, and with
+NCCL's graph mixing turned off CUDA still refused the WHILE build (an
+H100, torch 2.11, NCCL 2.28.9). The transport decides, the same on every
+process.
+Gloo processes (every copy staged through host memory), a mesh across
+cards in one process (its partials copied between cards after each
+cycle) and the CPU keep the eager loop; the CPU runs the plain versions
+eagerly there (`while_plain` is the whole-run graph's). The layout and
+the transport decide (`eager_reason`, `whole_reason`), never a caught
+failure. The `graphs` argument of `armon()` and of the loops that take
+it: None runs graphs wherever they can run, False the eager loop (the
+yardstick), True raises where they cannot; where graphs run, the lean
+loops' `whole` (True by default) picks the whole-run graph, False window
+graphs, and with `graphs=True` a whole run where `whole_reason` stands
+raises.
 """
 
 import gc
@@ -85,9 +101,10 @@ from ..utils.errors import solver_error
 # Since the last `reset_stats`: graphs captured; graph launches (window
 # replays and whole runs); whole-run launches, the iterations of their
 # bodies and the last body's steps; the host milliseconds the captures
-# took (instantiation included).
+# took (instantiation included); the last loop's form ("eager",
+# "windows" or "whole", `loop_graphs` and `CycleGraphs.run`).
 STATS = {"graphs": 0, "replays": 0, "runs": 0, "iterations": 0,
-         "body_steps": 0, "capture_ms": 0.0}
+         "body_steps": 0, "capture_ms": 0.0, "form": None}
 
 # Launches of `while_cond` (csrc/graph.cu), one an iteration of a
 # whole-run graph's body, added when the run's count is read.
@@ -96,22 +113,25 @@ LAUNCHES = {"while_cond": 0}
 
 def reset_stats():
     STATS.update(graphs=0, replays=0, runs=0, iterations=0, body_steps=0,
-                 capture_ms=0.0)
+                 capture_ms=0.0, form=None)
 
 
 def reset_launches():
     LAUNCHES["while_cond"] = 0
 
 
-def eager_reason(device, far=(), nprocs=1):
+def eager_reason(device, far=(), nprocs=1, backend=None):
     """Why a loop whose scalars sit on `device` runs eagerly, or None where
     it can replay graphs. `far` are the shards whose CFL partials are
     copied in after each cycle (a mesh across cards); `nprocs` the
-    processes of the run."""
+    processes of the run and `backend` their transport
+    (`parallel/dist.backend`)."""
     if torch.device(device).type != "cuda":
         return "the CPU has no CUDA graphs"
-    if nprocs > 1:
-        return "a run over several processes keeps the eager loop"
+    if nprocs > 1 and backend != "nccl":
+        return ("a run over several processes keeps the eager loop unless "
+                "they talk over NCCL: gloo stages every copy through host "
+                "memory, which a CUDA graph cannot hold")
     if far:
         return "a mesh across cards keeps the eager loop"
     return None
@@ -125,6 +145,28 @@ def use_graphs(graphs, reason):
     if graphs and reason is not None:
         solver_error("config", f"graphs=True cannot run here: {reason}")
     return bool(graphs)
+
+
+def whole_reason(nprocs):
+    """Why a lean run whose graphs run takes window graphs where it asks
+    for the whole-run graph, or None where it may launch it: over NCCL
+    processes (the only processes whose loops run graphs) it may not."""
+    if nprocs > 1:
+        return ("a run over NCCL processes takes window graphs: NCCL's "
+                "capture holds event nodes, which a WHILE body refuses, "
+                "and without them CUDA refused the WHILE build")
+    return None
+
+
+def loop_graphs(graphs, reason, device, nprocs=1):
+    """A loop's `CycleGraphs` on `device` where graphs run (`use_graphs`),
+    else None; records the loop's form in `STATS`: "eager", or "windows"
+    until a whole-run graph launches. `nprocs`: the run's processes."""
+    if not use_graphs(graphs, reason):
+        STATS["form"] = "eager"
+        return None
+    STATS["form"] = "windows"
+    return CycleGraphs(device, strict=graphs is True, nprocs=nprocs)
 
 
 def body_steps(run, start):
@@ -178,8 +220,10 @@ class CycleGraphs:
     capture, where destroying a graph is not permitted and spoils that
     capture."""
 
-    def __init__(self, device):
+    def __init__(self, device, strict=False, nprocs=1):
         self.device = torch.device(device)
+        self.strict, self.nprocs = strict, nprocs
+        self.why = whole_reason(nprocs)
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)  # capture needs its own
         self.windows = {}
@@ -197,6 +241,15 @@ class CycleGraphs:
         self.replay(key, _steps(run, start, n, end))
         if end != key[1]:
             run.cur, run.nxt = run.nxt, run.cur
+
+    def takes_whole(self):
+        """Whether a lean run that asks for the whole-run graph launches it
+        (`whole_reason`); with `strict` (`graphs=True`) where it may not,
+        this raises with the reason."""
+        if self.why is not None and self.strict:
+            solver_error("config", f"graphs=True cannot run the whole-run "
+                                   f"graph here: {self.why}")
+        return self.why is None
 
     def run(self, run, start, n, pred):
         """The steps of `run` from `start` until the predicate
@@ -227,6 +280,7 @@ class CycleGraphs:
         STATS["runs"] += 1
         STATS["iterations"] += iters
         STATS["body_steps"] = n
+        STATS["form"] = "whole"
         return iters
 
     def replay(self, key, launches):
@@ -257,12 +311,15 @@ class CycleGraphs:
         # of a 100-cycle solve. Nothing in a window allocates, so the
         # capture goes without. The cycle collector stays off during a
         # capture: a graph it destroyed there would spoil the capture (see
-        # the class doc).
+        # the class doc). Over processes the capture refuses only this
+        # thread's unsafe calls: the process group's watchdog thread polls
+        # its collectives' events meanwhile.
+        mode = "global" if self.nprocs == 1 else "thread_local"
         collecting = gc.isenabled()
         gc.disable()
         try:
             with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-                graph.capture_begin(pool=self.pool)
+                graph.capture_begin(pool=self.pool, capture_error_mode=mode)
                 try:
                     launches()
                 finally:

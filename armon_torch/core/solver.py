@@ -684,9 +684,10 @@ def armon(params: ArmonParameters, checkpoint=None,
     `io.restart.save_checkpoint` or the `checkpoint_step` option, from
     which the run resumes bit for bit. `graphs`: whether the kernels'
     loops run as CUDA graphs (`core/graphs.py`): None, where they can (a
-    run of one process on one card: a lean run is one whole-run graph,
-    the per-cycle driver a graph a cycle), False never (the eager loop),
-    True raises where they cannot."""
+    run of one process on one card, where a lean run is one whole-run
+    graph, or of NCCL processes on a card each, where it is window
+    graphs; the per-cycle driver a graph a cycle), False never (the
+    eager loop), True raises where they cannot."""
     cfg = params.config
     # This run's CFL carry and the provenance of its state, recorded for
     # snapshots saved after the run (`io/restart.save_checkpoint`): reset,
@@ -743,10 +744,9 @@ def armon(params: ArmonParameters, checkpoint=None,
     base = None
     traced = "trace" in params.profiling
     # A traced run replays window graphs, not the whole-run graph: on the
-    # card the trace (CUPTI under `torch.profiler`) was seen to lose the
-    # kernel records of the last cycles of a whole-run graph's one launch,
-    # never a window graph's, for a cause not yet known (PERF.md). So a
-    # trace observes the window form, not the whole-run graph.
+    # card a trace was seen to lack a whole-run graph's kernel records
+    # (PERF.md). So a trace observes the window form, not the whole-run
+    # graph.
     whole = not traced
     profile_ctx = trace(os.path.join(params.output_dir, "profile"),
                         params.device) if traced \

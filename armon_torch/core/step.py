@@ -79,10 +79,18 @@ Graphs. On the card the whole lean run is one CUDA graph (`_Windows.drive`,
 (one or two K5 launches), then a condition kernel that reads the same
 predicate on the device, the counterpart of the JAX package's
 `lax.while_loop`; the host reads once, at the run's end. With
-`whole=False` the loop runs the cycles between two host reads as one
-window (`KernelCycles.window`, `MultiCycles.window`) replayed from a
-captured graph. `run_schedule_fused` is what a graph records; the eager
-loop runs it as it is.
+`whole=False`, and over NCCL processes, a card each (`graphs.whole_reason`),
+the loop runs the cycles between two host reads as one window
+(`KernelCycles.window`, `MultiCycles.window`) replayed from a
+captured graph. Over processes a window's cycles hold their exchanges,
+the partials' gather and K3, and every process stops after the same
+window: each process's K3 folds the same gathered partials from the
+same scalars, so each computes the same t, dt and stop decision, and no
+process can leave the loop a window before another, whose collectives
+would then wait on it. The collectives take buffers made at the loop's
+set-up (`KernelCycles.sends`, `slabs`, `gathers`), so nothing in a step
+allocates. `run_schedule_fused` is what a graph records; the eager loop
+runs it as it is.
 """
 
 from typing import NamedTuple
@@ -99,10 +107,11 @@ from ..ops.reductions import dt_cfl_min, pmin_dt
 from ..ops.riemann import numerical_fluxes
 from ..ops.routing import route, temporal_pairs
 from ..ops.update import cell_update
-from ..parallel.dist import all_gather_rows, gather_shards
+from ..parallel.dist import all_gather_into, backend, gather_shards
 from ..parallel.mesh import Mesh
-from ..parallel.halo import halo_slabs, new_slab_buffers, halo_exchange_state
-from .graphs import CycleGraphs, body_steps, eager_reason, use_graphs
+from ..parallel.halo import (halo_slabs, new_send_buffers, new_slab_buffers,
+                             halo_exchange_state)
+from .graphs import body_steps, eager_reason, loop_graphs
 from .splitting import split_schedules
 from .state import FusedCarry, State
 from .timestep import next_time_step, dt_update
@@ -121,7 +130,7 @@ class LoopResult(NamedTuple):
 
 
 def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
-                       pair=False, slabs=None, finish=None):
+                       pair=False, slabs=None, finish=None, sends=None):
     """The launches of one cycle (`armon_tpu/core/step.py`
     `run_schedule_fused`) on every shard of `mesh` this process drives
     (`mesh.local`; per-shard lists are indexed by `Shard.slot`): each
@@ -129,12 +138,14 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
     swap. With `pair`, an adjacent X/Y pair of sweeps is one K4 launch in
     the schedule's order. Before a launch along an axis in `slabs` (the
     sharded ones), the shards' slab buffers `slabs[axis]` are refilled from
-    their neighbours' `cur`. The cycle's last launch, which writes nb CFL
+    their neighbours' `cur` (over processes, the lines sent go through
+    the stacks `sends[axis]`, `halo.new_send_buffers`, where given). The
+    cycle's last launch, which writes nb CFL
     partials per shard, writes shard s's into `parts[nb][s]`; `scalars[s]`
     are the loop scalars on shard s's device. With `finish` (nb -> a
     `Finish` over every shard's nb columns), the last shard's last launch
     carries K3's tail. Returns (cur, nxt, nb)."""
-    slabs = slabs or {}
+    slabs, sends = slabs or {}, sends or {}
     shape = cur[0][0].shape
     device = cur[0][0].device
     ops = next(iter(parts.values()))  # a launch that does not emit ignores them
@@ -148,7 +159,8 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
             nb = C.n_partials(shape, device, cfg.dtype) if is_pair \
                 else K.n_partials(axis, shape, device)
             ops = parts[nb]
-        ghosts = halo_slabs(cfg, mesh, cur, axis, slabs[axis]) \
+        ghosts = halo_slabs(cfg, mesh, cur, axis, slabs[axis],
+                            sends.get(axis)) \
             if axis in slabs else [K.MIRRORED] * len(mesh.local)
         for s in mesh.local:
             k = s.slot
@@ -207,9 +219,10 @@ class _Windows:
         """Steps from `start` while the predicate `iscal[pred]` holds after
         them (the caller has checked the first step runs); returns the
         host reads. Where graphs run and `whole` holds, one launch of the
-        whole-run graph (`core/graphs.py`) and one read at its end;
-        otherwise windows of `every` steps, one read each."""
-        if whole and self.graphs is not None:
+        whole-run graph (`core/graphs.py`) and one read at its end, unless
+        the run is over processes (`CycleGraphs.takes_whole`); otherwise
+        windows of `every` steps, one read each."""
+        if whole and self.graphs is not None and self.graphs.takes_whole():
             self.graphs.run(self, start, body_steps(self, start), pred)
             return 1
         reads = 0
@@ -255,7 +268,10 @@ class KernelCycles(_Windows):
     this process's shards (`mesh.local`); after each cycle every process
     gathers every shard's partials and runs the same K3 on the same
     inputs, so each holds the same t, dt, lm and ok and stops at the same
-    host read.
+    host read. The exchanges and the gather run on buffers made here, once (`sends`,
+    `slabs`, `gathers`); where graphs run, one exchange a sharded axis and
+    one gather run here too, so that NCCL makes its communicators before
+    any capture.
 
     `first_step` runs K3 once (no fold, one step): the first cycle's run
     predicate and dt. Then each `cycle` launches one cycle; its last
@@ -317,9 +333,34 @@ class KernelCycles(_Windows):
                         for d in devs]
         self.slabs = {axis: new_slab_buffers(cfg, m, self.cur, axis)
                       for axis in (Axis.X, Axis.Y) if m.proc_dims[axis] > 1}
+        # Over processes, the buffers of the collectives a cycle makes, made
+        # once: the stacks of the lines sent to other processes, and per nb
+        # the gather's input (this process's columns of `partials`) and
+        # its rows, one a process.
+        self.sends = {axis: new_send_buffers(cfg, m, self.cur, axis)
+                      for axis in self.slabs}
+        k = len(m.local)
+        self.gathers = {nb: (torch.empty((2, k * nb), dtype=dtype, device=dev0),
+                             torch.empty((m.nprocs, 2, k * nb), dtype=dtype,
+                                         device=dev0))
+                        for nb in nbs} if m.nprocs > 1 else {}
         self.home = self.cur[0][0]
-        self.graphs = CycleGraphs(dev0) if use_graphs(
-            graphs, eager_reason(dev0, self.far, m.nprocs)) else None
+        self.graphs = loop_graphs(
+            graphs, eager_reason(dev0, self.far, m.nprocs,
+                                 backend() if m.nprocs > 1 else None),
+            dev0, m.nprocs)
+        if self.graphs is not None and self.gathers:
+            # NCCL makes its communicators, and connects two processes, at
+            # their first collective; no capture may do that, so one
+            # exchange a sharded axis and one gather run here, on the
+            # loop's buffers. Nothing reads what they leave: the cycles
+            # refill the slabs before each launch, and the gather's rows
+            # before each fold.
+            for axis in self.slabs:
+                halo_slabs(cfg, m, self.cur, axis, self.slabs[axis],
+                           self.sends[axis])
+            inp, rows = self.gathers[max(nbs)]
+            all_gather_into(rows, inp)
 
     def _share_scalars(self):
         for sc, isc in self.copies.values():
@@ -329,12 +370,15 @@ class KernelCycles(_Windows):
     def _gather_partials(self, nb):
         """Every process's local columns of `partials`, gathered into
         every process's copy in mesh order: the shards of a process are
-        contiguous in mesh order, and rank order is mesh order."""
-        local = self.mesh.local
-        lo, hi = local[0].index * nb, (local[-1].index + 1) * nb
-        rows = all_gather_rows(self.partials[:, lo:hi].contiguous())
-        self.partials[:, :len(self.mesh) * nb].copy_(
-            rows.transpose(0, 1).flatten(1))
+        contiguous in mesh order, and rank order is mesh order. The
+        columns go through the gather's buffers (`gathers[nb]`), so
+        nothing is allocated."""
+        inp, rows = self.gathers[nb]
+        lo = self.mesh.local[0].index * nb
+        inp.copy_(self.partials[:, lo:lo + inp.shape[1]])
+        all_gather_into(rows, inp)
+        self.partials[:, :len(self.mesh) * nb].unflatten(
+            1, (self.mesh.nprocs, -1)).copy_(rows.transpose(0, 1))
 
     def first_step(self):
         """The run's one K3: the first cycle's run predicate and dt."""
@@ -348,7 +392,8 @@ class KernelCycles(_Windows):
         sched = self.even if cycle % 2 == 0 else self.odd
         self.cur, self.nxt, nb = run_schedule_fused(
             self.cfg, self.mesh, self.cur, self.nxt, self.p, self.parts,
-            self.scalars, sched, self.pair, self.slabs, self.finish)
+            self.scalars, sched, self.pair, self.slabs, self.finish,
+            self.sends)
         if self.finish is None:
             for s in self.far:
                 self.partials[:, s.index * nb:(s.index + 1) * nb].copy_(
@@ -427,8 +472,7 @@ class MultiCycles(_Windows):
         self.scal, self.iscal = K.new_scalars(
             cfg.dtype, device, t=float(t0), cycle=int(cycle0),
             dt_prev=float(dt0), lm=float(local0))
-        self.graphs = CycleGraphs(device) if use_graphs(
-            graphs, eager_reason(device)) else None
+        self.graphs = loop_graphs(graphs, eager_reason(device), device)
 
     def cycle(self, launch):
         """One K5 launch, whatever its index `launch`: each of its cycles

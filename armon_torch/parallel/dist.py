@@ -15,6 +15,9 @@ Each process drives a contiguous block of the mesh's shards
 Every function here is called by every process of the run in the same
 order: the send and receive sets of an exchange come from the same `Mesh`
 walk on every process, and a process with nothing to send posts nothing.
+Under NCCL, `exchange` on tensors the transport reads in place and
+`all_gather_into` allocate nothing, so the time loop's CUDA graphs
+capture them (`core/graphs.py`).
 """
 
 import json
@@ -128,6 +131,29 @@ def all_gather_rows(t, device=None):
     return torch.stack(rows).to(t.device)
 
 
+# torch 2.13 names `all_gather_into_tensor` `all_gather_single`.
+_gather_flat = getattr(td, "all_gather_single", None) or \
+    td.all_gather_into_tensor
+
+
+def all_gather_into(out, t):
+    """`all_gather_rows` into `out`, a (process_count(), *t.shape) tensor
+    the caller made once, with `t` a tensor it made once: the form the
+    time loop's persistent buffers take (`core/step.KernelCycles`). Where
+    both are contiguous and the transport reads them in place (on this
+    process's card under NCCL, on the CPU under gloo), nothing is
+    allocated, so a CUDA graph can capture the call; a CUDA tensor under
+    gloo goes through host copies, as `all_gather_rows`' do."""
+    if process_count() == 1:
+        out[0].copy_(t)
+        return out
+    if _gloo() and t.is_cuda:
+        out.copy_(all_gather_rows(t))
+        return out
+    _gather_flat(out.flatten(0, 1), t)
+    return out
+
+
 def gather_shards(mesh, values):
     """Per-shard tensors of one shape, given for this process's shards
     (`mesh.local`), for every shard of `mesh` in its order. The shards of
@@ -139,22 +165,36 @@ def gather_shards(mesh, values):
                                 mesh.local[0].device).flatten(0, 1))
 
 
+def _direct(t, device):
+    """Whether the transport reads and writes `t` in place: contiguous, on
+    the CPU under gloo, on this process's card `device` under NCCL."""
+    return t.is_contiguous() and (not t.is_cuda if _gloo()
+                                  else t.device == device)
+
+
 def exchange(sends, recvs, device):
     """One `batch_isend_irecv` with every op posted before any wait.
     `sends` and `recvs` are (tensor, peer rank, tag) triples; `device` is
     the card this process's NCCL communicator uses (unused under gloo).
-    On return every receive tensor holds its data, ordered before the work
-    queued after the call: `Work.wait` makes the current stream wait for
-    NCCL's, and a staged receive is copied in after it."""
+    A tensor the transport cannot read in place (`_direct`) goes through a
+    staging copy; where every tensor is direct, as the time loop's
+    persistent send stacks and slab buffers are under NCCL, nothing is
+    allocated, so a CUDA graph can capture the call.
+
+    On return every receive tensor holds its data for the work queued
+    after the call on the current stream: `Work.wait` makes the current
+    stream wait for NCCL's, and a staged receive is copied in after it.
+    Inside a capture the same wait is an edge of the graph (NCCL's stream
+    joins the capture stream where the exchange starts and the capture
+    stream joins it back at `Work.wait`), so in every replay the kernels
+    captured after the call read what this replay received."""
     if not sends and not recvs:
         return
     ops = [td.P2POp(td.isend, _wire(t, device), peer, tag=tag)
            for t, peer, tag in sends]
     staged = []
     for t, peer, tag in recvs:
-        direct = t.is_contiguous() and (
-            not t.is_cuda if _gloo() else t.device == device)
-        buf = t if direct else torch.empty(
+        buf = t if _direct(t, device) else torch.empty(
             t.shape, dtype=t.dtype, device="cpu" if _gloo() else device)
         staged.append((t, buf))
         ops.append(td.P2POp(td.irecv, buf, peer, tag=tag))

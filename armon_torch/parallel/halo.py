@@ -7,7 +7,9 @@ the neighbours' lines with `lax.ppermute`; here they are tensor copies
 (`Tensor.copy_`, across devices where the shards sit on different cards)
 between the shards of one process, and messages between processes
 (`dist.exchange`, one batch an exchange: each side that faces another
-process's shard sends this shard's g lines and receives the neighbour's).
+process's shard sends this shard's g lines and receives the neighbour's;
+the time loop stacks the lines it sends into buffers made once,
+`new_send_buffers`, and receives into its slab buffers).
 Every function works on the fused exchange set (rho, u, v, E), given per
 shard of this process (`mesh.local`, indexed by `Shard.slot`).
 
@@ -85,45 +87,78 @@ def _tag(shard, side):
     return 2 * shard.index + side
 
 
-def _swap_remote(cfg, mesh, fields, axis, into):
+def _remote(mesh, shard, axis, side):
+    """The neighbour of `shard` across `side` along `axis` where it lives
+    on another process, else None."""
+    nb = mesh.neighbour(shard, axis, side)
+    return None if nb is None or mesh.is_local(nb) else nb
+
+
+def _swap_remote(cfg, mesh, fields, axis, into, sends=None):
     """The exchange with the other processes along `axis`: each local
     shard sends, stacked, its g real lines of `fields[slot]` next to each
     side whose neighbour lives on another process, and receives that
     neighbour's into `into(shard, side)`. Every process walks the same
     mesh, so a send of one is a receive of the other, in the same order
-    between any two processes."""
+    between any two processes. With `sends` (`new_send_buffers`), the
+    lines are stacked into those buffers, so that nothing is allocated."""
     if mesh.nprocs == 1:
         return
-    sends, recvs = [], []
+    send, recv = [], []
     for s in mesh.local:
         for side in (0, 1):
-            nb = mesh.neighbour(s, axis, side)
-            if nb is None or mesh.is_local(nb):
+            nb = _remote(mesh, s, axis, side)
+            if nb is None:
                 continue
             lines = _real_lines(cfg, fields[s.slot], s, axis, side)
-            sends.append((torch.stack(lines), nb.rank, _tag(nb, 1 - side)))
-            recvs.append((into(s, side), nb.rank, _tag(s, side)))
-    dist.exchange(sends, recvs, mesh.local[0].device)
+            stack = torch.stack(lines) if sends is None else \
+                torch.stack(lines, out=sends[s.slot][side])
+            send.append((stack, nb.rank, _tag(nb, 1 - side)))
+            recv.append((into(s, side), nb.rank, _tag(s, side)))
+    dist.exchange(send, recv, mesh.local[0].device)
+
+
+def _side_buffers(cfg, mesh, fields, axis, faces):
+    """Per local shard, (lo, hi) slab-shaped buffers on the shard's device
+    for the sides whose neighbour `faces(neighbour)` accepts (None
+    elsewhere)."""
+    out = []
+    for s in mesh.local:
+        f = fields[s.slot][0]
+        nbs = [mesh.neighbour(s, axis, side) for side in (0, 1)]
+        out.append(tuple(
+            torch.empty(_slab_shape(cfg, axis, f, 4), dtype=f.dtype,
+                        device=s.device)
+            if nb is not None and faces(nb) else None for nb in nbs))
+    return out
 
 
 def new_slab_buffers(cfg, mesh, fields, axis):
     """Per local shard, (lo, hi) slab buffers for the sides that face a
     neighbour along `axis` (None at a global border), on the shard's
     device."""
-    return [tuple(
-        torch.empty(_slab_shape(cfg, axis, fields[s.slot][0], 4),
-                    dtype=fields[s.slot][0].dtype, device=s.device)
-        if mesh.neighbour(s, axis, side) is not None else None
-        for side in (0, 1)) for s in mesh.local]
+    return _side_buffers(cfg, mesh, fields, axis, lambda nb: True)
 
 
-def halo_slabs(cfg, mesh, fields, axis, out=None):
+def new_send_buffers(cfg, mesh, fields, axis):
+    """Per local shard, (lo, hi) send stacks for the sides that face
+    another process's shard along `axis` (None elsewhere), on the shard's
+    device: what `halo_slabs` stacks a shard's own lines into before the
+    exchange sends them."""
+    return _side_buffers(cfg, mesh, fields, axis,
+                         lambda nb: not mesh.is_local(nb))
+
+
+def halo_slabs(cfg, mesh, fields, axis, out=None, sends=None):
     """Per shard, the (lo, hi) ghost sources the kernels take along
     `axis`: a stacked slab of the neighbour's adjacent real lines on each
     side that faces one, `MIRROR` at a global border. With `out`
     (`new_slab_buffers`), the slabs are copied into those buffers; the
     sweeps write out of place, so the neighbours' fields they are read
-    from are not written while a kernel reads the slabs."""
+    from are not written while a kernel reads the slabs. With `sends`
+    (`new_send_buffers`) too, the lines sent to other processes are
+    stacked into those, and under NCCL nothing is allocated: the form the
+    time loop's CUDA graphs capture."""
     axis = Axis(axis)
     if out is None:
         out = new_slab_buffers(cfg, mesh, fields, axis)
@@ -141,7 +176,8 @@ def halo_slabs(cfg, mesh, fields, axis, out=None):
                                        1 - side))
             sides.append(buf)
         res.append(tuple(sides))
-    _swap_remote(cfg, mesh, fields, axis, lambda s, side: out[s.slot][side])
+    _swap_remote(cfg, mesh, fields, axis, lambda s, side: out[s.slot][side],
+                 sends)
     return res
 
 

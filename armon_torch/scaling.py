@@ -3,6 +3,7 @@
 
     python -m armon_torch.scaling                      # 1, 2, 4, ... cards
     python -m armon_torch.scaling --n-per-device 1024 --cycles 20
+    python -m armon_torch.scaling --eager              # graphs=False
     python -m armon_torch.scaling --device cpu --n-per-device 64 \\
         --max-procs 2 --cycles 4                       # a rehearsal
 
@@ -14,16 +15,19 @@ configuration, `bench.py:77-93`) on its own card, over a px x py mesh
 as near square as p allows. Each worker runs
 `armon()` once to warm up (and build the kernels), then `--reps` timed
 runs of `--cycles` cycles; a run's time is its slowest process's
-`solve_time`. Then, on the final state, it times apart the exchange of one
-cycle (`halo_slabs` along each sharded axis: the local packs and the
-messages) and the gather of the CFL partials (`dist.all_gather_rows`),
-each the best of `--reps` rounds of 20 behind a barrier.
+`solve_time`. The runs take the loop's default form (`core/graphs.py`:
+on one card the whole-run graph, over NCCL processes window graphs);
+`--eager` runs the eager loop (`graphs=False`), the yardstick. Then, on
+the final state, it times apart the exchange of one cycle (`halo_slabs`
+along each sharded axis: the local packs and the messages) and the
+gather of the CFL partials (`dist.all_gather_rows`), each the best of
+`--reps` rounds of 20 behind a barrier.
 
 It prints the card line (`nvidia-smi` name and power limit), then one
-JSON line per mesh: cells/s, the cycle's ms, the exchange's and the
-gather's ms a cycle, and the efficiency against p times the one-process
-rate. On the CPU (`--device cpu`) every time is "not measured": the run
-only shows that the path works.
+JSON line per mesh: the loop's form, cells/s, the cycle's ms, the
+exchange's and the gather's ms a cycle, and the efficiency against p
+times the one-process rate. On the CPU (`--device cpu`) every time is
+"not measured": the run only shows that the path works.
 """
 
 import argparse
@@ -93,6 +97,7 @@ def _time_rounds(fn, device, reps, rounds=PARTIAL_ROUNDS):
 def worker(args, P, nprocs, rank, port):
     """One process of a mesh: returns its line's numbers (seconds)."""
     from . import ArmonParameters, armon
+    from .core import graphs as G
     from .io.subdomain import shard_states
     from .ops import sweep as K
     from .parallel.dist import all_gather_rows
@@ -100,16 +105,18 @@ def worker(args, P, nprocs, rank, port):
     from .parallel.mesh import Mesh
     from .utils.enums import Axis
     opts = _options(args, P, nprocs, rank, port)
-    armon(ArmonParameters(**opts, maxcycle=args.cycles))
+    graphs = False if args.eager else None
+    armon(ArmonParameters(**opts, maxcycle=args.cycles), graphs=graphs)
     best = float("inf")
     for _ in range(args.reps):
         params = ArmonParameters(**opts, maxcycle=args.cycles,
                                  return_data=True)
-        stats = armon(params)
+        stats = armon(params, graphs=graphs)
         if stats.cycles != args.cycles:
             raise RuntimeError(f"mesh {P}: {stats.cycles} of {args.cycles} "
                                f"cycles")
         best = min(best, stats.solve_time)
+    form = G.STATS["form"]
     cfg, dev = params.config, params.device
     mesh = Mesh.of(params)
     cur = [(st.rho, st.u, st.v, st.E)
@@ -125,7 +132,7 @@ def worker(args, P, nprocs, rank, port):
     gather_ms = _time_rounds(lambda: all_gather_rows(mine), dev,
                              args.reps) if nprocs > 1 else 0.0
     return {"solve_s": best, "exchange_ms": exchange_ms,
-            "gather_ms": gather_ms}
+            "gather_ms": gather_ms, "form": form}
 
 
 def _line(args, P, results, base):
@@ -137,7 +144,7 @@ def _line(args, P, results, base):
     line = {"processes": p, "P": list(P), "N": [n * P[0], n * P[1]],
             "cycles": args.cycles, "dtype": args.dtype,
             "backend": backend_for(args.device, True)
-            if p > 1 else None}
+            if p > 1 else None, "form": results[0]["form"]}
     if args.device == "cpu":
         return dict(line, cells_per_s=NOT_MEASURED, cycle_ms=NOT_MEASURED,
                     exchange_ms_per_cycle=NOT_MEASURED,
@@ -155,6 +162,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--dtype", default="f32", choices=["f32", "f64"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--eager", action="store_true",
+                    help="run the eager loop (graphs=False)")
     ap.add_argument("--max-procs", type=int, default=0,
                     help="default: the card count (4 on the CPU)")
     ap.add_argument("--worker", nargs=5, type=int, metavar=(

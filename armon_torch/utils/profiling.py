@@ -8,7 +8,8 @@
   clock; with ``time_async=False`` it synchronizes the device of
   `sync_args` before it stops the clock;
 - `trace(log_dir)`: a `torch.profiler.profile` of the run (CPU activity,
-  and CUDA activity on the card) written under `log_dir` as a Chrome
+  and CUDA activity on the card, after a few warm-up launches whose
+  records the trace may lose) written under `log_dir` as a Chrome
   trace;
 - `kernel_times(prof)`: the per-kernel table of such a profile, the
   counterpart of the JAX package's `utils/xplane.parse_kernel_times`.
@@ -82,18 +83,36 @@ def section(name, timer: Timer = None, sync_args=None, time_async=True):
             timer.pop()
 
 
+# Small launches made on the card under a new trace before the traced
+# work. On an H100 (torch 2.11, CUDA 12.8) a trace held no device record
+# of its first three launches, whatever the card's idle time before them
+# (0-100 ms): the per-cycle driver's K3 and first cycle, when its loop
+# was built before the trace. Four or more small launches first took
+# that loss (`tools/trace_whole.py --driver`).
+WARM_LAUNCHES = 16
+
+
 @contextlib.contextmanager
-def trace(log_dir, device="cpu"):
+def trace(log_dir, device="cpu", warm=WARM_LAUNCHES):
     """Profile of the enclosed work, CPU activity and, when `device` is a
-    CUDA device, the card's kernels and copies; yields the
+    CUDA device, the card's kernels and copies, after `warm` small
+    launches on the card under the profile (in a `trace_warm_up`
+    section; their kernels stay in the trace); yields the
     `torch.profiler.profile`, and on exit writes it as a Chrome trace
     (``trace_<pid>_<ns>.json``) under `log_dir`."""
     from torch.profiler import profile, ProfilerActivity
     activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
+        if cuda and warm:
+            with torch.profiler.record_function("trace_warm_up"):
+                x = torch.zeros(1, device=device)
+                for _ in range(warm):
+                    x.add_(1)
+                torch.cuda.synchronize(device)
         yield prof
     prof.export_chrome_trace(os.path.join(
         str(log_dir), f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-14, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-15, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
@@ -17,6 +17,9 @@
     python3 chip_smoke.py --phases 0,13   # window graphs against the eager loop
     python3 chip_smoke.py --phases 0,14   # the whole-run graph (add 3 for
                                           # `while_cond`'s main-path launches)
+    python3 chip_smoke.py --phases 0,15   # graphs over NCCL processes (two or
+                                          # four cards; add 12 for its timed
+                                          # run beside (b)'s)
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), torch's version and its
@@ -186,7 +189,10 @@ Phases, each printing one JSON line:
      beside phase 7's one-process cycle; (b) where the machine has two
      cards, the same checks over NCCL, a card a process (2x1, Sedov 1x2),
      and with four, 2x2 over four processes (checks, goldens, snapshot,
-     the timed run); otherwise a line says it did not run. Each run's
+     the timed run); otherwise a line says it did not run. The NCCL runs
+     take the loop's default form (window graphs, `core/graphs.py`
+     `whole_reason`), but the timed run takes the eager loop
+     (`graphs=False`), the yardstick, and names its form. Each run's
      launches are counted in its worker (each of its kernels must
      launch); their sums go to the `kernels` line's `launches_phase12`;
  13. window graphs (`armon_torch/core/graphs.py`: the cycles between two
@@ -224,7 +230,30 @@ Phases, each printing one JSON line:
      iterations and the predicate it ends with), timed an iteration with
      the decrement, its `kernels` entry. The body's length (1-2 steps
      against a `check_every` window), a process's first calls and the
-     stalls of a capture are measured by `tools/graph_costs.py`.
+     stalls of a capture are measured by `tools/graph_costs.py`;
+ 15. graphs over NCCL processes, a card a process (`core/graphs.py`: each
+     process's lean run replays window graphs whose cycles hold the halo
+     exchange, the CFL partials' gather and K3, one replay and one host
+     read a window; the transport rules out the whole-run graph there,
+     `whole_reason`, and `graphs=True` with it raises), phase 12's `--mp-worker` workers with legs of their own: (a) on two
+     or more cards, two processes: Sod_circ 1000^2 over 2x1 per-sweep,
+     Sedov 2000^2 over 1x2 pair, Strang over 1x2 resumed at an odd cycle,
+     and the per-cycle driver (`silent=1`, one-cycle window graphs), each
+     in f64 and f32 exact, the eager loop (`graphs=False`), window graphs
+     and the default form: every shard bit for bit (SHA-256 of its real
+     window), the same scalars, form and host reads on every process,
+     the form "windows", launches equal to the eager loop's, and
+     `graphs=True` with the whole-run graph raising; (b) on four cards, 2x2
+     over four processes (Sod_circ 1000^2 and Strang resumed at an odd
+     cycle) with the same checks; then, through `armon()`, eager, graphs,
+     graphs, eager after a warm-up of each, Sod 16384^2 over 2x2 (four
+     8192^2 shards, f32 fast math, 100 cycles; beside phase 12's timed
+     run where it ran) and, on two processes, Sedov 2000^2 over 1x2 (500
+     cycles): ms a cycle (the slowest process's solve), with and without
+     the capture ms, form and host reads; (c) on fewer than two cards a
+     line says it did not run. Its launches, summed over its workers, go
+     to the `kernels` line's `launches_phase15`, and its seconds are
+     printed.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -2970,6 +2999,9 @@ MP_JOBS = {
     "b4": dict(nprocs=4, one_card=False, sedov=False, goldens=True,
                snapshot=True, timed=True,
                agree=(((AGREE_N, AGREE_N), (2, 2)),)),
+    # Phase 15's jobs (`_gp_worker`): graphs over NCCL, a card a process.
+    "g2": dict(nprocs=2, one_card=False, graphs=True),
+    "g4": dict(nprocs=4, one_card=False, graphs=True),
 }
 MP_TIMEOUT = 400       # seconds a job may take, its workers' start included
 MP_SNAPSHOT_AT = AGREE_CYCLES // 2
@@ -3017,6 +3049,7 @@ def _mp_worker(job, rank, port, tmp):
     import numpy as np
     import torch
     from armon_torch import ArmonParameters, armon, gather_state, SolverException
+    from armon_torch.core import graphs as G
     from armon_torch.io.restart import save_checkpoint
     from armon_torch.io.subdomain import compare_sub_domain_with_golden, shard_states
     from armon_torch.ops import sweep as K
@@ -3032,10 +3065,10 @@ def _mp_worker(job, rank, port, tmp):
     cnt = _Counted(torch)
     out = {"rank": rank, "agree": [], "launches": {}}
 
-    def run(what, expect, P, restore_from=None, **opts):
+    def run(what, expect, P, restore_from=None, graphs=None, **opts):
         params = ArmonParameters(P=P, **base, **_mp_place(job, P), **opts)
         stats, c = cnt.path(f"{job} {what}", lambda: armon(
-            params, restore_from=restore_from), expect)
+            params, restore_from=restore_from, graphs=graphs), expect)
         out["launches"][what] = c
         return params, stats
 
@@ -3101,13 +3134,16 @@ def _mp_worker(job, rank, port, tmp):
         opts = dict(test="Sod", N=(MESH_N, MESH_N),
                     **{k: v for k, v in SMALL_OPTS.items()
                        if k not in ("silent", "device")})
+        # The eager loop, the yardstick over processes (phase 15 times the
+        # graph forms).
         armon(ArmonParameters(P=P, maxcycle=16, **base, **_mp_place(job, P),
-                              **opts))
+                              **opts), graphs=False)
         torch.cuda.synchronize()
         staged = dict(dist.STAGED)
-        params, stats = run("timed", _mp_expect(P), P,
+        params, stats = run("timed", _mp_expect(P), P, graphs=False,
                             maxcycle=MESH_CYCLES, return_data=True, **opts)
         cyc, solve_s = stats.cycles, stats.solve_time
+        form = G.STATS["form"]
         cfg, dev = params.config, params.device
         mesh = Mesh.of(params)
         cur = [(st.rho, st.u, st.v, st.E)
@@ -3115,7 +3151,7 @@ def _mp_worker(job, rank, port, tmp):
         del stats
         bufs = {a: new_slab_buffers(cfg, mesh, cur, a) for a in (Axis.X, Axis.Y)}
         timed = {
-            "cycles": cyc, "solve_s": solve_s,
+            "cycles": cyc, "solve_s": solve_s, "form": form,
             "staged_per_cycle": {k: (dist.STAGED[k] - staged[k]) / cyc
                                  for k in staged},
             "exchange_ms_per_cycle": _time_rounds(
@@ -3217,7 +3253,11 @@ def _mp_timed(results, rates):
     for r in results:
         for name, n in r["launches"]["timed"].items():
             launches[name] = launches.get(name, 0) + n
+    forms = {x["form"] for x in t}
+    if len(forms) != 1:
+        raise AssertionError(f"the timed run's processes took forms {forms}")
     out = {"test": "Sod", "N": MESH_N, "P": list(MESH_P), "cycles": MESH_CYCLES,
+           "form": forms.pop(),
            "cells_per_s": cells / solve, "cycle_ms": solve / MESH_CYCLES * 1e3,
            "launches_per_cycle": {k: n / MESH_CYCLES for k, n in launches.items()},
            "exchange_ms_per_cycle": max(x["exchange_ms_per_cycle"] for x in t),
@@ -3256,6 +3296,7 @@ def phase12(torch, rates):
             line, launches = _mp_check(torch, job, results, singles)
             if MP_JOBS[job]["timed"]:
                 line["timed"] = _mp_timed(results, rates)
+                rates[f"p12_{job}_timed"] = line["timed"]
             line["seconds"] = time.perf_counter() - t0
             for name, n in launches.items():
                 total[name] = total.get(name, 0) + n
@@ -3754,14 +3795,279 @@ def phase14(torch, rates):
     return [entry]
 
 
+# ------------------------------------------------ graphs over processes
+
+GP_TIMED_ORDER = (False, None, None, False)  # (b): eager, graphs, graphs, eager
+GP_SEDOV_CYCLES = 500                        # (b)'s Sedov 2000^2 over 1x2
+
+
+def _shard_digests(cfg, mesh, carry):
+    """{shard index: [SHA-256 of each field's real window]} of this
+    process's shards of a loop's carry."""
+    import hashlib
+    g = cfg.nghost
+    return {str(s.index): [hashlib.sha256(
+        a[g:g + s.n_real[1], g:g + s.n_real[0]].contiguous().cpu().numpy()
+        .tobytes()).hexdigest() for a in c] for s, c in zip(mesh.local, carry)}
+
+
+def _gp_case(torch, what, lean, total):
+    """(a) one case in this process of a run over processes: the eager
+    loop, window graphs and the loop's default form (window graphs over
+    NCCL, `core/graphs.whole_reason`), every local shard bit for bit
+    (SHA-256 of its real window), the same scalars and host reads, and
+    the eager loop's launches; `graphs=True` with the whole-run graph
+    raises, naming NCCL. Raises where a check fails; each run's launches
+    go into `total`."""
+    from armon_torch import SolverException
+
+    def form_run(form, every=None):
+        res, counts, st = _run_form(torch, lean, form, every)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        return res, counts, st
+
+    eager, n_eager, _ = form_run("eager")
+    sc_e = _outcome(eager)[0]
+    want = _shard_digests(lean.cfg, lean.mesh, eager.carry)
+    out = {"case": what, "cycles": sc_e[0]}
+    for form in ("windows", "whole"):
+        res, counts, st = form_run(form)
+        sc = _outcome(res)[0]
+        if not _same_scalars(sc[:-1], sc_e[:-1]) or \
+                _shard_digests(lean.cfg, lean.mesh, res.carry) != want:
+            raise AssertionError(f"{what}, {form}: {sc} against eager {sc_e}")
+        if counts != n_eager or st["form"] != "windows" or st["runs"] or \
+                sc[-1] != sc_e[-1]:
+            raise AssertionError(f"{what}, {form} asked: {st}, host reads "
+                                 f"{sc[-1]} against {sc_e[-1]}, launches "
+                                 f"{counts} against {n_eager}")
+    try:
+        lean(True, True, None)
+    except SolverException as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"{what}: graphs=True ran a whole run over NCCL")
+    if "NCCL" not in refusal:
+        raise AssertionError(f"{what}: graphs=True refused with {refusal!r}")
+    out.update({"form": st["form"], "host_reads": sc[-1],
+                "scalars": list(sc[:-1]), "replays": st["replays"],
+                "capture_ms": st["capture_ms"],
+                "launches": {k: v for k, v in counts.items() if v},
+                "whole_refused": refusal, "shards": sorted(want),
+                "bitwise": True})
+    return out
+
+
+def _gp_driver(torch, base, dtype, total):
+    """(a) the per-cycle driver (`silent=1`) over processes through
+    `armon()`: with graphs (a one-cycle window graph replayed a cycle)
+    against `graphs=False`, bit for bit, the same host reads and
+    launches."""
+    import contextlib
+    import io
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core import graphs as G
+    from armon_torch.ops import sweep as K
+    runs = []
+    for graphs in (False, None):
+        params = ArmonParameters(**{
+            **base, "silent": 1, "test": "Sod_circ", "N": (AGREE_N, AGREE_N),
+            "P": SEDOV_P, "data_type": dtype, "maxcycle": GRAPH_CYCLES,
+            "return_data": True})
+        K.reset_launches()
+        G.reset_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            st = armon(params, graphs=graphs)
+        torch.cuda.synchronize()
+        counts = {**K.LAUNCHES, **K.TAILS}
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        runs.append((st.cycles, st.final_time, st.last_dt, st.host_reads,
+                     _digests(params, st.data), counts, dict(G.STATS)))
+    (e, g) = runs
+    if e[:5] != g[:5] or e[5] != g[5] or g[6]["replays"] != g[0] or \
+            g[6]["form"] != "windows":
+        raise AssertionError(f"per-cycle driver over processes: {g[:4]} "
+                             f"{g[6]} against {e[:4]}")
+    return {"case": "per-cycle driver, Sod_circ 1000^2 over 1x2, silent=1",
+            "dtype": dtype, "cycles": g[0], "host_reads": g[3],
+            "form": g[6]["form"], "replays": g[6]["replays"],
+            "capture_ms": g[6]["capture_ms"], "scalars": list(g[:3]),
+            "shards": sorted(g[4]), "bitwise": True}
+
+
+def _gp_timed(torch, base, opts, cycles, total):
+    """(b) one cell through `armon()` in `GP_TIMED_ORDER` (eager, graphs,
+    graphs, eager) after a warm-up run of each: this process's solve
+    seconds, capture ms, form and host reads a run."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core import graphs as G
+    from armon_torch.ops import sweep as K
+    for graphs in (False, None):
+        armon(ArmonParameters(**base, **opts, maxcycle=16), graphs=graphs)
+    runs = []
+    for graphs in GP_TIMED_ORDER:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        G.reset_stats()
+        st = armon(ArmonParameters(**base, **opts, maxcycle=cycles),
+                   graphs=graphs)
+        torch.cuda.synchronize()
+        for k, n in {**K.LAUNCHES, **K.TAILS}.items():
+            total[k] = total.get(k, 0) + n
+        runs.append({"graphs": graphs is None, "form": G.STATS["form"],
+                     "cycles": st.cycles,
+                     "solve_s": st.solve_time,
+                     "capture_ms": G.STATS["capture_ms"],
+                     "host_reads": st.host_reads})
+    return runs
+
+
+def _gp_worker(job, rank, port, tmp):
+    """One process of a phase-15 job: its cases' rows, timed runs and
+    launches as one JSON line; the parent compares the processes'."""
+    import torch
+    from armon_torch.parallel import dist
+    spec = MP_JOBS[job]
+    base = dict(coordinator_address=f"localhost:{port}",
+                num_processes=spec["nprocs"], process_id=rank, silent=5,
+                measure_time=False, device="cuda")
+    total = {}
+    out = {"rank": rank, "agree": [], "timed": {}}
+    for dtype in ("float64", "float32"):
+        b = dict(base, data_type=dtype, use_fast_math=False,
+                 maxcycle=GRAPH_CYCLES)
+        sod = dict(test="Sod_circ", N=(AGREE_N, AGREE_N))
+        if spec["nprocs"] == 2:
+            cases = (
+                ("Sod_circ 1000^2 over 2x1 per-sweep", _Lean(
+                    b, P=(2, 1), **sod, **PER_SWEEP)),
+                ("Sedov 2000^2 over 1x2 pair", _Lean(
+                    b, test="Sedov", N=(SEDOV_N, SEDOV_N), P=SEDOV_P, **PAIR)),
+                (f"Strang pair over 1x2 resumed at cycle {GRAPH_RESUME_AT}",
+                 _Lean(b, GRAPH_RESUME_AT, P=SEDOV_P, axis_splitting="Strang",
+                       **sod, **PAIR)))
+        else:
+            cases = (
+                ("Sod_circ 1000^2 over 2x2 per-sweep", _Lean(
+                    b, P=(2, 2), **sod)),
+                (f"Strang over 2x2 resumed at cycle {GRAPH_RESUME_AT}", _Lean(
+                    b, GRAPH_RESUME_AT, P=(2, 2), axis_splitting="Strang",
+                    **sod)))
+        for what, lean in cases:
+            row = _gp_case(torch, what, lean, total)
+            row["dtype"] = dtype
+            out["agree"].append(row)
+        if spec["nprocs"] == 2:
+            out["agree"].append(_gp_driver(
+                torch, dict(base, use_fast_math=False), dtype, total))
+    fast = {k: v for k, v in SMALL_OPTS.items() if k not in ("silent", "device")}
+    if spec["nprocs"] == 2:
+        out["timed"]["Sedov 2000^2 over 1x2"] = _gp_timed(
+            torch, base, dict(fast, test="Sedov", N=(SEDOV_N, SEDOV_N),
+                              P=SEDOV_P), GP_SEDOV_CYCLES, total)
+    else:
+        out["timed"]["Sod 16384^2 over 2x2"] = _gp_timed(
+            torch, base, dict(fast, test="Sod", N=(MESH_N, MESH_N), P=MESH_P),
+            MESH_CYCLES, total)
+    out["launches"] = total
+    print(dist.result_line(out), flush=True)
+    dist.shutdown()
+    return 0
+
+
+def _gp_check(job, results, rates):
+    """The processes of a phase-15 job agree: each case's form, replays,
+    scalars and host reads the same on every process, every
+    shard covered; the timed runs' lines (the slowest process's solve, a
+    run's capture ms its largest), beside phase 12's timed run."""
+    rows = []
+    for k, row in enumerate(results[0]["agree"]):
+        mine = [r["agree"][k] for r in results]
+        keys = ("form", "replays", "scalars", "host_reads", "cycles")
+        if any({key: m.get(key) for key in keys} !=
+               {key: row.get(key) for key in keys} for m in mine):
+            raise AssertionError(f"{job} {row['case']}: the processes "
+                                 f"disagree: {mine}")
+        shards = sorted(s for m in mine for s in m["shards"])
+        rows.append(dict({k: v for k, v in row.items() if k != "shards"},
+                         shards=len(shards)))
+    line = {"job": job, "processes": MP_JOBS[job]["nprocs"],
+            "transport": "nccl, a card a process", "graphs_vs_eager": rows}
+    timed = {}
+    for cell, runs in results[0]["timed"].items():
+        per = [r["timed"][cell] for r in results]
+        out = []
+        for i, run in enumerate(runs):
+            ranks = [p[i] for p in per]
+            if len({(x["form"], x["cycles"], x["host_reads"])
+                    for x in ranks}) != 1:
+                raise AssertionError(f"{job} {cell}: processes disagree: {ranks}")
+            solve = max(x["solve_s"] for x in ranks)
+            out.append({"form": run["form"], "cycles": run["cycles"], "host_reads": run["host_reads"],
+                        "cycle_ms": solve / run["cycles"] * 1e3,
+                        "cycle_ms_without_capture": max(
+                            x["solve_s"] - x["capture_ms"] / 1e3
+                            for x in ranks) / run["cycles"] * 1e3,
+                        "capture_ms": max(x["capture_ms"] for x in ranks)})
+        eager = [r["cycle_ms"] for r in out if r["form"] == "eager"]
+        graphed = [r["cycle_ms"] for r in out if r["form"] != "eager"]
+        timed[cell] = {"runs": out, "eager_cycle_ms": eager,
+                       "graph_cycle_ms": graphed}
+    p12 = rates.get("p12_b4_timed")
+    if "Sod 16384^2 over 2x2" in timed:
+        timed["Sod 16384^2 over 2x2"]["phase12"] = {
+            "cycle_ms": p12["cycle_ms"], "form": p12["form"]} if p12 else \
+            "not measured: phase 12 did not run on four cards"
+    line["timed"] = timed
+    launches = {}
+    for r in results:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    line["launches"] = {k: v for k, v in launches.items() if v}
+    return line, launches
+
+
+def phase15(torch, rates):
+    """Graphs over NCCL processes (see the module doc); returns phase
+    15's launches by kernel."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    total = {}
+    if cards < 2:
+        emit({"phase": 15, "graphs_over_processes": f"not run: the machine "
+              f"has {cards} card(s), and NCCL puts one process on a card"})
+        return total
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="armon_p15_")
+    try:
+        for job in ["g2"] + (["g4"] if cards >= 4 else []):
+            t1 = time.perf_counter()
+            line, launches = _gp_check(job, _mp_job(torch, job, tmp), rates)
+            line["seconds"] = time.perf_counter() - t1
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            emit({"phase": 15, "card": card_line(), **line})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if cards < 4:
+        emit({"phase": 15, "four_cards": f"not run: the machine has {cards} "
+              f"card(s)"})
+    emit({"phase": 15, "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     ap.add_argument("--mp-worker", nargs=4, metavar=("JOB", "RANK", "PORT",
                                                      "DIR"),
-                    help=argparse.SUPPRESS)  # phase 12's worker processes
+                    help=argparse.SUPPRESS)  # phases 12 and 15's workers
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -3775,7 +4081,8 @@ def main(argv=None):
         return 2
     if args.mp_worker:
         job, rank, port, tmp = args.mp_worker
-        return _mp_worker(job, int(rank), int(port), tmp)
+        worker = _gp_worker if MP_JOBS[job].get("graphs") else _mp_worker
+        return worker(job, int(rank), int(port), tmp)
     t0 = time.perf_counter()
     occupancy = phase0(torch) if 0 in phases else {}
     if 1 in phases:
@@ -3820,6 +4127,11 @@ def main(argv=None):
         p12 = phase12(torch, rates)
         for entry in kernels:
             entry["launches_phase12"] = p12.get(entry["name"], 0)
+    if 15 in phases:
+        # Phase 15's runs over NCCL processes, summed over its workers.
+        p15 = phase15(torch, rates)
+        for entry in kernels:
+            entry["launches_phase15"] = p15.get(entry["name"], 0)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})
