@@ -46,8 +46,17 @@ dear as a cycle on a large grid. No cycle reads to the host, and a cycle
 launched past the run's end leaves every field and scalar as it was, so
 neither the windows' nor the body's length changes the bits.
 
-A graph holds the pointers of one run's buffers, so graphs live as long
-as the run (`KernelCycles`, `MultiCycles`); a new run captures anew.
+A graph holds the pointers of its loop's buffers, so graphs live as long
+as the loop body that holds them (`KernelCycles`, `MultiCycles`), across
+its calls: a loop owns its buffers and device scalars, and a call copies
+the caller's carry in and refills the scalars in place
+(`core/step._Windows.load`), so a later call replays the windows and
+the whole-run graph an earlier call captured (a whole-run graph is kept
+by its body's key and predicate, `CycleGraphs.wholes`), and captures
+only a key it has not met. The loop bodies that `core/solver.py`'s
+program cache (`_cached`) keeps, one per configuration, layout and
+form, hold theirs as long as the entry lives; only a configuration's
+first call captures. `iters` is zeroed before each whole-run launch.
 Nothing in a step allocates, syncs or reads to the host: capture raises
 if anything does, and the error comes through, as a build or launch
 error of the whole-run graph does (`ops/_build.while_build`).
@@ -101,10 +110,12 @@ from ..utils.errors import solver_error
 # Since the last `reset_stats`: graphs captured; graph launches (window
 # replays and whole runs); whole-run launches, the iterations of their
 # bodies and the last body's steps; the host milliseconds the captures
-# took (instantiation included); the last loop's form ("eager",
-# "windows" or "whole", `loop_graphs` and `CycleGraphs.run`).
+# took (instantiation included); the host milliseconds from each
+# whole-run launch to the end of its read (the run on the card inside
+# them); the last loop call's form ("eager", "windows" or "whole",
+# `note_form` and `CycleGraphs.run`).
 STATS = {"graphs": 0, "replays": 0, "runs": 0, "iterations": 0,
-         "body_steps": 0, "capture_ms": 0.0, "form": None}
+         "body_steps": 0, "capture_ms": 0.0, "launch_ms": 0.0, "form": None}
 
 # Launches of `while_cond` (csrc/graph.cu), one an iteration of a
 # whole-run graph's body, added when the run's count is read.
@@ -113,7 +124,7 @@ LAUNCHES = {"while_cond": 0}
 
 def reset_stats():
     STATS.update(graphs=0, replays=0, runs=0, iterations=0, body_steps=0,
-                 capture_ms=0.0, form=None)
+                 capture_ms=0.0, launch_ms=0.0, form=None)
 
 
 def reset_launches():
@@ -163,10 +174,17 @@ def loop_graphs(graphs, reason, device, nprocs=1):
     else None; records the loop's form in `STATS`: "eager", or "windows"
     until a whole-run graph launches. `nprocs`: the run's processes."""
     if not use_graphs(graphs, reason):
-        STATS["form"] = "eager"
+        note_form(None)
         return None
-    STATS["form"] = "windows"
-    return CycleGraphs(device, strict=graphs is True, nprocs=nprocs)
+    cg = CycleGraphs(device, strict=graphs is True, nprocs=nprocs)
+    note_form(cg)
+    return cg
+
+
+def note_form(graphs):
+    """Record in `STATS` the form of a loop call that starts: "eager"
+    without graphs, else "windows" until a whole-run graph launches."""
+    STATS["form"] = "eager" if graphs is None else "windows"
 
 
 def body_steps(run, start):
@@ -213,7 +231,8 @@ def end_roles(run, key, start):
 
 class CycleGraphs:
     """A loop body's graphs, in one memory pool on `device`: captured
-    windows by key, and the whole-run graph. The body (`core/step.KernelCycles`, a cycle a step;
+    windows by key, and whole-run graphs by their body's key and
+    predicate, kept across the body's calls (see the module doc). The body (`core/step.KernelCycles`, a cycle a step;
     `core/step.MultiCycles`, a K5 launch a step) holds its graphs, and
     they do not hold it: a reference cycle would leave their destruction
     to Python's cycle collector, which may run during another run's
@@ -227,7 +246,9 @@ class CycleGraphs:
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)  # capture needs its own
         self.windows = {}
-        self.whole = None  # the whole-run graph: (torch graph, _WhileGraph)
+        # whole-run graphs: (window key, predicate) -> (torch graph,
+        # _WhileGraph)
+        self.wholes = {}
         self.iters = torch.zeros(1, dtype=torch.int32, device=self.device)
 
     def window(self, run, start, n):
@@ -257,21 +278,27 @@ class CycleGraphs:
         WHILE body is the launches of `n` steps (`body_steps`) then
         `while_cond`, and one host read, of the body's iterations, which
         waits for the run's end. The bodies end with the roles they start
-        with, so `run.cur` and `run.nxt` stay. Returns the iterations."""
+        with, so `run.cur` and `run.nxt` stay. The graph of a key met
+        before is launched again. Returns the iterations."""
         key = window_key(run, start, n)
         if end_roles(run, key, start) != key[1]:
             solver_error("config", f"a body of {n} steps from step {start} "
                                    f"swaps the buffer roles")
-        graph, counts = self._capture(_steps(run, start, n, key[1]),
-                                      keep=True)
+        whole = self.wholes.get((key, pred))
+        if whole is None:
+            graph, counts = self._capture(_steps(run, start, n, key[1]),
+                                          keep=True)
+            t0 = time.perf_counter()
+            loop = _WhileGraph(graph.raw_cuda_graph(),
+                               run.iscal[pred:pred + 1], self.iters)
+            STATS["capture_ms"] += (time.perf_counter() - t0) * 1e3
+            whole = self.wholes[key, pred] = graph, loop, counts
+        _, loop, counts = whole
         t0 = time.perf_counter()
-        loop = _WhileGraph(graph.raw_cuda_graph(), run.iscal[pred:pred + 1],
-                           self.iters)
-        STATS["capture_ms"] += (time.perf_counter() - t0) * 1e3
-        self.whole = graph, loop
         self.iters.zero_()
         _build.while_launch(loop.exec, self.device)
         iters = int(self.iters.item())
+        STATS["launch_ms"] += (time.perf_counter() - t0) * 1e3
         for total, add in zip((K.LAUNCHES, K.TAILS), counts):
             for name, c in add.items():
                 total[name] += c * iters

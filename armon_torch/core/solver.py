@@ -47,6 +47,7 @@ import contextlib
 import os
 import time
 import warnings
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
@@ -73,7 +74,7 @@ from ..parallel.halo import halo_exchange_state, halo_slabs
 from ..parallel.mesh import Mesh
 from .splitting import split_schedules
 from .state import State, FusedCarry, torch_dtype
-from .step import (KernelCycles, LoopResult, make_time_loop_lean,
+from .step import (STOP_CHECK_EVERY, LoopResult, make_time_loop_lean,
                    make_time_loop, solver_cycle)
 from .timestep import next_time_step, dt_update
 
@@ -218,6 +219,152 @@ def make_conservation(params):
     return call
 
 
+
+
+# ------------------------------------------------------------ program cache
+#
+# The counterpart of the JAX package's compiled-program cache (`_cached`,
+# `armon_tpu/core/solver.py:66-93`): an LRU of `_FN_CACHE_MAX` entries
+# keyed on the configuration and the entry point's kind, skipped where the
+# caller gave explicit devices. The JAX package keeps programs; the
+# port's kernel loops keep their buffers, device scalars and CUDA graphs
+# (`core/step.LeanLoop`), so a warm call only copies the carry in,
+# refills the scalars, launches and reads. The key adds what the port's
+# configuration does not hold: this process's devices, and the entry point's
+# `graphs` and `whole` (a traced run takes window graphs).
+
+_FN_CACHE = OrderedDict()
+_FN_CACHE_MAX = 64
+
+
+def _cached(params, kind, build):
+    """`build()`, kept under (config, reorder_grid, this process's
+    devices, `kind`) and used again by a later call with an equal key;
+    built anew on every call where the caller gave `devices`. Before an
+    entry is built, the least recently used entries go until the run fits
+    the card (`_make_room`). Every process of a run makes the same calls,
+    so each hits or misses as the others do, and drops the same
+    entries."""
+    if params._devices_given:
+        return build()
+    key = (params.config, params.reorder_grid, params.devices, kind)
+    fn = _FN_CACHE.get(key)
+    if fn is not None:
+        _FN_CACHE.move_to_end(key)
+        return fn
+    while len(_FN_CACHE) >= _FN_CACHE_MAX:
+        _FN_CACHE.popitem(last=False)
+    _make_room(params)
+    fn = _FN_CACHE[key] = build()
+    return fn
+
+
+def _free_bytes(device):
+    """What the card `device` can still give: its free memory and what
+    torch's allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
+
+
+def _make_room(params):
+    """Drop the least recently used entries until the run's device bytes
+    fit on each of this process's cards: `memory_required()`'s
+    `per_device_fused_total_bytes` over the kernels (the loop the entry
+    keeps, and the rest of the run beside it), `per_device_total_bytes`
+    on the op path. Over several processes every process then drops as
+    many as the one that dropped most (one gather, on a miss only, when
+    every process misses), so that all hold the same entries. On the CPU
+    the LRU bound alone holds the cache."""
+    cards = {d for d in params.devices if d.type == "cuda"}
+    if not cards:
+        return
+    mem = params.memory_required()
+    need = mem["per_device_total_bytes" if params.config.op_path
+               else "per_device_fused_total_bytes"]
+    dropped = 0
+    while _FN_CACHE and min(map(_free_bytes, cards)) < need:
+        _FN_CACHE.popitem(last=False)
+        dropped += 1
+    if params.process_count > 1:
+        most = int(dist.all_gather_rows(torch.tensor([dropped]),
+                                        params.device).max())
+        for _ in range(most - dropped):
+            if _FN_CACHE:
+                _FN_CACHE.popitem(last=False)
+
+
+def clear_cache():
+    """Empty the program cache: its loops' buffers and graphs go with it
+    (where nothing else holds them). For tests, and for `parallel/
+    dist.shutdown`, before the process group whose NCCL calls the
+    entries' graphs hold is destroyed. Never during a capture."""
+    _FN_CACHE.clear()
+
+
+def make_jit_loop_lean(params, graphs=None, whole=True):
+    """The lean loop on the configuration's route (`make_jit_loop_lean`,
+    `armon_tpu/core/solver.py:193-210`): `core/step.make_time_loop_lean`
+    over this process's mesh, kept across calls (`_cached`).
+    (fs, t0, cycle0, dt0, local0, check_every, copy_out) -> LoopResult;
+    `graphs` and `whole` as the loop takes them."""
+    cfg = params.config
+    return _cached(params, ("loop_lean", graphs, whole),
+                   lambda: make_time_loop_lean(cfg, make_mesh(params), (),
+                                               None, graphs, whole))
+
+
+def make_jit_loop(params, restore=False, graphs=None, whole=True):
+    """The full-state loop (`make_jit_loop`, `armon_tpu/core/solver.py:
+    326-341`), kept across calls (`_cached`): (states, t0, cycle0, dt0,
+    lm0, check_every) -> LoopResult whose carry is a State per shard. On
+    the op path, `core/step.make_time_loop`. Over the kernels, the lean
+    loop's cycles on the route of one cycle (never K5) from the States:
+    the cycle-0 EOS first unless `restore`, then the CFL seed, `lm0` (a
+    snapshot's carry) where given, else from the States' u, v and c; the
+    result's States are the given ones with the carried fields replaced
+    (copies unless `copy_out` is False, as in `make_time_loop_lean`).
+    `graphs` and `whole` as the lean loop takes them."""
+    cfg = params.config
+    if cfg.op_path:
+        return _cached(params, ("loop", restore),
+                       lambda: make_time_loop(cfg, make_mesh(params), restore))
+    T = np.dtype(cfg.dtype).type
+
+    def build():
+        lean = make_time_loop_lean(cfg, make_mesh(params),
+                                   kind=cycle_route(cfg), graphs=graphs,
+                                   whole=whole)
+
+        def loop(states, t0=0.0, cycle0=0, dt0=0.0, lm0=None,
+                 check_every=STOP_CHECK_EVERY, copy_out=True):
+            single = isinstance(states, State)
+            states = [states] if single else list(states)
+            if not restore and cfg.maxcycle > 0:
+                states = [update_eos(cfg, st) for st in states]
+            local0 = lm0 if lm0 is not None else \
+                float(cfl_seed(params, states))
+            res = lean(_carry_of(states), T(t0), int(cycle0), T(dt0), local0,
+                       check_every, copy_out)
+            out = _full_states(params, res.carry, states)
+            return res._replace(carry=out[0] if single else out)
+        return loop
+
+    return _cached(params, ("loop", restore, graphs, whole), build)
+
+
+def make_cycle(params, graphs=None):
+    """The per-cycle driver's step over the kernels (`make_cycle`,
+    `armon_tpu/core/solver.py:344-345`), kept across calls (`_cached`): a
+    lean loop on the route of one cycle (`cycle_route`: pair or
+    per-sweep, never K5) whose `load(fs, t0, cycle0, dt0, local0)` gives
+    its `core/step.KernelCycles`, loaded; one-cycle window graphs where
+    graphs run (`graphs` as the lean loop takes it)."""
+    cfg = params.config
+    return _cached(params, ("cycle", graphs),
+                   lambda: make_time_loop_lean(cfg, make_mesh(params),
+                                               kind=cycle_route(cfg),
+                                               graphs=graphs, whole=False))
 
 
 def _full_states(params, fs, base=None):
@@ -460,8 +607,7 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored,
         if fs is None:  # restored: the carry, or a seed from the saved c
             fs = _carry_of(states)
             local0 = lm if lm is not None else float(cfl_seed(params, states))
-        run = KernelCycles(cfg, mesh, fs, t, cycles, dt_prev, local0,
-                           cycle_route(cfg) == "pair", graphs=graphs)
+        run = make_cycle(params, graphs).load(fs, t, cycles, dt_prev, local0)
         pre = run.scal.clone()
         running = t < T(cfg.maxtime) and cycles < cfg.maxcycle
         if running:
@@ -490,7 +636,8 @@ def _cycle_driver(params, states, fs, local0, checkpoint, restored,
                 tv = dtv = lmv = None
             after_cycle(lambda: _full_states(params, run.carry(), base),
                         run.carry(), tv, dtv, lmv)
-        res = run.result(reads)
+        # The carry is the loop's own unless the caller gets it back.
+        res = run.result(reads, copy_out=params.return_data)
         params._final_local_min = res.lm
         return res, base
 
@@ -545,18 +692,17 @@ def _op_result(states, t, cycles, dt, reads):
 
 def _restore_loop_kernels(params, states, restored, graphs=None, whole=True):
     """The full-state restore loop over the kernels (`make_time_loop(
-    restore=True)`'s fused branch, `armon_tpu/core/step.py:483-598`): the
-    lean loop's cycles on the route of one cycle (never K5) from the
-    restored States, seeded with the snapshot's carry or, without one,
-    from the saved c as a fresh start is. `graphs` and `whole` as
-    `make_time_loop_lean` takes them."""
-    cfg = params.config
-    T = np.dtype(cfg.dtype).type
+    restore=True)`'s fused branch, `armon_tpu/core/step.py:483-598`), kept
+    across calls (`make_jit_loop(params, restore=True)`): the lean loop's
+    cycles on the route of one cycle (never K5) from the restored States,
+    seeded with the snapshot's carry or, without one, from the saved c as
+    a fresh start is. The result's carry is a State per shard, the loop's
+    own fields unless `return_data` hands them out. `graphs` and `whole`
+    as `make_time_loop_lean` takes them."""
+    T = np.dtype(params.config.dtype).type
     t, cycles, dt_prev, lm = restored
-    local0 = lm if lm is not None else float(cfl_seed(params, states))
-    loop = make_time_loop_lean(cfg, make_mesh(params), kind=cycle_route(cfg),
-                               graphs=graphs, whole=whole)
-    return loop(_carry_of(states), T(t), cycles, T(dt_prev), local0)
+    return make_jit_loop(params, True, graphs, whole)(
+        states, T(t), cycles, T(dt_prev), lm, copy_out=params.return_data)
 
 
 def _write_state(params, states, path, per_shard, with_ghosts=False,
@@ -758,21 +904,26 @@ def armon(params: ArmonParameters, checkpoint=None,
                                       restored, solver_log, graphs)
         elif lean:
             r = restored or (0.0, 0, 0.0)
-            res = make_time_loop_lean(cfg, make_mesh(params), (), None,
-                                      graphs, whole)(
-                fs, T(r[0]), int(r[1]), T(r[2]), local0)
+            # The result's carry is the loop's own, read before the loop's
+            # next call, unless `return_data` hands it out.
+            res = make_jit_loop_lean(params, graphs, whole)(
+                fs, T(r[0]), int(r[1]), T(r[2]), local0,
+                copy_out=params.return_data)
             params._ran_fused = True
         elif op:
             r = restored or (0.0, 0, 0.0, None)
-            res = make_time_loop(cfg, make_mesh(params), bool(restored))(
+            res = make_jit_loop(params, bool(restored))(
                 states, T(r[0]), int(r[1]), T(r[2]), r[3])
             params._ran_fused = False
         else:
             res = _restore_loop_kernels(params, states, restored, graphs,
                                         whole)
-            base = states
             params._ran_fused = True
         solve_time = time.perf_counter() - solve_start
+    # The initial carry was copied into the loop's buffers: let it go
+    # before the rebuild and the outputs (`memory_required` counts the
+    # loop's buffers and those, not this carry, after the loop).
+    fs = None
     if params._ran_fused or not use_python_loop:
         params._final_local_min = res.lm
     if not res.ok:

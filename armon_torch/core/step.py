@@ -91,6 +91,16 @@ would then wait on it. The collectives take buffers made at the loop's
 set-up (`KernelCycles.sends`, `slabs`, `gathers`), so nothing in a step
 allocates. `run_schedule_fused` is what a graph records; the eager loop
 runs it as it is.
+
+Value semantics. A loop owns its buffers, as the JAX package's loop owns
+its program's: both buffer sets of rho/u/v/E and p per shard, the CFL
+partials, K3's ticket, the device scalars and, over processes, the
+collectives' buffers, made once per loop body (`_Windows._own`). A call
+copies the caller's carry into the first set and refills the scalars in
+place (`_Windows.load`), never writes a tensor the caller passed, and
+returns a copy of its carry that no later call writes (`copy_out`), so a
+loop called twice on one carry gives the same bits twice, and its graphs
+(which bake in the loop's own buffers) are replayed by its later calls.
 """
 
 from typing import NamedTuple
@@ -99,6 +109,7 @@ import numpy as np
 import torch
 
 from ..utils.enums import Axis
+from ..utils.errors import solver_error
 from ..ops import sweep as K
 from ..ops import cycle as C
 from ..ops.eos import update_eos, scalar_like
@@ -111,7 +122,7 @@ from ..parallel.dist import all_gather_into, backend, gather_shards
 from ..parallel.mesh import Mesh
 from ..parallel.halo import (halo_slabs, new_send_buffers, new_slab_buffers,
                              halo_exchange_state)
-from .graphs import body_steps, eager_reason, loop_graphs
+from .graphs import body_steps, eager_reason, loop_graphs, note_form
 from .splitting import split_schedules
 from .state import FusedCarry, State
 from .timestep import next_time_step, dt_update
@@ -200,6 +211,18 @@ def _shard_list(fs):
     return ([fs] if single else list(fs)), single
 
 
+def layout(fs):
+    """What a loop's buffers are made for: each shard's device, shape and
+    dtype, of a carry (a FusedCarry or a list of them)."""
+    shards, _ = _shard_list(fs)
+    return tuple((f.rho.device, tuple(f.rho.shape), f.rho.dtype)
+                 for f in shards)
+
+
+def _like(a):
+    return torch.empty(a.shape, dtype=a.dtype, device=a.device)
+
+
 def _result(cur, p, scal, iscal, reads, single):
     s = scal.cpu().numpy()
     i = iscal.cpu().numpy()
@@ -210,10 +233,43 @@ def _result(cur, p, scal, iscal, reads, single):
 
 
 class _Windows:
-    """What the loop bodies below share: `drive`, the loop; `window`,
-    steps start .. start + n - 1 (`cycle(i)` each), one replay of a CUDA
-    graph where `graphs` holds a `CycleGraphs`; the buffer roles its keys
-    hold; the result."""
+    """What the loop bodies below share: their buffers, two sets of
+    rho/u/v/E and p per shard, made once (`_own`) and kept across calls;
+    `load`, a call's start; `drive`, the loop; `window`, steps start ..
+    start + n - 1 (`cycle(i)` each), one replay of a CUDA graph where
+    `graphs` holds a `CycleGraphs`; the buffer roles its keys hold; the
+    result."""
+
+    def _own(self, shards):
+        """The buffer sets, shaped as the carry `shards`: never the
+        caller's tensors, so that a graph bakes in the loop's own."""
+        self.layout = layout(shards)
+        self.sets = tuple([tuple(_like(a) for a in f[:4]) for f in shards]
+                          for _ in range(2))
+        self.cur, self.nxt = self.sets
+        self.p = [_like(f.p) for f in shards]
+        self.home = self.cur[0][0]
+
+    def load(self, fs, t0, cycle0, dt0, local0):
+        """A call's start: the caller's carry `fs` (laid out as the loop's,
+        `layout`) copied into the first buffer set, the device scalars
+        refilled in place, and what a run leaves behind (the CFL
+        partials, K3's ticket) cleared, so that a call computes what a new
+        loop would from the same carry."""
+        shards, self.single = _shard_list(fs)
+        if layout(shards) != self.layout:
+            solver_error("config", f"a carry laid out as {layout(shards)} "
+                                   f"given to a loop made for {self.layout}")
+        self.cur, self.nxt = self.sets
+        for dst, p, f in zip(self.cur, self.p, shards):
+            for d, a in zip(dst, f[:4]):
+                d.copy_(a)
+            p.copy_(f.p)
+        K.fill_scalars(self.scal, self.iscal, t=float(t0), cycle=int(cycle0),
+                       dt_prev=float(dt0), lm=float(local0))
+        self._clear()
+        note_form(self.graphs)
+        return self
 
     def drive(self, start, every, pred, whole=True):
         """Steps from `start` while the predicate `iscal[pred]` holds after
@@ -246,9 +302,15 @@ class _Windows:
         its first tensor), 1 in the second."""
         return 0 if self.cur[0][0] is self.home else 1
 
-    def result(self, reads):
-        return _result(self.cur, self.p, self.scal, self.iscal, reads,
-                       self.single)
+    def result(self, reads, copy_out=True):
+        """The run's LoopResult. With `copy_out` its carry is a copy, which
+        no later call writes; without, the loop's own buffers, for a
+        caller that is done with them before the loop's next call."""
+        cur, p = self.cur, self.p
+        if copy_out:
+            cur = [tuple(a.clone() for a in c) for c in cur]
+            p = [a.clone() for a in p]
+        return _result(cur, p, self.scal, self.iscal, reads, self.single)
 
 
 class KernelCycles(_Windows):
@@ -258,7 +320,9 @@ class KernelCycles(_Windows):
     counterpart of `solver_cycle_fused` (`armon_tpu/core/step.py:353`).
 
     `fs` is a list of FusedCarry, one per shard of `mesh` in its order (or
-    one FusedCarry). Without a `mesh`, one shard holds the whole grid on
+    one FusedCarry): the loop's buffers are made in its layout, and it is
+    loaded as a call's start (`load`, which later calls repeat). Without a
+    `mesh`, one shard holds the whole grid on
     the carry's device. With `pair`, adjacent X/Y sweeps are one K4
     launch. A shard on another device than the first shard's is remote:
     its CFL partials go to a buffer of its own, copied in after each
@@ -294,9 +358,7 @@ class KernelCycles(_Windows):
         dev0 = devs[0]
         shape = shards[0].rho.shape
         dtype = shards[0].rho.dtype
-        self.cur = [tuple(f[:4]) for f in shards]
-        self.nxt = [tuple(torch.empty_like(a) for a in c) for c in self.cur]
-        self.p = [f.p for f in shards]
+        self._own(shards)
         nbs = {K.n_partials(Axis.X, shape, dev0),
                K.n_partials(Axis.Y, shape, dev0)}
         if pair:
@@ -320,13 +382,13 @@ class KernelCycles(_Windows):
         # across cards or processes K3 does, after the other shards'
         # partials are copied in.
         self.finish = None
+        self.ticket = None
         if not self.far and m.nprocs == 1:
-            ticket = K.new_ticket(dev0)
-            self.finish = {nb: K.Finish(self.partials, len(m) * nb, ticket)
+            self.ticket = K.new_ticket(dev0)
+            self.finish = {nb: K.Finish(self.partials, len(m) * nb,
+                                        self.ticket)
                            for nb in nbs}
-        self.scal, self.iscal = K.new_scalars(
-            cfg.dtype, dev0, t=float(t0), cycle=int(cycle0),
-            dt_prev=float(dt0), lm=float(local0))
+        self.scal, self.iscal = K.new_scalars(cfg.dtype, dev0)
         self.copies = {d: (self.scal.to(d), self.iscal.to(d))
                        for d in dict.fromkeys(devs) if d != dev0}
         self.scalars = [self.copies.get(d, (self.scal, self.iscal))
@@ -344,11 +406,11 @@ class KernelCycles(_Windows):
                              torch.empty((m.nprocs, 2, k * nb), dtype=dtype,
                                          device=dev0))
                         for nb in nbs} if m.nprocs > 1 else {}
-        self.home = self.cur[0][0]
         self.graphs = loop_graphs(
             graphs, eager_reason(dev0, self.far, m.nprocs,
                                  backend() if m.nprocs > 1 else None),
             dev0, m.nprocs)
+        self.load(fs, t0, cycle0, dt0, local0)
         if self.graphs is not None and self.gathers:
             # NCCL makes its communicators, and connects two processes, at
             # their first collective; no capture may do that, so one
@@ -361,6 +423,19 @@ class KernelCycles(_Windows):
                            self.sends[axis])
             inp, rows = self.gathers[max(nbs)]
             all_gather_into(rows, inp)
+
+    def _clear(self):
+        """What a run leaves behind, cleared for the next (`load`): the CFL
+        partials, K3's ticket (its tail resets it after every launch, a
+        run stopped on its dt gate included; cleared all the same), and
+        the scalars' copies on other devices."""
+        self.partials.zero_()
+        for s in self.far:
+            for ops in self.parts.values():
+                ops[s.slot].zero_()
+        if self.ticket is not None:
+            self.ticket.zero_()
+        self._share_scalars()
 
     def _share_scalars(self):
         for sc, isc in self.copies.values():
@@ -421,7 +496,7 @@ class KernelCycles(_Windows):
 
 def make_time_loop_lean(cfg, mesh=None, remote=(), kind=None, graphs=None,
                         whole=True):
-    """The lean loop (`make_time_loop_lean`):
+    """The lean loop (`make_time_loop_lean`), a `LeanLoop`:
     (fs, t0, cycle0, dt0, local0, check_every) -> LoopResult. `fs` is a
     list of FusedCarry, one per shard of `mesh` in its order, and so is the
     result's carry; a caller that passes one FusedCarry gets one back.
@@ -431,25 +506,64 @@ def make_time_loop_lean(cfg, mesh=None, remote=(), kind=None, graphs=None,
     (`core/graphs.py`: `graphs` None runs them wherever they can, False
     never, True raises where they cannot) the run is one launch of the
     whole-run graph, or with `whole=False` one window graph replay per
-    `check_every` cycles."""
-    T = np.dtype(cfg.dtype).type
-    kind = kind or route(cfg)
-    if kind == "multicycle":
-        return _multicycle_loop(cfg, temporal_pairs(cfg), graphs, whole)
+    `check_every` cycles.
 
-    def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
-        run = KernelCycles(cfg, mesh, fs, t0, cycle0, dt0, local0,
-                           kind == "pair", remote, graphs)
+    The loop keeps the JAX package's value semantics: a call copies `fs`
+    in and leaves it as it was, and its result's carry is a copy that no
+    later call writes (`copy_out=False` hands out the loop's own
+    buffers instead). Its buffers, device scalars and graphs are made at
+    its first call, in that carry's layout (`layout`; a later carry laid
+    out otherwise is refused), and live as long as the loop: a later
+    call copies in, refills the scalars and replays the graphs the first
+    call captured, capturing only a window or a body of another key."""
+    return LeanLoop(cfg, mesh, remote, kind or route(cfg), graphs, whole)
+
+
+class LeanLoop:
+    """The lean loop of `make_time_loop_lean`, holding its loop body
+    (`KernelCycles`, or `MultiCycles` on the multicycle route) from its
+    first call on."""
+
+    def __init__(self, cfg, mesh, remote, kind, graphs, whole):
+        self.cfg, self.mesh, self.remote = cfg, mesh, remote
+        self.kind, self.graphs, self.whole = kind, graphs, whole
+        self.pairs = temporal_pairs(cfg) if kind == "multicycle" else None
+        self.run = None
+
+    def load(self, fs, t0, cycle0, dt0, local0):
+        """The loop body, loaded with a call's start (`_Windows.load`),
+        made at the first call in the carry's layout."""
+        if self.run is not None:
+            return self.run.load(fs, t0, cycle0, dt0, local0)
+        if self.pairs is not None:
+            self.run = MultiCycles(self.cfg, self.pairs, fs, t0, cycle0, dt0,
+                                   local0, self.graphs)
+        else:
+            self.run = KernelCycles(self.cfg, self.mesh, fs, t0, cycle0, dt0,
+                                    local0, self.kind == "pair", self.remote,
+                                    self.graphs)
+        return self.run
+
+    def __call__(self, fs, t0, cycle0, dt0, local0,
+                 check_every=STOP_CHECK_EVERY, copy_out=True):
+        T = np.dtype(self.cfg.dtype).type
+        run = self.load(fs, t0, cycle0, dt0, local0)
         reads = 0
-        if T(t0) < T(cfg.maxtime) and int(cycle0) < cfg.maxcycle:
-            run.first_step()
-            # After the last cycle that ran, iscal[run] is 0 and lm the CFL
-            # minimum of the final state, the carry a resumed run would
-            # start from.
-            reads = run.drive(int(cycle0), check_every, K.IS_RUN, whole)
-        return run.result(reads)
-
-    return loop
+        if T(t0) < T(self.cfg.maxtime) and int(cycle0) < self.cfg.maxcycle:
+            if self.pairs is not None:
+                # The temporal-blocking branch (`fused_multicycle`), stopped
+                # on iscal[next]: windows of max(1, check_every // K)
+                # launches, one host read each, or the whole-run graph.
+                reads = run.drive(0, max(1, check_every // len(self.pairs)),
+                                  K.IS_NEXT, self.whole)
+            else:
+                run.first_step()
+                # After the last cycle that ran, iscal[run] is 0 and lm the
+                # CFL minimum of the final state, the carry a resumed run
+                # would start from.
+                reads = run.drive(int(cycle0), check_every, K.IS_RUN,
+                                  self.whole)
+        return run.result(reads, copy_out)
 
 
 class MultiCycles(_Windows):
@@ -457,22 +571,22 @@ class MultiCycles(_Windows):
     route never runs on a mesh), run one K5 launch of len(pairs) cycles at
     a time (`cycle`), lm kept folded in-kernel. `window` runs several
     launches, as `KernelCycles.window` runs cycles: one graph replay where
-    graphs run."""
+    graphs run. `fs` is the carry the buffers are made for and loaded
+    with, as in `KernelCycles`."""
 
     def __init__(self, cfg, pairs, fs, t0, cycle0, dt0, local0, graphs=None):
-        (fs,), self.single = _shard_list(fs)
+        (f,), _ = _shard_list(fs)
         self.cfg, self.pairs = cfg, pairs
-        device = fs.rho.device
-        self.cur = [(fs.rho, fs.u, fs.v, fs.E)]
-        self.nxt = [tuple(torch.empty_like(a) for a in self.cur[0])]
-        self.p = [fs.p]
-        self.home = fs.rho
-        self.partials = C.new_multicycle_partials(fs.rho.shape, cfg.dtype,
+        device = f.rho.device
+        self._own([f])
+        self.partials = C.new_multicycle_partials(f.rho.shape, cfg.dtype,
                                                   device)
-        self.scal, self.iscal = K.new_scalars(
-            cfg.dtype, device, t=float(t0), cycle=int(cycle0),
-            dt_prev=float(dt0), lm=float(local0))
+        self.scal, self.iscal = K.new_scalars(cfg.dtype, device)
         self.graphs = loop_graphs(graphs, eager_reason(device), device)
+        self.load(fs, t0, cycle0, dt0, local0)
+
+    def _clear(self):
+        self.partials.zero_()
 
     def cycle(self, launch):
         """One K5 launch, whatever its index `launch`: each of its cycles
@@ -489,25 +603,6 @@ class MultiCycles(_Windows):
         """The fields ping-pong in-kernel: a launch of an odd number of
         cycles leaves them in the other buffer set."""
         return len(self.pairs) % 2
-
-
-
-def _multicycle_loop(cfg, pairs, graphs=None, whole=True):
-    """The temporal-blocking branch of the lean loop (`make_time_loop_lean`'s
-    `fused_multicycle` loop) over K5 launches (`MultiCycles`), stopped on
-    iscal[next]: the whole-run graph, or windows of max(1, check_every //
-    len(pairs)) launches, one host read each."""
-    T = np.dtype(cfg.dtype).type
-    n = len(pairs)
-
-    def loop(fs, t0, cycle0, dt0, local0, check_every=STOP_CHECK_EVERY):
-        run = MultiCycles(cfg, pairs, fs, t0, cycle0, dt0, local0, graphs)
-        reads = 0
-        if T(t0) < T(cfg.maxtime) and int(cycle0) < cfg.maxcycle:
-            reads = run.drive(0, max(1, check_every // n), K.IS_NEXT, whole)
-        return run.result(reads)
-
-    return loop
 
 
 # ------------------------------------------------------------- the op path

@@ -167,12 +167,20 @@ def n_partials(axis, shape, device) -> int:
 
 
 def new_scalars(dtype, device, t=0.0, cycle=0, dt_prev=0.0, lm=0.0):
-    """Fresh device loop scalars (scal, iscal); ``run`` starts at 0 so the
-    first `cfl_finish` keeps the seeded lm."""
-    tdt = torch_dtype(dtype)
-    scal = torch.tensor([t, dt_prev, lm, 0.0], dtype=tdt, device=device)
-    iscal = torch.tensor([cycle, 1, 0, 1], dtype=torch.int32, device=device)
+    """Fresh device loop scalars (scal, iscal), filled by `fill_scalars`."""
+    scal = torch.empty(4, dtype=torch_dtype(dtype), device=device)
+    iscal = torch.empty(4, dtype=torch.int32, device=device)
+    fill_scalars(scal, iscal, t, cycle, dt_prev, lm)
     return scal, iscal
+
+
+def fill_scalars(scal, iscal, t=0.0, cycle=0, dt_prev=0.0, lm=0.0):
+    """The loop scalars of a run's start, written in place (a loop keeps
+    its scalars across calls, and its graphs read them where they are):
+    t, cycle, dt_prev and lm as given, ok and next 1; ``run`` starts at 0
+    so the first `cfl_finish` keeps the seeded lm."""
+    scal.copy_(torch.tensor([t, dt_prev, lm, 0.0], dtype=scal.dtype))
+    iscal.copy_(torch.tensor([cycle, 1, 0, 1], dtype=torch.int32))
 
 
 def fast_math_on(cfg, device) -> bool:

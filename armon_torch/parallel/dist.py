@@ -83,9 +83,14 @@ def init_distributed(coordinator_address, num_processes, process_id,
 
 
 def shutdown():
-    """Leave the run: destroy the default process group, so that another
-    coordinator may be joined and the process exits cleanly."""
+    """Leave the run: empty the solver's program cache (`core/solver.
+    clear_cache`: its loops over NCCL hold graphs with the group's
+    collectives in them, which must go first), then destroy the default
+    process group, so that another coordinator may be joined and the
+    process exits cleanly."""
     global _coordinator
+    from ..core.solver import clear_cache
+    clear_cache()
     if td.is_initialized():
         td.destroy_process_group()
     _coordinator = None

@@ -313,6 +313,9 @@ class ArmonParameters:
         device = o.pop("device", None)
         devices = self._devices_option
         del self._devices_option
+        # The JAX package keeps no compiled program for a run given
+        # explicit devices (`_cached`); the port's program cache reads this.
+        self._devices_given = devices is not None
         self._init_processes(resolve_device(
             devices[0] if devices else
             "cuda" if device is None else device).type)
@@ -463,19 +466,22 @@ class ArmonParameters:
           and the temporaries of the one shard a sweep works on, up to
           `OP_PATH_PEAK_FIELDS` fields in all; `per_device_transient_bytes`
           is what it holds besides the States (`per_device_state_bytes`);
-        - `per_device_fused_total_bytes`, the kernel path's: the largest of
-          its time loop, where each shard holds two sets of rho/u/v/E (the
-          sweeps write out of place) plus p, 9 fields, a (4, g, cols) or
-          (4, rows, g) ghost slab for each side that faces a neighbour
+        - `per_device_fused_total_bytes`, the kernel path's: its time
+          loop, where each shard holds two sets of rho/u/v/E (the sweeps
+          write out of place) plus p, 9 fields, a (4, g, cols) or (4, rows,
+          g) ghost slab for each side that faces a neighbour
           (`per_device_halo_bytes`), and the CFL partials of the cycle's
-          last launch, one column per block a shard; a shard's
-          initialisation (`KERNEL_INIT_PEAK_FIELDS`) beside the earlier
-          shards' 5-field carries; and, when the run rebuilds the full
-          State after the loop, the rebuild (`REHYDRATE_PEAK_FIELDS` for
-          one shard, 10 more for each other: its carry and its rebuilt x,
-          y, c, g and zeros), and on a mesh that gathers the global State
-          (`return_data`, `write_slices`, a global `write_output`), the
-          shards' States and the global one on the first device;
+          last launch, one column per block a shard: what a loop of the
+          program cache keeps on the card from its first call on
+          (`core/solver._cached`), so it stands beside the largest of the
+          rest of a run: a shard's initialisation
+          (`KERNEL_INIT_PEAK_FIELDS`) beside the earlier shards' 5-field
+          carries; when the run rebuilds the full State after the loop,
+          the rebuild (`REHYDRATE_PEAK_FIELDS` for one shard, 10 more for
+          each other: its carry and its rebuilt x, y, c, g and zeros);
+          and on a mesh that gathers the global State (`return_data`,
+          `write_slices`, a global `write_output`), the shards' States and
+          the global one on the first device;
         - `per_device_loop_bytes`: the time loop's fields and slabs on the
           path this run takes (22 fields a shard on the op path)."""
         from .ops import cycle as C, sweep as K
@@ -517,10 +523,10 @@ class ArmonParameters:
             fields = max(5 * (k - 1) + KERNEL_INIT_PEAK_FIELDS,
                          10 * (k - 1) + REHYDRATE_PEAK_FIELDS if rebuild
                          else 0)
-            fused[dev] = max(loop, fields * field)
-        if gather:
-            fused[dev0] = max(fused[dev0], n_state * shards[dev0] * field
-                              + global_state)
+            rest = fields * field
+            if gather and dev == dev0:
+                rest = max(rest, n_state * k * field + global_state)
+            fused[dev] = loop + rest
         state = max(n_state * k * field for k in shards.values())
         total = max(op.values())
         return {

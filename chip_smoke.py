@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-15, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-16, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
@@ -20,6 +20,8 @@
     python3 chip_smoke.py --phases 0,15   # graphs over NCCL processes (two or
                                           # four cards; add 12 for its timed
                                           # run beside (b)'s)
+    python3 chip_smoke.py --phases 0,16   # loops kept across calls ((d) needs
+                                          # two cards)
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), torch's version and its
@@ -208,7 +210,8 @@ Phases, each printing one JSON line:
      eager, graphs, graphs, eager, the us a cycle through `armon()` of the
      per-cycle driver at the main path's size, with the capture ms, the
      graphs captured and replayed, host reads and launches a cycle (equal
-     in both);
+     in both); the second run with graphs replays the graph the first
+     captured (`replayed_only`: the program cache keeps the loop);
  14. the whole-run graph (`CycleGraphs.run`, `armon_torch/csrc/graph.cu`:
      a conditional WHILE node whose body is 1-2 steps' launches then
      `while_cond`), which every other phase's one-process, one-card lean
@@ -250,10 +253,40 @@ Phases, each printing one JSON line:
      8192^2 shards, f32 fast math, 100 cycles; beside phase 12's timed
      run where it ran) and, on two processes, Sedov 2000^2 over 1x2 (500
      cycles): ms a cycle (the slowest process's solve), with and without
-     the capture ms, form and host reads; (c) on fewer than two cards a
+     the capture ms, form, host reads and captures (the second graphs run
+     replays the first's windows: 0); (c) on fewer than two cards a
      line says it did not run. Its launches, summed over its workers, go
      to the `kernels` line's `launches_phase15`, and its seconds are
-     printed.
+     printed;
+ 16. loops kept across calls (`core/solver.py`'s program cache, `_cached`:
+     `make_jit_loop_lean` and the other loop entry points keep a loop, its
+     buffers, device scalars and CUDA graphs, per configuration, devices
+     and form;
+     a call copies its carry in and leaves it as it was), the cache
+     emptied first: (a) the main path (Sod 8192^2 f32 fast math, 100
+     cycles) in `bench.py`'s pattern, `make_jit_loop_lean(params)` built
+     once, one warm-up call then five timed calls on one input carry:
+     per call the graphs captured (1, then 0), the copy-in and copy-out
+     ms (CUDA events, on the loop's buffers), the host ms outside the
+     whole-run launch, cells/s; the five calls' spread and the calls that
+     stalled (over 10 ms outside the launch); every call bit for bit the
+     first, launches equal, the input unchanged; a run stopped on its dt
+     gate (a NaN), after which K3's ticket is 0 and the clean carry gives
+     the first call's bits; in f32 exact, cold, warm and `graphs=False`
+     bit for bit; (b) the same at Sod 100^2 multicycle (4000 cycles) and
+     pair (2000), and Sedov 2000^2 pair (1000); (c) `armon()` twice with
+     one params (Sod 8192^2, 20 cycles): the second captures nothing and
+     gives equal fields; (d) on two or more cards, two NCCL processes
+     (`--mp-worker` job `k2`), Sod_circ 1000^2 over 2x1 per-sweep and
+     Sedov 2000^2 over 1x2 pair in f32 exact: a kept loop's window graphs
+     called twice, the second capturing nothing on any process, both bit
+     for bit the eager loop's, and `dist.shutdown` emptying the cache; on
+     one card a line says it did not run; (e) ROADMAP A8 at the default:
+     the per-cycle driver with its kept one-cycle graphs at `silent` 0
+     and 1, Sod 8192^2 (20 cycles) and 100^2 (400), us a cycle of a warm
+     run beside the lean loop's, host reads a cycle. Its launches go to
+     the `kernels` line's `launches_phase16`. Each phase's kept loops are
+     dropped after it.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -3002,6 +3035,8 @@ MP_JOBS = {
     # Phase 15's jobs (`_gp_worker`): graphs over NCCL, a card a process.
     "g2": dict(nprocs=2, one_card=False, graphs=True),
     "g4": dict(nprocs=4, one_card=False, graphs=True),
+    # Phase 16 (d)'s job (`_kc_worker`): loops kept across calls over NCCL.
+    "k2": dict(nprocs=2, one_card=False, cache=True),
 }
 MP_TIMEOUT = 400       # seconds a job may take, its workers' start included
 MP_SNAPSHOT_AT = AGREE_CYCLES // 2
@@ -3500,6 +3535,10 @@ def _p13_timed(torch):
                              / st.cycles * 1e6,
                          "capture_ms": G.STATS["capture_ms"],
                          "graphs_captured": G.STATS["graphs"],
+                         # a second run with graphs replays the one-cycle
+                         # graph the first captured (the program cache)
+                         "replayed_only": graphs is None
+                         and not G.STATS["graphs"],
                          "replays": G.STATS["replays"],
                          "host_reads": st.host_reads,
                          "launches_per_cycle": launches / st.cycles})
@@ -3763,7 +3802,8 @@ def _p14_while(torch, launches):
         if err:
             raise AssertionError(f"WHILE of {WHILE_N}: (iterations, "
                                  f"predicate) {got} against {want}")
-        exe = graphs.whole[1].exec
+        (_, loop, _), = graphs.wholes.values()
+        exe = loop.exec
         ms = time_ms(lambda i: _build.while_launch(exe, run.iscal.device),
                      k=5, reset=lambda: run.iscal.fill_(WHILE_N)) / WHILE_N
         plain_ms = time_ms(lambda i: G.while_plain(plain, 0, 1, 0), k=2,
@@ -3919,6 +3959,7 @@ def _gp_timed(torch, base, opts, cycles, total):
         runs.append({"graphs": graphs is None, "form": G.STATS["form"],
                      "cycles": st.cycles,
                      "solve_s": st.solve_time,
+                     "captures": G.STATS["graphs"],
                      "capture_ms": G.STATS["capture_ms"],
                      "host_reads": st.host_reads})
     return runs
@@ -4010,7 +4051,10 @@ def _gp_check(job, results, rates):
                         "cycle_ms_without_capture": max(
                             x["solve_s"] - x["capture_ms"] / 1e3
                             for x in ranks) / run["cycles"] * 1e3,
-                        "capture_ms": max(x["capture_ms"] for x in ranks)})
+                        "capture_ms": max(x["capture_ms"] for x in ranks),
+                        # the second graphs run replays the first's
+                        # windows (the program cache): no capture
+                        "captures": max(x["captures"] for x in ranks)})
         eager = [r["cycle_ms"] for r in out if r["form"] == "eager"]
         graphed = [r["cycle_ms"] for r in out if r["form"] != "eager"]
         timed[cell] = {"runs": out, "eager_cycle_ms": eager,
@@ -4060,9 +4104,331 @@ def phase15(torch, rates):
     return total
 
 
+# ------------------------------------------------- loops kept across calls
+
+CACHE_CALLS = 5          # phase 16's timed calls, after one warm-up call
+# A warm call "stalled" where its host ms outside the graph launch pass
+# this: the copies, K3 and the reads take ~2 ms at 8192^2, torch's
+# `capture_begin` stalled 13.63-101.67 ms in some captures on an H100
+# (`tools/graph_costs.py`).
+CACHE_STALL_MS = 10.0
+# (a) and (b)'s cells: (name, options over SMALL_OPTS, cycles a call).
+CACHE_CELLS = (
+    ("Sod 8192^2 per-sweep (the main path)",
+     dict(test="Sod", N=(MAIN_N, MAIN_N)), MAIN_CYCLES),
+    ("Sod 100^2 multicycle", dict(test="Sod", N=(SOD_N, SOD_N)), 4000),
+    ("Sod 100^2 pair", dict(test="Sod", N=(SOD_N, SOD_N), **PAIR), 2000),
+    ("Sedov 2000^2 pair", dict(test="Sedov", N=(SEDOV_N, SEDOV_N), **PAIR),
+     SEDOV_CYCLES),
+)
+A8_CYCLES = {MAIN_N: 20, SOD_N: 400}  # (e): cycles a run by grid edge
+
+
+def _clone_carry(fs):
+    return [type(f)(*(a.clone() for a in f)) for f in fs]
+
+
+def _carry_bits(torch, a, b):
+    a = a if isinstance(a, list) else [a]
+    b = b if isinstance(b, list) else [b]
+    return all(_bits_equal(torch, x, y) for f, g in zip(a, b)
+               for x, y in zip(f, g))
+
+
+def _loop_call(torch, loop, fs, local0):
+    """One call of a kept lean loop from cycle 0, from zeroed counts:
+    (result, host seconds to its end, launch counts, graph statistics)."""
+    import numpy as np
+    from armon_torch.core import graphs as G
+    from armon_torch.ops import sweep as K
+    T = np.dtype(loop.cfg.dtype).type
+    torch.cuda.synchronize()
+    K.reset_launches()
+    G.reset_launches()
+    G.reset_stats()
+    t0 = time.perf_counter()
+    res = loop(fs, T(0.0), 0, T(0.0), local0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return res, secs, {**K.LAUNCHES, **K.TAILS, **G.LAUNCHES}, dict(G.STATS)
+
+
+def _copy_ms(torch, run, fs):
+    """The device ms of a call's copy in (the caller's five fields into
+    the loop's first set, `Tensor.copy_`) and of its copy out (five
+    clones of the loop's carry), on the loop's own buffers."""
+    def copy_in(i):
+        for dst, p, f in zip(run.sets[0], run.p, fs):
+            for d, a in zip(dst, f[:4]):
+                d.copy_(a)
+            p.copy_(f.p)
+
+    def copy_out(i):
+        return [a.clone() for c in run.cur for a in c] + \
+            [p.clone() for p in run.p]
+    return time_ms(copy_in, k=1), time_ms(copy_out, k=1)
+
+
+def _p16_cell(torch, name, opts, cycles, total):
+    """(a), (b): one cell in `bench.py`'s pattern (`bench.py:84-104`):
+    `make_jit_loop_lean(params)` built once, one warm-up call, then
+    `CACHE_CALLS` timed calls on the same input carry; per call its
+    captures, copy-in and copy-out ms, host ms outside the graph launch
+    and cells/s; every call bit for bit the first, launches equal, the
+    input untouched; a run stopped on its dt gate (a NaN), after which
+    K3's ticket is 0 and the next call is the first's again; in f32
+    exact, cold, warm and `graphs=False` bit for bit."""
+    import numpy as np
+    from armon_torch import ArmonParameters
+    from armon_torch.core.solver import make_init_fused, make_jit_loop_lean
+    from armon_torch.ops.routing import route as route_of
+    params = ArmonParameters(**SMALL_OPTS, **opts, maxcycle=cycles)
+    fs, local0 = make_init_fused(params)()
+    before = _clone_carry(fs)
+    loop = make_jit_loop_lean(params)
+    if make_jit_loop_lean(params) is not loop:
+        raise AssertionError(f"{name}: equal params gave another loop")
+    cells = params.N[0] * params.N[1]
+    calls, first = [], None
+    for i in range(1 + CACHE_CALLS):
+        res, secs, counts, st = _loop_call(torch, loop, fs, local0)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        cin, cout = _copy_ms(torch, loop.run, fs)
+        sc = _outcome(res)[0]
+        if first is None:
+            first = res, counts, sc
+        elif not _same_scalars(sc, first[2]) or \
+                not _carry_bits(torch, res.carry, first[0].carry) or \
+                counts != first[1]:
+            raise AssertionError(f"{name}: call {i} {sc} {counts} against "
+                                 f"the first {first[2]} {first[1]}")
+        calls.append({"call": i, "captures": st["graphs"],
+                      "capture_ms": st["capture_ms"],
+                      "form": st["form"], "copy_in_ms": cin,
+                      "copy_out_ms": cout,
+                      "host_ms_outside_launch": secs * 1e3 - st["launch_ms"],
+                      "launch_ms": st["launch_ms"], "call_ms": secs * 1e3,
+                      "cells_per_s": cells * sc[0] / secs})
+    if calls[0]["captures"] < 1 or any(c["captures"] for c in calls[1:]):
+        raise AssertionError(f"{name}: captures {[c['captures'] for c in calls]}")
+    if sc[0] != cycles or not _carry_bits(torch, fs, before):
+        raise AssertionError(f"{name}: {sc[0]} cycles, or the input changed")
+    timed = [c["call_ms"] for c in calls[1:]]
+    # A run stopped on its dt gate, then the clean carry again.
+    g = params.nghost
+    bad = _clone_carry(fs)
+    bad[0].u[g + 5, g + 7] = float("nan")
+    failed = _loop_call(torch, loop, bad, local0)[0]
+    ticket = getattr(loop.run, "ticket", None)
+    ticket = None if ticket is None else int(ticket.item())
+    again = _loop_call(torch, loop, fs, local0)
+    if failed.ok or ticket not in (None, 0) or again[3]["graphs"] or \
+            not _same_scalars(_outcome(again[0])[0], first[2]) or \
+            not _carry_bits(torch, again[0].carry, first[0].carry):
+        raise AssertionError(f"{name}: after a failed dt gate: ok "
+                             f"{failed.ok}, ticket {ticket}, {again[3]}")
+    # f32 exact: cold, warm and the eager loop bit for bit.
+    exact = ArmonParameters(**{**SMALL_OPTS, "use_fast_math": False}, **opts,
+                            maxcycle=cycles)
+    xs, x0 = make_init_fused(exact)()
+    xloop = make_jit_loop_lean(exact)
+    xr = [_loop_call(torch, xloop, xs, x0) for _ in range(2)]
+    xe = _loop_call(torch, make_jit_loop_lean(exact, graphs=False), xs, x0)
+    if xr[1][3]["graphs"] or xe[3]["form"] != "eager" or not all(
+            _same_scalars(_outcome(r[0])[0][:-1], _outcome(xe[0])[0][:-1])
+            and _carry_bits(torch, r[0].carry, xe[0].carry) for r in xr):
+        raise AssertionError(f"{name}: f32 exact cold / warm / eager differ")
+    return {"cell": name, "route": route_of(params.config), "cycles": cycles,
+            "calls": calls, "spread": (max(timed) - min(timed)) / min(timed),
+            "timed_call_ms": timed,
+            "stalled": [c["call"] for c in calls[1:]
+                        if c["host_ms_outside_launch"] > CACHE_STALL_MS],
+            "ticket_after_failed_gate": ticket,
+            "bitwise_calls": True, "bitwise_f32_exact_vs_eager": True}
+
+
+def _p16_armon_twice(torch):
+    """(c) `armon()` twice with one params (the main path, 20 cycles,
+    `return_data`): the second captures nothing and gives equal fields."""
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core import graphs as G
+    params = ArmonParameters(**SMALL_OPTS, test="Sod", N=(MAIN_N, MAIN_N),
+                             maxcycle=20, return_data=True)
+    runs = []
+    for _ in range(2):
+        G.reset_stats()
+        st = armon(params)
+        torch.cuda.synchronize()
+        runs.append((_outcome(st), dict(G.STATS)))
+    ((sc_a, f_a), g_a), ((sc_b, f_b), g_b) = runs
+    if g_b["graphs"] or g_a["graphs"] < 1 or not _same_scalars(sc_a, sc_b) \
+            or not all(_bits_equal(torch, x, y) for x, y in zip(f_a, f_b)):
+        raise AssertionError(f"armon() twice: {sc_b} {g_b} against {sc_a} "
+                             f"{g_a}")
+    return {"case": "armon() twice, Sod 8192^2, 20 cycles",
+            "captures": [g_a["graphs"], g_b["graphs"]],
+            "capture_ms": [g_a["capture_ms"], g_b["capture_ms"]],
+            "forms": [g_a["form"], g_b["form"]], "bitwise": True}
+
+
+def _p16_driver(torch):
+    """(e) the per-cycle driver with its kept one-cycle window graphs at
+    `silent` 0 and 1, Sod 8192^2 and 100^2 (f32 fast math), a warm-up
+    run then a timed one, beside the lean loop's warm run: us a cycle,
+    host reads a cycle, captures in the timed run."""
+    import contextlib
+    import io
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core import graphs as G
+    rows = []
+    for n, cycles in A8_CYCLES.items():
+        base = dict(SMALL_OPTS, test="Sod", N=(n, n), maxcycle=cycles)
+        row = {"cell": f"Sod {n}^2", "cycles": cycles}
+        for silent in (5, 0, 1):
+            out = []
+            for _ in range(2):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    G.reset_stats()
+                    st = armon(ArmonParameters(**{**base, "silent": silent}))
+                out.append((st, dict(G.STATS)))
+            st, g = out[1]
+            key = "lean" if silent == 5 else f"silent_{silent}"
+            row[key] = {"cycle_us": st.solve_time / st.cycles * 1e6,
+                        "host_reads_per_cycle": st.host_reads / st.cycles,
+                        "captures": g["graphs"], "form": g["form"],
+                        "cold_cycle_us": out[0][0].solve_time
+                        / out[0][0].cycles * 1e6}
+            if g["graphs"]:
+                raise AssertionError(f"(e) Sod {n}^2 silent={silent}: the "
+                                     f"warm run captured {g['graphs']}")
+        rows.append(row)
+    return rows
+
+
+def _kc_worker(job, rank, port, tmp):
+    """(d) one process over NCCL: each case's kept lean loop called twice
+    on one carry, and its eager loop: captures, form, scalars and the
+    digests of this process's shards; the cache after `dist.shutdown`."""
+    import torch
+    from armon_torch import ArmonParameters
+    from armon_torch.core import solver
+    from armon_torch.core.solver import (make_init_fused, make_jit_loop_lean,
+                                         make_mesh)
+    from armon_torch.parallel import dist
+    base = dict(coordinator_address=f"localhost:{port}",
+                num_processes=MP_JOBS[job]["nprocs"], process_id=rank,
+                silent=5, measure_time=False, device="cuda",
+                data_type="float32", use_fast_math=False,
+                maxcycle=GRAPH_CYCLES)
+    total, out = {}, {"rank": rank, "cases": []}
+    for what, opts in (
+            ("Sod_circ 1000^2 over 2x1 per-sweep",
+             dict(test="Sod_circ", N=(AGREE_N, AGREE_N), P=(2, 1),
+                  **PER_SWEEP)),
+            ("Sedov 2000^2 over 1x2 pair",
+             dict(test="Sedov", N=(SEDOV_N, SEDOV_N), P=SEDOV_P, **PAIR))):
+        params = ArmonParameters(**base, **opts)
+        mesh = make_mesh(params)
+        fs, local0 = make_init_fused(params)()
+        calls = []
+        for loop in (make_jit_loop_lean(params), make_jit_loop_lean(params),
+                     make_jit_loop_lean(params, graphs=False)):
+            res, secs, counts, st = _loop_call(torch, loop, fs, local0)
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            calls.append({"captures": st["graphs"], "form": st["form"],
+                          "replays": st["replays"],
+                          "scalars": list(_outcome(res)[0]),
+                          "digests": _shard_digests(params.config, mesh,
+                                                    res.carry),
+                          "ms": secs * 1e3})
+        out["cases"].append({"case": what, "calls": calls})
+    out["entries"] = len(solver._FN_CACHE)
+    dist.shutdown()
+    out["entries_after_shutdown"] = len(solver._FN_CACHE)
+    out["launches"] = total
+    print(dist.result_line(out), flush=True)
+    return 0
+
+
+def _p16_processes(torch):
+    """(d) on two or more cards: `_kc_worker` on two NCCL processes; the
+    second call captures nothing on any process and every call is bit for
+    bit the eager loop's, the same on every process. Returns (line,
+    launches)."""
+    import json
+    import shutil
+    import tempfile
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        return {"processes": f"not run: the machine has {cards} card(s), and "
+                             f"NCCL puts one process on a card"}, {}
+    tmp = tempfile.mkdtemp(prefix="armon_p16_")
+    try:
+        results = _mp_job(torch, "k2", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows, launches = [], {}
+    for k, case in enumerate(results[0]["cases"]):
+        mine = [r["cases"][k] for r in results]
+        for m in mine:
+            cold, warm, eager = m["calls"]
+            if cold["captures"] < 1 or warm["captures"] or \
+                    eager["form"] != "eager" or \
+                    {c["form"] for c in (cold, warm)} != {"windows"} or \
+                    not (cold["digests"] == warm["digests"] == eager["digests"])\
+                    or cold["scalars"][:-1] != eager["scalars"][:-1] or \
+                    warm["scalars"] != cold["scalars"]:
+                raise AssertionError(f"(d) {case['case']}: {m}")
+        if len({json.dumps(m["calls"][1]["scalars"]) for m in mine}) != 1:
+            raise AssertionError(f"(d) {case['case']}: processes disagree")
+        rows.append({"case": case["case"],
+                     "captures": [[c["captures"] for c in m["calls"][:2]]
+                                  for m in mine],
+                     "call_ms": [[c["ms"] for c in m["calls"]] for m in mine],
+                     "form": case["calls"][0]["form"], "bitwise": True})
+    for r in results:
+        if r["entries_after_shutdown"]:
+            raise AssertionError(f"(d) shutdown left {r['entries_after_shutdown']}"
+                                 f" entries")
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return {"processes": 2, "transport": "nccl, a card a process",
+            "cases": rows,
+            "entries_before_shutdown": [r["entries"] for r in results]}, \
+        launches
+
+
+def phase16(torch):
+    """Loops kept across calls (see the module doc): the program cache
+    emptied first, so that each cell's first call is cold. Returns phase
+    16's launches by kernel."""
+    from armon_torch.core.solver import clear_cache
+    t0 = time.perf_counter()
+    card = card_line()
+    clear_cache()
+    total = {}
+    for name, opts, cycles in CACHE_CELLS:
+        emit({"phase": 16, "card": card,
+              "kept_loop": _p16_cell(torch, name, opts, cycles, total)})
+        clear_cache()
+    emit({"phase": 16, "card": card, "armon_twice": _p16_armon_twice(torch)})
+    clear_cache()
+    line, launches = _p16_processes(torch)
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    emit({"phase": 16, "card": card, **line})
+    emit({"phase": 16, "card": card, "per_cycle_driver": _p16_driver(torch)})
+    clear_cache()
+    emit({"phase": 16, "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases",
+                    default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5)")
     ap.add_argument("--mp-worker", nargs=4, metavar=("JOB", "RANK", "PORT",
@@ -4081,15 +4447,24 @@ def main(argv=None):
         return 2
     if args.mp_worker:
         job, rank, port, tmp = args.mp_worker
-        worker = _gp_worker if MP_JOBS[job].get("graphs") else _mp_worker
+        worker = _kc_worker if MP_JOBS[job].get("cache") else \
+            _gp_worker if MP_JOBS[job].get("graphs") else _mp_worker
         return worker(job, int(rank), int(port), tmp)
+    # Each phase's kept loops are dropped after it (`core/solver.
+    # clear_cache`): what a phase allocates outside the program cache
+    # (probes, kernel checks, peak measurements) then has the card to
+    # itself.
+    from armon_torch.core.solver import clear_cache
     t0 = time.perf_counter()
     occupancy = phase0(torch) if 0 in phases else {}
     if 1 in phases:
         phase1(torch)
+        clear_cache()
     if 2 in phases:
         phase2(torch)
+        clear_cache()
     kernels = phase3(torch) if 3 in phases else []
+    clear_cache()
     rates = {"main": kernels.pop()} if kernels else {}
     if 4 in phases:
         k4 = phase4(torch)
@@ -4100,14 +4475,19 @@ def main(argv=None):
         k4[0]["blocks_per_sm"] = occupancy.get("cycle_float32 fast=True biz=False",
                                                {}).get("blocks_per_sm")
         kernels += k4
+        clear_cache()
     if 5 in phases:
         phase5(torch)
+        clear_cache()
     if 7 in phases:
         kernels += phase7(torch, rates)
+        clear_cache()
     if 8 in phases:
         kernels += phase8(torch)
+        clear_cache()
     if 9 in phases:
         rates["op_memory"] = phase9(torch)
+        clear_cache()
     if 10 in phases:
         # `launches` stays the count of the entry's own path; phase 10's
         # paths (the per-cycle driver, resumed runs) are reported per path
@@ -4115,23 +4495,34 @@ def main(argv=None):
         p10 = phase10(torch)
         for entry in kernels:
             entry["launches_phase10"] = p10.get(entry["name"], 0)
+        clear_cache()
     if 11 in phases:
         phase11(torch, rates)
+        clear_cache()
     if 13 in phases:
         phase13(torch)
+        clear_cache()
     if 14 in phases:
         kernels += phase14(torch, rates)
+        clear_cache()
     if 12 in phases:
         # Phase 12's runs over processes, summed over its workers, under
         # a key of their own, as phase 10's are.
         p12 = phase12(torch, rates)
         for entry in kernels:
             entry["launches_phase12"] = p12.get(entry["name"], 0)
+        clear_cache()
     if 15 in phases:
         # Phase 15's runs over NCCL processes, summed over its workers.
         p15 = phase15(torch, rates)
         for entry in kernels:
             entry["launches_phase15"] = p15.get(entry["name"], 0)
+        clear_cache()
+    if 16 in phases:
+        # Phase 16's kept loops, (d)'s workers included.
+        p16 = phase16(torch)
+        for entry in kernels:
+            entry["launches_phase16"] = p16.get(entry["name"], 0)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})

@@ -34,7 +34,7 @@ from armon_torch.core.step import make_time_loop_lean
 from armon_torch.interop import (to_numpy, shards_from_blocked, gather_state,
                                  scatter_state)
 from armon_torch.ops import routing
-from armon_torch.params import OP_PATH_PEAK_FIELDS
+from armon_torch.params import KERNEL_INIT_PEAK_FIELDS, OP_PATH_PEAK_FIELDS
 from armon_torch.ops import sweep as K
 from armon_torch.ops.cycle import cycle_plain
 from armon_torch.ops.reductions import real_slice
@@ -153,9 +153,11 @@ def test_memory_counts_shards_and_slabs():
     assert mem["per_device_field_bytes"] == field
     assert mem["per_device_loop_bytes"] == 4 * (9 * field + slabs)
     # one CPU device: the kernel path's 4 shards and one (2, 4) CFL
-    # partials buffer; the op path's 4 x 22 fields and one shard's sweep
-    # temporaries
-    assert mem["fused_total_bytes"] == 4 * (9 * field + slabs) + 2 * 4 * 4
+    # partials buffer, which the program cache keeps, beside the last
+    # shard's initialisation and the earlier shards' carries; the op
+    # path's 4 x 22 fields and one shard's sweep temporaries
+    assert mem["fused_total_bytes"] == 4 * (9 * field + slabs) + 2 * 4 * 4 \
+        + (5 * 3 + KERNEL_INIT_PEAK_FIELDS) * field
     assert mem["total_bytes"] == (4 * 22 + OP_PATH_PEAK_FIELDS - 22) * field
 
 

@@ -288,10 +288,11 @@ def test_block_size_changes_nothing():
 @pytest.mark.parametrize("return_data", [False, True])
 @pytest.mark.parametrize("P", [(1, 1), (2, 2)])
 def test_memory_required_keys_and_counts(P, return_data):
-    """C8: the JAX package's keys; the kernel path's figure is the largest
-    of its loop (9 fields a shard, the slabs and the CFL partials), a
-    shard's initialisation beside the earlier shards' carries and, with
-    `return_data`, the rebuilt States and the gathered global one; the op
+    """C8: the JAX package's keys; the kernel path's figure is its loop
+    (9 fields a shard, the slabs and the CFL partials, which the program
+    cache keeps) beside the largest of a shard's initialisation with the
+    earlier shards' carries and, with `return_data`, the rebuilt States
+    and the gathered global one; the op
     path's is 22 fields a shard plus the measured temporaries,
     `OP_PATH_PEAK_FIELDS` fields in all for one shard."""
     opts = dict(test="Sod", N=(100, 60), P=P, nghost=4, data_type="float32",
@@ -307,12 +308,12 @@ def test_memory_required_keys_and_counts(P, return_data):
                 + ((iy > 0) + (iy < py - 1)) * 4 * cols
                 for iy in range(py) for ix in range(px)) * 4 * 4
     partials = 2 * shards * 1 * 4  # one CFL partial a shard on the CPU
-    fused = max(9 * shards * field + slabs + partials,
-                (5 * (shards - 1) + KERNEL_INIT_PEAK_FIELDS) * field)
+    rest = (5 * (shards - 1) + KERNEL_INIT_PEAK_FIELDS) * field
     if return_data:
-        fused = max(fused, (10 * (shards - 1) + REHYDRATE_PEAK_FIELDS) * field)
+        rest = max(rest, (10 * (shards - 1) + REHYDRATE_PEAK_FIELDS) * field)
         if shards > 1:
-            fused = max(fused, 11 * shards * field + 11 * 68 * 108 * 4)
+            rest = max(rest, 11 * shards * field + 11 * 68 * 108 * 4)
+    fused = 9 * shards * field + slabs + partials + rest
     assert ours["per_device_halo_bytes"] == slabs
     assert ours["per_device_fused_total_bytes"] == fused
     assert ours["fused_total_bytes"] == fused

@@ -258,6 +258,7 @@ def test_traced_run_keeps_window_graphs(tmp_path, monkeypatch, traced):
         seen.append(args[5])
         return _real(*args)
     monkeypatch.setattr(solver, "make_time_loop_lean", spy)
+    solver.clear_cache()  # a kept loop would not be built again
     params = armon_torch.ArmonParameters(
         test="Sod", N=(24, 20), maxcycle=3, silent=5, device="cpu",
         output_dir=str(tmp_path), **PER_SWEEP,
