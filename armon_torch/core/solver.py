@@ -63,8 +63,8 @@ from ..ops import sweep as K
 from ..ops.init import init_state
 from ..ops.eos import update_eos, scalar_like
 from ..ops.projection import projection_remap
-from ..ops.reductions import (cfl_maxima, cfl_limit, conservation_vars,
-                              conservation_scalar)
+from ..ops.reductions import (FfScratch, cfl_maxima, cfl_limit,
+                              conservation_values)
 from ..ops.riemann import numerical_fluxes
 from ..ops.routing import cycle_route, temporal_pairs
 from ..ops.update import cell_update
@@ -198,27 +198,36 @@ def make_rehydrate(params):
 def make_conservation(params):
     """(shards) -> (mass, energy) as host floats (`core/solver.py:247,282`)
     for the lean carry or the op path's States, one per shard this process
-    drives: rho and E are all it reads; f32 sums are compensated pairs,
-    and a mesh's shards (real cells only, the edge shards' slack left out)
-    are summed in mesh order, in f64 on the host. Over several processes
-    every process gathers every shard's pair and sums them in that order,
-    so each gets the one-process run's values, bit for bit."""
+    drives: rho and E are all it reads; f32 sums are compensated pairs
+    (K6 `ff_sum` on the card: one launch and one host read a shard, into
+    scratch made at its first call and kept), and a mesh's shards (real
+    cells only, the edge shards' slack left out) are summed in mesh order,
+    in f64 on the host. Over several processes every process gathers every
+    shard's pair and sums them in that order, so each gets the one-process
+    run's values, bit for bit. Kept across calls (`_cached`, kind
+    "conservation", as the JAX package keeps its own), with its scratch."""
     cfg = params.config
 
-    def call(fs):
+    def build():
         mesh = make_mesh(params)
-        pairs = []
-        for shard, f in zip(mesh.local, fs):
-            m, e = conservation_vars(cfg, f.rho, f.E, shard.n_real)
-            pairs.append(torch.tensor([conservation_scalar(cfg, m),
-                                       conservation_scalar(cfg, e)],
-                                      dtype=torch.float64))
-        ms, es = zip(*(p.tolist() for p in gather_shards(mesh, pairs)))
-        return float(sum(ms)), float(sum(es))
+        f32 = np.dtype(cfg.dtype).itemsize == 4
+        scratch = [None] * len(mesh.local)
 
-    return call
+        def call(fs):
+            pairs = []
+            for i, (shard, f) in enumerate(zip(mesh.local, fs)):
+                s = scratch[i]
+                if s is None and f32 and f.rho.device.type == "cuda":
+                    s = scratch[i] = FfScratch(shard.n_real[1], f.rho.device)
+                pairs.append(torch.tensor(
+                    conservation_values(cfg, f.rho, f.E, shard.n_real, s),
+                    dtype=torch.float64))
+            ms, es = zip(*(p.tolist() for p in gather_shards(mesh, pairs)))
+            return float(sum(ms)), float(sum(es))
 
+        return call
 
+    return _cached(params, "conservation", build)
 
 
 # ------------------------------------------------------------ program cache

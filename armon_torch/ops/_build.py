@@ -8,8 +8,9 @@ and the probes' kernels (`armon_torch/probes/`): the mirror fill, copy
 and I/O ladder (`probe_stream.cu`), the sweep chain in f32, f64 and
 float-float (`probe_ff.cu`, `chain.cuh`), the per-class rate chains
 (`probe_rates.cu`), K4's measurement variants (`probe_cycle.cu`) and K5
-as one thread-block cluster (`probe_cluster.cu`, `cluster.cuh`), and
-the whole-run graph's WHILE node with its condition kernel (`graph.cu`).
+as one thread-block cluster (`probe_cluster.cu`, `cluster.cuh`),
+the whole-run graph's WHILE node with its condition kernel (`graph.cu`),
+and K6, the f32 conservation sums (`reduce.cu`).
 The sources are compiled in
 parallel (one nvcc each) on first use, into ``build/armon_torch/`` at the
 root of the checkout, under a name that hashes the sources and flags, so
@@ -47,7 +48,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "armon_torch")
 SOURCES = ("sweep_f32.cu", "sweep_f64.cu", "cfl.cu", "cycle_f32.cu",
            "cycle_f64.cu", "multicycle_f32.cu", "multicycle_f64.cu",
            "probe_stream.cu", "probe_ff.cu", "probe_rates.cu",
-           "probe_cycle.cu", "probe_cluster.cu", "graph.cu")
+           "probe_cycle.cu", "probe_cluster.cu", "graph.cu", "reduce.cu")
 HEADERS = ("common.cuh", "sweep.cuh", "cycle.cuh", "cluster.cuh", "chain.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -191,6 +192,14 @@ class ChainArgs(ctypes.Structure):
                 ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong)]
 
 
+class FfSumArgs(ctypes.Structure):
+    """Mirror of `armon::FfSumArgs` (csrc/reduce.cu)."""
+    _fields_ = [("rho", ctypes.c_void_p), ("E", ctypes.c_void_p),
+                ("rows", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("ticket", ctypes.c_void_p), ("cols", ctypes.c_longlong),
+                ("g", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int)]
+
+
 class IoArgs(ctypes.Structure):
     """Mirror of `armon::probe::IoArgs` (csrc/probe_stream.cu)."""
     _fields_ = [("f", ctypes.c_void_p * 4), ("p", ctypes.c_void_p),
@@ -289,6 +298,9 @@ def load():
             fn = getattr(libs[stem], name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        fn = libs["reduce"].armon_ff_sum
+        fn.argtypes = [ctypes.POINTER(FfSumArgs), vp]
+        fn.restype = ctypes.c_int
         pp = ctypes.POINTER(vp)
         for name, args in (("armon_while_build", [vp, vp, vp, pp, pp]),
                            ("armon_while_launch", [vp, vp]),
@@ -456,6 +468,32 @@ def while_launch(exe, device):
 def while_destroy(graph, exe):
     _check_status(load()["graph"].armon_while_destroy(graph, exe),
                   "whole-run graph destroy")
+
+
+def launch_ff_sum(cfg, rho, E, n_real, rows, out, ticket):
+    """Launch K6 `ff_sum` on the current stream: the f32 compensated sums
+    of the `n_real` = (nx, ny) real cells' rho and rho*E into `out` (4,),
+    with `rows` (4, >= ny) and `ticket` (int32, 0) as scratch."""
+    dev = rho.device
+    nx, ny = n_real
+    g = cfg.nghost
+    shape = tuple(rho.shape)
+    if len(shape) != 2 or tuple(E.shape) != shape or g + ny > shape[0] \
+            or g + nx > shape[1]:
+        solver_error("config", f"ff_sum: rho and E must be one padded block "
+                               f"holding {nx}x{ny} real cells and {g} ghosts; "
+                               f"got {shape} and {tuple(E.shape)}")
+    for t, what in ((rho, "rho"), (E, "E")):
+        _require(t, torch.float32, dev, t.numel(), what)
+    _require(rows, torch.float32, dev, 4 * ny, "ff_sum rows")
+    _require(out, torch.float32, dev, 4, "ff_sum out")
+    _require(ticket, torch.int32, dev, 1, "ff_sum ticket")
+    a = FfSumArgs()
+    a.rho, a.E = _ptr(rho), _ptr(E)
+    a.rows, a.out, a.ticket = _ptr(rows), _ptr(out), _ptr(ticket)
+    a.cols, a.g, a.nx, a.ny = shape[1], g, nx, ny
+    _check_status(_launch(load()["reduce"].armon_ff_sum, dev, ctypes.byref(a)),
+                  "ff_sum")
 
 
 def _set_common(a, cfg, src, dst, scal, iscal, grid, n_real):

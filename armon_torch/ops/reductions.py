@@ -59,10 +59,14 @@ def pmin_dt(dts, device):
 
 
 def _ff_sum(x):
-    """Compensated (Knuth 2Sum) sum of a 2D tensor: a vector 2Sum scan over
-    the columns keeps one (hi, lo) pair per row, then a scalar 2Sum scan
-    combines the row sums. f64-grade accuracy in pure f32; the (hi, lo)
-    pair is combined on the host in f64 (`conservation_scalar`)."""
+    """Compensated (Knuth 2Sum) sum of a 2D tensor, the plain version of K6
+    `ff_sum` (`csrc/reduce.cu`) and the order it holds to: a vector 2Sum
+    scan over the columns keeps one (hi, lo) pair per row, as the JAX
+    package's `lax.scan` does; then a scalar 2Sum scan combines the row
+    sums in row order, and the rows' lo terms are added to the low word as
+    one sum taken in row order, sequentially in T from 0. f64-grade
+    accuracy in pure f32; the (hi, lo) pair is combined on the host in f64
+    (`conservation_scalar`)."""
     def two_sum(hi, lo, b):
         t = hi + b
         bp = t - hi
@@ -73,31 +77,80 @@ def _ff_sum(x):
     lo = torch.zeros_like(hi)
     for i in range(x.shape[1]):
         hi, lo = two_sum(hi, lo, x[:, i])
-    # The scalar scan in the same dtype on the host: numpy scalars round
+    # The scalar scans in the same dtype on the host: numpy scalars round
     # every operation to T exactly as the device would.
     T = np.float64 if x.dtype == torch.float64 else np.float32
-    h = l = T(0.0)
-    for b in hi.cpu().numpy():
-        t = h + b
-        bp = t - h
-        err = (h - (t - bp)) + (b - bp)
-        h, l = t, l + err
-    return np.array([h, l + T(lo.sum().item())], dtype=T)
+    h = l = L = T(0.0)
+    with np.errstate(invalid="ignore", over="ignore"):  # inf and NaN carry
+        for b, c in zip(hi.cpu().numpy(), lo.cpu().numpy()):
+            h, l = two_sum(h, l, b)
+            L = L + c
+        return np.array([h, l + L], dtype=T)
 
 
-def conservation_vars(cfg, rho, E, n_real=None):
+def ff_sum_plain(cfg, rho, E, n_real=None):
+    """K6's plain version: (h_m, l_m, h_e, l_e), the compensated sums of
+    the real cells' rho and rho * E (`_ff_sum`), as one float32 array."""
+    r = real_slice(cfg, n_real)
+    rho = rho[r]
+    return np.concatenate([_ff_sum(rho), _ff_sum(rho * E[r])])
+
+
+class FfScratch:
+    """K6's scratch for a shard of `ny` real rows on `device`: the per-row
+    pairs (4, ny), the ticket (0 between launches: the kernel resets it)
+    and the output (4,). Made once per shard and kept
+    (`core/solver.make_conservation`): 16 bytes a row and 20 more."""
+    __slots__ = ("rows", "ticket", "out")
+
+    def __init__(self, ny, device):
+        self.rows = torch.empty((4, ny), dtype=torch.float32, device=device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        self.out = torch.empty(4, dtype=torch.float32, device=device)
+
+
+def ff_sum(cfg, rho, E, n_real=None, scratch=None):
+    """The f32 conservation sums of one shard as one host float32 array
+    (h_m, l_m, h_e, l_e): for CUDA tensors K6 `ff_sum` (one launch for
+    both fields, then one host read; `scratch` an `FfScratch` of the
+    shard's rows on its device, made here where None), for CPU tensors its
+    plain version. The two give the same bits. Replaces no TPU kernel: the
+    `lax.scan` of `_ff_sum` (`armon_tpu/ops/reductions.py:108-130`)."""
+    if rho.device.type != "cuda":
+        return ff_sum_plain(cfg, rho, E, n_real)
+    from . import _build
+    from .sweep import LAUNCHES
+    nx, ny = n_real or cfg.n_local
+    if scratch is None:
+        scratch = FfScratch(ny, rho.device)
+    _build.launch_ff_sum(cfg, rho, E, (nx, ny), scratch.rows, scratch.out,
+                         scratch.ticket)
+    LAUNCHES["ff_sum"] += 1
+    return scratch.out.cpu().numpy()
+
+
+def conservation_vars(cfg, rho, E, n_real=None, scratch=None):
     """(total mass, total energy) over real cells
     (`src/reductions.jl:202-216,254-258`). f64: ds-scaled scalars. f32:
-    unscaled compensated (hi, lo) pairs; combine with
-    `conservation_scalar`."""
+    unscaled compensated (hi, lo) pairs (`ff_sum`, one host read for
+    both; `scratch` as there); combine with `conservation_scalar`."""
+    if np.dtype(cfg.dtype).itemsize == 4:
+        v = ff_sum(cfg, rho, E, n_real, scratch)
+        return v[:2], v[2:]
     T = np.dtype(cfg.dtype).type
     r = real_slice(cfg, n_real)
     rho = rho[r]
-    rhoE = rho * E[r]
-    if np.dtype(cfg.dtype).itemsize == 4:
-        return _ff_sum(rho), _ff_sum(rhoE)
     ds = float(T(cfg.dx) * T(cfg.dy))
-    return torch.sum(rho) * ds, torch.sum(rhoE) * ds
+    return torch.sum(rho) * ds, torch.sum(rho * E[r]) * ds
+
+
+def conservation_values(cfg, rho, E, n_real=None, scratch=None):
+    """(mass, energy) of one shard as host f64 floats, from one host read
+    (`conservation_vars`, then `conservation_scalar`)."""
+    m, e = conservation_vars(cfg, rho, E, n_real, scratch)
+    if isinstance(m, torch.Tensor):
+        m, e = torch.stack([m, e]).tolist()
+    return conservation_scalar(cfg, m), conservation_scalar(cfg, e)
 
 
 def conservation_scalar(cfg, v) -> float:

@@ -74,12 +74,12 @@ X_WINDOW, X_WARPS, X_WINDOWS_PER_WARP, X_MIN_BLOCKS = 128, 8, 8, 2048
 Y_ROWS, Y_ROWS_MIN, Y_THREADS, Y_MIN_BLOCKS = 128, 32, 128, 512
 
 # Launches made on the card, by kernel (K4/K5's wrappers are in
-# `ops/cycle.py`). Counted where the wrapper launches, and nowhere else; a
-# launch that splices a neighbour's slab on either side counts under the
-# kernel's slab variant.
+# `ops/cycle.py`, K6's in `ops/reductions.py`). Counted where the wrapper
+# launches, and nowhere else; a launch that splices a neighbour's slab on
+# either side counts under the kernel's slab variant.
 LAUNCHES = {"x_sweep": 0, "y_sweep": 0, "cfl_finish": 0, "cycle": 0,
             "multicycle": 0, "x_sweep_slab": 0, "y_sweep_slab": 0,
-            "cycle_slab": 0}
+            "cycle_slab": 0, "ff_sum": 0}
 # Launches above that carried K3's tail (`Finish`), by the tail's name: a
 # tail is not a launch of its own, so it is not in LAUNCHES.
 TAILS = {"cfl_tail": 0}

@@ -482,6 +482,11 @@ class ArmonParameters:
           and on a mesh that gathers the global State (`return_data`,
           `write_slices`, a global `write_output`), the shards' States and
           the global one on the first device;
+        - `per_device_conservation_bytes`, in both totals: the scratch K6
+          `ff_sum` keeps for each f32 shard on a card (16 bytes a real
+          row and 20 more, `ops/reductions.FfScratch`), which the program
+          cache keeps with the conservation function; 0 on the CPU, whose
+          sums are the plain version's, and in f64;
         - `per_device_loop_bytes`: the time loop's fields and slabs on the
           path this run takes (22 fields a shard on the op path)."""
         from .ops import cycle as C, sweep as K
@@ -501,13 +506,16 @@ class ArmonParameters:
                  C.n_partials(shape, dev0, cfg.dtype)
                  if cycle_route(cfg) == "pair" else 0)
         n_state = len(State._fields)
-        shards, halo = {}, {}
+        shards, halo, cons = {}, {}, {}
         for s in Mesh.of(self).local:
             ix, iy = s.ix, s.iy
             slabs = ((ix > 0) + (ix < px - 1)) * rows * g \
                 + ((iy > 0) + (iy < py - 1)) * g * cols
             shards[s.device] = shards.get(s.device, 0) + 1
             halo[s.device] = halo.get(s.device, 0) + 4 * slabs * itemsize
+            cons[s.device] = cons.get(s.device, 0) + (
+                16 * s.n_real[1] + 20
+                if itemsize == 4 and s.device.type == "cuda" else 0)
         rebuild = self.return_data or self.write_output or self.write_slices
         gather = len(self.devices) > 1 and (
             self.return_data or self.write_slices
@@ -517,8 +525,8 @@ class ArmonParameters:
         op, fused = {}, {}
         for dev, k in shards.items():
             op[dev] = (2 * n_state * k + OP_PATH_PEAK_FIELDS
-                       - 2 * n_state) * field
-            loop = 9 * k * field + halo[dev] + (
+                       - 2 * n_state) * field + cons[dev]
+            loop = 9 * k * field + halo[dev] + cons[dev] + (
                 2 * px * py * nb * itemsize if dev == dev0 else 0)
             fields = max(5 * (k - 1) + KERNEL_INIT_PEAK_FIELDS,
                          10 * (k - 1) + REHYDRATE_PEAK_FIELDS if rebuild
@@ -534,6 +542,7 @@ class ArmonParameters:
             "per_device_state_bytes": state,
             "per_device_transient_bytes": total - state,
             "per_device_halo_bytes": max(halo.values()),
+            "per_device_conservation_bytes": max(cons.values()),
             "per_device_total_bytes": total,
             "per_device_fused_total_bytes": max(fused.values()),
             "per_device_loop_bytes": max(

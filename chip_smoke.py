@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-16, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-17, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
@@ -22,6 +22,8 @@
                                           # run beside (b)'s)
     python3 chip_smoke.py --phases 0,16   # loops kept across calls ((d) needs
                                           # two cards)
+    python3 chip_smoke.py --phases 0,17   # the conservation kernel K6 (add 3
+                                          # for its main-path launches)
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), torch's version and its
@@ -80,7 +82,7 @@ Phases, each printing one JSON line:
      against pair at 256^2-8192^2, K1/K2/K4 times at 8192^2, pair against
      multicycle on small grids;
   6. the per-kernel summary line (the eight solver kernels, K3's tail,
-     the probe kernels and `while_cond`; printed last);
+     the probe kernels, `while_cond` and K6 `ff_sum`; printed last);
   7. domain-decomposed runs (P != (1, 1)), every shard on cuda:0: the slab
      variants of K1/K2 (X/Y slabs, a 3x3 mesh of 1024^2 shards) and of K4
      (Y slabs with the X mirror after the splice, corner cells, a 1x3
@@ -284,9 +286,33 @@ Phases, each printing one JSON line:
      one card a line says it did not run; (e) ROADMAP A8 at the default:
      the per-cycle driver with its kept one-cycle graphs at `silent` 0
      and 1, Sod 8192^2 (20 cycles) and 100^2 (400), us a cycle of a warm
-     run beside the lean loop's, host reads a cycle. Its launches go to
-     the `kernels` line's `launches_phase16`. Each phase's kept loops are
-     dropped after it.
+     run beside the lean loop's, host reads a cycle, K6's launches a cycle
+     (one a shard a cycle and one at init in f32), and no call of the
+     plain column loop on a CUDA tensor. Its launches go to the `kernels`
+     line's `launches_phase16`. Each phase's kept loops are dropped after
+     it;
+ 17. the f32 conservation sums as K6 `ff_sum` (`armon_torch/csrc/
+     reduce.cu`, the port of the `lax.scan` of the JAX package's
+     `_ff_sum`): (a) K6 against its plain version on CPU copies, bit for
+     bit, on the final states of 20-cycle lean runs of Sod 8192^2 (fast
+     math), Sod 100^2 and Sedov 2000^2 (fast math and exact), on each
+     shard of Sod 1000^2 over 3x1 on one card (its real cells), on random
+     blocks of 1 x 5000, 5000 x 1 and 1 x 1 real cells, and on Sod 100^2
+     with an inf and a NaN in rho, twice on one scratch (its ticket back
+     at 0); (b) K6 at 8192^2, 2000^2 and 100^2 by the shared timer, and
+     on one column of as many rows (its second stage, the scan of the
+     row sums, nearly alone), its bound, the plain version on the card
+     (one pass) and `torch.sum(rho)
+     + torch.sum(rho * E)` over the same cells (a yardstick, not the same
+     function); (c) the timer's `conservation_vars` section of `armon()`
+     of Sod 8192^2 f32 with `check_result`, a cold and a warm call (two
+     K6 launches a run); (d) phase 16 (e) in f64 (`torch.sum`): the
+     per-cycle driver at `silent` 1 beside the lean loop, Sod 8192^2 and
+     100^2; (e) the per-cycle driver's printed lines and initial mass and
+     energy with K6 against the same run on the plain version, equal
+     (Sod 100^2, and Sod 1000^2 over 3x1 on one card). K6's entry joins
+     the `kernels` line (its launches phase 3's, two a run); the paths'
+     launches of (c)-(e) go to the line's `launches_phase17`.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -1027,6 +1053,7 @@ def phase3(torch):
     emit(main)
     return kernels + [{"cells_per_s": main["cells_per_s"],
                        "kernel_ms": main["kernel_ms"], "while_cond": conds,
+                       "ff_sum_launches": counts["ff_sum"],
                        "memory": {"peak": peak, "before": before}}]
 
 
@@ -4272,37 +4299,64 @@ def _p16_armon_twice(torch):
             "forms": [g_a["form"], g_b["form"]], "bitwise": True}
 
 
-def _p16_driver(torch):
+def _p16_driver(torch, dtype="float32", silents=(5, 0, 1)):
     """(e) the per-cycle driver with its kept one-cycle window graphs at
-    `silent` 0 and 1, Sod 8192^2 and 100^2 (f32 fast math), a warm-up
-    run then a timed one, beside the lean loop's warm run: us a cycle,
-    host reads a cycle, captures in the timed run."""
+    `silent` 0 and 1, Sod 8192^2 and 100^2 (f32 fast math; phase 17 (d)
+    runs it in f64), a warm-up run then a timed one, beside the lean
+    loop's warm run (`silent` 5): us a cycle, host reads a cycle, captures
+    in the timed run, K6 `ff_sum`'s launches a cycle (in f32 one a shard
+    a cycle and one at init, none in f64 or in the lean run), and no call
+    of the plain column loop (`ops/reductions._ff_sum`) on a CUDA tensor."""
     import contextlib
     import io
     from armon_torch import ArmonParameters, armon
     from armon_torch.core import graphs as G
+    from armon_torch.ops import reductions as R
+    from armon_torch.ops import sweep as K
+    plain = R._ff_sum
+    on_card = []
+
+    def spy(x):
+        if x.device.type == "cuda":
+            on_card.append(tuple(x.shape))
+        return plain(x)
     rows = []
-    for n, cycles in A8_CYCLES.items():
-        base = dict(SMALL_OPTS, test="Sod", N=(n, n), maxcycle=cycles)
-        row = {"cell": f"Sod {n}^2", "cycles": cycles}
-        for silent in (5, 0, 1):
-            out = []
-            for _ in range(2):
-                with contextlib.redirect_stdout(io.StringIO()):
-                    G.reset_stats()
-                    st = armon(ArmonParameters(**{**base, "silent": silent}))
-                out.append((st, dict(G.STATS)))
-            st, g = out[1]
-            key = "lean" if silent == 5 else f"silent_{silent}"
-            row[key] = {"cycle_us": st.solve_time / st.cycles * 1e6,
-                        "host_reads_per_cycle": st.host_reads / st.cycles,
-                        "captures": g["graphs"], "form": g["form"],
-                        "cold_cycle_us": out[0][0].solve_time
-                        / out[0][0].cycles * 1e6}
-            if g["graphs"]:
-                raise AssertionError(f"(e) Sod {n}^2 silent={silent}: the "
-                                     f"warm run captured {g['graphs']}")
-        rows.append(row)
+    R._ff_sum = spy
+    try:
+        for n, cycles in A8_CYCLES.items():
+            base = dict(SMALL_OPTS, test="Sod", N=(n, n), maxcycle=cycles,
+                        data_type=dtype)
+            row = {"cell": f"Sod {n}^2 {dtype}", "cycles": cycles}
+            for silent in silents:
+                out = []
+                for _ in range(2):
+                    before = K.LAUNCHES["ff_sum"]
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        G.reset_stats()
+                        st = armon(ArmonParameters(**{**base, "silent": silent}))
+                    out.append((st, dict(G.STATS),
+                                K.LAUNCHES["ff_sum"] - before))
+                st, g, ff = out[1]
+                key = "lean" if silent == 5 else f"silent_{silent}"
+                row[key] = {"cycle_us": st.solve_time / st.cycles * 1e6,
+                            "host_reads_per_cycle": st.host_reads / st.cycles,
+                            "captures": g["graphs"], "form": g["form"],
+                            "ff_sum_per_cycle": ff / st.cycles,
+                            "cold_cycle_us": out[0][0].solve_time
+                            / out[0][0].cycles * 1e6}
+                if g["graphs"]:
+                    raise AssertionError(f"(e) Sod {n}^2 silent={silent}: the "
+                                         f"warm run captured {g['graphs']}")
+                want = st.cycles + 1 if silent <= 1 and dtype == "float32" else 0
+                if ff != want:
+                    raise AssertionError(f"(e) Sod {n}^2 {dtype} silent="
+                                         f"{silent}: {ff} ff_sum launches, "
+                                         f"{want} expected")
+            rows.append(row)
+    finally:
+        R._ff_sum = plain
+    if on_card:
+        raise AssertionError(f"the plain column loop ran on the card: {on_card}")
     return rows
 
 
@@ -4419,18 +4473,239 @@ def phase16(torch):
     for name, n in launches.items():
         total[name] = total.get(name, 0) + n
     emit({"phase": 16, "card": card, **line})
+    from armon_torch.ops import sweep as K
+    before = {**K.LAUNCHES, **K.TAILS}
     emit({"phase": 16, "card": card, "per_cycle_driver": _p16_driver(torch)})
+    for name, n in {**K.LAUNCHES, **K.TAILS}.items():
+        total[name] = total.get(name, 0) + n - before[name]
     clear_cache()
     emit({"phase": 16, "seconds": time.perf_counter() - t0})
     return total
 
 
+# ------------------------------------------- the conservation kernel (K6)
+
+P17_CYCLES = 20
+# (a): the lean runs whose final states K6 is held on, (test, edge, the
+# fast-math settings).
+P17_STATES = (("Sod", MAIN_N, (True,)), ("Sod", SOD_N, (True, False)),
+              ("Sedov", SEDOV_N, (True, False)))
+P17_SPLIT = ((3, 1), 1000)  # an uneven split on one card (334, 334, 332)
+P17_STRIPS = ((1, 5000), (5000, 1), (1, 1))  # real (nx, ny) of random blocks
+P17_LINES = (("Sod 100^2", dict(test="Sod", N=(SOD_N, SOD_N)), 30),
+             ("Sod 1000^2 over 3x1 on one card, exact",
+              dict(test="Sod", N=(1000, 1000), use_fast_math=False,
+                   **_one_card((3, 1))), 10))
+FF_OPS_PER_CELL = 13  # two 2Sums of 6 adds and one multiply
+
+
+def _ff_check(torch, cfg, rho, E, n_real, what, scratch=None):
+    """K6 against its plain version on CPU copies of the same tensors, bit
+    for bit (a NaN equals any NaN: the card's NaN payload is not the
+    CPU's)."""
+    import numpy as np
+    from armon_torch.ops.reductions import ff_sum, ff_sum_plain
+    got = ff_sum(cfg, rho, E, n_real, scratch)
+    want = ff_sum_plain(cfg, rho.cpu(), E.cpu(), n_real)
+    nan = np.isnan(got)
+    if not (np.array_equal(nan, np.isnan(want)) and np.array_equal(
+            got[~nan].view(np.uint32), want[~nan].view(np.uint32))):
+        raise AssertionError(f"ff_sum, {what}: {got.tolist()} against the "
+                             f"plain version's {want.tolist()}")
+    return {"case": what, "n_real": list(n_real or cfg.n_local),
+            "values": got.tolist(), "bitwise": True}
+
+
+def _p17_states(torch):
+    """(a) K6 on the final states of 20-cycle lean runs, on each shard of
+    an uneven split, on one-row and one-column blocks, and on a field
+    holding an inf and a NaN (twice on one scratch: the ticket resets).
+    Returns the checks and the states (b) times it on."""
+    import numpy as np
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.ops.reductions import FfScratch
+    checks, states = [], {}
+    for test, n, fasts in P17_STATES:
+        for fast in fasts:
+            params = ArmonParameters(**dict(
+                SMALL_OPTS, test=test, N=(n, n), maxcycle=P17_CYCLES,
+                use_fast_math=fast, return_data=True))
+            st = armon(params).data
+            what = f"{test} {n}^2 after {P17_CYCLES} cycles, " + \
+                ("fast math" if fast else "exact")
+            checks.append(_ff_check(torch, params.config, st.rho, st.E, None,
+                                    what))
+            if fast:
+                states[n] = (params.config, st.rho, st.E)
+            del st
+    P, n = P17_SPLIT
+    cfg, mesh, res, _ = _mesh_mid_state(torch, "Sod", (n, n), P, "float32",
+                                        True, cycles=P17_CYCLES)
+    for shard, f in zip(mesh.local, res.carry):
+        checks.append(_ff_check(torch, cfg, f.rho, f.E, shard.n_real,
+                                f"shard {shard.ix},{shard.iy} of Sod {n}^2 "
+                                f"over {P[0]}x{P[1]}"))
+    del res
+    cfg, rho, E = states[SOD_N]
+    g = cfg.nghost
+    rng = np.random.default_rng(17)
+    for nx, ny in P17_STRIPS:
+        a, b = (torch.from_numpy(rng.random((ny + 2 * g, nx + 2 * g),
+                                            dtype=np.float32)).cuda()
+                for _ in range(2))
+        checks.append(_ff_check(torch, cfg, a, b, (nx, ny),
+                                f"random block of {nx}x{ny} real cells"))
+    nx, ny = cfg.n_local
+    bad = rho.clone()
+    bad[g + 3, g + 7] = float("inf")
+    bad[g + ny // 2, g + nx // 5] = float("nan")
+    scratch = FfScratch(cfg.n_local[1], rho.device)
+    for i in range(2):
+        checks.append(_ff_check(torch, cfg, bad, E, None, f"Sod {SOD_N}^2 "
+                                f"with an inf and a NaN in rho, call {i + 1}",
+                                scratch))
+    if int(scratch.ticket.item()) != 0:
+        raise AssertionError("ff_sum left its ticket set")
+    return checks, states
+
+
+def _p17_times(torch, states):
+    """(b) K6 at each state's shape by the shared timer, and on one column
+    of as many rows (the second stage nearly alone), its bound, the
+    plain version on the card (one pass) and `torch.sum(rho) +
+    torch.sum(rho * E)` over the same real cells (a byte-rate yardstick:
+    not the same function)."""
+    from armon_torch.ops import _build
+    from armon_torch.ops.reductions import FfScratch, ff_sum_plain, real_slice
+    rows = {}
+    for n, (cfg, rho, E) in sorted(states.items(), reverse=True):
+        nx, ny = cfg.n_local
+        sc = FfScratch(ny, rho.device)
+        ms = time_ms(lambda i: _build.launch_ff_sum(
+            cfg, rho, E, (nx, ny), sc.rows, sc.out, sc.ticket), k=20)
+        plain_ms = time_ms(lambda i: ff_sum_plain(cfg, rho, E), k=1, passes=1)
+        r = real_slice(cfg)
+        rr, er = rho[r], E[r]
+        sum_ms = time_ms(lambda i: torch.sum(rr) + torch.sum(rr * er), k=20)
+        b_ms, b_by = bound(2 * nx * ny * 4 + 16,
+                           {"float32": FF_OPS_PER_CELL * nx * ny})
+        # Stage 2 nearly alone: the same rows, one column each.
+        one = time_ms(lambda i: _build.launch_ff_sum(
+            cfg, rho, E, (1, ny), sc.rows, sc.out, sc.ticket), k=20)
+        rows[n] = {"N": n, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "of_bound": b_ms / ms if ms else None,
+                   "plain_ms_on_the_card": plain_ms,
+                   "torch_sum_ms": sum_ms, "one_column_ms": one}
+    return rows
+
+
+def _p17_section(torch, count):
+    """(c) `armon()` of Sod 8192^2 f32 fast math, `check_result`, `silent`
+    5: the timer's `conservation_vars` section (the init check; the
+    final check runs the same function, untimed), twice: the first call
+    builds the conservation function and its scratch, the second finds
+    them in the program cache."""
+    from armon_torch import ArmonParameters, armon
+    out = []
+    for i in range(2):
+        st, counts = count.path(
+            f"(c) call {i + 1}", lambda: armon(ArmonParameters(**dict(
+                SMALL_OPTS, test="Sod", N=(MAIN_N, MAIN_N),
+                maxcycle=P17_CYCLES, check_result=True))), ("ff_sum",))
+        if counts["ff_sum"] != 2:
+            raise AssertionError(f"(c): {counts['ff_sum']} ff_sum launches")
+        out.append({"conservation_vars_s":
+                    st.timer["conservation_vars"]["seconds"],
+                    "init_s": st.timer["init"]["seconds"],
+                    "ff_sum_launches": counts["ff_sum"]})
+    return out, counts["ff_sum"]
+
+
+def _p17_lines(torch, count):
+    """(e) the per-cycle driver's printed lines and the run's initial mass
+    and energy with K6 against the same run whose sums take the plain
+    version (on CPU copies): equal, character for character."""
+    import contextlib
+    import io
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core import solver
+    real = solver.conservation_values
+
+    def on_cpu(cfg, rho, E, n_real=None, scratch=None):
+        return real(cfg, rho.cpu(), E.cpu(), n_real)
+    out = []
+    for what, opts, cycles in P17_LINES:
+        got = []
+        for plain in (False, True):
+            solver.conservation_values = on_cpu if plain else real
+            buf = io.StringIO()
+            params = ArmonParameters(**dict(SMALL_OPTS, silent=1,
+                                            maxcycle=cycles, **opts))
+            try:
+                with contextlib.redirect_stdout(buf):
+                    if plain:
+                        count.quiet(lambda: armon(params))
+                    else:
+                        count.path(what, lambda: armon(params), ("ff_sum",))
+            finally:
+                solver.conservation_values = real
+            lines = [x for x in buf.getvalue().splitlines()
+                     if x.startswith("Cycle ")]
+            got.append((lines, params.initial_mass, params.initial_energy))
+        if got[0] != got[1] or len(got[0][0]) != cycles:
+            raise AssertionError(f"(e) {what}: the lines with K6 differ from "
+                                 f"the plain version's")
+        out.append({"case": what, "lines": len(got[0][0]),
+                    "last_line": got[0][0][-1], "bitwise": True})
+    return out
+
+
+def phase17(torch, rates):
+    """The f32 conservation sums as K6 `ff_sum` (see the module doc).
+    Returns its `kernels` entry and phase 17's launches by kernel."""
+    from armon_torch.core.solver import clear_cache
+    t0 = time.perf_counter()
+    card = card_line()
+    count = _Counted(torch)
+    checks, states = _p17_states(torch)
+    emit({"phase": 17, "card": card, "bitwise": checks})
+    times = _p17_times(torch, states)
+    emit({"phase": 17, "card": card, "times": times})
+    del states
+    clear_cache()
+    section, ff_c = _p17_section(torch, count)
+    emit({"phase": 17, "card": card, "conservation_vars_section": section})
+    clear_cache()
+    driver, _ = count.path("(d) f64", lambda: _p16_driver(torch, "float64",
+                                                          (5, 1)), ())
+    emit({"phase": 17, "card": card, "per_cycle_driver_f64": driver})
+    clear_cache()
+    emit({"phase": 17, "card": card, "lines": _p17_lines(torch, count)})
+    clear_cache()
+    emit({"phase": 17, "seconds": time.perf_counter() - t0})
+    main = times[MAIN_N]
+    launches = rates.get("main", {}).get("ff_sum_launches")
+    entry = {"name": "ff_sum", "route": "cuda",
+             "source": "armon_torch/csrc/reduce.cu",
+             "replaces": "armon_tpu/ops/reductions.py:108",
+             "launches": ff_c if launches is None else launches,
+             "max_abs_err": 0.0, "ms": main["ms"],
+             "plain_ms": main["plain_ms_on_the_card"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": None,
+             "launches_from": "phase 3" if launches is not None else
+             "phase 17 (c)",
+             "torch_sum_ms": main["torch_sum_ms"]}
+    return entry, count.total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15,16",
+                    default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: all but "
-                         "the crossovers, 5)")
+                         "the crossovers, 5; 17 is the conservation kernel "
+                         "K6)")
     ap.add_argument("--mp-worker", nargs=4, metavar=("JOB", "RANK", "PORT",
                                                      "DIR"),
                     help=argparse.SUPPRESS)  # phases 12 and 15's workers
@@ -4523,6 +4798,14 @@ def main(argv=None):
         p16 = phase16(torch)
         for entry in kernels:
             entry["launches_phase16"] = p16.get(entry["name"], 0)
+        clear_cache()
+    if 17 in phases:
+        # K6: its entry, then every entry's launches in phase 17's paths.
+        entry, p17 = phase17(torch, rates)
+        entry["launches_phase16"] = p16.get("ff_sum", 0) if 16 in phases else 0
+        kernels.append(entry)
+        for entry in kernels:
+            entry["launches_phase17"] = p17.get(entry["name"], 0)
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})
