@@ -20,6 +20,9 @@ HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = {"float32": 33.5e12, "float64": 17e12, "mufu": 33.5e12 / 8,
                   "lsu": 33.5e12 / 4}
 NOT_MEASURED = "not measured"
+# A chain of dependent f32 adds: 4 cycles each (the latency of FADD on
+# compute capability 9.0) at the H100 SXM's 1980 MHz top SM clock.
+ADD_CHAIN_S = 4 / 1.98e9
 
 
 def device_of(device):
@@ -88,6 +91,11 @@ def bound(nbytes, lane_ops=None):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = sum(n / LANE_OPS_PER_S[key] for key, n in (lane_ops or {}).items()) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def chain_ms(n_adds):
+    """The least ms of `n_adds` dependent f32 adds (`ADD_CHAIN_S` each)."""
+    return n_adds * ADD_CHAIN_S * 1e3
 
 
 def shown(ms):

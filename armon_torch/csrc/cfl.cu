@@ -78,6 +78,8 @@ extern "C" const char* armon_error_string(int code) {
     case -6: return "the card cannot place one cluster of this size and shared memory";
     case -7: return "the cluster plan does not cover the grid (probes/cluster.py plan)";
     case -8: return "the plan's shared memory is not what the kernel needs, or exceeds 227 KB";
+    case -9: return "the driver offers no cuTensorMapEncodeTiled (TMA descriptors)";
+    case -10: return "cuTensorMapEncodeTiled refused the block (K6's TMA descriptors)";
     default: break;
   }
   if (code < 0) return "argument rejected by the launcher";

@@ -299,7 +299,10 @@ def load():
             fn.argtypes = args
             fn.restype = ctypes.c_int
         fn = libs["reduce"].armon_ff_sum
-        fn.argtypes = [ctypes.POINTER(FfSumArgs), vp]
+        fn.argtypes = [ctypes.POINTER(FfSumArgs), vp, vp]
+        fn.restype = ctypes.c_int
+        fn = libs["reduce"].armon_ff_sum_maps
+        fn.argtypes = [ctypes.POINTER(FfSumArgs), ll, vp]
         fn.restype = ctypes.c_int
         pp = ctypes.POINTER(vp)
         for name, args in (("armon_while_build", [vp, vp, vp, pp, pp]),
@@ -470,10 +473,13 @@ def while_destroy(graph, exe):
                   "whole-run graph destroy")
 
 
-def launch_ff_sum(cfg, rho, E, n_real, rows, out, ticket):
+def launch_ff_sum(cfg, rho, E, n_real, rows, out, ticket, maps):
     """Launch K6 `ff_sum` on the current stream: the f32 compensated sums
     of the `n_real` = (nx, ny) real cells' rho and rho*E into `out` (4,),
-    with `rows` (4, >= ny) and `ticket` (int32, 0) as scratch."""
+    with `rows` (4, >= ny) and `ticket` (int32, 0) as scratch. The load
+    path is `reductions.ff_load_path`'s; on the TMA path the descriptors
+    come from `maps`, the shard's kept `FfMaps`."""
+    from .reductions import FF_MAPS_BYTES, ff_load_path, ff_map_key
     dev = rho.device
     nx, ny = n_real
     g = cfg.nghost
@@ -492,7 +498,16 @@ def launch_ff_sum(cfg, rho, E, n_real, rows, out, ticket):
     a.rho, a.E = _ptr(rho), _ptr(E)
     a.rows, a.out, a.ticket = _ptr(rows), _ptr(out), _ptr(ticket)
     a.cols, a.g, a.nx, a.ny = shape[1], g, nx, ny
-    _check_status(_launch(load()["reduce"].armon_ff_sum, dev, ctypes.byref(a)),
+    lib = load()["reduce"]
+    buf = None
+    if ff_load_path(shape[1], a.rho, a.E) == "tma":
+        def encode():
+            b = ctypes.create_string_buffer(FF_MAPS_BYTES)
+            _check_status(lib.armon_ff_sum_maps(ctypes.byref(a), shape[0], b),
+                          "ff_sum tensor maps")
+            return b
+        buf = maps.get(ff_map_key(rho, E), encode)
+    _check_status(_launch(lib.armon_ff_sum, dev, ctypes.byref(a), buf),
                   "ff_sum")
 
 

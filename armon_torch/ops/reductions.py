@@ -96,17 +96,61 @@ def ff_sum_plain(cfg, rho, E, n_real=None):
     return np.concatenate([_ff_sum(rho), _ff_sum(rho * E[r])])
 
 
+# K6's load paths: TMA takes a 16-byte aligned base and row stride; its box
+# coordinates take any element index, so the ghost width does not enter.
+FF_MAPS_BYTES = 256  # `armon::FfMaps`: two CUtensorMap of 128 bytes
+FF_MAPS_KEPT = 4     # descriptors a scratch keeps (a loop's buffer sets)
+
+
+def ff_load_path(cols, rho_ptr, E_ptr):
+    """K6's load path for a contiguous block of `cols` float32 columns at
+    these addresses: "tma" (bulk tensor copies) where the row stride and
+    both bases are 16-byte aligned, else "cp_async" (4-byte copies by
+    every lane; the same kernel, the same bits)."""
+    return "tma" if cols % 4 == 0 and rho_ptr % 16 == 0 and \
+        E_ptr % 16 == 0 else "cp_async"
+
+
+def ff_map_key(rho, E):
+    """What K6's TMA descriptors of rho and E encode: both addresses and
+    the block's shape. Equal keys give equal descriptors."""
+    return (rho.data_ptr(), E.data_ptr()) + tuple(rho.shape)
+
+
+class FfMaps:
+    """K6's encoded TMA descriptors, kept by a shard's `FfScratch` so that
+    a call whose tensors were seen before encodes nothing: up to
+    `FF_MAPS_KEPT` keys (`ff_map_key`; a loop alternates buffer sets), the
+    oldest dropped first."""
+    __slots__ = ("kept",)
+
+    def __init__(self):
+        self.kept = {}
+
+    def get(self, key, encode):
+        """The descriptors for `key`, from `encode()` where not kept."""
+        buf = self.kept.pop(key, None)
+        if buf is None:
+            buf = encode()
+            if len(self.kept) >= FF_MAPS_KEPT:
+                del self.kept[next(iter(self.kept))]
+        self.kept[key] = buf
+        return buf
+
+
 class FfScratch:
     """K6's scratch for a shard of `ny` real rows on `device`: the per-row
-    pairs (4, ny), the ticket (0 between launches: the kernel resets it)
-    and the output (4,). Made once per shard and kept
-    (`core/solver.make_conservation`): 16 bytes a row and 20 more."""
-    __slots__ = ("rows", "ticket", "out")
+    pairs (4, ny), the ticket (0 between launches: the kernel resets it),
+    the output (4,) and the kept TMA descriptors (`FfMaps`, host memory).
+    Made once per shard and kept (`core/solver.make_conservation`): 16
+    bytes a row and 20 more on the device."""
+    __slots__ = ("rows", "ticket", "out", "maps")
 
     def __init__(self, ny, device):
         self.rows = torch.empty((4, ny), dtype=torch.float32, device=device)
         self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
         self.out = torch.empty(4, dtype=torch.float32, device=device)
+        self.maps = FfMaps()
 
 
 def ff_sum(cfg, rho, E, n_real=None, scratch=None):
@@ -124,7 +168,7 @@ def ff_sum(cfg, rho, E, n_real=None, scratch=None):
     if scratch is None:
         scratch = FfScratch(ny, rho.device)
     _build.launch_ff_sum(cfg, rho, E, (nx, ny), scratch.rows, scratch.out,
-                         scratch.ticket)
+                         scratch.ticket, scratch.maps)
     LAUNCHES["ff_sum"] += 1
     return scratch.out.cpu().numpy()
 

@@ -299,10 +299,15 @@ Phases, each printing one JSON line:
      shard of Sod 1000^2 over 3x1 on one card (its real cells), on random
      blocks of 1 x 5000, 5000 x 1 and 1 x 1 real cells, and on Sod 100^2
      with an inf and a NaN in rho, twice on one scratch (its ticket back
-     at 0); (b) K6 at 8192^2, 2000^2 and 100^2 by the shared timer, and
+     at 0), and on the card test's blocks (`P17_ODD`: every row stride
+     modulo 4, ghosts 2, 4 and 5, an unaligned base, one row, one
+     column), positive, mixed and with an inf and a NaN, twice each,
+     failing unless both load paths (TMA and 4-byte copies) ran; (b) K6
+     at 8192^2, 2000^2 and 100^2 by the shared timer, its load path, and
      on one column of as many rows (its second stage, the scan of the
-     row sums, nearly alone), its bound, the plain version on the card
-     (one pass) and `torch.sum(rho)
+     row sums, nearly alone; stage 1 the difference), its bound (the
+     larger of bytes, operations and the chain of nx + ny dependent
+     adds), the plain version on the card (one pass) and `torch.sum(rho)
      + torch.sum(rho * E)` over the same cells (a yardstick, not the same
      function); (c) the timer's `conservation_vars` section of `armon()`
      of Sod 8192^2 f32 with `check_result`, a cold and a warm call (two
@@ -333,7 +338,7 @@ REF_DIR = os.path.join(HERE, "tests", "reference_data")
 
 sys.path.insert(0, HERE)
 try:  # the timing, bound and card line every timed row shares
-    from armon_torch._card import bound, card_line, emit, time_ms
+    from armon_torch._card import bound, card_line, chain_ms, emit, time_ms
 except ModuleNotFoundError as exc:  # alone, without its package: main exits 2
     if exc.name != "armon_torch":
         raise
@@ -4492,11 +4497,23 @@ P17_STATES = (("Sod", MAIN_N, (True,)), ("Sod", SOD_N, (True, False)),
               ("Sedov", SEDOV_N, (True, False)))
 P17_SPLIT = ((3, 1), 1000)  # an uneven split on one card (334, 334, 332)
 P17_STRIPS = ((1, 5000), (5000, 1), (1, 1))  # real (nx, ny) of random blocks
+# The card test's blocks (`tests/test_torch_conservation.py` ODD): block
+# (nx, ny) inside the ghosts, real (nx, ny), ghost width, base offset in
+# floats; every row stride modulo 4, ghosts 2, 4, 5, rows off K6's 16,
+# one row, one column, an unaligned base: both load paths.
+P17_ODD = (((1, 1), (1, 1), 4, 0), ((1, 70), (1, 70), 4, 0),
+           ((53, 1), (53, 1), 4, 0), ((129, 37), (129, 37), 4, 0),
+           ((1000, 334), (1000, 333), 4, 0), ((100, 100), (100, 100), 4, 0),
+           ((64, 64), (64, 64), 4, 0), ((130, 45), (130, 45), 2, 0),
+           ((101, 33), (101, 33), 5, 0), ((70, 17), (70, 17), 5, 0),
+           ((200, 16), (197, 15), 2, 0), ((1000, 1), (1000, 1), 2, 0),
+           ((4, 300), (1, 300), 2, 0), ((1, 300), (1, 300), 5, 0),
+           ((100, 100), (100, 100), 4, 1), ((1000, 1), (999, 1), 2, 3))
 P17_LINES = (("Sod 100^2", dict(test="Sod", N=(SOD_N, SOD_N)), 30),
              ("Sod 1000^2 over 3x1 on one card, exact",
               dict(test="Sod", N=(1000, 1000), use_fast_math=False,
                    **_one_card((3, 1))), 10))
-FF_OPS_PER_CELL = 13  # two 2Sums of 6 adds and one multiply
+FF_OPS_PER_CELL = 15  # two 2Sums of 7 adds and subtracts, the energy's multiply
 
 
 def _ff_check(torch, cfg, rho, E, n_real, what, scratch=None):
@@ -4566,36 +4583,85 @@ def _p17_states(torch):
                                 scratch))
     if int(scratch.ticket.item()) != 0:
         raise AssertionError("ff_sum left its ticket set")
+    checks += _p17_odd(torch)
     return checks, states
+
+
+def _p17_odd(torch):
+    """(a) the card test's blocks (`P17_ODD`), positive, mixed-sign and
+    with an inf and a NaN, each twice on one scratch, on the load path the
+    host picks (`ff_load_path`); fails unless both paths ran."""
+    import types
+    import numpy as np
+    from armon_torch.ops.reductions import FfScratch, ff_load_path
+    checks, paths = [], set()
+    rng = np.random.default_rng(18)
+    for block, real, g, off in P17_ODD:
+        shape = (block[1] + 2 * g, block[0] + 2 * g)
+        cfg = types.SimpleNamespace(nghost=g, n_local=real)
+        scratch = FfScratch(real[1], torch.device("cuda", 0))
+        for kind in ("positive", "mixed", "inf_nan"):
+            x = rng.random((2,) + shape) * 10.0 ** rng.integers(-3, 4, (2,) + shape)
+            if kind != "positive":
+                x[0] *= rng.choice([-1.0, 1.0], shape)
+            x = x.astype(np.float32)
+            if kind == "inf_nan":
+                x[0].flat[rng.integers(x[0].size)] = np.inf
+                x[0].flat[rng.integers(x[0].size)] = np.nan
+            buf = torch.empty((2, x[0].size + off), device="cuda")
+            rho, E = (buf[i, off:].view(shape) for i in range(2))
+            rho.copy_(torch.from_numpy(x[0]))
+            E.copy_(torch.from_numpy(x[1]))
+            path = ff_load_path(shape[1], rho.data_ptr(), E.data_ptr())
+            paths.add(path)
+            for i in range(2):
+                c = _ff_check(torch, cfg, rho, E, real,
+                              f"{kind} {block[0]}x{block[1]} block, real "
+                              f"{real[0]}x{real[1]}, {g} ghosts, base +{off}, "
+                              f"{path}, call {i + 1}", scratch)
+                if int(scratch.ticket.item()) != 0:
+                    raise AssertionError(f"ff_sum left its ticket set: {c}")
+                checks.append(c)
+    if paths != {"tma", "cp_async"}:
+        raise AssertionError(f"(a) took the load paths {sorted(paths)} only")
+    return checks
 
 
 def _p17_times(torch, states):
     """(b) K6 at each state's shape by the shared timer, and on one column
-    of as many rows (the second stage nearly alone), its bound, the
-    plain version on the card (one pass) and `torch.sum(rho) +
-    torch.sum(rho * E)` over the same real cells (a byte-rate yardstick:
-    not the same function)."""
+    of as many rows (the second stage nearly alone; stage 1 the
+    difference), its bound (the larger of the bytes and the chain of
+    nx + ny dependent adds the order keeps), the plain version on the card
+    (one pass) and `torch.sum(rho) + torch.sum(rho * E)` over the same
+    real cells (a byte-rate yardstick: not the same function)."""
     from armon_torch.ops import _build
-    from armon_torch.ops.reductions import FfScratch, ff_sum_plain, real_slice
+    from armon_torch.ops.reductions import (FfScratch, ff_load_path,
+                                            ff_sum_plain, real_slice)
     rows = {}
     for n, (cfg, rho, E) in sorted(states.items(), reverse=True):
         nx, ny = cfg.n_local
         sc = FfScratch(ny, rho.device)
         ms = time_ms(lambda i: _build.launch_ff_sum(
-            cfg, rho, E, (nx, ny), sc.rows, sc.out, sc.ticket), k=20)
+            cfg, rho, E, (nx, ny), sc.rows, sc.out, sc.ticket, sc.maps), k=20)
         plain_ms = time_ms(lambda i: ff_sum_plain(cfg, rho, E), k=1, passes=1)
         r = real_slice(cfg)
         rr, er = rho[r], E[r]
         sum_ms = time_ms(lambda i: torch.sum(rr) + torch.sum(rr * er), k=20)
-        b_ms, b_by = bound(2 * nx * ny * 4 + 16,
-                           {"float32": FF_OPS_PER_CELL * nx * ny})
+        flat_ms, flat_by = bound(2 * nx * ny * 4 + 16,
+                                 {"float32": FF_OPS_PER_CELL * nx * ny})
+        adds_ms = chain_ms(nx + ny)
+        b_ms, b_by = max((flat_ms, flat_by), (adds_ms, "operations"))
         # Stage 2 nearly alone: the same rows, one column each.
         one = time_ms(lambda i: _build.launch_ff_sum(
-            cfg, rho, E, (1, ny), sc.rows, sc.out, sc.ticket), k=20)
+            cfg, rho, E, (1, ny), sc.rows, sc.out, sc.ticket, sc.maps), k=20)
         rows[n] = {"N": n, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "flat_bound_ms": flat_ms, "chain_ms": adds_ms,
                    "of_bound": b_ms / ms if ms else None,
+                   "path": ff_load_path(rho.shape[1], rho.data_ptr(),
+                                        E.data_ptr()),
                    "plain_ms_on_the_card": plain_ms,
-                   "torch_sum_ms": sum_ms, "one_column_ms": one}
+                   "torch_sum_ms": sum_ms, "one_column_ms": one,
+                   "stage1_ms": ms - one}
     return rows
 
 
@@ -4693,6 +4759,9 @@ def phase17(torch, rates):
              "plain_ms": main["plain_ms_on_the_card"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
              "library_ms": None,
+             "bound_by_size": {n: "the chain of nx + ny adds" if
+                               t["chain_ms"] >= t["flat_bound_ms"] else
+                               t["bound_by"] for n, t in times.items()},
              "launches_from": "phase 3" if launches is not None else
              "phase 17 (c)",
              "torch_sum_ms": main["torch_sum_ms"]}

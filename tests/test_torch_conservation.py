@@ -21,6 +21,8 @@ tests/test_torch_conservation.py`. The JAX package is imported inside the
 tests that compare with it.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -31,8 +33,8 @@ from armon_torch.core.solver import make_conservation, make_init_fused
 from armon_torch.core.step import make_time_loop_lean
 from armon_torch.ops import sweep as K
 from armon_torch.ops.reductions import (
-    FfScratch, _ff_sum, conservation_scalar, conservation_vars, ff_sum,
-    ff_sum_plain)
+    FF_MAPS_KEPT, FfScratch, _ff_sum, conservation_scalar, conservation_vars,
+    ff_load_path, ff_map_key, ff_sum, ff_sum_plain, real_slice)
 
 ENERGY_HI_ULPS = 0
 SHAPES = [(1, 1), (1, 9), (7, 1), (37, 129), (100, 100)]
@@ -168,36 +170,150 @@ def test_conservation_is_kept_across_calls():
     assert not solver._FN_CACHE
 
 
+# ------------------------------------------------- K6's load paths (host)
+
+@pytest.mark.parametrize("cols,rho_off,E_off,path", [
+    (108, 0, 0, "tma"), (1008, 256, 512, "tma"), (80, 16, 16, "tma"),
+    (137, 0, 0, "cp_async"), (134, 0, 0, "cp_async"), (111, 0, 0, "cp_async"),
+    (108, 4, 0, "cp_async"), (108, 0, 8, "cp_async"), (108, 12, 12, "cp_async")],
+    ids=["cols%4=0", "cols%4=0-offsets", "cols%4=0-g5", "cols%4=1",
+         "cols%4=2", "cols%4=3", "rho+4", "E+8", "both+12"])
+def test_ff_load_path(cols, rho_off, E_off, path):
+    """K6's load path is a pure function of the row stride and the two
+    base addresses: TMA where all three are 16-byte aligned, else the
+    4-byte copy path."""
+    base = 1 << 20
+    assert ff_load_path(cols, base + rho_off, base + (1 << 16) + E_off) == path
+
+
+def test_ff_map_key():
+    """The descriptors' key is both addresses and the block's shape: a
+    view of other rows, or another field, is another key."""
+    a, b = torch.zeros((12, 16)), torch.zeros((12, 16))
+    assert ff_map_key(a, b) == (a.data_ptr(), b.data_ptr(), 12, 16)
+    assert ff_map_key(a, b) == ff_map_key(a.view(12, 16), b)
+    assert ff_map_key(a[:8], b[:8]) != ff_map_key(a, b)
+    assert ff_map_key(b, a) != ff_map_key(a, b)
+
+
+def test_ff_maps_cache():
+    """A scratch's `FfMaps` encodes a key once while it is kept: a loop's
+    two buffer sets alternate without encoding, a fifth key drops the
+    least recently used one, which then encodes again."""
+    calls = []
+
+    def encoder(key):
+        return lambda: calls.append(key) or f"maps {key}"
+    maps = FfScratch(5, torch.device("cpu")).maps
+    for _ in range(3):
+        for key in ("even", "odd"):
+            assert maps.get(key, encoder(key)) == f"maps {key}"
+    assert calls == ["even", "odd"]
+    for key in ("k3", "k4", "even", "k5"):
+        maps.get(key, encoder(key))
+    assert calls == ["even", "odd", "k3", "k4", "k5"]
+    assert len(maps.kept) == FF_MAPS_KEPT
+    maps.get("odd", encoder("odd"))  # dropped by k5: the oldest then
+    maps.get("even", encoder("even"))  # kept: used again before k5
+    assert calls == ["even", "odd", "k3", "k4", "k5", "odd"]
+
+
+# The card's cases: (block (nx, ny) inside the ghosts, real (nx, ny), ghost
+# width, base offset in floats): every row stride modulo 4, ghost widths
+# 2, 4 and 5, real rows that are not a multiple of K6's 16, one-row and
+# one-column blocks, an unaligned base (TMA's stride but not its base).
+ODD = [((1, 1), (1, 1), 4, 0), ((1, 70), (1, 70), 4, 0),
+       ((53, 1), (53, 1), 4, 0), ((129, 37), (129, 37), 4, 0),
+       ((1000, 334), (1000, 333), 4, 0), ((100, 100), (100, 100), 4, 0),
+       ((64, 64), (64, 64), 4, 0), ((130, 45), (130, 45), 2, 0),
+       ((101, 33), (101, 33), 5, 0), ((70, 17), (70, 17), 5, 0),
+       ((200, 16), (197, 15), 2, 0), ((1000, 1), (1000, 1), 2, 0),
+       ((4, 300), (1, 300), 2, 0), ((1, 300), (1, 300), 5, 0),
+       ((100, 100), (100, 100), 4, 1), ((1000, 1), (999, 1), 2, 3)]
+ODD_IDS = [f"{b[0]}x{b[1]}-real{r[0]}x{r[1]}-g{g}" + (f"-off{o}" if o else "")
+           for b, r, g, o in ODD]
+
+
+def _odd_path(block, g, off):
+    cols = block[0] + 2 * g
+    return ff_load_path(cols, 4 * off, 4 * off)
+
+
+def test_odd_cases_take_every_path():
+    """The card test's cases reach both load paths, every row stride
+    modulo 4 on the copy path, TMA at ghost widths 2, 4 and 5 and from an
+    unaligned base, real rows off K6's 16, one-row and one-column blocks
+    on both paths."""
+    paths = [_odd_path(b, g, o) for b, _, g, o in ODD]
+    cols = {(b[0] + 2 * g) % 4 for b, _, g, o in ODD}
+    assert cols == {0, 1, 2, 3}
+    assert {g for (b, _, g, o), p in zip(ODD, paths) if p == "tma"} == {2, 4, 5}
+    assert {p for (b, _, g, o), p in zip(ODD, paths)
+            if o and (b[0] + 2 * g) % 4 == 0} == {"cp_async"}
+    for path in ("tma", "cp_async"):
+        mine = [c for c, p in zip(ODD, paths) if p == path]
+        assert any(r[1] % 16 for _, r, _, _ in mine)
+        assert any(r[1] == 1 for _, r, _, _ in mine)
+        assert any(r[0] == 1 for _, r, _, _ in mine)
+
+
+def _odd_inputs(block, real, g, kind):
+    shape = (block[1] + 2 * g, block[0] + 2 * g)
+    cfg = types.SimpleNamespace(nghost=g, n_local=real)
+    return cfg, _data(shape, kind, 1), _data(shape, "positive", 2)
+
+
+@pytest.mark.parametrize("block,real,g,off", ODD, ids=ODD_IDS)
+def test_ff_sum_plain_on_odd_blocks(block, real, g, off):
+    """The plain version on the card test's blocks and ghost widths, over
+    their real cells only (ghosts and slack poisoned with NaN), bit for
+    bit against the scalar loop of the stated order."""
+    cfg, rho, E = _odd_inputs(block, real, g, "mixed")
+    rs = real_slice(cfg, real)
+    keep = np.zeros(rho.shape, bool)
+    keep[rs] = True
+    rho[~keep] = np.nan
+    E[~keep] = np.nan
+    want = np.concatenate([_scalar_ff_sum(rho[rs]),
+                           _scalar_ff_sum(rho[rs] * E[rs])])
+    got = ff_sum_plain(cfg, torch.from_numpy(rho), torch.from_numpy(E), real)
+    assert _same_bits(got, want)
+
+
 # ------------------------------------------------------------------ the card
 
-ODD = [((1, 1), (1, 1)), ((1, 70), (1, 70)), ((53, 1), (53, 1)),
-       ((129, 37), (129, 37)), ((1000, 334), (1000, 333)),
-       ((100, 100), (100, 100))]
+def _on_card(t, off):
+    """A CUDA copy of `t` whose base sits `off` floats past an allocation's
+    (a contiguous view: the kernel sees the same strides)."""
+    if not off:
+        return t.cuda()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device="cuda")
+    out = buf[off:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("block,real", ODD,
-                         ids=[f"{b[0]}x{b[1]}" for b, _ in ODD])
-def test_kernel_matches_plain_on_the_card(block, real):
-    """K6 on a padded block (4 ghosts, `real` = (nx, ny) cells of it, the
-    rest slack as on an uneven split's edge shard) against its plain
-    version on CPU copies, bit for bit; twice on one scratch (the ticket
-    resets), with an inf and a NaN, one launch counted a call."""
+@pytest.mark.parametrize("block,real,g,off", ODD, ids=ODD_IDS)
+def test_kernel_matches_plain_on_the_card(block, real, g, off):
+    """K6 on a padded block (`g` ghosts, `real` = (nx, ny) cells of it, the
+    rest slack as on an uneven split's edge shard), on the load path the
+    host picks, against its plain version on CPU copies, bit for bit;
+    twice on one scratch (the ticket resets), with an inf and a NaN, one
+    launch counted a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    nx, ny = block
-    cfg = armon_torch.ArmonParameters(test="Sod", N=(64, 64), nghost=4,
-                                      data_type="float32",
-                                      device="cuda").config
-    shape = (ny + 8, nx + 8)
     scratch = FfScratch(real[1], torch.device("cuda", 0))
     for kind in KINDS:
-        rho = torch.from_numpy(_data(shape, kind, 1))
-        E = torch.from_numpy(_data(shape, "positive", 2))
+        cfg, rho, E = _odd_inputs(block, real, g, kind)
+        rho, E = torch.from_numpy(rho), torch.from_numpy(E)
         want = ff_sum_plain(cfg, rho, E, real)
+        rc, Ec = _on_card(rho, off), _on_card(E, off)
+        assert ff_load_path(rc.shape[1], rc.data_ptr(), Ec.data_ptr()) == \
+            _odd_path(block, g, off)
         for _ in range(2):
             K.reset_launches()
-            got = ff_sum(cfg, rho.cuda(), E.cuda(), real, scratch)
+            got = ff_sum(cfg, rc, Ec, real, scratch)
             assert K.LAUNCHES["ff_sum"] == 1
             assert _same_bits(got, want), (kind, got, want)
             assert int(scratch.ticket.item()) == 0

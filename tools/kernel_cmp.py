@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""K1 `x_sweep`, K2 `y_sweep`, K4 `cycle`, K5 `multicycle` and the flip probe
-kernels of two or more checkouts, timed in alternation on one NVIDIA card.
+"""K1 `x_sweep`, K2 `y_sweep`, K4 `cycle`, K5 `multicycle`, K6 `ff_sum` and
+the flip probe kernels of two or more checkouts, timed in alternation on
+one NVIDIA card.
 
     python3 tools/kernel_cmp.py ROOT [ROOT ...]
     python3 tools/kernel_cmp.py --only k5 ROOT [ROOT ...]   # K5 alone
     python3 tools/kernel_cmp.py --only tail ROOT [ROOT ...] # K3's tail alone
+    python3 tools/kernel_cmp.py --only k6 ROOT [ROOT ...]   # K6 alone
 
 Each ROOT is the root of a checkout that holds `armon_torch/` (its kernels
 build into ROOT/build/armon_torch on first use). The roots run in the
@@ -42,7 +44,14 @@ euler_2nd, nghost 4):
   K3 `cfl_finish` (`<state>_<kernel>_last_ms`); the launch alone
   (`<state>_<kernel>_ms`); K3 alone on K2's partials
   (`<state>_cfl_finish_ms`). Every call starts from the same loop
-  scalars (an untimed reset), so every call folds and steps.
+  scalars (an untimed reset), so every call folds and steps;
+- K6 `ff_sum` (`--only k6` runs this part alone; not in the default
+  groups): at 8192^2, 2000^2 and 100^2 real cells (4 ghosts) of random
+  f32 rho and E from one seed, and on one column of as many rows (its
+  second stage nearly alone); the four sums' bits, which must be the
+  same in every root; then the per-cycle driver of `armon()` at `silent`
+  0 and 1 (a K6 launch and read a cycle) and the lean loop, Sod 8192^2
+  (20 cycles) and 100^2 (400), us a cycle of a warm run.
 
 It prints the card line, one JSON line per pass and, last, the mean per
 root.
@@ -223,6 +232,41 @@ for name, n, dtype in (("k5_108", 100, "float32"), ("k5_168", 160, "float32"),
     part = C.new_multicycle_partials(p0.shape, cfg.dtype, dev)
     out[name + "_ms"] = time_ms(lambda i: C.multicycle(
         cfg, pairs, cur, nxt, p, part, scal, iscal), k=20)
+for n in (8192, 2000, 100):
+    if "k6" not in groups:
+        break
+    # K6 on random blocks from one seed (every root sums the same cells),
+    # each by this tree's wrapper on a kept scratch (its TMA descriptors
+    # too, where the tree keeps them), and on one column of as many rows.
+    from armon_torch.ops import _build
+    from armon_torch.ops.reductions import FfScratch
+    cfg = ArmonParameters(test="Sod", N=(n, n), **OPTS).config
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rho, E = (torch.rand((n + 8, n + 8), generator=gen, device="cuda")
+              for _ in range(2))
+    sc = FfScratch(n, rho.device)
+    kw = {"maps": sc.maps} if hasattr(sc, "maps") else {}
+    for tag, nx in (("", n), ("_one_column", 1)):
+        out[f"k6_{n}{tag}_ms"] = time_ms(lambda i: _build.launch_ff_sum(
+            cfg, rho, E, (nx, n), sc.rows, sc.out, sc.ticket, **kw), k=20)
+    _build.launch_ff_sum(cfg, rho, E, (n, n), sc.rows, sc.out, sc.ticket, **kw)
+    out[f"k6_{n}_bits"] = sc.out.cpu().numpy().view(np.uint32).tolist()
+    del rho, E, sc
+if "k6" in groups:
+    # K6 in its caller: the per-cycle driver of `armon()` at `silent` 0
+    # and 1 (one K6 launch and read a cycle) beside the lean loop (5),
+    # Sod 8192^2 (20 cycles) and 100^2 (400), us a cycle of the second of
+    # two runs.
+    import contextlib, io
+    from armon_torch import armon
+    for n, cycles in ((8192, 20), (100, 400)):
+        for silent in (5, 0, 1):
+            params = dict(OPTS, test="Sod", N=(n, n), maxcycle=cycles,
+                          silent=silent)
+            for _ in range(2):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    st = armon(ArmonParameters(**params))
+            out[f"driver_{n}_silent{silent}_us"] = st.solve_time / st.cycles * 1e6
 print(json.dumps(out), flush=True)
 '''
 
@@ -248,8 +292,12 @@ def main(argv=None):
         line = res.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         rows[root].append(json.loads(line))
+    bits = {json.dumps({k: v for k, v in p.items() if k.endswith("_bits")})
+            for passes in rows.values() for p in passes}
+    if len(bits) > 1:
+        sys.exit(f"kernel_cmp: the roots' K6 sums differ: {sorted(bits)}")
     for root, passes in rows.items():
-        keys = [k for k in passes[0] if k != "root"]
+        keys = [k for k in passes[0] if k != "root" and not k.endswith("_bits")]
         print(json.dumps({"root": root, "mean": {
             k: statistics.mean(p[k] for p in passes) for k in keys}}))
 

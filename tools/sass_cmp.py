@@ -5,8 +5,9 @@
 
 Builds each tree's kernels (`armon_torch.ops._build.load()`, in a child
 process run from that tree) and prints, for every library (K1/K2
-`sweep_f*`, K3 `cfl`, K4 `cycle_f*`, K5 `multicycle_f*`, the probes'),
-how many of its kernel functions have the same SASS in both trees,
+`sweep_f*`, K3 `cfl`, K4 `cycle_f*`, K5 `multicycle_f*`, the probes',
+K6 `reduce`), how many of its kernel functions have the same SASS in
+both trees,
 naming those that differ, and how many functions only the tree has (a
 new kernel, such as a finishing launch's). The libraries named by `--changed` (those the
 change redesigns) are listed after the others, for information; every
@@ -27,7 +28,7 @@ import sys
 
 STEMS = ("sweep_f32", "sweep_f64", "cfl", "cycle_f32", "cycle_f64",
          "multicycle_f32", "multicycle_f64", "probe_stream", "probe_ff",
-         "probe_rates", "probe_cycle", "probe_cluster")
+         "probe_rates", "probe_cycle", "probe_cluster", "reduce")
 CUOBJDUMP = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
 
