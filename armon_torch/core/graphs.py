@@ -10,9 +10,10 @@ body makes (every wrapper call of its steps, the mesh's slab packs
 included), recorded once:
 - the whole-run graph (`CycleGraphs.run`), the counterpart of the
   `lax.while_loop`: one conditional WHILE node (`csrc/graph.cu`) whose
-  body is a few steps' launches and then `while_cond`, which sets the
-  condition from the predicate the host would have read. A lean run is
-  one launch of it and one host read, at its end (`_Windows.drive` in
+  body is a few steps' launches, the last of which sets the node's
+  condition from the predicate the host would have read (the tail of
+  the cycle's finishing K1, K2 or K4 launch, or K5). A lean run is one
+  launch of it and one host read, at its end (`_Windows.drive` in
   `core/step.py`);
 - a window graph (`CycleGraphs.window`): the launches of the steps
   between two host reads, replayed with one host call a window. The
@@ -26,7 +27,10 @@ captures: `chip_smoke.py` phase 0 checks it on the card).
 
 What a capture bakes in. A launch's arguments are host values taken when
 it is recorded: the buffers' pointers, the schedule's dt factors, the
-ghost sources, the `Finish` of the cycle's last launch. What changes from
+ghost sources, the `Finish` of the cycle's last launch and, in a
+whole-run graph's body, the WHILE condition its last launch sets
+(`ops/sweep.Cond`: the node's handle and the iteration count, made
+before the body is recorded). What changes from
 cycle to cycle (t, dt, the cycle count, the stop predicate) lives in the
 device scalars, which every launch reads on the device. So a window's
 launches depend on three host-side values, and the key of its graph holds
@@ -52,8 +56,8 @@ its calls: a loop owns its buffers and device scalars, and a call copies
 the caller's carry in and refills the scalars in place
 (`core/step._Windows.load`), so a later call replays the windows and
 the whole-run graph an earlier call captured (a whole-run graph is kept
-by its body's key and predicate, `CycleGraphs.wholes`), and captures
-only a key it has not met. The loop bodies that `core/solver.py`'s
+by its body's key, `CycleGraphs.wholes`), and captures only a key it has
+not met. The loop bodies that `core/solver.py`'s
 program cache (`_cached`) keeps, one per configuration, layout and
 form, hold theirs as long as the entry lives; only a configuration's
 first call captures. `iters` is zeroed before each whole-run launch.
@@ -65,9 +69,10 @@ Launch counts. A wrapper counts a launch where it is called, so a capture
 would count launches that have not run, and a replay calls no wrapper.
 Capture sets its counts aside; each window replay adds them, and the
 whole-run graph adds them times the iterations its body ran, read from
-the device with the run's one host read (`while_cond` counts them, in
-`LAUNCHES`). So `ops/sweep.LAUNCHES` and `TAILS` count what ran on the
-card: those of the eager loop with `check_every` the body's length.
+the device with the run's one host read (the body's last launch counts
+them as it sets the condition, `LAUNCHES["while_tail"]`). So
+`ops/sweep.LAUNCHES` and `TAILS` count what ran on the card: those of
+the eager loop with `check_every` the body's length.
 
 Where graphs run: a run whose shards each sit on their process's one
 card: one process (one device, or a mesh placed on one card), or
@@ -117,9 +122,13 @@ from ..utils.errors import solver_error
 STATS = {"graphs": 0, "replays": 0, "runs": 0, "iterations": 0,
          "body_steps": 0, "capture_ms": 0.0, "launch_ms": 0.0, "form": None}
 
-# Launches of `while_cond` (csrc/graph.cu), one an iteration of a
-# whole-run graph's body, added when the run's count is read.
-LAUNCHES = {"while_cond": 0}
+# Launches that set a whole-run graph's WHILE condition in their tail
+# (`set_while`, csrc/common.cuh): the body's last, one an iteration,
+# added when the run's count, which they keep, is read. Their launches
+# themselves are counted under their kernels (`ops/sweep.LAUNCHES`).
+LAUNCHES = {"while_tail": 0}
+# Launches of the WHILE node's measurement body (`countdown`).
+MEASURE = {"countdown": 0}
 
 
 def reset_stats():
@@ -128,7 +137,8 @@ def reset_stats():
 
 
 def reset_launches():
-    LAUNCHES["while_cond"] = 0
+    LAUNCHES["while_tail"] = 0
+    MEASURE["countdown"] = 0
 
 
 def eager_reason(device, far=(), nprocs=1, backend=None):
@@ -203,9 +213,9 @@ def body_steps(run, start):
 def while_plain(run, start, n, pred):
     """The whole-run graph's plain version (`CycleGraphs.run`): bodies of
     `n` steps of `run` from step `start`, launched eagerly, each followed
-    by `while_cond`'s work: count the iteration, and go on while
-    `run.iscal[pred]` holds (one host read a body). Returns the
-    iterations."""
+    by the WHILE condition's work, which on the card the body's last
+    launch does: count the iteration, and go on while `run.iscal[pred]`
+    holds (one host read a body). Returns the iterations."""
     iters = 0
     while True:
         for i in range(start, start + n):
@@ -214,6 +224,22 @@ def while_plain(run, start, n, pred):
         iters += 1
         if not int(run.iscal[pred]):
             return iters
+
+
+def countdown(pred, cond=None):
+    """The WHILE node's measurement body (`csrc/graph.cu`
+    `countdown_kernel`), no step of the solver: one taken from the int32
+    `pred` (1,); with `cond` (`ops/sweep.Cond`, inside a whole-run
+    graph's capture) the iteration counted and the condition set from
+    what is left, as the solver's last launch sets it from its predicate.
+    On the CPU its plain version (`ops/sweep.cond_plain`)."""
+    K.check_cond(cond, pred.device)
+    if pred.device.type == "cuda":
+        _build.launch_countdown(pred, cond)
+        MEASURE["countdown"] += 1
+        return
+    pred -= 1
+    K.cond_plain(cond)
 
 
 def window_key(run, start, n):
@@ -246,8 +272,8 @@ class CycleGraphs:
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)  # capture needs its own
         self.windows = {}
-        # whole-run graphs: (window key, predicate) -> (torch graph,
-        # _WhileGraph)
+        # whole-run graphs: window key -> (torch graph, _WhileGraph,
+        # launch counts)
         self.wholes = {}
         self.iters = torch.zeros(1, dtype=torch.int32, device=self.device)
 
@@ -272,27 +298,35 @@ class CycleGraphs:
                                    f"graph here: {self.why}")
         return self.why is None
 
-    def run(self, run, start, n, pred):
-        """The steps of `run` from `start` until the predicate
-        `run.iscal[pred]` falls: one launch of a whole-run graph whose
-        WHILE body is the launches of `n` steps (`body_steps`) then
-        `while_cond`, and one host read, of the body's iterations, which
-        waits for the run's end. The bodies end with the roles they start
-        with, so `run.cur` and `run.nxt` stay. The graph of a key met
-        before is launched again. Returns the iterations."""
+    def run(self, run, start, n):
+        """The steps of `run` from `start` until the predicate that the
+        body's last launch writes falls: one launch of a whole-run graph
+        whose WHILE body is the launches of `n` steps (`body_steps`), the
+        last step's finishing launch setting the condition (`run.cycle(i,
+        cond)`), and one host read, of the body's iterations, which waits
+        for the run's end. The bodies end with the roles they start with,
+        so `run.cur` and `run.nxt` stay. The graph of a key met before is
+        launched again. Returns the iterations."""
         key = window_key(run, start, n)
         if end_roles(run, key, start) != key[1]:
             solver_error("config", f"a body of {n} steps from step {start} "
                                    f"swaps the buffer roles")
-        whole = self.wholes.get((key, pred))
+        whole = self.wholes.get(key)
         if whole is None:
-            graph, counts = self._capture(_steps(run, start, n, key[1]),
-                                          keep=True)
             t0 = time.perf_counter()
-            loop = _WhileGraph(graph.raw_cuda_graph(),
-                               run.iscal[pred:pred + 1], self.iters)
+            loop = _WhileGraph(self.iters)
             STATS["capture_ms"] += (time.perf_counter() - t0) * 1e3
-            whole = self.wholes[key, pred] = graph, loop, counts
+            graph, counts = self._capture(
+                _steps(run, start, n, key[1], loop.cond), keep=True)
+            if loop.cond.launches != 1:
+                solver_error("config", f"{loop.cond.launches} launches of a "
+                                       f"body of {n} steps from step {start} "
+                                       f"set the WHILE condition, not its "
+                                       f"last one alone")
+            t0 = time.perf_counter()
+            loop.attach(graph.raw_cuda_graph())
+            STATS["capture_ms"] += (time.perf_counter() - t0) * 1e3
+            whole = self.wholes[key] = graph, loop, counts
         _, loop, counts = whole
         t0 = time.perf_counter()
         self.iters.zero_()
@@ -302,7 +336,7 @@ class CycleGraphs:
         for total, add in zip((K.LAUNCHES, K.TAILS), counts):
             for name, c in add.items():
                 total[name] += c * iters
-        LAUNCHES["while_cond"] += iters
+        LAUNCHES["while_tail"] += iters
         STATS["replays"] += 1
         STATS["runs"] += 1
         STATS["iterations"] += iters
@@ -364,14 +398,16 @@ class CycleGraphs:
         return graph, counts
 
 
-def _steps(run, start, n, end):
+def _steps(run, start, n, end, cond=None):
     """The launches of steps start .. start + n - 1 of `run`, for a
     capture: they must end with the buffer roles `end`; `run.cur` and
-    `run.nxt` are put back, since nothing ran yet."""
+    `run.nxt` are put back, since nothing ran yet. With `cond`
+    (`ops/sweep.Cond`, a whole-run graph's body) the last step's
+    finishing launch sets that WHILE condition."""
     def launches():
         bufs = run.cur, run.nxt
         for i in range(start, start + n):
-            run.cycle(i)
+            run.cycle(i, cond if i == start + n - 1 else None)
         if run.roles() != end:
             solver_error("config", f"{n} steps from step {start} ended with "
                                    f"the buffer roles {run.roles()}, not {end}")
@@ -380,13 +416,20 @@ def _steps(run, start, n, end):
 
 
 class _WhileGraph:
-    """An instantiated whole-run graph (`ops/_build.while_build`): WHILE
-    (a copy of the CUDA graph `child`, then `while_cond(pred, count)`),
-    destroyed with its holder."""
+    """A whole-run graph (`ops/_build.while_create`): a WHILE node whose
+    condition `cond` (`ops/sweep.Cond`, counting into the int32 tensor
+    `count`) the body's last launch sets; `attach` copies the recorded
+    body in and instantiates. Destroyed with its holder."""
 
-    def __init__(self, child, pred, count):
-        self.graph = self.exec = None  # what `__del__` sees if the build raises
-        self.graph, self.exec = _build.while_build(child, pred, count)
+    def __init__(self, count):
+        self.graph = self.exec = None  # what `__del__` sees if a build raises
+        self.graph, handle, self.body = _build.while_create()
+        self.cond = K.Cond(handle, count)
+
+    def attach(self, child):
+        """The CUDA graph `child` (a handle) copied in as the WHILE body,
+        and the whole instantiated."""
+        self.exec = _build.while_attach(self.graph, self.body, child)
 
     def __del__(self):
         if self.graph is not None:

@@ -76,8 +76,8 @@ same bits.
 
 Graphs. On the card the whole lean run is one CUDA graph (`_Windows.drive`,
 `core/graphs.py`): a WHILE node whose body is one or two cycles' launches
-(one or two K5 launches), then a condition kernel that reads the same
-predicate on the device, the counterpart of the JAX package's
+(one or two K5 launches), the last of which sets the node's condition
+from the predicate it writes, the counterpart of the JAX package's
 `lax.while_loop`; the host reads once, at the run's end. With
 `whole=False`, and over NCCL processes, a card each (`graphs.whole_reason`),
 the loop runs the cycles between two host reads as one window
@@ -141,7 +141,8 @@ class LoopResult(NamedTuple):
 
 
 def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
-                       pair=False, slabs=None, finish=None, sends=None):
+                       pair=False, slabs=None, finish=None, sends=None,
+                       cond=None):
     """The launches of one cycle (`armon_tpu/core/step.py`
     `run_schedule_fused`) on every shard of `mesh` this process drives
     (`mesh.local`; per-shard lists are indexed by `Shard.slot`): each
@@ -155,7 +156,9 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
     partials per shard, writes shard s's into `parts[nb][s]`; `scalars[s]`
     are the loop scalars on shard s's device. With `finish` (nb -> a
     `Finish` over every shard's nb columns), the last shard's last launch
-    carries K3's tail. Returns (cur, nxt, nb)."""
+    carries K3's tail, and with `cond` (`ops/sweep.Cond`, where the cycle
+    ends a whole-run graph's body) the WHILE condition, set from the
+    predicate that tail writes. Returns (cur, nxt, nb)."""
     slabs, sends = slabs or {}, sends or {}
     shape = cur[0][0].shape
     device = cur[0][0].device
@@ -175,18 +178,19 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
             if axis in slabs else [K.MIRRORED] * len(mesh.local)
         for s in mesh.local:
             k = s.slot
-            fin = finish[nb] if last and finish and s is mesh.local[-1] \
-                else None
+            tail = last and s is mesh.local[-1]
+            fin = finish[nb] if tail and finish else None
+            c = cond if tail else None
             if is_pair:
                 (a0, f0), (_, f1) = group
                 x_first = a0 is Axis.X
                 C.cycle(cfg, x_first, f0 if x_first else f1,
                         f1 if x_first else f0, cur[k], nxt[k], p[k], ops[k],
-                        *scalars[k], last, ghosts[k], s.n_real, fin)
+                        *scalars[k], last, ghosts[k], s.n_real, fin, c)
             else:
                 sweep = K.x_sweep if axis is Axis.X else K.y_sweep
                 sweep(cfg, cur[k], nxt[k], p[k], ops[k], *scalars[k],
-                      group[0][1], last, ghosts[k], s.n_real, fin)
+                      group[0][1], last, ghosts[k], s.n_real, fin, c)
         cur, nxt = nxt, cur
     return cur, nxt, nb
 
@@ -275,11 +279,13 @@ class _Windows:
         """Steps from `start` while the predicate `iscal[pred]` holds after
         them (the caller has checked the first step runs); returns the
         host reads. Where graphs run and `whole` holds, one launch of the
-        whole-run graph (`core/graphs.py`) and one read at its end, unless
-        the run is over processes (`CycleGraphs.takes_whole`); otherwise
-        windows of `every` steps, one read each."""
+        whole-run graph (`core/graphs.py`; its body's last launch tests
+        the same predicate: iscal[run] in K1, K2 or K4's tail, iscal[next]
+        in K5) and one read at its end, unless the run is over processes
+        (`CycleGraphs.takes_whole`); otherwise windows of `every` steps,
+        one read each."""
         if whole and self.graphs is not None and self.graphs.takes_whole():
-            self.graphs.run(self, start, body_steps(self, start), pred)
+            self.graphs.run(self, start, body_steps(self, start))
             return 1
         reads = 0
         running = True
@@ -461,14 +467,16 @@ class KernelCycles(_Windows):
                      fold=False, step=True)
         self._share_scalars()
 
-    def cycle(self, cycle):
+    def cycle(self, cycle, cond=None):
         """One cycle's launches; `cycle` (the host's count) picks the
-        schedule's parity."""
+        schedule's parity. With `cond` (`ops/sweep.Cond`) the cycle ends a
+        whole-run graph's body: its last launch sets that WHILE
+        condition."""
         sched = self.even if cycle % 2 == 0 else self.odd
         self.cur, self.nxt, nb = run_schedule_fused(
             self.cfg, self.mesh, self.cur, self.nxt, self.p, self.parts,
             self.scalars, sched, self.pair, self.slabs, self.finish,
-            self.sends)
+            self.sends, cond)
         if self.finish is None:
             for s in self.far:
                 self.partials[:, s.index * nb:(s.index + 1) * nb].copy_(
@@ -588,11 +596,13 @@ class MultiCycles(_Windows):
     def _clear(self):
         self.partials.zero_()
 
-    def cycle(self, launch):
+    def cycle(self, launch, cond=None):
         """One K5 launch, whatever its index `launch`: each of its cycles
-        takes its schedule from the device's cycle count."""
+        takes its schedule from the device's cycle count. With `cond`
+        (`ops/sweep.Cond`) the launch ends a whole-run graph's body and
+        sets that WHILE condition."""
         C.multicycle(self.cfg, self.pairs, self.cur[0], self.nxt[0],
-                     self.p[0], self.partials, self.scal, self.iscal)
+                     self.p[0], self.partials, self.scal, self.iscal, cond)
         if self.swaps(launch):
             self.cur, self.nxt = self.nxt, self.cur
 

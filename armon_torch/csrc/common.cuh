@@ -1,7 +1,8 @@
 // Device helpers shared by every kernel of the port: NaN-propagating
-// min/max/sign, the dt recurrence, and K3's fold and scalar step, which K3
+// min/max/sign, the dt recurrence, K3's fold and scalar step, which K3
 // (cfl.cu) and the tail of K1, K2 and K4's emitting launches (`cfl_tail`)
-// share.
+// share, and the whole-run graph's WHILE condition (`set_while`), which
+// that tail and K5 set.
 
 #pragma once
 
@@ -136,6 +137,18 @@ __device__ __forceinline__ void fold_partials(const T* part, long long stride, l
   my = red[NT];
 }
 
+// The WHILE condition of a whole-run graph (graph.cu), set by the last
+// launch of its body, in the thread that has just written the predicate
+// `go`: add 1 to the iteration count, then set the condition from `go`.
+// `cond` 0 (every other launch: eager, window graphs, a body's earlier
+// steps) sets nothing.
+__device__ __forceinline__ void set_while(cudaGraphConditionalHandle cond, int* count,
+                                          bool go) {
+  if (cond == 0) return;
+  *count += 1;
+  cudaGraphSetConditional(cond, go ? 1u : 0u);
+}
+
 // What the tail of an emitting launch needs to do K3's work (`cfl_tail`).
 struct FinishArgs {
   const void* partials;   // (2, stride) CFL maxima: every block's, every shard's
@@ -145,6 +158,8 @@ struct FinishArgs {
   long long stride, n;    // row stride of `partials`; columns [0, n) fold
   DtParams dt;
   double dx, dy;          // rounded to T
+  cudaGraphConditionalHandle cond;  // the body's last launch: its WHILE condition; else 0
+  int* count;             // with `cond`: the WHILE's iteration count
 };
 
 // One ticket of a finishing launch: an atomic add with release semantics
@@ -169,9 +184,11 @@ __device__ __forceinline__ unsigned take_ticket(unsigned* ticket) {
 // order wrote before), when the cycle that wrote them ran (iscal[run]),
 // and its thread 0 runs K3's scalar step and resets the ticket. The
 // result does not depend on the order in which blocks finish. A block
-// that copies (iscal[run] is 0) takes its ticket too. `red`: 2 NT words
-// of shared memory the block no longer uses. Every thread of the block
-// must call it.
+// that copies (iscal[run] is 0) takes its ticket too. In the last launch
+// of a whole-run graph's body, that thread 0 then sets the WHILE condition
+// from iscal[run], the next cycle's predicate (`set_while`). `red`: 2 NT
+// words of shared memory the block no longer uses. Every thread of the
+// block must call it.
 template <typename T, int NT, bool SYNCED>
 __device__ __forceinline__ void cfl_tail(const FinishArgs& f, T* red) {
   int* iscal = reinterpret_cast<int*>(f.iscal);
@@ -185,6 +202,7 @@ __device__ __forceinline__ void cfl_tail(const FinishArgs& f, T* red) {
   if (threadIdx.x != 0) return;
   cfl_scalars<T>(f.dt, f.dx, f.dy, reinterpret_cast<T*>(f.scal), iscal, fold, true, mx, my);
   *f.ticket = 0u;
+  set_while(f.cond, f.count, iscal[2] != 0);
 }
 
 }  // namespace armon

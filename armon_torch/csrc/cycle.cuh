@@ -88,7 +88,10 @@
 // cycle takes its sweep order and dt factors from the parity of the device
 // cycle counter (the TPU kernel indexes a static schedule that starts on
 // an even cycle; both agree there). Field and partial loads bypass L1
-// (__ldcg): other blocks wrote them before the barrier.
+// (__ldcg): other blocks wrote them before the barrier. After the last
+// cycle, block 0's thread 0 writes the loop scalars back and, in the last
+// launch of a whole-run graph's body, sets the WHILE condition from
+// iscal[next] (`set_while`, common.cuh).
 
 #pragma once
 
@@ -157,6 +160,8 @@ struct MultiArgs {
   int x_first[2];         // by cycle parity
   double fx[2], fy[2];
   DtParams dt;
+  cudaGraphConditionalHandle cond;  // the body's last launch: its WHILE condition; else 0
+  int* count;             // with `cond`: the WHILE's iteration count
 };
 
 template <typename T> struct Fields { T* f[4]; };
@@ -410,7 +415,9 @@ __global__ void __launch_bounds__(Tile<L>::NT) multicycle_kernel(const MultiArgs
     iscal[0] = cyc;
     iscal[1] = ok ? 1 : 0;
     iscal[2] = ran ? 1 : 0;
-    iscal[3] = runs(m.dt, t, cyc, ok) ? 1 : 0;
+    const bool go = runs(m.dt, t, cyc, ok);
+    iscal[3] = go ? 1 : 0;
+    set_while(m.cond, m.count, go);
   }
 }
 

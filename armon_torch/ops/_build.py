@@ -9,7 +9,7 @@ and I/O ladder (`probe_stream.cu`), the sweep chain in f32, f64 and
 float-float (`probe_ff.cu`, `chain.cuh`), the per-class rate chains
 (`probe_rates.cu`), K4's measurement variants (`probe_cycle.cu`) and K5
 as one thread-block cluster (`probe_cluster.cu`, `cluster.cuh`),
-the whole-run graph's WHILE node with its condition kernel (`graph.cu`),
+the whole-run graph's WHILE node and its measurement body (`graph.cu`),
 and K6, the f32 conservation sums (`reduce.cu`).
 The sources are compiled in
 parallel (one nvcc each) on first use, into ``build/armon_torch/`` at the
@@ -123,6 +123,7 @@ class FinishArgs(ctypes.Structure):
         ("stride", ctypes.c_longlong), ("n", ctypes.c_longlong),
         ("dt", DtParams),
         ("dx", ctypes.c_double), ("dy", ctypes.c_double),
+        ("cond", ctypes.c_ulonglong), ("count", ctypes.c_void_p),
     ]
 
 
@@ -158,6 +159,7 @@ class MultiArgs(ctypes.Structure):
         ("x_first", ctypes.c_int * 2),
         ("fx", ctypes.c_double * 2), ("fy", ctypes.c_double * 2),
         ("dt", DtParams),
+        ("cond", ctypes.c_ulonglong), ("count", ctypes.c_void_p),
     ]
 
 
@@ -305,9 +307,13 @@ def load():
         fn.argtypes = [ctypes.POINTER(FfSumArgs), ll, vp]
         fn.restype = ctypes.c_int
         pp = ctypes.POINTER(vp)
-        for name, args in (("armon_while_build", [vp, vp, vp, pp, pp]),
+        ull = ctypes.c_ulonglong
+        for name, args in (("armon_while_create",
+                            [pp, ctypes.POINTER(ull), pp]),
+                           ("armon_while_attach", [vp, vp, vp, pp]),
                            ("armon_while_launch", [vp, vp]),
-                           ("armon_while_destroy", [vp, vp])):
+                           ("armon_while_destroy", [vp, vp]),
+                           ("armon_countdown", [vp, ull, vp, vp])):
             fn = getattr(libs["graph"], name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -446,20 +452,29 @@ def _check_status(rc, what):
         solver_error("cpp", f"{what} launch failed: code {rc} ({msg})")
 
 
-def while_build(child, pred, count):
-    """Build and instantiate a whole-run graph (csrc/graph.cu): one WHILE
-    node whose body is a copy of the CUDA graph `child` (a handle, an
-    int), then `while_cond` on the int32 tensors `pred` (the predicate
-    slot) and `count` (the iteration count). Returns the (graph, exec)
-    handles, for `while_launch` and `while_destroy`."""
-    _require(pred, torch.int32, pred.device, 1, "the WHILE predicate")
-    _require(count, torch.int32, pred.device, 1, "the WHILE count")
-    graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
-    rc = load()["graph"].armon_while_build(child, _ptr(pred), _ptr(count),
-                                           ctypes.byref(graph),
-                                           ctypes.byref(exe))
+def while_create():
+    """Make a whole-run graph's outer graph (csrc/graph.cu): one WHILE node
+    whose condition starts at 1 at every launch. Returns the handles
+    (graph, cond, body): the graph, for `while_attach` and
+    `while_destroy`; the node's condition handle, an int, which the last
+    launch of the body sets (`ops/sweep.Cond`); the node's body graph."""
+    graph, cond, body = ctypes.c_void_p(), ctypes.c_ulonglong(), ctypes.c_void_p()
+    rc = load()["graph"].armon_while_create(ctypes.byref(graph),
+                                            ctypes.byref(cond),
+                                            ctypes.byref(body))
+    _check_status(rc, "whole-run graph create")
+    return graph.value, cond.value, body.value
+
+
+def while_attach(graph, body, child):
+    """Copy the recorded body, the CUDA graph `child` (a handle, an int),
+    into the WHILE body `body` of `graph` (`while_create`) and instantiate.
+    Returns the exec handle, for `while_launch` and `while_destroy`."""
+    exe = ctypes.c_void_p()
+    rc = load()["graph"].armon_while_attach(graph, body, child,
+                                            ctypes.byref(exe))
     _check_status(rc, "whole-run graph build")
-    return graph.value, exe.value
+    return exe.value
 
 
 def while_launch(exe, device):
@@ -471,6 +486,28 @@ def while_launch(exe, device):
 def while_destroy(graph, exe):
     _check_status(load()["graph"].armon_while_destroy(graph, exe),
                   "whole-run graph destroy")
+
+
+def _cond_fields(args, cond, device):
+    """Set a launch's WHILE condition fields (`cond`, `count`) from the
+    `ops/sweep.Cond` `cond`; None leaves them 0, which sets nothing."""
+    if cond is None:
+        return
+    _require(cond.count, torch.int32, device, 1, "the WHILE count")
+    args.cond, args.count = cond.handle, _ptr(cond.count)
+
+
+def launch_countdown(pred, cond=None):
+    """Launch the WHILE node's measurement body (csrc/graph.cu
+    `countdown_kernel`) on the current stream: one from the int32 `pred`
+    and, with `cond` (`ops/sweep.Cond`), the iteration counted and the
+    condition set from what is left."""
+    _require(pred, torch.int32, pred.device, 1, "the countdown predicate")
+    if cond is not None:
+        _require(cond.count, torch.int32, pred.device, 1, "the WHILE count")
+    rc = _launch(load()["graph"].armon_countdown, pred.device, _ptr(pred),
+                 cond.handle if cond else 0, _ptr(cond.count) if cond else None)
+    _check_status(rc, "countdown")
 
 
 def launch_ff_sum(cfg, rho, E, n_real, rows, out, ticket, maps):
@@ -535,9 +572,10 @@ def _set_common(a, cfg, src, dst, scal, iscal, grid, n_real):
 
 
 def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
-                 emit, ghosts, n_real, finish=None):
+                 emit, ghosts, n_real, finish=None, cond=None):
     """Launch K1 (axis X) or K2 (axis Y) on the current stream; with
-    `finish` (`ops/sweep.Finish`), its finishing kernel."""
+    `finish` (`ops/sweep.Finish`), its finishing kernel, which with `cond`
+    (`ops/sweep.Cond`) also sets a WHILE condition."""
     from .sweep import grid_dims, mirror_factors
     libs = load()
     T = np.dtype(cfg.dtype).type
@@ -558,7 +596,7 @@ def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
     a.inv_dx = float(T(1.0) / dx)
     a.f_lo[:] = list(f_lo)
     a.f_hi[:] = list(f_hi)
-    fin = _finish_args(cfg, finish, partials, gx * gy, scal, iscal)
+    fin = _finish_args(cfg, finish, partials, gx * gy, scal, iscal, cond)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"sweep_f{bits}"], f"armon_sweep_f{bits}")
     rc = _launch(fn, dev, 0 if axis is Axis.X else 1, ctypes.byref(a), fin)
@@ -576,15 +614,23 @@ def _dt_params(cfg):
     return d
 
 
-def _finish_args(cfg, finish, partials, nblocks, scal, iscal):
+def _finish_args(cfg, finish, partials, nblocks, scal, iscal, cond=None):
     """`FinishArgs` of a finishing launch that writes `nblocks` partials
     into `partials`, a column slice of `finish.partials` inside the folded
     columns [0, finish.n); None without `finish`. Kept on `finish` for the
     next launch with the same configuration and operands: the loop makes
     the same finishing launch every cycle, and building the arguments
-    costs more host time than the rest of the launch's."""
+    costs more host time than the rest of the launch's. With `cond`
+    (`ops/sweep.Cond`, the last launch of a whole-run graph's body), a
+    copy that also sets its WHILE condition, kept on `cond`."""
     if finish is None:
         return None
+    if cond is not None:
+        base = _finish_args(cfg, finish, partials, nblocks, scal, iscal)
+        f = FinishArgs.from_buffer_copy(base._obj)
+        _cond_fields(f, cond, partials.device)
+        cond.args = f
+        return ctypes.byref(f)
     key = (partials.data_ptr(), nblocks, scal.data_ptr(), iscal.data_ptr())
     if finish.args is not None and finish.args[0] is cfg and finish.args[1] == key:
         return finish.args[2]
@@ -662,9 +708,10 @@ def _set_axes(a, cfg):
 
 
 def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
-                 emit, y_ghosts, n_real, finish=None):
+                 emit, y_ghosts, n_real, finish=None, cond=None):
     """Launch K4 on the current stream; with `finish` (`ops/sweep.Finish`),
-    its finishing kernel."""
+    its finishing kernel, which with `cond` also sets a WHILE condition
+    (as `launch_sweep`)."""
     from .cycle import cycle_window, tile_grid
     libs = load()
     T = np.dtype(cfg.dtype).type
@@ -676,7 +723,7 @@ def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
                     stride, y_ghosts, n_real)
     a.emit, a.x_first = int(emit), int(x_first)
     a.fx, a.fy = float(T(fx)), float(T(fy))
-    fin = _finish_args(cfg, finish, partials, gx * gy, scal, iscal)
+    fin = _finish_args(cfg, finish, partials, gx * gy, scal, iscal, cond)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_f{bits}")
     rc = _launch(fn, src[0].device, ctypes.byref(a), fin)
@@ -684,8 +731,9 @@ def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
 
 
 def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
-                      scal, iscal):
-    """Launch K5 on the current stream (a cooperative launch)."""
+                      scal, iscal, cond=None):
+    """Launch K5 on the current stream (a cooperative launch); with `cond`
+    (`ops/sweep.Cond`), it sets that WHILE condition from iscal[next]."""
     from .cycle import MULTI_TILE, tile_grid
     libs = load()
     T = np.dtype(cfg.dtype).type
@@ -702,6 +750,7 @@ def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
     m.fx[:] = [float(T(fx)) for _, fx, _ in parity_pairs]
     m.fy[:] = [float(T(fy)) for _, _, fy in parity_pairs]
     m.dt = _dt_params(cfg)
+    _cond_fields(m, cond, src[0].device)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"multicycle_f{bits}"], f"armon_multicycle_f{bits}")
     rc = _launch(fn, src[0].device, ctypes.byref(m))

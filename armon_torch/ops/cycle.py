@@ -139,26 +139,27 @@ def multicycle_plain(cfg, pairs, ncycles, src, dst, p, scal, iscal):
 # ---------------------------------------------------------------- wrappers
 
 def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
-          y_ghosts=MIRRORED, n_real=None, finish=None):
+          y_ghosts=MIRRORED, n_real=None, finish=None, cond=None):
     """K4: one X/Y pair of sweeps of (rho, u, v, E) `src` into `dst`, X
     first when `x_first`, with dt = scal[dt_use] * fx along X and * fy
     along Y; copied through when iscal[run] is 0. Y ghost rows come from
     `y_ghosts` (mirror, or a (4, g, cols) slab of the neighbour's rows),
     X ghost columns from the mirror. With `emit` (the cycle's last launch)
     it also writes the stale p and the CFL partial maxima of the `n_real`
-    real cells (`partials` and `finish`, K3's tail, as in
-    `ops/sweep.x_sweep`). Replaces `_cycle_kernel` (`sweep.py:1571`), its
+    real cells (`partials`, `finish`, K3's tail, and `cond`, the WHILE
+    condition, as in `ops/sweep.x_sweep`). Replaces `_cycle_kernel` (`sweep.py:1571`), its
     `slab_y` variant included."""
     device = src[0].device
     S._check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
              src[0].shape, device)
     slab = check_ghosts(cfg, Axis.Y, y_ghosts, src[0].shape, device)
-    S.check_finish(finish, emit)
+    S.check_finish(finish, emit, cond)
+    S.check_cond(cond, device)
     if device.type == "cuda":
         from . import _build
         _build.launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials,
                             scal, iscal, emit, y_ghosts, n_real or cfg.n_local,
-                            finish)
+                            finish, cond)
         LAUNCHES["cycle_slab" if slab else "cycle"] += 1
         if finish is not None:
             S.TAILS["cfl_tail"] += 1
@@ -166,6 +167,7 @@ def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
     _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
                       iscal, emit, y_ghosts, n_real)
     S.finish_plain(cfg, finish, scal, iscal)
+    S.cond_plain(cond)
 
 
 def new_multicycle_partials(shape, dtype, device):
@@ -174,23 +176,26 @@ def new_multicycle_partials(shape, dtype, device):
     return torch.zeros((2, 2, nb), dtype=torch_dtype(dtype), device=device)
 
 
-def multicycle(cfg, pairs, src, dst, p, partials, scal, iscal):
+def multicycle(cfg, pairs, src, dst, p, partials, scal, iscal, cond=None):
     """K5: len(pairs) cycles of (rho, u, v, E) in one launch (`pairs` from
     `temporal_pairs`), each with the dt recurrence, both fills, both
     sweeps, the stale p and the CFL fold; a cycle whose (t < maxtime) &
     (cycle < maxcycle) & ok predicate fails changes nothing. The fields
     ping-pong, so the carry ends in `src` for an even count and in `dst`
     for an odd one, whatever number of cycles ran. `partials` is
-    `new_multicycle_partials`' scratch. Replaces `_multicycle_kernel`
-    (`sweep.py:1905`)."""
+    `new_multicycle_partials`' scratch. With `cond` (`ops/sweep.Cond`: the
+    last launch of a whole-run graph's body) it sets that WHILE condition
+    from iscal[next]. Replaces `_multicycle_kernel` (`sweep.py:1905`)."""
     device = src[0].device
     if not pairs:
         solver_error("config", "multicycle needs at least one cycle")
     S._check(cfg, tuple(src) + tuple(dst) + (p,), src[0].shape, device)
+    S.check_cond(cond, device)
     if device.type == "cuda":
         from . import _build
         _build.launch_multicycle(cfg, parity_pairs(pairs), len(pairs), src,
-                                 dst, p, partials, scal, iscal)
+                                 dst, p, partials, scal, iscal, cond)
         LAUNCHES["multicycle"] += 1
         return
     multicycle_plain(cfg, pairs, len(pairs), src, dst, p, scal, iscal)
+    S.cond_plain(cond)

@@ -104,6 +104,46 @@ class Finish:
         self.args = None
 
 
+class Cond:
+    """The WHILE condition of a whole-run graph (`csrc/graph.cu`), which
+    the last launch of its body sets in its tail: `handle`, the node's
+    condition handle (`_build.while_create`); `count`, an int32 tensor of
+    the iterations, which that tail adds one to. Only the body's last
+    launch carries one, and only inside the capture of that body
+    (`check_cond`): eager and window launches carry none. Its launcher
+    keeps the arguments it built on `args`; `launches` counts the
+    launches that took it."""
+    __slots__ = ("handle", "count", "args", "launches")
+
+    def __init__(self, handle, count):
+        self.handle, self.count = handle, count
+        self.args = None
+        self.launches = 0
+
+
+def check_cond(cond, device):
+    """A launch on `device` may carry the WHILE condition `cond` only
+    inside a capture on the card: a graph launched on its own, or an
+    eager launch, has no WHILE node for the handle to name. On the CPU
+    the plain version counts the iteration (`cond_plain`)."""
+    if cond is None:
+        return
+    if device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+        solver_error("config", "a WHILE condition is set only by the last "
+                               "launch of a whole-run graph's body, inside "
+                               "its capture")
+    cond.launches += 1
+
+
+def cond_plain(cond):
+    """Plain version of the condition the tail sets: the iteration
+    counted. On the CPU no graph runs and nothing holds a condition:
+    `core/graphs.while_plain`, the whole-run graph's plain version, reads
+    the predicate itself."""
+    if cond is not None:
+        cond.count += 1
+
+
 def new_ticket(device):
     return torch.zeros(1, dtype=torch.int32, device=device)
 
@@ -459,10 +499,14 @@ def check_ghosts(cfg, axis, ghosts, shape, device) -> bool:
     return bool(slabs)
 
 
-def check_finish(finish, emit):
+def check_finish(finish, emit, cond=None):
     if finish is not None and not emit:
         solver_error("config", "only an emitting launch (the cycle's last) "
                                "can carry K3's tail")
+    if cond is not None and finish is None:
+        solver_error("config", "only a launch that carries K3's tail sets a "
+                               "WHILE condition: it sets it from the "
+                               "predicate its tail writes")
 
 
 def finish_plain(cfg, finish, scal, iscal):
@@ -472,18 +516,19 @@ def finish_plain(cfg, finish, scal, iscal):
 
 
 def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real, finish):
+           ghosts, n_real, finish, cond):
     rho = src[0]
     device = rho.device
     _check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
            rho.shape, device)
     slab = check_ghosts(cfg, axis, ghosts, rho.shape, device)
-    check_finish(finish, emit)
+    check_finish(finish, emit, cond)
+    check_cond(cond, device)
     if device.type == "cuda":
         from . import _build
         _build.launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal,
                             factor, emit, ghosts, n_real or cfg.n_local,
-                            finish)
+                            finish, cond)
         name = "x_sweep" if axis is Axis.X else "y_sweep"
         LAUNCHES[name + "_slab" if slab else name] += 1
         if finish is not None:
@@ -504,29 +549,32 @@ def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
         for s, d in zip(src, dst):
             d.copy_(s)
     finish_plain(cfg, finish, scal, iscal)
+    cond_plain(cond)
 
 
 def x_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
-            ghosts=MIRRORED, n_real=None, finish=None):
+            ghosts=MIRRORED, n_real=None, finish=None, cond=None):
     """K1: one X sweep of (rho, u, v, E) `src` into `dst` with dt =
     scal[dt_use] * factor, skipped (copied through) when iscal[run] is 0,
     ghost columns from `ghosts` (see module doc). With `emit` (the cycle's
     last sweep) it also writes the stale p and the CFL partial maxima of
     the `n_real` real cells into `partials`, a (2, n) tensor or a column
     slice of a wider one; with `finish` (a `Finish` whose columns hold
-    `partials`) it then runs K3's fold and dt step in its tail. Replaces
+    `partials`) it then runs K3's fold and dt step in its tail, and with
+    `cond` (a `Cond`: the last launch of a whole-run graph's body) sets
+    that WHILE condition from the predicate the tail wrote. Replaces
     `_x_sweep_kernel` (`sweep.py:978`, with `_dt_tile_min` :924), its X
     slab variant (`_bc_x_apply_slab` :849) included."""
     _sweep(cfg, Axis.X, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real, finish)
+           ghosts, n_real, finish, cond)
 
 
 def y_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
-            ghosts=MIRRORED, n_real=None, finish=None):
+            ghosts=MIRRORED, n_real=None, finish=None, cond=None):
     """K2: the same along Y. Replaces `_y_sweep_kernel` (`sweep.py:1092`),
     its Y slab variant (`_halo_cat_slab` :590) included."""
     _sweep(cfg, Axis.Y, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real, finish)
+           ghosts, n_real, finish, cond)
 
 
 def cfl_finish(cfg, partials, nblocks, scal, iscal, fold=True, step=True):

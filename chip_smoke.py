@@ -15,8 +15,8 @@
                                           # (add 3 and 7 for the one-process
                                           # rates it is set beside)
     python3 chip_smoke.py --phases 0,13   # window graphs against the eager loop
-    python3 chip_smoke.py --phases 0,14   # the whole-run graph (add 3 for
-                                          # `while_cond`'s main-path launches)
+    python3 chip_smoke.py --phases 0,14   # the whole-run graph (add 3 for the
+                                          # main path's condition-setting tails)
     python3 chip_smoke.py --phases 0,15   # graphs over NCCL processes (two or
                                           # four cards; add 12 for its timed
                                           # run beside (b)'s)
@@ -30,7 +30,9 @@ Phases, each printing one JSON line:
      CUDA version, the NVIDIA driver's version and the CUDA version it
      supports, whether torch's `CUDAGraph` offers `keep_graph` and
      `raw_cuda_graph` (the whole-run graph's body), a two-iteration WHILE
-     graph on its own against its plain version, whether
+     graph on its own, its body's one launch (`countdown_kernel`, in a
+     torch capture copied in as a child graph) setting the condition,
+     against its plain version, whether
      K5's cooperative launch captures into a CUDA graph (one launch
      replayed against its eager launch, bit for bit), the kernels' build time,
      ptxas's registers and spills per kernel instance, the resident
@@ -54,7 +56,8 @@ Phases, each printing one JSON line:
      4, Sequential), one warm-up run then 100 timed cycles through
      `armon()`, with launch counts (K4/K5 must stay at 0; two launches a
      cycle, K3 once a run, K2 carrying K3's tail; one whole-run graph,
-     `while_cond` once a cycle, 3 host reads), kernel times from CUDA
+     K2's tail setting its condition once a cycle, 3 host reads), kernel
+     times from CUDA
      events, host reads, conservation drift and peak memory; then every
      kernel against its plain version at the main path's shapes, K3's
      tail in K1, K2 and K4 at 8200^2 (thousands of blocks) as in phase 1,
@@ -82,7 +85,8 @@ Phases, each printing one JSON line:
      against pair at 256^2-8192^2, K1/K2/K4 times at 8192^2, pair against
      multicycle on small grids;
   6. the per-kernel summary line (the eight solver kernels, K3's tail,
-     the probe kernels, `while_cond` and K6 `ff_sum`; printed last);
+     the probe kernels, the WHILE condition (`while_cond`) and K6
+     `ff_sum`; printed last);
   7. domain-decomposed runs (P != (1, 1)), every shard on cuda:0: the slab
      variants of K1/K2 (X/Y slabs, a 3x3 mesh of 1024^2 shards) and of K4
      (Y slabs with the X mirror after the splice, corner cells, a 1x3
@@ -215,12 +219,14 @@ Phases, each printing one JSON line:
      in both); the second run with graphs replays the graph the first
      captured (`replayed_only`: the program cache keeps the loop);
  14. the whole-run graph (`CycleGraphs.run`, `armon_torch/csrc/graph.cu`:
-     a conditional WHILE node whose body is 1-2 steps' launches then
-     `while_cond`), which every other phase's one-process, one-card lean
+     a conditional WHILE node whose body is 1-2 steps' launches, the last
+     of which sets the condition: K1, K2 or K4's tail, or K5), which every
+     other phase's one-process, one-card lean
      runs take by default: (a) against the eager loop and window graphs
      bit for bit in f64 and f32 exact, one graph launch and 3 host reads a
      run, launches equal to the eager loop's at `check_every` = the
-     body's length, on Sod_circ 1000^2 per-sweep, Sequential resumed at
+     body's length, the condition set once a body, on Sod_circ 1000^2
+     per-sweep, Sequential resumed at
      an odd cycle, Sedov 2000^2 pair, Sod 100^2 multicycle with K 8 and 3,
      Strang resumed at an odd cycle, SequentialSym, 2x2 and 1x2 meshes on
      one card, the full-state restore loop from an odd cycle, a run whose
@@ -230,10 +236,11 @@ Phases, each printing one JSON line:
      100^2 pair and multicycle, Sedov 2000^2 per-sweep and over 1x2 on
      one card, and the main path, with the capture ms, host reads,
      iterations, launches a cycle, the card's clock after each main-path
-     run; (c) `while_cond` alone: a WHILE of 1000 iterations whose body
-     takes one from the predicate, against its plain version (the
-     iterations and the predicate it ends with), timed an iteration with
-     the decrement, its `kernels` entry. The body's length (1-2 steps
+     run; (c) the WHILE condition alone: a WHILE of 1000 iterations whose
+     body is one launch that takes one from the predicate and sets the
+     condition from what is left (`countdown_kernel`), against its plain
+     version (the iterations and the predicate it ends with), timed an
+     iteration, its `kernels` entry (`while_cond`). The body's length (1-2 steps
      against a `check_every` window), a process's first calls and the
      stalls of a capture are measured by `tools/graph_costs.py`;
  15. graphs over NCCL processes, a card a process (`core/graphs.py`: each
@@ -509,15 +516,23 @@ def _k5_capture(torch):
 
 class _Countdown:
     """A loop body for the WHILE node on its own: each step takes one from
-    the predicate slot `iscal[0]` (int32, on the card); no buffers, so
-    its parity and buffer roles never change."""
+    the predicate slot `iscal[0]` (int32, on the card), by the WHILE's
+    measurement kernel (`graphs.countdown`), which with the WHILE
+    condition `cond` sets it from what is left, or with `plain` by a
+    PyTorch subtraction (for `graphs.while_plain`); no buffers, so its
+    parity and buffer roles never change."""
 
-    def __init__(self, torch, n):
+    def __init__(self, torch, n, plain=False):
         self.iscal = torch.tensor([n], dtype=torch.int32, device="cuda")
         self.cur, self.nxt = [(self.iscal,)], [(self.iscal,)]
+        self.plain = plain
 
-    def cycle(self, i):
-        self.iscal.sub_(1)
+    def cycle(self, i, cond=None):
+        from armon_torch.core import graphs as G
+        if self.plain:
+            self.iscal.sub_(1)
+        else:
+            G.countdown(self.iscal, cond)
 
     def parity(self, i):
         return 0
@@ -545,24 +560,30 @@ def _graph_api(torch):
 
 def _while_alone(torch, n=2):
     """The whole-run graph on its own (`core/graphs.CycleGraphs.run`): a
-    WHILE node whose body takes one from its predicate, started at `n`,
-    against its plain version (`graphs.while_plain`): `n` iterations and
-    the predicate at 0 in both. Its launches are not a path's."""
+    WHILE node whose body's one launch takes one from its predicate and
+    sets the condition from what is left, the launch recorded in a torch
+    capture that is copied into the WHILE body as a child graph (the form
+    the solver's bodies take), started at `n`, against its plain version
+    (`graphs.while_plain`): `n` iterations and the predicate at 0 in both.
+    Its launches are not a path's."""
     from armon_torch.core import graphs as G
-    saved = dict(G.LAUNCHES)
+    saved = dict(G.LAUNCHES), dict(G.MEASURE)
     try:
         run = _Countdown(torch, n)
-        iters = G.CycleGraphs("cuda").run(run, 0, 1, 0)
-        plain = _Countdown(torch, n)
+        iters = G.CycleGraphs("cuda").run(run, 0, 1)
+        plain = _Countdown(torch, n, plain=True)
         plain_iters = G.while_plain(plain, 0, 1, 0)
         torch.cuda.synchronize()
     finally:
-        G.LAUNCHES.update(saved)
+        G.LAUNCHES.update(saved[0])
+        G.MEASURE.update(saved[1])
     got = (iters, int(run.iscal.item()))
     if got != (plain_iters, int(plain.iscal.item())) or got != (n, 0):
         raise AssertionError(f"WHILE of {n}: (iterations, predicate) {got}, "
                              f"plain ({plain_iters}, {int(plain.iscal.item())})")
-    return {"iterations": iters, "plain_iterations": plain_iters,
+    return {"body": "torch capture copied in as a child graph, its launch "
+                    "setting the condition",
+            "iterations": iters, "plain_iterations": plain_iters,
             "predicate": got[1], "bitwise_vs_plain": True}
 
 
@@ -892,7 +913,7 @@ def phase3(torch):
     stats = armon(params)
     torch.cuda.synchronize()
     launches, tails = saved_counts(K)
-    conds = G.LAUNCHES["while_cond"]  # the whole-run graph's iterations
+    conds = G.LAUNCHES["while_tail"]  # the whole-run graph's iterations
     peak = torch.cuda.max_memory_allocated()
     st = stats.data
     m, e = conservation_vars(cfg, st.rho, st.E)
@@ -908,7 +929,8 @@ def phase3(torch):
     if launches["cycle"] or launches["multicycle"]:
         raise AssertionError(f"8192^2 left the per-sweep route: {launches}")
     # Two launches a cycle: K1, then K2 with K3's tail; K3 once, for the
-    # first step; the run is one whole-run graph, `while_cond` once a body.
+    # first step; the run is one whole-run graph, whose condition K2's
+    # tail sets once a body.
     if not (launches["cfl_finish"] == 1 and launches["x_sweep"]
             == launches["y_sweep"] == tails["cfl_tail"]):
         raise AssertionError(f"main path sequencing: {launches} {tails}")
@@ -924,7 +946,7 @@ def phase3(torch):
             "grind_ns": stats.solve_time / stats.cycles / cells * 1e9,
             "host_reads": stats.host_reads, "launches": launches, "tails": tails,
             "launches_per_cycle": sum(launches.values()) / stats.cycles,
-            "while_cond": conds,
+            "while_tail": conds,
             "mass_drift": mass_drift, "energy_drift": energy_drift,
             "max_memory_allocated": peak, "memory_allocated_before": before}
 
@@ -1057,7 +1079,7 @@ def phase3(torch):
     main["cycle_8200_fast_math_max_abs_err"] = k4_err
     emit(main)
     return kernels + [{"cells_per_s": main["cells_per_s"],
-                       "kernel_ms": main["kernel_ms"], "while_cond": conds,
+                       "kernel_ms": main["kernel_ms"], "while_tail": conds,
                        "ff_sum_launches": counts["ff_sum"],
                        "memory": {"peak": peak, "before": before}}]
 
@@ -3612,7 +3634,8 @@ def _form_args(form):
 
 def _run_form(torch, lean, form, every=None):
     """`lean` run once in `form`, from zeroed counts: (result, launch
-    counts, graph statistics and `while_cond`'s count)."""
+    counts, graph statistics and the count of the tails that set the
+    WHILE condition)."""
     from armon_torch.core import graphs as G
     from armon_torch.ops import sweep as K
     K.reset_launches()
@@ -3628,7 +3651,8 @@ def _whole_vs_eager(torch, what, lean):
     """(a) one case: eager, window graphs and the whole-run graph, bit
     for bit; a whole run is one graph launch and one host read (3 with
     the result's two), its launches those of the eager loop with
-    `check_every` the body's length, `while_cond` once a body."""
+    `check_every` the body's length, the condition set by one launch a
+    body."""
     sc_e, f_e = _outcome(_run_form(torch, lean, "eager")[0])
     out = {"case": what, "cycles": sc_e[0]}
     for form in WHOLE_FORMS[1:]:
@@ -3644,7 +3668,7 @@ def _whole_vs_eager(torch, what, lean):
         bodies = -(-(sc[0] - lean.start) // (body * lean.k))
         if (st["runs"], st["replays"], st["graphs"], sc[-1]) != (1, 1, 1, 3) \
                 or counts != n_eager or \
-                st["while_cond"] != st["iterations"] or \
+                st["while_tail"] != st["iterations"] or \
                 (sc[4] is not False and st["iterations"] != bodies):
             raise AssertionError(f"{what}, {form}: {st}, host reads {sc[-1]}, "
                                  f"launches {counts} against {n_eager}")
@@ -3807,31 +3831,34 @@ def _p14_timed(torch):
 
 
 def _p14_while(torch, launches):
-    """(c) `while_cond` alone: a WHILE of `WHILE_N` iterations whose body
-    takes one from the predicate (`_Countdown`), built by the solver's own
-    `CycleGraphs.run`, then relaunched and timed a launch (an untimed reset
-    of the predicate before each), against its plain version
-    (`graphs.while_plain`, a host read an iteration); per iteration. Its
-    kernels-line entry, with the main path's `launches` (phase 3):
-    `max_abs_err` is the largest difference of the iterations and of the
-    predicate it ends with from the plain version's; `ms` and `plain_ms`
-    are a whole iteration, the decrement with `while_cond` and, on the
-    card, the node's turn-around (`ms_covers`), and `bound_ms` the bytes
-    of both kernels."""
+    """(c) the WHILE condition alone: a WHILE of `WHILE_N` iterations whose
+    body is one launch that takes one from the predicate and sets the
+    condition from what is left (`_Countdown`, `countdown_kernel`), as the
+    solver's last launch sets it from the predicate it writes, built by
+    the solver's own `CycleGraphs.run`, then relaunched and timed a launch
+    (an untimed reset of the predicate before each), against its plain
+    version (`graphs.while_plain` over a PyTorch decrement, a host read an
+    iteration); per iteration. Its kernels-line entry, with the main
+    path's `launches` (phase 3: the tails that set the condition, one a
+    body): `max_abs_err` is the largest difference of the iterations and
+    of the predicate it ends with from the plain version's; `ms` and
+    `plain_ms` are a whole iteration, the launch that sets the condition
+    and, on the card, the node's turn-around (`ms_covers`), and
+    `bound_ms` the bytes of that launch."""
     from armon_torch._card import kernel_entry
     from armon_torch.core import graphs as G
     from armon_torch.ops import _build
-    saved = dict(G.LAUNCHES)
+    saved = dict(G.LAUNCHES), dict(G.MEASURE)
     try:
         run = _Countdown(torch, WHILE_N)
         graphs = G.CycleGraphs("cuda")
-        iters = graphs.run(run, 0, 1, 0)
-        plain = _Countdown(torch, WHILE_N)
+        iters = graphs.run(run, 0, 1)
+        plain = _Countdown(torch, WHILE_N, plain=True)
         plain_iters = G.while_plain(plain, 0, 1, 0)
         got = iters, int(run.iscal.item())
         want = plain_iters, int(plain.iscal.item())
         err = max(abs(a - b) for a, b in zip(got, want))
-        if err:
+        if err or got != (WHILE_N, 0):
             raise AssertionError(f"WHILE of {WHILE_N}: (iterations, "
                                  f"predicate) {got} against {want}")
         (_, loop, _), = graphs.wholes.values()
@@ -3842,27 +3869,29 @@ def _p14_while(torch, launches):
                            reset=lambda: plain.iscal.fill_(WHILE_N)) / WHILE_N
         torch.cuda.synchronize()
     finally:
-        G.LAUNCHES.update(saved)
-    # An iteration: the decrement reads and writes the predicate (8
-    # bytes); `while_cond` reads the predicate and the count and writes
-    # the count (12).
+        G.LAUNCHES.update(saved[0])
+        G.MEASURE.update(saved[1])
+    # An iteration: the launch reads and writes the predicate and the
+    # count (16 bytes) and sets the condition.
     entry = kernel_entry(
-        "while_cond", "armon_torch/csrc/graph.cu",
+        "while_cond", "armon_torch/csrc/common.cuh",
         "none: the cond of lax.while_loop, armon_tpu/core/step.py:461-478",
-        launches, float(err), ms, plain_ms, bound(20, {"float32": 3}))
-    entry["ms_covers"] = ("one WHILE iteration: a one-element decrement, "
-                          "while_cond and the node's turn-around")
+        launches, float(err), ms, plain_ms, bound(16, {"float32": 2}))
+    entry["ms_covers"] = ("one WHILE iteration: a one-element countdown "
+                          "launch that sets the condition (set_while, as "
+                          "the solver's last launch of a body) and the "
+                          "node's turn-around")
     return entry
 
 
 def phase14(torch, rates):
     """The whole-run graph: against the eager loop and window graphs, bit
-    for bit; the time a cycle in each form; `while_cond`'s kernels-line
-    entry."""
+    for bit; the time a cycle in each form; the WHILE condition's
+    kernels-line entry."""
     card = card_line()
     emit({"phase": 14, "card": card, "whole_vs_eager": _p14_agree(torch)})
     emit({"phase": 14, "card": card, "timed": _p14_timed(torch)})
-    entry = _p14_while(torch, rates.get("main", {}).get("while_cond", 0))
+    entry = _p14_while(torch, rates.get("main", {}).get("while_tail", 0))
     emit({"phase": 14, "card": card, "while_cond": entry})
     return [entry]
 

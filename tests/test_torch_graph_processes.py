@@ -522,10 +522,13 @@ class _FakeGraphs:
         for i in range(start, start + n):
             run.cycle(i)
 
-    def run(self, run, start, n, pred):
+    def run(self, run, start, n):
+        # The body's last launch sets the condition from iscal[run] on
+        # these routes; the plain version reads that predicate.
         self.calls.append(("whole", start, n))
         from armon_torch.core import graphs as G
-        return G.while_plain(run, start, n, pred)
+        from armon_torch.ops import sweep as K
+        return G.while_plain(run, start, n, K.IS_RUN)
 
 
 @pytest.mark.parametrize("nprocs,strict", [(1, False), (2, False), (2, True)],

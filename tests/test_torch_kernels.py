@@ -216,31 +216,32 @@ def test_launch_counts(card):
     # (Sequential per-sweep), so no cycle launches past the end; cycles
     # run in whole bodies, and a cycle past the end passes through. K3
     # runs once, for the first step; every cycle's last launch (K2)
-    # carries its tail; `while_cond` ends each body.
+    # carries its tail, and K2's tail sets the WHILE condition once a
+    # body.
     assert K.LAUNCHES["x_sweep"] == K.LAUNCHES["y_sweep"] == 5
     assert K.LAUNCHES["cfl_finish"] == 1
     assert K.TAILS["cfl_tail"] == 5
-    assert G.LAUNCHES["while_cond"] == 5
+    assert G.LAUNCHES["while_tail"] == 5
 
 
 @pytest.mark.parametrize("splitting,route,expect", [
     ("Sequential", PAIR, dict(cycle=6, cfl_finish=1, cfl_tail=6,
-                              while_cond=3)),
+                              while_tail=3)),
     ("Strang", PAIR, dict(cycle=6, x_sweep=3, y_sweep=3, cfl_finish=1,
-                          cfl_tail=6, while_cond=3)),
-    ("Sequential", {}, dict(multicycle=1, while_cond=1)),
+                          cfl_tail=6, while_tail=3)),
+    ("Sequential", {}, dict(multicycle=1, while_tail=1)),
     ("X_only", {}, dict(x_sweep=6, cfl_finish=1, cfl_tail=6,
-                        while_cond=3))],
+                        while_tail=3))],
     ids=["pair", "pair-strang", "multicycle", "x-only"])
 def test_route_launch_counts(card, splitting, route, expect):
     """Each route launches its kernels and no other; `cfl_tail` counts
     the launches that carried K3's tail. The run is one whole-run graph
     whose body is two cycles on these routes (one K5 launch of 8 on the
-    multicycle route), so 5 cycles launch 6; `while_cond` ends each
-    body."""
+    multicycle route), so 5 cycles launch 6; the body's last launch sets
+    the WHILE condition (`while_tail`), once a body."""
     expect = dict(expect)
     tails = {"cfl_tail": expect.pop("cfl_tail", 0)}
-    conds = {"while_cond": expect.pop("while_cond")}
+    conds = {"while_tail": expect.pop("while_tail")}
     K.reset_launches()
     G.reset_launches()
     params = armon_torch.ArmonParameters(test="Sod", N=(64, 64), maxcycle=5,

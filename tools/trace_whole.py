@@ -10,8 +10,8 @@ lean loop, the per-cycle driver's loop and a whole-run CUDA graph
 
 A traced run counts each kernel's records in the Chrome trace that
 `armon_torch.utils.profiling.trace` writes and holds them against the
-wrappers' counts (`ops/sweep.LAUNCHES`, `core/graphs.LAUNCHES` for
-`while_cond`). The loops here are traced without the trace's warm-up
+wrappers' counts (`ops/sweep.LAUNCHES`; `core/graphs.LAUNCHES` for the
+tails that set a whole-run graph's condition). The loops here are traced without the trace's warm-up
 launches (`profiling.WARM_LAUNCHES`) unless a case says otherwise;
 `armon()` runs with them. `--fresh` traces whole-run graphs of Sod, f32
 fast math, per-sweep at 1024^2 (500 cycles), 8192^2 (20) and 256^2
@@ -29,7 +29,8 @@ whole-run graph after `torch.cuda.empty_cache()`; then, with a card
 sync and a wait of 0, 1, 10 or 100 ms before the trace ends, six runs of
 the per-cycle driver's loop eagerly, and three each of it with one-cycle
 window graphs and of the whole-run graph. One JSON line per run: the
-wrappers' counts, the trace's counts of K1, K2, K5 and `while_cond`,
+wrappers' counts, the tails that set the WHILE condition, the trace's
+counts of K1, K2 and K5,
 where records are missing (`trace_where`) and the device's free memory.
 Times are not measured.
 """
@@ -54,17 +55,16 @@ PER_SWEEP = dict(pair_threshold=0, temporal_blocking=1)
 
 
 def trace_counts(log_dir):
-    """{K1, K2, while_cond: records} in the Chrome trace under `log_dir`."""
+    """{K1, K2, K5: records} in the Chrome trace under `log_dir`."""
     from chip_smoke import _base_kernel
     [path] = glob.glob(os.path.join(log_dir, "trace_*.json"))
     with open(path) as f:
         names = [_base_kernel(e["name"]) for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "kernel"]
-    c = collections.Counter("while_cond" if "while_cond" in n else n
-                            for n in names)
+    c = collections.Counter(names)
     return {k: c.get(n, 0) for k, n in (
         ("x_sweep", "x_sweep_kernel"), ("y_sweep", "y_sweep_finish_kernel"),
-        ("multicycle", "multicycle_kernel"), ("while_cond", "while_cond"))}
+        ("multicycle", "multicycle_kernel"))}
 
 
 def trace_where(log_dir):
@@ -116,7 +116,7 @@ def traced(torch, label, run, tmp, i):
     free, _ = torch.cuda.mem_get_info()
     print(json.dumps({"case": label, "run": i, "cycles": cycles,
                       "wrappers": {k: v for k, v in K.LAUNCHES.items() if v},
-                      "while_cond": G.LAUNCHES["while_cond"],
+                      "while_tail": G.LAUNCHES["while_tail"],
                       "trace": trace_counts(d), "where": trace_where(d),
                       "free_gb": free / 1e9}),
           flush=True)
