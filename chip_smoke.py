@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-17, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-18, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
@@ -24,6 +24,7 @@
                                           # two cards)
     python3 chip_smoke.py --phases 0,17   # the conservation kernel K6 (add 3
                                           # for its main-path launches)
+    python3 chip_smoke.py --phases 0,18   # the option-space fuzz on the card
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), torch's version and its
@@ -324,7 +325,18 @@ Phases, each printing one JSON line:
      energy with K6 against the same run on the plain version, equal
      (Sod 100^2, and Sod 1000^2 over 3x1 on one card). K6's entry joins
      the `kernels` line (its launches phase 3's, two a run); the paths'
-     launches of (c)-(e) go to the line's `launches_phase17`.
+     launches of (c)-(e) go to the line's `launches_phase17`;
+ 18. the option-space fuzz (`armon_torch/fuzz.py`, the counterpart of the
+     JAX package's `tests/test_option_fuzz.py`): every oracle over its
+     seeds of `fuzz.CARD_SMOKE` in the card geometry (random schemes,
+     cases, splittings, dtypes, dt modes, forced routes, fast math,
+     graphs on and off, one-card meshes with uneven splits, extents that
+     straddle the kernels' geometry branches), each case's launches
+     counted; one line an oracle with each seed's branches (`fuzz.
+     branches`). It fails if an oracle fails on any seed, if a branch of
+     `fuzz.REQUIRED` was not reached, or if K1, K2, K3's tail, K4, K5 or
+     K6 never launched; its launches go to the `kernels` line's
+     `launches_phase18`.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -4797,13 +4809,70 @@ def phase17(torch, rates):
     return entry, count.total
 
 
+# ------------------------------------------------- the option-space fuzz
+
+# The kernels phase 18 must launch: K1, K2, K3's tail, K4, K5, K6.
+P18_KERNELS = ("x_sweep", "y_sweep", "cfl_tail", "cycle", "multicycle",
+               "ff_sum")
+
+
+def phase18(torch):
+    """The option-space fuzz on the card (see the module doc). Every case
+    runs, a failure is recorded with its traceback and the phase raises at
+    its end, naming them all. Returns phase 18's launches by kernel."""
+    import tempfile
+    import traceback
+    from armon_torch import fuzz
+    from armon_torch.core.solver import clear_cache
+    t0 = time.perf_counter()
+    card = card_line()
+    count = _Counted(torch)
+    hits, failures = set(), []
+    for name, seeds in fuzz.CARD_SMOKE.items():
+        t1 = time.perf_counter()
+        per_seed, launches = {}, {}
+        for seed in seeds:
+            case = fuzz.plan(name, seed, "card")
+            try:
+                with tempfile.TemporaryDirectory(prefix="armon_p18_") as tmp:
+                    _, n = count.path(f"phase 18 {name} seed {seed}",
+                                      lambda: fuzz.check(case, "cuda", tmp),
+                                      ())
+            except Exception:  # every case runs; the phase fails below
+                failures.append((name, seed, traceback.format_exc()))
+                print(failures[-1][2], file=sys.stderr, flush=True)
+                n = {}
+            finally:
+                clear_cache()
+            got = fuzz.case_branches(case)
+            hits |= got
+            per_seed[seed] = " ".join(sorted(got))
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+        emit({"phase": 18, "oracle": name, "seconds":
+              time.perf_counter() - t1, "launches": launches,
+              "branches": per_seed})
+    missing = [b for b in fuzz.REQUIRED if b not in hits]
+    idle = [k for k in P18_KERNELS if not count.total.get(k)]
+    emit({"phase": 18, "card": card, "cases": sum(
+        map(len, fuzz.CARD_SMOKE.values())), "failures": [
+        f"{n} seed={s}" for n, s, _ in failures], "missing_branches":
+        missing, "never_launched": idle, "launches": count.total,
+        "seconds": time.perf_counter() - t0})
+    if failures or missing or idle:
+        raise AssertionError(
+            f"phase 18: failures {[(n, s) for n, s, _ in failures]}, "
+            f"branches not reached {missing}, kernels never launched {idle}")
+    return count.total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5; 17 is the conservation kernel "
-                         "K6)")
+                         "K6, 18 the option-space fuzz)")
     ap.add_argument("--mp-worker", nargs=4, metavar=("JOB", "RANK", "PORT",
                                                      "DIR"),
                     help=argparse.SUPPRESS)  # phases 12 and 15's workers
@@ -4904,6 +4973,13 @@ def main(argv=None):
         kernels.append(entry)
         for entry in kernels:
             entry["launches_phase17"] = p17.get(entry["name"], 0)
+        clear_cache()
+    if 18 in phases:
+        # The option-space fuzz's cases, each counted as a path.
+        p18 = phase18(torch)
+        for entry in kernels:
+            entry["launches_phase18"] = p18.get(entry["name"], 0)
+        clear_cache()
     if 6 in phases and kernels:
         print(card_line())
         emit({"kernels": kernels})
