@@ -34,19 +34,30 @@ def _parse(value: str):
     return value
 
 
+def options(argv):
+    """{key: value} of `key=value` arguments, values as `_parse` reads
+    them (the example scripts take their overrides so); ValueError names
+    an argument without `=`."""
+    out = {}
+    for arg in argv:
+        if "=" not in arg:
+            raise ValueError(f"expected key=value, got '{arg}'")
+        key, value = arg.split("=", 1)
+        out[key] = _parse(value)
+    return out
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0
-    options = {}
-    for arg in argv:
-        if "=" not in arg:
-            print(f"error: expected key=value, got '{arg}'", file=sys.stderr)
-            return 2
-        key, value = arg.split("=", 1)
-        options[key] = _parse(value)
-    params = ArmonParameters(**options)
+    try:
+        opts = options(argv)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    params = ArmonParameters(**opts)
     stats = armon(params)
     if params.silent < 5:
         print(stats)

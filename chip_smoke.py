@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`armon_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 0-4 and 6-18, as the check runs it
+    python3 chip_smoke.py                 # phases 0-4 and 6-19, as the check runs it
     python3 chip_smoke.py --phases 0,1    # a subset (build + kernel checks)
     python3 chip_smoke.py --phases 0,5    # the route crossovers only
     python3 chip_smoke.py --phases 0,7    # the domain-decomposed runs only
@@ -25,6 +25,8 @@
     python3 chip_smoke.py --phases 0,17   # the conservation kernel K6 (add 3
                                           # for its main-path launches)
     python3 chip_smoke.py --phases 0,18   # the option-space fuzz on the card
+    python3 chip_smoke.py --phases 0,19   # the examples, the entry points and
+                                          # the kernel-math fuzz
 
 Phases, each printing one JSON line:
   0. the card (nvidia-smi name and power limit), torch's version and its
@@ -336,7 +338,28 @@ Phases, each printing one JSON line:
      branches`). It fails if an oracle fails on any seed, if a branch of
      `fuzz.REQUIRED` was not reached, or if K1, K2, K3's tail, K4, K5 or
      K6 never launched; its launches go to the `kernels` line's
-     `launches_phase18`.
+     `launches_phase18`;
+ 19. the port's last modules of the JAX package: (a) the kernel-math
+     fuzz (`armon_torch/kernel_fuzz.py`, the counterpart of the JAX
+     package's `tests/test_fuzz.py`), every check of `card_checks()` on
+     the JAX file's random smooth states and scheme draws, at its N and 8
+     times it: K1 and K2, K4 in both sweep orders, K5 (eight cycles where
+     the grid fits its cap), K4 against K1 then K2 on uniform random
+     states, and the X sweep (K1) commuting with the Y ghost fill, bit
+     for bit against the plain versions in f64 and f32 exact; f32 fast
+     math (Sod_circ and Bizarrium) within the fast-math gate of the f64
+     plain version; a line a check with its draws, its largest
+     difference and its launches; (b) the three example scripts
+     (`examples/torch_*.py`) at the JAX scripts' sizes and defaults, on
+     the card, each a subprocess (this script with `--example`) in a
+     temporary directory, the Sedov example (its 13 files of 250,000
+     cells) beside the other two: wall seconds, cycles, cells/s, the files each
+     wrote, read back and counted (all finite), the mesh the multichip
+     example chose, its launches; (c) `armon_torch.entry.
+     dryrun_multichip` over 4 shards (on four cards where the machine has
+     them, else on cuda:0). Every part runs; the phase fails at its end
+     if one failed or if K1, K2, K3's tail, K4 or K5 never launched. Its
+     launches go to the `kernels` line's `launches_phase19`.
 
 Every kernel time is the best of 3 passes of back-to-back CUDA-event
 timed calls behind a spin kernel (`armon_torch/_card.py`, shared with the
@@ -4866,16 +4889,192 @@ def phase18(torch):
     return count.total
 
 
+# ------------------------------------- examples, entry points, kernel fuzz
+
+# The kernels phase 19 must launch: K1, K2, K3's tail, K4, K5.
+P19_KERNELS = ("x_sweep", "y_sweep", "cfl_tail", "cycle", "multicycle")
+# The port's example scripts (`examples/`), each run at its defaults (the
+# JAX script's sizes) as a subprocess: this script with `--example`.
+P19_EXAMPLES = ("torch_sod_profile", "torch_sedov_animation",
+                "torch_multichip")
+P19_TIMEOUT = 300        # seconds an example's subprocess may take
+P19_DRY_SHARDS = 4
+
+
+def _example_worker(name):
+    """Phase 19 (b)'s worker, in the directory the example writes into:
+    `main([])` of `examples/<name>.py` with its launch counts set to 0
+    just before it and its printed lines kept in memory, then every file
+    it wrote read back (slices with numpy, state files and frames with the
+    port's native reader); prints one JSON line."""
+    import contextlib
+    import importlib.util
+    import io
+    import json
+    import re
+    import numpy as np
+    import torch
+    from armon_torch import ArmonParameters
+    from armon_torch.io import output
+    from armon_torch.ops import sweep as K
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    K.reset_launches()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        stats = module.main([])
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in {**K.LAUNCHES, **K.TAILS}.items() if n}
+    t0 = time.perf_counter()
+    files, finite = {}, True
+    for root, _, names in os.walk("."):
+        for f in sorted(names):
+            path = os.path.join(root, f)
+            if f.endswith("_slice"):
+                with open(path) as fh:
+                    rows = np.array([line.split(",") for line in fh
+                                     if line.strip()], dtype=np.float64)
+                cells = len(rows)
+            else:
+                # the example's configuration (no device enters it)
+                cfg = ArmonParameters(**{**module.DEFAULTS,
+                                         "device": "cpu"}).config
+                rows = np.stack(list(output.read_state_file(cfg, path)
+                                     .values()))
+                cells = rows[0].size
+            finite &= bool(np.isfinite(rows).all())
+            files[os.path.relpath(path, ".")] = cells
+    mesh = re.search(r"devices: (\d+) -> mesh (\S+)", text.getvalue())
+    print(json.dumps({"example": name, "cycles": stats.cycles,
+                      "cells_per_s": stats.giga_cells_per_sec * 1e9,
+                      "solve_s": stats.solve_time, "files": files,
+                      "finite": finite, "readback_s": time.perf_counter() - t0,
+                      "launches": launches,
+                      "mesh": mesh.group(0) if mesh else None,
+                      "printed_lines": text.getvalue().count("\n")}))
+    return 0
+
+
+class _Example:
+    """(b): one example as a subprocess (this script with `--example`) in
+    a temporary directory of its own, started at once; `result()` waits
+    for it and returns its worker's line with the wall seconds from its
+    start, and removes the directory."""
+
+    def __init__(self, name):
+        import subprocess
+        import tempfile
+        self.name = name
+        self.tmp = tempfile.TemporaryDirectory(prefix="armon_p19_")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--example",
+             name], cwd=self.tmp.name, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def result(self):
+        import json
+        try:
+            out, err = self.proc.communicate(timeout=P19_TIMEOUT)
+        except BaseException:
+            self.proc.kill()
+            self.proc.communicate()
+            raise
+        finally:
+            self.tmp.cleanup()
+        wall = time.perf_counter() - self.t0
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.name} exited {self.proc.returncode}"
+                                 f": {err[-3000:]}")
+        return {**json.loads(out.strip().splitlines()[-1]), "wall_s": wall}
+
+
+def phase19(torch):
+    """The kernel-math fuzz, the example scripts and the dry run (see the
+    module doc). Every part runs; a failure is recorded with its
+    traceback and the phase raises at its end, naming them all. Returns
+    phase 19's launches by kernel (the examples' counted in their
+    workers)."""
+    import traceback
+    from armon_torch import kernel_fuzz as KF
+    from armon_torch.core.solver import clear_cache
+    from armon_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    card = card_line()
+    count = _Counted(torch)
+    failures = []
+
+    def fail(what):
+        failures.append((what, traceback.format_exc()))
+        print(failures[-1][1], file=sys.stderr, flush=True)
+
+    t1 = time.perf_counter()
+    for name, draws, run in KF.card_checks():
+        t2 = time.perf_counter()
+        try:
+            worst, n = count.path(f"phase 19 {name}", lambda: run("cuda"), ())
+        except Exception:  # every check runs; the phase fails below
+            fail(f"(a) {name}")
+            worst, n = None, {}
+        emit({"phase": 19, "check": name, "draws": [list(d) for d in draws],
+              "max_err": worst, "launches": n,
+              "seconds": time.perf_counter() - t2})
+    emit({"phase": 19, "part": "(a) kernel-math fuzz",
+          "seconds": time.perf_counter() - t1})
+
+    # The Sedov example, the longest (its frames are 350 MB of text written
+    # and read back on the host), runs beside the other two, which run one
+    # after the other; each line names what ran beside it.
+    first = P19_EXAMPLES[1]
+    beside = _Example(first)
+    for name in P19_EXAMPLES[:1] + P19_EXAMPLES[2:] + (first,):
+        try:
+            line = beside.result() if name == first else _Example(name).result()
+            line["beside"] = None if name == first else first
+            if not line["finite"]:
+                raise AssertionError(f"{name}: a file read back non-finite")
+            for k, v in line["launches"].items():
+                count.total[k] = count.total.get(k, 0) + v
+            emit({"phase": 19, "card": card, **line})
+        except Exception:
+            fail(f"(b) {name}")
+
+    try:
+        t2 = time.perf_counter()
+        dry, n = count.path("phase 19 dryrun",
+                            lambda: dryrun_multichip(P19_DRY_SHARDS), ())
+        emit({"phase": 19, "dryrun_multichip": dry, "launches": n,
+              "seconds": time.perf_counter() - t2})
+    except Exception:
+        fail("(c) dryrun_multichip")
+    finally:
+        clear_cache()
+
+    idle = [k for k in P19_KERNELS if not count.total.get(k)]
+    emit({"phase": 19, "card": card, "failures": [w for w, _ in failures],
+          "never_launched": idle, "launches": count.total,
+          "seconds": time.perf_counter() - t0})
+    if failures or idle:
+        raise AssertionError(f"phase 19: failures {[w for w, _ in failures]}"
+                             f", kernels never launched {idle}")
+    return count.total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18",
+                    default="0,1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,"
+                            "19",
                     help="comma-separated phases to run (default: all but "
                          "the crossovers, 5; 17 is the conservation kernel "
-                         "K6, 18 the option-space fuzz)")
+                         "K6, 18 the option-space fuzz, 19 the examples, "
+                         "the entry points and the kernel-math fuzz)")
     ap.add_argument("--mp-worker", nargs=4, metavar=("JOB", "RANK", "PORT",
                                                      "DIR"),
                     help=argparse.SUPPRESS)  # phases 12 and 15's workers
+    ap.add_argument("--example", help=argparse.SUPPRESS)  # phase 19's workers
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -4892,6 +5091,8 @@ def main(argv=None):
         worker = _kc_worker if MP_JOBS[job].get("cache") else \
             _gp_worker if MP_JOBS[job].get("graphs") else _mp_worker
         return worker(job, int(rank), int(port), tmp)
+    if args.example:
+        return _example_worker(args.example)
     # Each phase's kept loops are dropped after it (`core/solver.
     # clear_cache`): what a phase allocates outside the program cache
     # (probes, kernel checks, peak measurements) then has the card to
@@ -4979,6 +5180,13 @@ def main(argv=None):
         p18 = phase18(torch)
         for entry in kernels:
             entry["launches_phase18"] = p18.get(entry["name"], 0)
+        clear_cache()
+    if 19 in phases:
+        # The kernel-math fuzz, the examples (counted in their workers) and
+        # the dry run.
+        p19 = phase19(torch)
+        for entry in kernels:
+            entry["launches_phase19"] = p19.get(entry["name"], 0)
         clear_cache()
     if 6 in phases and kernels:
         print(card_line())

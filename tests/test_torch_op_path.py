@@ -37,6 +37,7 @@ from armon_torch.core.solver import make_init
 from armon_torch.core.state import State
 from armon_torch.core.step import make_time_loop
 from armon_torch.interop import to_numpy
+from armon_torch.kernel_fuzz import random_fields as _random_fields
 from armon_torch.ops import (boundary, eos, limiters, projection, reductions,
                              riemann, shifts, update)
 from armon_torch.ops import sweep as K
@@ -51,40 +52,11 @@ N = (40, 36)
 
 # ------------------------------------------------------------------ helpers
 
-def _smooth(rng, lo, hi, shape):
-    """`tests/test_fuzz.py:45-60`: uniform noise, two box-blur passes."""
-    a = rng.uniform(lo, hi, shape)
-    for _ in range(2):
-        a = 0.25 * (np.roll(a, 1, 0) + np.roll(a, -1, 0)
-                    + np.roll(a, 1, 1) + np.roll(a, -1, 1))
-    return a
-
-
 def _configs(test="Sod_circ", dtype=np.float64, **opts):
     opts = dict(test=test, N=N, data_type=dtype, **opts)
     return (armon_tpu.ArmonParameters(**opts).config,
             armon_torch.ArmonParameters(device="cpu", kernel_tier="torch",
                                         **opts).config)
-
-
-def _random_fields(cfg, seed, shape=None):
-    """Every State field, smooth and physical; Bizarrium's near its
-    initial states. `shape` defaults to one shard's."""
-    rng = np.random.default_rng(seed)
-    shape = shape or cfg.local_shape
-    biz = type(cfg.test).__name__ == "Bizarrium"
-    f = dict(
-        x=_smooth(rng, 0.0, 1.0, shape), y=_smooth(rng, 0.0, 1.0, shape),
-        rho=_smooth(rng, 1.0e4, 1.43e4, shape) if biz
-        else _smooth(rng, 0.5, 2.0, shape),
-        u=_smooth(rng, -0.3, 0.3, shape), v=_smooth(rng, -0.3, 0.3, shape),
-        E=_smooth(rng, 3.2e4, 4.5e6, shape) if biz
-        else _smooth(rng, 1.5, 3.0, shape),
-        p=_smooth(rng, 0.5, 1.5, shape), c=_smooth(rng, 1.0, 1.5, shape),
-        g=_smooth(rng, 1.0, 1.5, shape),
-        ustar=_smooth(rng, -0.3, 0.3, shape),
-        pstar=_smooth(rng, 0.5, 1.5, shape))
-    return {k: a.astype(cfg.dtype) for k, a in f.items()}
 
 
 def _states(cfg, seed):
