@@ -14,9 +14,10 @@
 // halo): at 8200^2, 0.72 ms of bytes and 0.77 ms of lane operations. On
 // the card it runs well above both, held back by instruction latency
 // (PERF.md). K5:
-// operations and latency. The grids it admits (<= 256 KiB per field) stay
-// in the 50 MB L2 for all K cycles, so the sweeps' flops and one grid-wide
-// barrier per cycle set its floor, not HBM.
+// latency. The grids it admits (<= 256 KiB per field) stay in the 50 MB
+// L2 for all K cycles, so the sweeps' dependent chains and one grid-wide
+// barrier per cycle set its time, not HBM: a cycle that only copies and
+// waits at the barrier takes 4.0 us at 108^2 (PERF.md).
 //
 // K4's design (`cycle_kernel`, the tile body redesigned for Hopper). A
 // block owns an RX x RY output tile and sweeps the WX x WY window around
@@ -55,12 +56,12 @@
 // 1) and a warp reading a row (lane t at columns PX t ... PX t + PX - 1,
 // PX odd) both hit 32 distinct banks.
 //
-// K5's design (`cycle_tile`, also run by the probe's `base_l32`): a block
-// owns an R x R output tile (R = L - 2 HALO) and works on
-// the L x L window around it. The load fills both ghost bands from the
-// pre-cycle state, Y mirror and X mirror (the X sweep is row-local and
-// exactly odd in v, so this equals filling before each sweep bit for bit:
-// `_cycle_kernel`'s docstring). On a shard of a mesh sharded along Y, a
+// The per-position tile body (`cycle_tile`, run by the cycle probe's
+// `base_l32`; it was K5's before K5's redesign): a block owns an R x R
+// output tile (R = L - 2 HALO) and works on the L x L window around it.
+// The load fills both ghost bands from the pre-cycle state, Y mirror and
+// X mirror (the X sweep is row-local and exactly odd in v, so this equals
+// filling before each sweep bit for bit: `_cycle_kernel`'s docstring). On a shard of a mesh sharded along Y, a
 // side that faces a neighbour reads its ghost rows from the neighbour's
 // packed (4, g, cols) slab instead, and the X mirror maps the column
 // first, so a corner cell takes f_x times the neighbour's value, as the
@@ -71,31 +72,55 @@
 // outputs on the R inner positions of each line stay in shared memory (F,
 // 4 fields x L lines x R), never in device memory. The second sweep runs
 // on the R lines of F. Both are `sweep_body` (sweep.cuh), one position
-// per thread, with the line's stride in S as the shifted-read stride. The block
-// writes its tile's rho/u/v/E (+ p) to the second buffer set and, when it
-// emits, one pair of CFL partial maxima. The TPU's full-width row chunks
-// are not carried over: the TPU runs its grid in order out of a large
-// VMEM, the card runs many small tiles at once.
+// per thread, with the line's stride in S as the shifted-read stride. The
+// TPU's full-width row chunks are not carried over: the TPU runs its grid
+// in order out of a large VMEM, the card runs many small tiles at once.
+//
+// K5's design (`multicycle_kernel`, redesigned for the H100). The old
+// body ran a cycle as seven dependent passes of 8 lines (4 for the first
+// sweep of a 32 x 32 window, 3 for the second), each a `sweep_body` chain
+// with 6 block barriers, on 256-thread blocks: at 108^2 25 blocks on 25 of
+// 132 SMs, 11.7 us a cycle, flat from 108^2 to 248^2 (latency). Now every
+// line of a W x W window (W = 16 P) belongs to a 16-lane segment of a
+// warp, each lane a run of P consecutive positions, neighbours through
+// registers and shuffles (`run_body`, as K1 and K4): each sweep of a cycle
+// is ONE pass over all its lines, with no barrier inside. Two geometries
+// (`MultiGeom`): 16 x 16 windows (8 x 8 tiles, P = 1, 256 threads) while
+// their tiles fit co-resident on the card (132 SMs x the blocks per SM of
+// their launch bounds), so a small grid spreads over every SM; else 32 x
+// 32 windows (24 x 24 tiles, P = 2, 512 threads), which hold every grid
+// the routing admits (`multi_window`, `ops/cycle.multi_tile`). X first,
+// a segment loads its window row straight from L2 into its run, sweeps it,
+// and keeps the inner columns in shared memory (one barrier); the inner
+// columns' segments then sweep down them. Y first, the rows go to shared
+// memory (one barrier), every column is swept in place (a second), and
+// the inner rows' segments sweep them. Either way the second sweep's
+// lanes store the tile and p straight from their registers, and each warp
+// adds its CFL maxima to the block's pair by atomic maxima, so no block
+// barrier follows the second sweep. The halo's redundant work (the two sweeps cover (W^2 + R W) /
+// (2 R^2) of the tile's cells: 6x at W = 16, 3.1x at 32) costs little at
+// 1% of the operation bound, against the SMs it brings in.
 //
 // K5 is a cooperative launch of every tile of the grid at once. Each cycle:
 // the dt recurrence (`dt_step`, the one K3 runs) and the run predicate,
-// computed identically by every block; K4's tile body, or a copy when the
-// cycle does not run; one grid-wide barrier; every block folds the cycle's
-// partials into lm. The fields ping-pong between the two buffer sets and a
-// cycle that does not run copies, so after K cycles the carry sits in the
-// set K's parity names, whatever number of cycles ran. The partials are
-// double-buffered by cycle parity, so one barrier per cycle suffices. Each
-// cycle takes its sweep order and dt factors from the parity of the device
-// cycle counter (the TPU kernel indexes a static schedule that starts on
-// an even cycle; both agree there). Field and partial loads bypass L1
-// (__ldcg): other blocks wrote them before the barrier. After the last
-// cycle, block 0's thread 0 writes the loop scalars back and, in the last
-// launch of a whole-run graph's body, sets the WHILE condition from
-// iscal[next] (`set_while`, common.cuh).
+// computed identically by every block; the tile's cycle, or a copy when
+// the cycle does not run; one grid-wide barrier (K5's own, on a count in
+// the partials buffer: `grid_barrier`); every block folds the cycle's
+// partials into lm (warp shuffles, one block barrier), while the next
+// cycle's window loads are in flight. The fields
+// ping-pong between the two buffer sets and a cycle that does not run
+// copies, so after K cycles the carry sits in the set K's parity names,
+// whatever number of cycles ran. The partials are double-buffered by cycle
+// parity, so one grid barrier per cycle suffices. Each cycle takes its
+// sweep order and dt factors from the parity of the device cycle counter
+// (the TPU kernel indexes a static schedule that starts on an even cycle;
+// both agree there). Field and partial loads bypass L1 (__ldcg): other
+// blocks wrote them before the barrier. After the last cycle, block 0's
+// thread 0 writes the loop scalars back and, in the last launch of a
+// whole-run graph's body, sets the WHILE condition from iscal[next]
+// (`set_while`, common.cuh).
 
 #pragma once
-
-#include <cooperative_groups.h>
 
 #include "sweep.cuh"
 
@@ -112,11 +137,11 @@ template <int L> struct Tile {
   }
 };
 
-constexpr int MULTI_L = 32;  // K5: 24 x 24 tiles, more blocks on small grids
+constexpr int BASE_L = 32;  // the cycle probe's `base_l32`: the per-position body, 24 x 24 tiles
 
 // Measurement variants of K4 for the cycle probe
 // (armon_torch/probes/cycle_variants.py, after scripts/perf_probe.py), a
-// compile-time parameter of `cycle_kernel` (and of K5's `cycle_tile`)
+// compile-time parameter of `cycle_kernel` (and of the per-position `cycle_tile`)
 // whose default, CV_BASE, is the production kernel; the variants are
 // instantiated only in probe_cycle.cu. NO_P: the stale p is not written.
 // NO_DT: no CFL partials (and no sound speed formed for them). NO_ROLL:
@@ -160,6 +185,7 @@ struct MultiArgs {
   int x_first[2];         // by cycle parity
   double fx[2], fy[2];
   DtParams dt;
+  void* bar;              // u64: the grid barrier's arrival count (zeroed once, then only grows)
   cudaGraphConditionalHandle cond;  // the body's last launch: its WHILE condition; else 0
   int* count;             // with `cond`: the WHILE's iteration count
 };
@@ -286,13 +312,13 @@ __device__ __forceinline__ void cycle_tile(const CycleArgs& a, Fields<const T> s
   }
 }
 
-// A cycle past the run's end: pass the tile's fields through.
-template <typename T, int L>
+// A cycle past the run's end: pass the R x R tile's fields through, NT
+// threads.
+template <typename T, int R, int NT>
 __device__ __forceinline__ void copy_tile(const CycleArgs& a, Fields<const T> src,
                                           Fields<T> dst) {
-  constexpr int R = Tile<L>::R;
   const long long r0 = (long long)blockIdx.y * R, c0 = (long long)blockIdx.x * R;
-  for (int i = threadIdx.x; i < R * R; i += Tile<L>::NT) {
+  for (int i = threadIdx.x; i < R * R; i += NT) {
     const long long gr = r0 + i / R, gc = c0 + i % R;
     if (gr < a.rows && gc < a.cols) {
       const long long o = gr * a.cols + gc;
@@ -312,8 +338,8 @@ __device__ __forceinline__ Fields<T> fields(void* const* p) {
            reinterpret_cast<T*>(p[2]), reinterpret_cast<T*>(p[3])}};
 }
 
-// One cycle with K5's tile body on L x L windows: the cycle probe's
-// `base_l32` (K4's function on K5's 24 x 24 tiles).
+// One cycle with the per-position tile body on L x L windows: the cycle probe's
+// `base_l32` (K4's function on 24 x 24 tiles).
 template <typename T, bool FAST, bool BIZ, int L, int V = CV_BASE>
 __global__ void __launch_bounds__(Tile<L>::NT) tile_kernel(const CycleArgs a) {
   constexpr int NT = Tile<L>::NT;
@@ -323,7 +349,7 @@ __global__ void __launch_bounds__(Tile<L>::NT) tile_kernel(const CycleArgs a) {
   const Fields<const T> src = const_fields<T>(a.src);
   const Fields<T> dst = fields<T>(a.dst);
   if (!reinterpret_cast<const int*>(a.iscal)[2]) {
-    copy_tile<T, L>(a, src, dst);
+    copy_tile<T, Tile<L>::R, NT>(a, src, dst);
     return;
   }
   const T dt_use = reinterpret_cast<const T*>(a.scal)[3];
@@ -338,86 +364,6 @@ __global__ void __launch_bounds__(Tile<L>::NT) tile_kernel(const CycleArgs a) {
     T* part = reinterpret_cast<T*>(a.partials);
     part[b] = S[0];
     part[a.n_partials + b] = S[NT];
-  }
-}
-
-template <typename T, bool FAST, bool BIZ, int L>
-__global__ void __launch_bounds__(Tile<L>::NT) multicycle_kernel(const MultiArgs m) {
-  constexpr int NT = Tile<L>::NT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* S = reinterpret_cast<T*>(smem);
-  T* F = S + 9 * NT;
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const CycleArgs& a = m.c;
-  const int tid = threadIdx.x;
-  T* scal = reinterpret_cast<T*>(a.scal);
-  int* iscal = reinterpret_cast<int*>(a.iscal);
-  T t = scal[0], dtp = scal[1], lm = scal[2], dt_last = scal[3];
-  int cyc = iscal[0];
-  bool ok = iscal[1] != 0, ran = iscal[2] != 0;
-  const Fields<T> A = fields<T>(const_cast<void* const*>(a.src));
-  const Fields<T> B = fields<T>(a.dst);
-  T* p = reinterpret_cast<T*>(a.p);
-  const long long nb = (long long)gridDim.x * gridDim.y;
-  const long long b = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-
-  for (int k = 0; k < m.ncycles; ++k) {
-    const bool run = runs(m.dt, t, cyc, ok);
-    const bool odd = k & 1;
-    Fields<const T> from;
-    Fields<T> to;
-    for (int f = 0; f < 4; ++f) {
-      from.f[f] = odd ? B.f[f] : A.f[f];
-      to.f[f] = odd ? A.f[f] : B.f[f];
-    }
-    T* part = reinterpret_cast<T*>(a.partials) + (odd ? 2 * a.n_partials : 0);
-    DtStep<T> r = {T(0), T(0), false};
-    if (run) {
-      r = dt_step(m.dt, lm, dtp, cyc);
-      const int par = cyc & 1;
-      T mx = T(0), my = T(0);
-      cycle_tile<T, FAST, BIZ, L>(a, from, to, p, r.dt_use * T(m.fx[par]),
-                                  r.dt_use * T(m.fy[par]), m.x_first[par] != 0,
-                                  true, S, F, mx, my);
-      block_max2<T, NT>(S, tid, mx, my);
-      if (tid == 0) {
-        part[b] = S[0];
-        part[a.n_partials + b] = S[NT];
-      }
-    } else {
-      copy_tile<T, L>(a, from, to);
-    }
-    grid.sync();
-    if (run) {
-      // K3's fold, in every block: the same maxima, so the same lm.
-      T mx = T(0), my = T(0);
-      for (long long i = tid; i < nb; i += NT) {
-        mx = jmax(mx, __ldcg(part + i));
-        my = jmax(my, __ldcg(part + a.n_partials + i));
-      }
-      block_max2<T, NT>(S, tid, mx, my);
-      const T lm_new = jmin(T(a.dx) / S[0], T(a.dy) / S[NT]);
-      __syncthreads();  // S is the next cycle's scratch
-      t = t + r.dt_use;
-      cyc += 1;
-      dtp = r.dt_next;
-      lm = lm_new;
-      ok = r.ok;
-      dt_last = r.dt_use;
-    }
-    ran = run;
-  }
-  if (b == 0 && tid == 0) {
-    scal[0] = t;
-    scal[1] = dtp;
-    scal[2] = lm;
-    scal[3] = dt_last;
-    iscal[0] = cyc;
-    iscal[1] = ok ? 1 : 0;
-    iscal[2] = ran ? 1 : 0;
-    const bool go = runs(m.dt, t, cyc, ok);
-    iscal[3] = go ? 1 : 0;
-    set_while(m.cond, m.count, go);
   }
 }
 
@@ -451,7 +397,7 @@ template <> struct K4Geom<double> { typedef K4Shape<double, 2, 2, 8, 1> G; };
 template <typename T> using K4 = typename K4Geom<T>::G;
 
 // Where window cell (gr, gc) of the pre-cycle state with both ghost fills
-// lies, and the factors it takes, as K5's `cycle_tile` loads it: the X
+// lies, and the factors it takes, as `cycle_tile` loads it: the X
 // mirror maps the column first, then the Y side (mirror or a neighbour's
 // slab row), the factors folded; `window_cell` loads it.
 template <typename T>
@@ -746,6 +692,344 @@ cycle_finish_kernel(const CycleArgs a, __grid_constant__ const FinishArgs f) {
   cycle_body<T, FAST, BIZ, CV_BASE, K4<T>, true>(a, &f);
 }
 
+// ------------------------------------------------------------------ K5
+
+// A K5 geometry (see the file note): a W x W window, W = S P; a line of
+// it (a row along X, a column along Y) belongs to one S-lane segment of a
+// warp, each lane a run of P consecutive positions, so the block's W
+// segments sweep every line of the window at once. R x R output tile;
+// MINB blocks per SM (launch bounds), which the choice of geometry counts
+// on. A segment's shuffles reach the next segment's lanes at its two ends:
+// those positions are halo, read but never valid (`run_body`). Shared
+// memory: 4 planes of W rows (rho, u, v, E), each row PITCH words (odd,
+// so the lanes reading a column or a row spread over the banks), then the
+// fold's warp maxima.
+template <typename T, int S_, int P_, int MINB_>
+struct MultiShape {
+  static constexpr int S = S_, P = P_, MINB = MINB_;
+  static constexpr int W = S * P, R = W - 2 * HALO, NT = S * W, NW = NT / 32;
+  static constexpr int PITCH = W + 1, PLANE = W * PITCH;
+  // The segments of a second sweep (lines HALO .. HALO + R - 1) make
+  // whole warps, so every lane of a warp that shuffles is in it.
+  static_assert(32 % S == 0 && HALO % (32 / S) == 0 && R % (32 / S) == 0,
+                "a sweep's segments fill whole warps");
+  static constexpr size_t smem() { return (size_t)(4 * PLANE + 2 * NW) * sizeof(T); }
+  static __device__ __forceinline__ int at(int i, int c) { return i * PITCH + c; }
+};
+
+// The two geometries: 16 x 16 windows, a 16-lane segment a line and one
+// position a lane (256 threads); 32 x 32 windows, an 8-lane segment a line
+// and four positions a lane (256 threads), as K1's runs, so a lane's
+// positions give the latency the ILP the fewer warps do not. Blocks per
+// SM by type, each at the most registers that spill nothing: f32 3 small
+// (80 registers) and 2 large (128); f64 2 small (128) and 1 large.
+template <typename T> struct MultiGeom;
+template <> struct MultiGeom<float> {
+  typedef MultiShape<float, 16, 1, 3> Small;
+  typedef MultiShape<float, 8, 4, 2> Large;
+};
+template <> struct MultiGeom<double> {
+  typedef MultiShape<double, 16, 1, 2> Small;
+  typedef MultiShape<double, 8, 4, 1> Large;
+};
+
+// The card the choice sizes tiles for: an H100 SXM's SMs.
+constexpr int MULTI_SMS = 132;
+
+__host__ __device__ inline long long tile_count(long long rows, long long cols, int R) {
+  return ((rows + R - 1) / R) * ((cols + R - 1) / R);
+}
+
+// K5's window edge on a padded (rows, cols) grid of T: the small windows
+// while their tiles fit MULTI_SMS x their MINB co-resident, else the large
+// ones, which hold every other grid `multicycle_geom_ok` admits (at most
+// 160 tiles in f32 and 80 in f64, against 264 and 132; the wide strip 12 x
+// 3200 takes 134). `ops/cycle.multi_tile` makes the same choice.
+template <typename T> inline int multi_window(long long rows, long long cols) {
+  typedef typename MultiGeom<T>::Small S;
+  return tile_count(rows, cols, S::R) <= (long long)MULTI_SMS * S::MINB
+             ? S::W
+             : MultiGeom<T>::Large::W;
+}
+
+// The warp's NaN-propagating maxima of (mx, my), in every lane.
+template <typename T>
+__device__ __forceinline__ void warp_max2(T& mx, T& my) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    mx = jmax(mx, __shfl_xor_sync(0xffffffffu, mx, s));
+    my = jmax(my, __shfl_xor_sync(0xffffffffu, my, s));
+  }
+}
+
+// Field f of the buffer set the cycle of parity `odd` reads (`to`: the
+// set it writes): the fields ping-pong between K5's two sets. Taken from
+// the launch's arguments where it is used, so no pointer stays live in a
+// register across a sweep.
+template <typename T>
+__device__ __forceinline__ T* multi_field(const MultiArgs& m, bool odd, bool to, int f) {
+  return reinterpret_cast<T*>(odd != to ? m.c.dst[f] : const_cast<void*>(m.c.src[f]));
+}
+
+// Window row `seg` of the block's tile for the cycle of parity `odd`,
+// positions P lane ... P lane + P - 1, with both ghost fills, from L2
+// (other blocks wrote it before the grid barrier).
+template <typename T, typename G>
+__device__ __forceinline__ void multi_load(const MultiArgs& m, bool odd, T (&rho)[G::P],
+                                           T (&u)[G::P], T (&v)[G::P], T (&E)[G::P]) {
+  const Fields<const T> src = {{multi_field<T>(m, odd, false, 0), multi_field<T>(m, odd, false, 1),
+                                multi_field<T>(m, odd, false, 2), multi_field<T>(m, odd, false, 3)}};
+  const int seg = threadIdx.x / G::S, lane = threadIdx.x % G::S;
+  const long long r0 = (long long)blockIdx.y * G::R, c0 = (long long)blockIdx.x * G::R;
+#pragma unroll
+  for (int j = 0; j < G::P; ++j) {
+    const T* ptr[4];
+    T fac[4];
+    window_src<T>(m.c, src, r0 - HALO + seg, c0 - HALO + G::P * lane + j, ptr, fac);
+    rho[j] = __ldcg(ptr[0]) * fac[0], u[j] = __ldcg(ptr[1]) * fac[1];
+    v[j] = __ldcg(ptr[2]) * fac[2], E[j] = __ldcg(ptr[3]) * fac[3];
+  }
+}
+
+// Cell (gr, gc) of the tile's output, from the registers of a second
+// sweep's lane: rho/u/v/E into the other buffer set, the stale p, and
+// the CFL sample.
+template <typename T>
+__device__ __forceinline__ void multi_store(const MultiArgs& m, bool odd, long long gr,
+                                            long long gc, T rho, T u, T v, T E, T p, T c,
+                                            T& mx, T& my) {
+  const CycleArgs& a = m.c;
+  if (gr >= a.rows || gc >= a.cols) return;
+  const long long w = gr * a.cols + gc;
+  multi_field<T>(m, odd, true, 0)[w] = rho;
+  multi_field<T>(m, odd, true, 1)[w] = u;
+  multi_field<T>(m, odd, true, 2)[w] = v;
+  multi_field<T>(m, odd, true, 3)[w] = E;
+  reinterpret_cast<T*>(a.p)[w] = p;
+  cfl_sample(a, gr, gc, u, v, c, mx, my);
+}
+
+// A CFL maximum (+0 or more, or NaN) as an unsigned key in the value's
+// order, NaN above every number: its bits, or all ones for NaN (a NaN
+// when read back as T). So an atomic maximum of keys is `jmax` of the
+// values, and the slot reads back as T.
+__device__ __forceinline__ unsigned max_key(float x) {
+  return x != x ? 0xffffffffu : __float_as_uint(x);
+}
+__device__ __forceinline__ unsigned long long max_key(double x) {
+  return x != x ? ~0ull : (unsigned long long)__double_as_longlong(x);
+}
+__device__ __forceinline__ unsigned* max_key(float* p) { return reinterpret_cast<unsigned*>(p); }
+__device__ __forceinline__ unsigned long long* max_key(double* p) {
+  return reinterpret_cast<unsigned long long*>(p);
+}
+
+// One running cycle of the block's tile (see the file note), of parity
+// `odd`, from its window row as `multi_load` gave it: both sweeps, the
+// tile's rho/u/v/E and stale p into the other buffer set and p, and the
+// block's pair of CFL maxima into the parity's partials, each warp's by
+// an atomic maximum. Every thread of the block must call it.
+template <typename T, bool FAST, bool BIZ, typename G>
+__device__ __forceinline__ void multi_tile_cycle(const MultiArgs& m, bool odd, T (&rho)[G::P],
+                                                 T (&u)[G::P], T (&v)[G::P], T (&E)[G::P],
+                                                 T dtx, T dty, bool x_first, T* sm) {
+  constexpr int P = G::P, R = G::R;
+  const CycleArgs& a = m.c;
+  const int seg = threadIdx.x / G::S, lane = threadIdx.x % G::S;
+  const long long r0 = (long long)blockIdx.y * R, c0 = (long long)blockIdx.x * R;
+  const bool inner = seg >= HALO && seg < HALO + R;  // a line of the second sweep
+  T* pl[4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) pl[f] = sm + f * G::PLANE;
+  T mx = T(0), my = T(0);  // the TPU's zero-initialised max block
+  T p[P], c[P];
+  // The block's pair of CFL maxima: zeroed before the block barrier that
+  // precedes the warps' atomic maxima (every block folded its last values
+  // before the grid barrier this cycle follows).
+  T* part = reinterpret_cast<T*>(a.partials) + (odd ? 2 * a.n_partials : 0) +
+            ((long long)blockIdx.y * gridDim.x + blockIdx.x);
+  if (threadIdx.x == 0) part[0] = part[a.n_partials] = T(0);
+
+  if (x_first) {
+    line<T, FAST, BIZ, P, CV_BASE>(a, true, dtx, false, rho, u, v, E, p, c);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int cw = P * lane + j;
+      if (cw >= HALO && cw < HALO + R) {
+        const int o = G::at(seg, cw);
+        pl[0][o] = rho[j], pl[1][o] = u[j], pl[2][o] = v[j], pl[3][o] = E[j];
+      }
+    }
+    __syncthreads();  // every row's inner columns
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int o = G::at(seg, P * lane + j);
+      pl[0][o] = rho[j], pl[1][o] = u[j], pl[2][o] = v[j], pl[3][o] = E[j];
+    }
+    __syncthreads();  // the window is staged
+    // Column `seg`, down all W rows, its inner rows written back in place.
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int o = G::at(P * lane + j, seg);
+      rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
+    }
+    line<T, FAST, BIZ, P, CV_BASE>(a, false, dty, false, rho, u, v, E, p, c);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int i = P * lane + j;
+      if (i >= HALO && i < HALO + R) {
+        const int o = G::at(i, seg);
+        pl[0][o] = rho[j], pl[1][o] = u[j], pl[2][o] = v[j], pl[3][o] = E[j];
+      }
+    }
+    __syncthreads();  // the first sweep is complete
+  }
+  // The second sweep: X first, window column `seg` down all W rows; Y
+  // first, window row `seg`; each output stored from the lane's registers.
+  if (inner) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int o = x_first ? G::at(P * lane + j, seg) : G::at(seg, P * lane + j);
+      rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
+    }
+    line<T, FAST, BIZ, P, CV_BASE>(a, !x_first, x_first ? dty : dtx, true, rho, u, v, E, p, c);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int k = P * lane + j;  // the position along the line
+      if (k >= HALO && k < HALO + R) {
+        const long long gr = r0 + (x_first ? k : seg) - HALO;
+        const long long gc = c0 + (x_first ? seg : k) - HALO;
+        multi_store<T>(m, odd, gr, gc, rho[j], u[j], v[j], E[j], p[j], c[j], mx, my);
+      }
+    }
+  }
+  warp_max2(mx, my);  // lane 0's into the block's pair (reset above)
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(max_key(part), max_key(mx));
+    atomicMax(max_key(part + a.n_partials), max_key(my));
+  }
+}
+
+// K5's grid barrier. `bar` counts every block's arrivals and only grows
+// (64 bits: it never wraps); barrier j of a launch waits for the count
+// `target`, base + j nb, base being the count at the launch's start
+// rounded down to a multiple of nb: every launch on one count (one
+// partials buffer, one grid) adds a multiple of nb, and no block passes
+// barrier 1 before every block has read the count. A block arrives with
+// a release add (its writes, ordered by the block barrier before it, go
+// first) and waits on acquire loads, where the cooperative groups barrier
+// waits on a returned atomic between two full fences. A barrier that
+// cannot complete traps after ~2^35 cycles (the launch fails) rather
+// than spin for ever.
+__device__ __forceinline__ unsigned long long bar_count(const unsigned long long* bar) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(bar) : "memory");
+  return v;
+}
+__device__ __forceinline__ void grid_barrier(unsigned long long* bar, unsigned long long target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" : : "l"(bar) : "memory");
+    const long long t0 = clock64();
+    while (bar_count(bar) < target)
+      if (clock64() - t0 > (1LL << 35)) __trap();
+  }
+  __syncthreads();
+}
+
+// K3's fold of the cycle of parity `odd`'s partials (one a block), in
+// every block (the same maxima, so the same lm): the CFL minimum. `red`:
+// 2 NW words of shared memory. Every thread of the block must call it.
+template <typename T, typename G>
+__device__ __forceinline__ T multi_fold(const MultiArgs& m, bool odd, T* red) {
+  const CycleArgs& a = m.c;
+  const T* part = reinterpret_cast<const T*>(a.partials) + (odd ? 2 * a.n_partials : 0);
+  const long long nb = (long long)gridDim.x * gridDim.y;
+  T mx = T(0), my = T(0);
+  for (long long i = threadIdx.x; i < nb; i += G::NT) {
+    mx = jmax(mx, __ldcg(part + i));
+    my = jmax(my, __ldcg(part + a.n_partials + i));
+  }
+  warp_max2(mx, my);
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[w] = mx, red[G::NW + w] = my;
+  __syncthreads();
+  mx = red[0], my = red[G::NW];
+#pragma unroll
+  for (int i = 1; i < G::NW; ++i) mx = jmax(mx, red[i]), my = jmax(my, red[G::NW + i]);
+  return jmin(T(a.dx) / mx, T(a.dy) / my);
+}
+
+// K5 (see the file note). A cycle's window loads go out before the fold
+// of the cycle before, so their L2 round trips overlap; the run predicate
+// and the dt recurrence's other scalars never wait for the fold.
+template <typename T, bool FAST, bool BIZ, typename G>
+__global__ void __launch_bounds__(G::NT, G::MINB) multicycle_kernel(const MultiArgs m) {
+  constexpr int P = G::P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sm = reinterpret_cast<T*>(smem);
+  T* red = sm + 4 * G::PLANE;  // the fold's warp maxima
+  const CycleArgs& a = m.c;
+  const int tid = threadIdx.x;
+  const T* scal = reinterpret_cast<const T*>(a.scal);
+  const int* iscal = reinterpret_cast<const int*>(a.iscal);
+  T t = scal[0], dtp = scal[1], lm = scal[2], dt_last = scal[3];
+  int cyc = iscal[0];
+  bool ok = iscal[1] != 0, ran = iscal[2] != 0;
+  const unsigned long long nb = (unsigned long long)gridDim.x * gridDim.y;
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(m.bar);
+  unsigned long long target = tid == 0 ? bar_count(bar) / nb * nb : 0;
+  bool fold = false;  // the cycle before ran: lm waits for its partials
+
+  for (int k = 0; k < m.ncycles; ++k) {
+    const bool run = runs(m.dt, t, cyc, ok);
+    const bool odd = k & 1;
+    if (run) {
+      T rho[P], u[P], v[P], E[P];
+      multi_load<T, G>(m, odd, rho, u, v, E);
+      if (fold) lm = multi_fold<T, G>(m, !odd, red);
+      const DtStep<T> r = dt_step(m.dt, lm, dtp, cyc);
+      const int par = cyc & 1;
+      multi_tile_cycle<T, FAST, BIZ, G>(m, odd, rho, u, v, E, r.dt_use * T(m.fx[par]),
+                                        r.dt_use * T(m.fy[par]), m.x_first[par] != 0, sm);
+      t = t + r.dt_use;
+      cyc += 1;
+      dtp = r.dt_next;
+      ok = r.ok;
+      dt_last = r.dt_use;
+    } else {
+      if (fold) lm = multi_fold<T, G>(m, !odd, red);
+      Fields<const T> from;
+      Fields<T> to;
+      for (int f = 0; f < 4; ++f) {
+        from.f[f] = multi_field<T>(m, odd, false, f);
+        to.f[f] = multi_field<T>(m, odd, true, f);
+      }
+      copy_tile<T, G::R, G::NT>(a, from, to);
+    }
+    fold = run;
+    ran = run;
+    target += nb;
+    grid_barrier(bar, target);
+  }
+  if (fold) lm = multi_fold<T, G>(m, (m.ncycles - 1) & 1, red);
+  if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
+    T* out = reinterpret_cast<T*>(a.scal);
+    int* iout = reinterpret_cast<int*>(a.iscal);
+    out[0] = t;
+    out[1] = dtp;
+    out[2] = lm;
+    out[3] = dt_last;
+    iout[0] = cyc;
+    iout[1] = ok ? 1 : 0;
+    iout[2] = ran ? 1 : 0;
+    const bool go = runs(m.dt, t, cyc, ok);
+    iout[3] = go ? 1 : 0;
+    set_while(m.cond, m.count, go);
+  }
+}
+
 // Host side. Checks the launch geometry the Python wrapper computed (it
 // sized the partials from it): RX x RY output tiles. Returns 0 or a
 // negative code.
@@ -793,7 +1077,7 @@ int cycle_occupancy(int* out) {
   return (int)e;
 }
 
-// K5's tile body as a one-cycle kernel (the probe's base_l32).
+// The per-position tile body as a one-cycle kernel (the probe's base_l32).
 template <typename T, bool FAST, bool BIZ, int L, int V = CV_BASE>
 int launch_tile(const CycleArgs& a, cudaStream_t s) {
   const size_t smem = Tile<L>::template smem<T>();
@@ -802,29 +1086,6 @@ int launch_tile(const CycleArgs& a, cudaStream_t s) {
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   tile_kernel<T, FAST, BIZ, L, V><<<dim3(a.grid_x, a.grid_y), Tile<L>::NT, smem, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool FAST, bool BIZ>
-int launch_multicycle(const MultiArgs& m, cudaStream_t s) {
-  constexpr int L = MULTI_L;
-  const size_t smem = Tile<L>::template smem<T>();
-  auto kern = multicycle_kernel<T, FAST, BIZ, L>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return -5;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, Tile<L>::NT, smem);
-  if (e != cudaSuccess) return (int)e;
-  if ((long long)per_sm * sms < (long long)m.c.grid_x * m.c.grid_y) return -4;
-  void* args[] = {const_cast<MultiArgs*>(&m)};
-  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(m.c.grid_x, m.c.grid_y),
-                                  dim3(Tile<L>::NT), args, smem, s);
-  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -840,14 +1101,79 @@ int dispatch_cycle(const CycleArgs* a, const FinishArgs* fin, cudaStream_t s) {
   return a->biz ? launch_cycle<T, FAST, true>(*a, s) : launch_cycle<T, FAST, false>(*a, s);
 }
 
+// K5 on geometry G: a cooperative launch of every tile at once, or -4
+// when the card cannot hold them all (-5 without cooperative launches).
+template <typename T, bool FAST, bool BIZ, typename G>
+int launch_multicycle(const MultiArgs& m, cudaStream_t s) {
+  const size_t smem = G::smem();
+  auto kern = multicycle_kernel<T, FAST, BIZ, G>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return -5;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, G::NT, smem);
+  if (e != cudaSuccess) return (int)e;
+  if ((long long)per_sm * sms < (long long)m.c.grid_x * m.c.grid_y) return -4;
+  void* args[] = {const_cast<MultiArgs*>(&m)};
+  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(m.c.grid_x, m.c.grid_y),
+                                  dim3(G::NT), args, smem, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool FAST, bool BIZ>
+int launch_multicycle(const MultiArgs& m, int window, cudaStream_t s) {
+  typedef MultiGeom<T> MG;
+  return window == MG::Small::W ? launch_multicycle<T, FAST, BIZ, typename MG::Small>(m, s)
+                                : launch_multicycle<T, FAST, BIZ, typename MG::Large>(m, s);
+}
+
 template <typename T, bool FAST>
 int dispatch_multicycle(const MultiArgs* m, cudaStream_t s) {
-  constexpr int R = MULTI_L - 2 * HALO;
-  const int err = check_tile_geometry(&m->c, R, R, true);
+  const int w = multi_window<T>(m->c.rows, m->c.cols);
+  const int err = check_tile_geometry(&m->c, w - 2 * HALO, w - 2 * HALO, true);
   if (err) return err;
   if (m->ncycles < 1) return -1;
-  return m->c.biz ? launch_multicycle<T, FAST, true>(*m, s)
-                  : launch_multicycle<T, FAST, false>(*m, s);
+  return m->c.biz ? launch_multicycle<T, FAST, true>(*m, w, s)
+                  : launch_multicycle<T, FAST, false>(*m, w, s);
+}
+
+// What the card makes of a K5 instance on a (rows, cols) grid: its window
+// edge, tiles, resident blocks per SM, threads per block, dynamic shared
+// memory, registers a thread and local (spill) bytes a thread.
+template <typename T, bool FAST, bool BIZ, typename G>
+int multicycle_occupancy(long long rows, long long cols, int* out) {
+  const size_t smem = G::smem();
+  auto kern = multicycle_kernel<T, FAST, BIZ, G>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kern, G::NT, smem);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = G::W;
+  out[1] = (int)tile_count(rows, cols, G::R);
+  out[3] = G::NT;
+  out[4] = (int)smem;
+  out[5] = fa.numRegs;
+  out[6] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+template <typename T, bool FAST>
+int multicycle_occupancy(long long rows, long long cols, int biz, int* out) {
+  typedef MultiGeom<T> MG;
+  const bool small = multi_window<T>(rows, cols) == MG::Small::W;
+  if (small)
+    return biz ? multicycle_occupancy<T, FAST, true, typename MG::Small>(rows, cols, out)
+               : multicycle_occupancy<T, FAST, false, typename MG::Small>(rows, cols, out);
+  return biz ? multicycle_occupancy<T, FAST, true, typename MG::Large>(rows, cols, out)
+             : multicycle_occupancy<T, FAST, false, typename MG::Large>(rows, cols, out);
 }
 
 }  // namespace armon

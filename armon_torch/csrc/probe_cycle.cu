@@ -3,7 +3,8 @@
 // (cycle.cuh) with a `CycleVariant` other than the production CV_BASE,
 // CV_BASE itself; `base_w128`, CV_BASE on 96 x 128 windows at one block
 // of 16 warps per SM (less halo recompute, half the resident warps); and
-// `base_l32`, K5's tile body (`cycle_tile` on 32 x 32 windows) as a
+// `base_l32`, the per-position tile body (`cycle_tile` on 32 x 32 windows,
+// K5's before its redesign) as a
 // one-cycle kernel: K4's redesigned body has no 32-wide form.
 //
 // Replaces `run_variant` (scripts/perf_probe.py:126, `variant_kernel` :50,
@@ -32,11 +33,11 @@ int launch_variant(const CycleArgs* a, cudaStream_t s) {
 
 template <bool FAST>
 int dispatch_variant(int variant, int tile, const CycleArgs* a, cudaStream_t s) {
-  if (tile == MULTI_L) {
-    constexpr int R = MULTI_L - 2 * HALO;
+  if (tile == BASE_L) {
+    constexpr int R = BASE_L - 2 * HALO;
     if (variant != CV_BASE) return -1;
     const int err = check_tile_geometry(a, R, R, a->emit != 0);
-    return err ? err : launch_tile<float, FAST, false, MULTI_L>(*a, s);
+    return err ? err : launch_tile<float, FAST, false, BASE_L>(*a, s);
   }
   if (tile == 128)
     return variant == CV_BASE ? launch_variant<FAST, CV_BASE, K4Shape<float, 3, 4, 16, 1>>(a, s)
@@ -56,7 +57,7 @@ int dispatch_variant(int variant, int tile, const CycleArgs* a, cudaStream_t s) 
 }  // namespace armon
 
 // `tile`: 0 for K4's geometry, 128 for its 96 x 128 windows (base_w128),
-// 32 for K5's tile body (base_l32).
+// 32 for the per-position tile body (base_l32).
 extern "C" int armon_cycle_variant_f32(int variant, int tile, const armon::CycleArgs* a,
                                        void* stream) {
   if (a->biz) return -1;

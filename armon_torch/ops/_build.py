@@ -158,7 +158,7 @@ class MultiArgs(ctypes.Structure):
         ("c", CycleArgs), ("ncycles", ctypes.c_int),
         ("x_first", ctypes.c_int * 2),
         ("fx", ctypes.c_double * 2), ("fy", ctypes.c_double * 2),
-        ("dt", DtParams),
+        ("dt", DtParams), ("bar", ctypes.c_void_p),
         ("cond", ctypes.c_ulonglong), ("count", ctypes.c_void_p),
     ]
 
@@ -278,6 +278,11 @@ def load():
             fn.restype = ctypes.c_int
             fn = getattr(libs[f"multicycle_f{bits}"], f"armon_multicycle_f{bits}")
             fn.argtypes = [ctypes.POINTER(MultiArgs), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = getattr(libs[f"multicycle_f{bits}"],
+                         f"armon_multicycle_occupancy_f{bits}")
+            fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
             fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_occupancy_f{bits}")
             fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -734,16 +739,19 @@ def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
                       scal, iscal, cond=None):
     """Launch K5 on the current stream (a cooperative launch); with `cond`
     (`ops/sweep.Cond`), it sets that WHILE condition from iscal[next]."""
-    from .cycle import MULTI_TILE, tile_grid
+    from .cycle import MULTI_BAR_COLS, multi_partials, multi_tile
     libs = load()
     T = np.dtype(cfg.dtype).type
-    if partials.dim() != 3 or partials.shape[:2] != (2, 2):
-        solver_error("config", "K5's CFL partials must have shape (2, 2, n)")
-    gx, gy = tile_grid(MULTI_TILE, src[0].shape)
-    _require(partials, src[0].dtype, src[0].device, 4 * gx * gy,
+    window = multi_tile(src[0].shape, cfg.dtype)
+    n = multi_partials(src[0].shape, src[0].device, cfg.dtype) + MULTI_BAR_COLS
+    if (partials.dim() != 3 or partials.shape[:2] != (2, 2)
+            or partials.shape[2] < n):
+        solver_error("config", f"K5's CFL partials must have shape (2, 2, n), "
+                               f"n >= {n} (`new_multicycle_partials`)")
+    _require(partials, src[0].dtype, src[0].device, partials.numel(),
              "CFL partials")
     m = MultiArgs()
-    m.c = _cycle_args(cfg, MULTI_TILE, src, dst, p, partials, scal, iscal,
+    m.c = _cycle_args(cfg, window, src, dst, p, partials, scal, iscal,
                       partials.shape[2])
     m.ncycles = int(ncycles)
     m.x_first[:] = [int(xf) for xf, _, _ in parity_pairs]
@@ -751,6 +759,8 @@ def launch_multicycle(cfg, parity_pairs, ncycles, src, dst, p, partials,
     m.fy[:] = [float(T(fy)) for _, _, fy in parity_pairs]
     m.dt = _dt_params(cfg)
     _cond_fields(m, cond, src[0].device)
+    # The barrier count: the partials' last 8 bytes, past every row's n.
+    m.bar = partials.data_ptr() + partials.numel() * partials.element_size() - 8
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"multicycle_f{bits}"], f"armon_multicycle_f{bits}")
     rc = _launch(fn, src[0].device, ctypes.byref(m))
@@ -815,6 +825,19 @@ def cycle_occupancy(dtype, fast, biz):
     fn = getattr(load()[f"cycle_f{bits}"], f"armon_cycle_occupancy_f{bits}")
     _check_status(fn(int(fast), int(biz), out), "cycle occupancy")
     return tuple(out)
+
+
+def multicycle_occupancy(shape, dtype, fast, biz):
+    """What the card makes of the K5 instance a padded (rows, cols) grid
+    takes: {"window", "tiles", "blocks_per_sm", "threads", "smem_bytes",
+    "registers", "local_bytes"}."""
+    bits = 8 * np.dtype(dtype).itemsize
+    out = (ctypes.c_int * 7)()
+    fn = getattr(load()[f"multicycle_f{bits}"], f"armon_multicycle_occupancy_f{bits}")
+    _check_status(fn(int(shape[0]), int(shape[1]), int(fast), int(biz), out),
+                  "multicycle occupancy")
+    return dict(zip(("window", "tiles", "blocks_per_sm", "threads",
+                     "smem_bytes", "registers", "local_bytes"), out))
 
 
 def launch_probe(stem, name, device, *args):

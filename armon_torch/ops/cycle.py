@@ -12,7 +12,8 @@ Counterpart of `fused_cycle` and `fused_multicycle`
   `sweep.py:1592-1620`), and the X mirror applies after the splice;
 - ``multicycle`` (K5) replaces `_multicycle_kernel` (`sweep.py:1905`):
   up to K cycles in one cooperative launch, with K3's dt recurrence, the
-  CFL fold and the stop predicate in-kernel.
+  CFL fold and the stop predicate in-kernel, on the square windows
+  `multi_tile` picks for the grid (every tile on the card at once).
 
 Both write out of place, like K1/K2, and use the device loop scalars of
 `ops/sweep.py` (``scal`` = [t, dt_prev, lm, dt_use], ``iscal`` = [cycle,
@@ -34,15 +35,39 @@ from .sweep import (LAUNCHES, IS_RUN, IS_CYCLE, SC_DTUSE, HALO, MIRRORED,
 # K4's window (columns, rows) by itemsize, shared with csrc/cycle.cuh
 # (`K4Geom`: 32 lanes, each with a run of PX positions along X and PY
 # along Y): a block writes the (columns - 2 HALO) x (rows - 2 HALO) tile
-# inside it. K5's window is a MULTI_TILE square (`MULTI_L`).
+# inside it.
 CYCLE_WINDOW = {4: (96, 64), 8: (64, 64)}
-MULTI_TILE = 32
+
+# K5's square windows, shared with csrc/cycle.cuh (`MultiGeom`): edge W =
+# S P (a line per S-lane segment, a run of P positions a lane: 16 x 1 and
+# 8 x 4), 256 threads a block, and the blocks per SM its launch bounds ask
+# for, by (edge, itemsize). `multi_tile` takes the small windows while their
+# tiles fit MULTI_SMS x those blocks co-resident (the cooperative launch
+# needs every tile on the card at once), else the large ones.
+MULTI_SMALL, MULTI_LARGE = 16, 32
+MULTI_MINB = {(16, 4): 3, (16, 8): 2, (32, 4): 2, (32, 8): 1}
+MULTI_SMS = 132  # an H100 SXM's SMs (`MULTI_SMS` in cycle.cuh)
+MULTI_BAR_COLS = 2  # columns past K5's partials: room for its barrier count
+# The per-position tile body's window edge (`BASE_L`), which the cycle
+# probe's `base_l32` times.
+BASE_TILE = 32
+
+
+def _itemsize(dtype):
+    return dtype.itemsize if isinstance(dtype, torch.dtype) else np.dtype(dtype).itemsize
 
 
 def cycle_window(dtype):
     """(columns, rows) of K4's window for a numpy or torch dtype."""
-    size = dtype.itemsize if isinstance(dtype, torch.dtype) else np.dtype(dtype).itemsize
-    return CYCLE_WINDOW[size]
+    return CYCLE_WINDOW[_itemsize(dtype)]
+
+
+def multi_tile(shape, dtype) -> int:
+    """K5's window edge (16 or 32) on a padded (rows, cols) grid of
+    `dtype`: the choice `multi_window` (csrc/cycle.cuh) makes."""
+    gx, gy = tile_grid(MULTI_SMALL, shape)
+    fits = gx * gy <= MULTI_SMS * MULTI_MINB[(MULTI_SMALL, _itemsize(dtype))]
+    return MULTI_SMALL if fits else MULTI_LARGE
 
 
 def tile_grid(window, shape):
@@ -170,10 +195,20 @@ def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
     S.cond_plain(cond)
 
 
+def multi_partials(shape, device, dtype) -> int:
+    """CFL partial maxima K5 writes: one per tile of `multi_tile`'s
+    windows on the card, one for the whole array in the plain version."""
+    return n_partials(shape, device, dtype, multi_tile(shape, dtype))
+
+
 def new_multicycle_partials(shape, dtype, device):
-    """K5's CFL partials: two cycle parities of (2, n) maxima."""
-    nb = n_partials(shape, device, dtype, MULTI_TILE)
-    return torch.zeros((2, 2, nb), dtype=torch_dtype(dtype), device=device)
+    """K5's CFL partials: two cycle parities of (2, n) maxima, n =
+    `multi_partials`, each row followed by MULTI_BAR_COLS columns, whose
+    last 8 bytes (the last row's) hold K5's grid barrier count: zeroed
+    here, then only K5 writes it (`MultiArgs::bar`)."""
+    nb = multi_partials(shape, device, dtype)
+    return torch.zeros((2, 2, nb + MULTI_BAR_COLS), dtype=torch_dtype(dtype),
+                       device=device)
 
 
 def multicycle(cfg, pairs, src, dst, p, partials, scal, iscal, cond=None):

@@ -41,19 +41,20 @@ from .._card import (bound, card_line, device_of, emit, kernel_entry, shown,
                      time_ms)
 from ..ops.sweep import (fill_ghosts_plain, sweep_math_plain, cfl_partial_plain,
                          new_scalars, SC_DTUSE, IS_RUN)
-from ..ops.cycle import cycle_plain, tile_grid, CYCLE_WINDOW, MULTI_TILE
+from ..ops.cycle import cycle_plain, tile_grid, CYCLE_WINDOW, BASE_TILE
 from ..ops.eos import scalar_like
 from ..ops.reductions import real_slice
 from ..utils.enums import Axis
 
 # name: (CycleVariant code, window: K4's f32 (columns, rows), or the edge
-# of K5's square one); first_order is base with its own config.
+# of the per-position tile body's square one); first_order is base with
+# its own config.
 K4_WINDOW = CYCLE_WINDOW[4]
 VARIANTS = {"base": (0, K4_WINDOW), "no_p": (1, K4_WINDOW),
             "no_dt": (2, K4_WINDOW), "no_p_dt": (3, K4_WINDOW),
             "no_roll": (4, K4_WINDOW), "stream": (5, K4_WINDOW),
             "first_order": (0, K4_WINDOW), "base_w128": (0, (96, 128)),
-            "base_l32": (0, MULTI_TILE)}
+            "base_l32": (0, BASE_TILE)}
 WRITES_P = {n: n not in ("no_p", "no_p_dt") for n in VARIANTS}
 EMITS_DT = {n: n not in ("no_dt", "no_p_dt", "stream") for n in VARIANTS}
 SOURCE = "armon_torch/csrc/probe_cycle.cu"

@@ -324,8 +324,9 @@ def floors(ops, shifts, rates):
     n_shift = sum(shifts.values())
     per_exact = sum(c * t[k] for k, c in ops.items()) + n_shift * t["shift"]
     per_fast = per_exact - ops.get("div", 0) * (t["div"] - t["fast_div"])
-    from ..ops.cycle import covered_cells, CYCLE_WINDOW, MULTI_TILE
-    k4, k5 = covered_cells(CYCLE_WINDOW[4]), covered_cells(MULTI_TILE)
+    from ..ops.cycle import covered_cells, multi_tile, CYCLE_WINDOW
+    k4 = covered_cells(CYCLE_WINDOW[4])
+    k5 = covered_cells(multi_tile((108, 108), np.float32))
     rows = {}
     for name, cells, sweeps, nbytes in (
             ("x_sweep", 8200 ** 2, 1, 8 * 8200 ** 2 * 4),
@@ -353,7 +354,7 @@ def static_issue():
     fill, slow paths of the IEEE sqrt, the CFL reduction of non-emitting
     launches), and K2's set-up once per row. None without cuobjdump."""
     from ..ops.sweep import segments, HALO, X_WINDOW, Y_ROWS, Y_THREADS
-    from ..ops.cycle import tile_grid, CYCLE_WINDOW, MULTI_TILE
+    from ..ops.cycle import tile_grid, multi_tile, CYCLE_WINDOW
     per = sass_opcodes("sweep_f32", r"([xy])_sweep_kernelIfLb1ELb0E")
     if not per or set(per) != {"x", "y"}:
         return None
@@ -374,7 +375,8 @@ def static_issue():
             "x_sweep": ix * tx / rate * 1e3, "y_sweep": iy * ty / rate * 1e3,
             "cycle_8200": mean * positions(CYCLE_WINDOW[4], 8200) / rate * 1e3,
             "cycle_2008": mean * positions(CYCLE_WINDOW[4], 2008) / rate * 1e3,
-            "multicycle_108_8cycles": mean * positions(MULTI_TILE, 108, 8)
+            "multicycle_108_8cycles": mean * positions(
+                multi_tile((108, 108), np.float32), 108, 8)
             / rate * 1e3}
 
 

@@ -42,7 +42,11 @@ Phases, each printing one JSON line:
      blocks per SM of each K4 instance, and the cluster probe's plan
      (CTAs, rows and columns a CTA holds, shared memory a CTA uses, the
      clusters the card holds at once, registers and local memory) at Sod
-     100^2 and at the largest grids the routing sends to K5;
+     100^2 and at the largest grids the routing sends to K5, and at the
+     same grids K5's own geometry (its window edge, tiles, the card's
+     blocks per SM from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`,
+     registers and spill bytes, f32 exact and fast math), failing where
+     the card cannot hold every tile at once;
   1. the per-sweep kernels against their plain PyTorch versions on the
      card, one X and one Y sweep (each emitting) at 1024^2 after a few
      cycles, on Sod_circ and Bizarrium, in f64, f32 exact and f32 fast
@@ -480,6 +484,28 @@ def _cluster_plan(torch, dtype, N):
     return cluster.occupancy(cfg, src)
 
 
+def _k5_geometry(torch, dtype, N):
+    """K5's geometry on an (nx, ny) grid and what the card makes of it
+    (`_build.multicycle_occupancy`), exact and, in f32, fast math; raises
+    where the card cannot hold every tile at once or the instance
+    spills."""
+    from armon_torch import ArmonParameters
+    from armon_torch.ops import _build
+    cfg = ArmonParameters(test="Sod", N=N, data_type=dtype, silent=5,
+                          device="cuda").config
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for fast in ((False, True) if dtype == "float32" else (False,)):
+        occ = _build.multicycle_occupancy(cfg.local_shape, cfg.dtype, fast, False)
+        if occ["tiles"] > occ["blocks_per_sm"] * sms:
+            raise AssertionError(f"K5 {dtype} {N}: {occ['tiles']} tiles, the card "
+                                 f"holds {occ['blocks_per_sm']} x {sms}")
+        if occ["local_bytes"]:
+            raise AssertionError(f"K5 {dtype} {N} spills: {occ}")
+        out["fast" if fast else "exact"] = occ
+    return out
+
+
 def _versions():
     """The NVIDIA driver's version (nvidia-smi), the CUDA version it
     supports (`cuDriverGetVersion`, e.g. 12040 for 12.4) and nvcc's, which
@@ -637,11 +663,14 @@ def phase0(torch):
                  for biz in (False, True)}
     plans = {f"{dtype} {N[0]}x{N[1]}": _cluster_plan(torch, dtype, N)
              for dtype, N in K5_GRIDS}
+    k5_geometry = {f"{dtype} {N[0]}x{N[1]}": _k5_geometry(torch, dtype, N)
+                   for dtype, N in K5_GRIDS}
     emit({"phase": 0, "card": card_line(), "torch": torch.__version__,
           "cuda": torch.version.cuda, **_versions(), "build_s": build_s,
           "graph_api": _graph_api(torch), "while_alone": _while_alone(torch),
           "k5_graph_capture": _k5_capture(torch), "ptxas": regs,
-          "k4_occupancy": occupancy, "cluster_plan": plans})
+          "k4_occupancy": occupancy, "cluster_plan": plans,
+          "k5_geometry": k5_geometry})
     return occupancy
 
 

@@ -208,6 +208,157 @@ def test_k4_windows_stitch_to_cycle_plain(name, N, dtype, P, x_first):
             assert torch.equal(a[r], b[r]), (name, s.index)
 
 
+def _k5_windows(cfg, x_first, src, dtx, dty, window):
+    """K5's function cut as its kernel cuts it (`ops/cycle.py` `multi_tile`
+    windows and `tile_grid`): the pre-cycle state with both ghost fills,
+    read at every tile's `window` x `window` rows and columns (clamped to
+    the array, as the kernel's loads are), the two plain sweeps on each
+    window alone without refilling, and the tile at the window's centre
+    written back. The windows go through each sweep side by side, a
+    window's rows (X) or columns (Y) beside the others': a sweep is local
+    to its lines. Returns (rho, u, v, E, p, c); cells no tile covers stay
+    NaN."""
+    H, w = K.HALO, window
+    f = K.fill_ghosts_plain(cfg, Axis.X,
+                            K.fill_ghosts_plain(cfg, Axis.Y, src))
+    rows, cols = f[0].shape
+    gx, gy = C.tile_grid(w, (rows, cols))
+    r = w - 2 * H
+    by, bx = torch.meshgrid(torch.arange(gy), torch.arange(gx), indexing="ij")
+    by, bx = by.reshape(-1), bx.reshape(-1)
+    ri = (by[:, None] * r + torch.arange(w) - H).clamp(0, rows - 1)
+    ci = (bx[:, None] * r + torch.arange(w) - H).clamp(0, cols - 1)
+    n = len(by)
+    win = [a[ri[:, :, None], ci[:, None, :]] for a in f]  # (n, w, w)
+
+    def sweep(axis, fields, dt):
+        if axis is Axis.X:   # n windows' rows, one below the other
+            flat = [a.reshape(n * w, w) for a in fields]
+        else:                # n windows' columns, side by side
+            flat = [a.permute(1, 0, 2).reshape(w, n * w) for a in fields]
+        out = K.sweep_plain(cfg, axis, *flat, dt, (None, None))
+        if axis is Axis.X:
+            return [a.reshape(n, w, w) for a in out]
+        return [a.reshape(w, n, w).permute(1, 0, 2) for a in out]
+
+    a1, d1, a2, d2 = ((Axis.X, dtx, Axis.Y, dty) if x_first
+                      else (Axis.Y, dty, Axis.X, dtx))
+    o = sweep(a2, sweep(a1, win, d1)[:4], d2)
+    out = [torch.full_like(f[0], float("nan")) for _ in range(6)]
+    for t in range(n):
+        r0, c0 = int(by[t]) * r, int(bx[t]) * r
+        h, wd = min(r, rows - r0), min(r, cols - c0)
+        for k in range(6):
+            out[k][r0:r0 + h, c0:c0 + wd] = o[k][t, H:H + h, H:H + wd]
+    return out
+
+
+# (name, N, dtype): ragged edges, the wide strip 12 x 3200 and the thin
+# grid 504 x 128 (the largest f32 grids the routing admits), f64.
+K5_WINDOW_CASES = [
+    ("ragged", (200, 260), "float32"),
+    ("wide-12x3200", (3192, 4), "float32"),
+    ("thin-504x128", (120, 496), "float32"),
+    ("ragged-f64", (90, 130), "float64"),
+]
+
+
+@pytest.mark.parametrize("window", [C.MULTI_SMALL, C.MULTI_LARGE],
+                         ids=["w16", "w32"])
+@pytest.mark.parametrize("x_first", [True, False], ids=["xy", "yx"])
+@pytest.mark.parametrize("name,N,dtype", K5_WINDOW_CASES,
+                         ids=[c[0] for c in K5_WINDOW_CASES])
+def test_k5_windows_stitch_to_cycle_plain(name, N, dtype, x_first, window):
+    """The tile geometries and halo depth K5 relies on, each window the
+    chooser can pick: two sweeps on each tile's window alone, without
+    refilling, give at the tiles' centres what `cycle_plain` gives on the
+    whole array, bit for bit on real cells (fields, p, and the CFL
+    maxima over the tiles' real cells)."""
+    params = armon_torch.ArmonParameters(
+        device="cpu", test="Sod_circ", N=N, data_type=dtype, maxcycle=3,
+        silent=5, **PER_SWEEP)
+    cfg = params.config
+    [fs], seed = make_init_fused(params)()
+    res = make_time_loop_lean(cfg)(fs, 0.0, 0, 0.0, float(seed))
+    src = tuple(res.carry[:4])
+    dt = torch.tensor(0.5 * res.dt_last, dtype=src[0].dtype)
+    dtx, dty = (dt * 0.5, dt) if x_first else (dt, dt * 0.5)
+    got = _k5_windows(cfg, x_first, src, dtx, dty, window)
+    ref = cycle_plain(cfg, x_first, *src, dtx, dty)
+    r = real_slice(cfg)
+    for a, b in zip(got[:5], ref[:5]):
+        assert torch.equal(a[r], b[r]), name
+    mx, my = K.cfl_partial_plain(cfg, got[1], got[2], got[5])
+    assert torch.equal(mx, ref[5]) and torch.equal(my, ref[6])
+
+
+def _k5_capacity(window, dtype):
+    """The tiles of K5's `window` the card holds at once by the design:
+    132 SMs x the blocks per SM its launch bounds state."""
+    return C.MULTI_SMS * C.MULTI_MINB[(window, np.dtype(dtype).itemsize)]
+
+
+def _k5_extreme(N, dtype, **extra):
+    return armon_torch.ArmonParameters(device="cpu", test="Sod", N=N,
+                                       data_type=dtype, silent=5,
+                                       **extra).config
+
+
+# The admitted extremes of `multicycle_geom_ok`: `chip_smoke.py`'s K5
+# grids, and the grids with the most tiles of each window the chooser
+# takes (`test_multi_tile_worst_case`): the small windows at the card's
+# full capacity (352 x 72 padded in f32: 396 tiles of 8 x 8; 192 x 88 in
+# f64: 264) and the large ones at their most (8 x 4096 in f32, nghost 2:
+# 171 tiles of 24 x 24; 9 x 1920 in f64: 80).
+G2 = dict(nghost=2, scheme="Godunov", projection="euler")
+K5_EXTREMES = [
+    ((100, 100), "float32", {}), ((120, 496), "float32", {}),
+    ((240, 240), "float32", {}), ((3192, 4), "float32", {}),
+    ((120, 120), "float64", {}), ((120, 240), "float64", {}),
+    ((64, 344), "float32", {}), ((80, 184), "float64", {}),
+    ((4092, 4), "float32", G2), ((1916, 5), "float64", G2),
+]
+@pytest.mark.parametrize("N,dtype,extra", K5_EXTREMES,
+                         ids=[f"{c[1]}-{c[0][0]}x{c[0][1]}" for c in K5_EXTREMES])
+def test_multi_tile_fits_the_card(N, dtype, extra):
+    """At every admitted extreme, K5's chosen windows make no more tiles
+    than the card holds co-resident (132 SMs x the blocks per SM the
+    design states), and the partials K5 writes match that geometry."""
+    cfg = _k5_extreme(N, dtype, **extra)
+    shape = cfg.local_shape
+    assert routing.multicycle_geom_ok(cfg, shape)
+    w = C.multi_tile(shape, cfg.dtype)
+    gx, gy = C.tile_grid(w, shape)
+    assert gx * gy <= _k5_capacity(w, cfg.dtype)
+    assert C.multi_partials(shape, "cuda", cfg.dtype) == gx * gy
+    assert C.multi_partials(shape, "cpu", cfg.dtype) == 1
+    part = C.new_multicycle_partials(shape, cfg.dtype, "cpu")
+    assert tuple(part.shape) == (2, 2, 1 + C.MULTI_BAR_COLS)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_multi_tile_worst_case(dtype):
+    """Over every padded row count the 256 KiB cap admits, at every
+    admitted column count within 128 of its widest (a window's tile count
+    grows with the columns, and the chooser moves to the large windows as
+    they grow), the chosen windows fit the card; each window's worst case
+    is one of K5_EXTREMES."""
+    size = np.dtype(dtype).itemsize
+    worst = {C.MULTI_SMALL: (0, None), C.MULTI_LARGE: (0, None)}
+    for rows in range(8, 256 * 1024 // (size * 128) - 7):
+        widest = 256 * 1024 // size // (rows + 8) // 128 * 128
+        for cols in range(max(1, widest - 127), widest + 1):
+            w = C.multi_tile((rows, cols), dtype)
+            gx, gy = C.tile_grid(w, (rows, cols))
+            assert gx * gy <= _k5_capacity(w, dtype), (rows, cols)
+            worst[w] = max(worst[w], (gx * gy, (rows, cols)))
+    assert worst == {4: {16: (396, (352, 72)), 32: (171, (8, 4096))},
+                     8: {16: (264, (192, 88)), 32: (80, (9, 1920))}}[size]
+    shapes = [_k5_extreme(N, d, **x).local_shape for N, d, x in K5_EXTREMES
+              if d == dtype]
+    assert all(shape in shapes for _, shape in worst.values())
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("splitting", ["Sequential", "Godunov", "Strang"])
 def test_pair_route_equals_per_sweep_bitwise(splitting, dtype):

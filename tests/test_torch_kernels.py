@@ -494,13 +494,29 @@ def _k5_vs_plain(card, test, dtype, kernel="k5", ncycles=8, **extra):
     return iscal
 
 
+# The same on grids that take K5's large windows (100^2 takes the small
+# ones: `ops/cycle.multi_tile`): 248^2 padded in f32, 248 x 128 in f64
+# (the routing admits no larger square).
+MULTI_LARGE_N = {"float32": (240, 240), "float64": (120, 240)}
+MULTI_LARGE_CASES = [(test, dict(extra, large=True)) for test, extra in MULTI_CASES]
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("test,extra", MULTI_CASES,
+@pytest.mark.parametrize("test,extra", MULTI_CASES + MULTI_LARGE_CASES,
                          ids=["sod", "circ-godunov", "maxcycle", "even-dt",
-                              "cst-dt"])
+                              "cst-dt", "sod-w32", "circ-godunov-w32",
+                              "maxcycle-w32", "even-dt-w32", "cst-dt-w32"])
 def test_multicycle_matches_plain(card, test, extra, dtype):
     """One K5 launch of 8 cycles from the state after 10 cycles against
-    `multicycle_plain`: fields, p and every loop scalar bit for bit."""
+    `multicycle_plain`: fields, p and every loop scalar bit for bit, on
+    each of K5's two window geometries."""
+    extra = dict(extra)
+    large = extra.pop("large", False)
+    if large:
+        extra["N"] = MULTI_LARGE_N[dtype]
+    shape = armon_torch.ArmonParameters(device="cpu", silent=5, N=extra.get(
+        "N", (100, 100))).config.local_shape
+    assert C.multi_tile(shape, dtype) == (C.MULTI_LARGE if large else C.MULTI_SMALL)
     iscal = _k5_vs_plain(card, test, dtype, **extra)
     if "maxcycle" in extra:
         assert int(iscal[K.IS_CYCLE]) == 13 and not int(iscal[K.IS_NEXT])
@@ -525,6 +541,68 @@ def test_multicycle_extremes_match_plain(card, kernel, test, dtype, extra):
     wide strip, on Bizarrium and with an odd K."""
     _k5_vs_plain(card, test, dtype, kernel, extra.get("temporal_blocking", 8),
                  **extra)
+
+
+# The grids with the most tiles of each K5 window the routing admits
+# (`tests/test_torch_cycle.py` `K5_EXTREMES`): the small windows at the
+# card's full capacity, the large ones at their most, f32 and f64.
+K5_WORST = [
+    ("Sod_circ", "float32", dict(N=(64, 344))),    # 352 x 72: 396 8 x 8 tiles
+    ("Sod_circ", "float64", dict(N=(80, 184))),    # 192 x 88: 264
+    ("Sod", "float32", dict(N=(4092, 4), nghost=2, scheme="Godunov",
+                            projection="euler")),  # 8 x 4096: 171 24 x 24 tiles
+    ("Sod", "float64", dict(N=(1916, 5), nghost=2, scheme="Godunov",
+                            projection="euler")),  # 9 x 1920: 80
+]
+K5_WORST_IDS = ["f32-w16-396", "f64-w16-264", "f32-w32-171", "f64-w32-80"]
+
+
+@pytest.mark.parametrize("test,dtype,extra", K5_WORST, ids=K5_WORST_IDS)
+def test_multicycle_worst_tiles_match_plain(card, test, dtype, extra):
+    """K5 bit for bit against `multicycle_plain` on the grids with the most
+    tiles of each window: every tile co-resident, no code -4."""
+    _k5_vs_plain(card, test, dtype, **extra)
+
+
+# `chip_smoke.py`'s K5 grids and K5_WORST: every grid the routing admits
+# at its extremes, (nx, ny) and options.
+K5_LAUNCH_GRIDS = [
+    ("float32", dict(N=(100, 100))), ("float32", dict(N=(120, 496))),
+    ("float32", dict(N=(240, 240))), ("float32", dict(N=(3192, 4))),
+    ("float64", dict(N=(120, 120))), ("float64", dict(N=(120, 240))),
+] + [(dtype, extra) for _, dtype, extra in K5_WORST]
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("dtype,extra", K5_LAUNCH_GRIDS,
+                         ids=[f"{d}-{e['N'][0]}x{e['N'][1]}" for d, e in K5_LAUNCH_GRIDS])
+def test_multicycle_launches_at_every_extreme(card, dtype, extra, fast):
+    """K5 launches (a cooperative launch of every tile at once) at every
+    admitted extreme, in both window geometries, exact and fast math: no
+    code -4, and the card's blocks per SM hold the tiles. Times nothing."""
+    from armon_torch.ops import _build
+    params = armon_torch.ArmonParameters(test="Sod", data_type=dtype,
+                                         use_fast_math=fast, silent=5,
+                                         device="cuda", **extra)
+    cfg = params.config
+    assert route_of(cfg) == "multicycle"
+    [fs], seed = make_init_fused(params)()
+    src = tuple(a.clone() for a in fs[:4])
+    dst = tuple(torch.empty_like(a) for a in src)
+    shape = src[0].shape
+    occ = _build.multicycle_occupancy(shape, cfg.dtype, fast, False)
+    assert occ["window"] == C.multi_tile(shape, cfg.dtype)
+    assert occ["tiles"] <= occ["blocks_per_sm"] * torch.cuda.get_device_properties(
+        card).multi_processor_count
+    assert occ["local_bytes"] == 0
+    scal, iscal = K.new_scalars(cfg.dtype, card, lm=float(seed))
+    before = K.LAUNCHES["multicycle"]
+    C.multicycle(cfg, temporal_pairs(cfg), src, dst, fs.p.clone(),
+                 C.new_multicycle_partials(shape, cfg.dtype, card), scal, iscal)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["multicycle"] == before + 1
+    assert int(iscal[K.IS_CYCLE]) == len(temporal_pairs(cfg))
+    assert all(bool(torch.isfinite(a).all()) for a in src)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

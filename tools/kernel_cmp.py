@@ -36,7 +36,11 @@ euler_2nd, nghost 4):
   default `temporal_blocking`, Sequential) from the state after 50
   per-sweep cycles of Sod at 108^2, 168^2 and 248^2 padded, f32 fast
   math, and at 128^2 in f64, the calls back to back, each from the
-  state the one before left (every cycle runs);
+  state the one before left (every cycle runs); beside each, the floor
+  (`<cell>_floor_ms`: the same launch with the run predicate false, so
+  every cycle only copies and waits at the grid barrier) and, in f32,
+  the per-position tile body alone (`<cell>_body_ms`: one cycle of the
+  cycle probe's `base_l32`, 24 x 24 tiles, with no grid barrier);
 - K3's tail (`--only tail` runs this part alone; not in the default
   groups): on the Sedov 2008^2 and Sod 8200^2 states, an emitting K1, K2
   and K4 launch as the cycle's last: with K3's fold and dt step in its
@@ -232,6 +236,24 @@ for name, n, dtype in (("k5_108", 100, "float32"), ("k5_168", 160, "float32"),
     part = C.new_multicycle_partials(p0.shape, cfg.dtype, dev)
     out[name + "_ms"] = time_ms(lambda i: C.multicycle(
         cfg, pairs, cur, nxt, p, part, scal, iscal), k=20)
+    # The floor: the same launch with the run predicate false (ok = 0), so
+    # every cycle copies its tiles and waits at the grid barrier.
+    stop = iscal.clone()
+    stop[K.IS_OK] = 0
+    out[name + "_floor_ms"] = time_ms(lambda i: C.multicycle(
+        cfg, pairs, cur, nxt, p, part, scal, stop), k=20)
+    if dtype == "float32":
+        # The body alone: one cycle of the per-position 24 x 24 tile body
+        # (the cycle probe's `base_l32`), no grid barrier and no fold.
+        from armon_torch.ops import _build
+        nb = C.tile_grid(32, p0.shape)
+        bpart = torch.zeros((2, nb[0] * nb[1]), dtype=p0.dtype, device=dev)
+        bscal, biscal = K.new_scalars(cfg.dtype, dev)
+        bscal[K.SC_DTUSE] = res.dt_last
+        biscal[K.IS_RUN] = 1
+        out[name + "_body_ms"] = time_ms(lambda i: _build.launch_cycle_variant(
+            cfg, 0, 32, True, 1.0, 1.0, src0, nxt, p, bpart, bscal, biscal),
+            k=20)
 for n in (8192, 2000, 100):
     if "k6" not in groups:
         break
