@@ -619,7 +619,7 @@ class MultiCycles(_Windows):
 #
 # The JAX package's jnp tier (`armon_tpu/core/step.py:43-104,483-598`) in
 # plain tensor ops: no hand-written kernel, IEEE arithmetic on every
-# device. Each function takes the States of every shard of `mesh` this
+# device, with a fused multiply-add where XLA contracts one (`ops/fma.py`). Each function takes the States of every shard of `mesh` this
 # process drives, in its order (one State off a mesh); only the ghost
 # exchange and the CFL minimum look across shards (and processes), and a
 # process's shards run one after another.

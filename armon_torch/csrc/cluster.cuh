@@ -194,8 +194,8 @@ __device__ __forceinline__ void mc_sweep(const McArgs& a, cooperative_groups::cl
       uo[j] = (along_x ? in2 : in1) * fac[along_x ? 2 : 1];
       E[j] = q[3 * V.plane] * fac[3];
     }
-    run_body<T, FAST, BIZ, P>(a.k, a.riemann, a.limiter, a.projection, dt, dx, inv, LAST, rho,
-                              ua, uo, E, p, c);
+    run_body<T, FAST, BIZ, P>(a.k, a.riemann, a.limiter, a.projection, dt, dx, inv, LAST,
+                              !along_x, rho, ua, uo, E, p, c);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const int lp = pos0 + j, k = k0 + j;

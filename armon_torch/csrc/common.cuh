@@ -19,6 +19,12 @@ template <typename T> __device__ __forceinline__ T jmax(T a, T b) {
 template <typename T> __device__ __forceinline__ T jmin(T a, T b) {
   return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
 }
+// One rounding of a * b + c: the contraction the JAX package's XLA program
+// makes (`armon_torch/ops/fma.py`), where the kernels make it and nowhere
+// else (the libraries are built with -fmad=false).
+__device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fmadd(double a, double b, double c) { return __fma_rn(a, b, c); }
+
 // jnp.sign: +-1, and x itself for +-0 and NaN.
 template <typename T> __device__ __forceinline__ T jsign(T x) {
   return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);

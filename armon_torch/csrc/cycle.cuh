@@ -250,7 +250,7 @@ __device__ __forceinline__ void cycle_tile(const CycleArgs& a, Fields<const T> s
       } else {
         sweep_body<T, FAST, BIZ, NT, V != CV_NO_ROLL>(
             S, tid, tm, tp, a.k, a.riemann, a.limiter, a.projection, dt, dx, inv,
-            false, rho, ax ? u : v, ax ? v : u, E, r2, a2, o2, e2, p, c);
+            false, !ax, rho, ax ? u : v, ax ? v : u, E, r2, a2, o2, e2, p, c);
       }
       if (pos >= HALO && pos < HALO + R) {
         const int o = line * FP + pos - HALO;
@@ -286,7 +286,7 @@ __device__ __forceinline__ void cycle_tile(const CycleArgs& a, Fields<const T> s
       } else {
         sweep_body<T, FAST, BIZ, NT, V != CV_NO_ROLL>(
             S, tid, tm, tp, a.k, a.riemann, a.limiter, a.projection, dt, dx, inv,
-            emit && cv_dt(V), rho, ax ? u : v, ax ? v : u, E, r2, a2, o2, e2, p, c);
+            emit && cv_dt(V), !ax, rho, ax ? u : v, ax ? v : u, E, r2, a2, o2, e2, p, c);
       }
       if (pos >= HALO && pos < HALO + R) {
         const long long gr = ax ? r0 + line : r0 + pos - HALO;
@@ -443,10 +443,10 @@ __device__ __forceinline__ void line(const CycleArgs& a, bool along_x, T dt, boo
   const T dx = T(along_x ? a.dx : a.dy), inv = T(along_x ? a.inv_dx : a.inv_dy);
   if (along_x)
     run_body<T, FAST, BIZ, P, V != CV_NO_ROLL>(a.k, a.riemann, a.limiter, a.projection, dt, dx,
-                                               inv, need_c, rho, u, v, E, p, c);
+                                               inv, need_c, false, rho, u, v, E, p, c);
   else
     run_body<T, FAST, BIZ, P, V != CV_NO_ROLL>(a.k, a.riemann, a.limiter, a.projection, dt, dx,
-                                               inv, need_c, rho, v, u, E, p, c);
+                                               inv, need_c, true, rho, v, u, E, p, c);
 }
 
 // A CFL sample of an output cell (`_dt_tile_min`: post-sweep velocities,

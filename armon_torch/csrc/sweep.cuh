@@ -103,7 +103,7 @@ struct SweepArgs {
   int biz;                // Bizarrium EOS (else perfect gas)
   double dt_factor;       // dt = dt_use * T(dt_factor)
   double dx;              // T(cell size along the axis)
-  double inv_dx;          // T(1) / T(dx), fast mode only
+  double inv_dx;          // T(1) / T(dx)
   double f_lo[4], f_hi[4];  // mirror factors of (rho, u, v, E)
   double k[K_COUNT];
 };
@@ -148,12 +148,17 @@ template <typename T> __device__ __forceinline__ T limiter(int name, T r) {
 
 // `_eos_prc`: pressure, impedance rho*c, sound speed c (only formed when
 // needed: always in exact mode), and the refined 1/rho of the fast
-// Bizarrium chain (rr, reused by the Lagrangian update).
+// Bizarrium chain (rr, reused by the Lagrangian update). The internal
+// energy contracts u*u + v*v as fma(u, u, v*v) whatever the axis
+// (`along_y`: ua is v).
 template <typename T, bool FAST, bool BIZ>
 __device__ __forceinline__ void eos_prc(const double* kk, T rho, T ua, T uo, T E,
-                                        bool need_c, T& p, T& rc, T& c, T& rr) {
+                                        bool need_c, bool along_y, T& p, T& rc, T& c,
+                                        T& rr) {
   typedef Div<T, FAST> D;
   const T half = T(0.5);
+  const T uu = along_y ? uo : ua, vv = along_y ? ua : uo;
+  const T e = fmadd(fmadd(uu, uu, vv * vv), -half, E);
   if (BIZ) {
     if (FAST) {
       const T s = T(kk[K_S]), q = T(kk[K_Q]), r = T(kk[K_R]), k = T(kk[K_SK]);
@@ -170,7 +175,6 @@ __device__ __forceinline__ void eos_prc(const double* kk, T rho, T ua, T uo, T E
       const T pk0 = T(kk[K_PK0C]) + (T(kk[K_C05K0]) * (x * xp12)) * (T(2) * f0 + x * f1);
       const T pk0prime = (T(kk[K_PPC]) * (xp12 * xp1)) *
           (((T(6) * x + T(2)) * f0 + (x * (T(6) * x + T(4))) * f1) + (x2 * xp1) * f2t);
-      const T e = E - half * (ua * ua + uo * uo);
       const T tt = T(kk[K_G0RHO0]) * (e - epsk0);
       p = pk0 + tt;
       const T sq = sqrt(T(kk[K_G0RHO0]) * tt - pk0prime);
@@ -192,9 +196,8 @@ __device__ __forceinline__ void eos_prc(const double* kk, T rho, T ua, T uo, T E
     const T pk0prime = T(kk[K_CM05K0]) * (xp1 * (xp1 * xp1)) * rho0 *
         (T(2) * (T(1) + T(3) * x) * f0 + T(2) * x * (T(2) + T(3) * x) * f1 +
          x2 * xp1 * over_sx(T(kk[K_2Q]) + T(kk[K_6R]) * x + T(kk[K_2S]) * f1));
-    const T e = E - half * (ua * ua + uo * uo);
-    p = pk0 + T(kk[K_G0RHO0]) * (e - epsk0);
-    const T sq = sqrt(T(kk[K_G0RHO0]) * (p - pk0) - pk0prime);
+    p = fmadd(T(kk[K_G0RHO0]), e - epsk0, pk0);
+    const T sq = sqrt(fmadd(T(kk[K_G0RHO0]), p - pk0, -pk0prime));
     if (FAST && !need_c) {  // rho * (sq/rho) == sq up to 2 ulp
       rc = sq;
       return;
@@ -204,7 +207,6 @@ __device__ __forceinline__ void eos_prc(const double* kk, T rho, T ua, T uo, T E
     return;
   }
   const T gm = T(kk[K_GM]);
-  const T e = E - half * (ua * ua + uo * uo);
   p = T(kk[K_GM1]) * rho * e;
   if (FAST && !need_c) {
     rc = sqrt(gm * p * rho);
@@ -254,15 +256,17 @@ __device__ __forceinline__ long long ghost_src(long long k, int g, int n_real,
 
 // `_sweep_math` at one position of a line, one position per thread (K5's
 // tile body and the probes run it; K1, K2 and K4 run the same operations
-// in the same order through `run_body` or K2's pipeline). The calling
+// in the same order through `run_body` or K2's pipeline), with an explicit
+// fused multiply-add at each site the plain version contracts
+// (`ops/sweep.py` `sweep_math_plain`). The calling
 // thread owns position k and reads the stage
 // values of k-1 and k+1 through shared memory S (9 rows of NS values):
 // `tm` / `tp` are those neighbours' slots, i.e. the thread's own slot minus
 // / plus the line's stride in S, clamped at the line's ends (the outer
 // HALO positions of a line are read but never valid). Every thread of the
 // block must call it: it holds barriers. In: the axis velocity `ua`, the
-// other one `uo`. Out: the swept (rho, ua, uo, E) and the pre-sweep p and
-// c (c only when need_c, or always in exact mode).
+// other one `uo` (`along_y`: ua is v). Out: the swept (rho, ua, uo, E) and
+// the pre-sweep p and c (c only when need_c, or always in exact mode).
 //
 // SHIFT = false is the `no_roll` measurement variant of the cycle probe
 // (armon_torch/probes/cycle_variants.py, scripts/perf_probe.py:80-87):
@@ -272,7 +276,7 @@ __device__ __forceinline__ long long ghost_src(long long k, int g, int n_real,
 template <typename T, bool FAST, bool BIZ, int NS, bool SHIFT = true>
 __device__ __forceinline__ void sweep_body(
     T* S, int tid, int tm, int tp, const double* kk, int riemann, int lim,
-    int projection, T dt, T dx, T inv_dx, bool need_c,
+    int projection, T dt, T dx, T inv_dx, bool need_c, bool along_y,
     T rho, T ua, T uo, T E,
     T& rho_o, T& ua_o, T& uo_o, T& E_o, T& p, T& c) {
   typedef Div<T, FAST> D;
@@ -285,38 +289,41 @@ __device__ __forceinline__ void sweep_body(
     if (SHIFT) __syncthreads();
   };
 
-  // ---- stage 1: EOS of the input state
+  // ---- stage 1: EOS of the input state. The neighbour's rho and c (its
+  // rc in fast mode, where c is not formed): the blend contracts rho*c
+  // and rho*dx of the neighbour into its sums.
   T rc, rr = T(0);
   c = T(0);
-  eos_prc<T, FAST, BIZ>(kk, rho, ua, uo, E, need_c, p, rc, c, rr);
+  eos_prc<T, FAST, BIZ>(kk, rho, ua, uo, E, need_c, along_y, p, rc, c, rr);
   const T dm = rho * dx;
   if (SHIFT) {
-    sv(0, tid) = dm;
+    sv(0, tid) = rho;
     sv(1, tid) = ua;
     sv(2, tid) = p;
-    sv(3, tid) = rc;
+    sv(3, tid) = FAST ? rc : c;
   }
   sync();
 
   // ---- stage 2: Godunov solve at the k-1/2 interface (`_godunov`)
-  const T dm_l = nb(0, tm, dm, -1), u_m = nb(1, tm, ua, -1), p_m = nb(2, tm, p, -1),
-          rc_l = nb(3, tm, rc, -1);
+  const T rho_m = nb(0, tm, rho, -1), u_m = nb(1, tm, ua, -1), p_m = nb(2, tm, p, -1);
+  const T c_m = nb(3, tm, FAST ? rc : c, -1);
+  const T rc_l = FAST ? c_m : rho_m * c_m;
   const T rc_sum = rc_l + rc;
   T us_i, ps_i;
   {
     typename D::Over over(rc_sum);
-    us_i = over(rc_l * u_m + rc * ua + (p_m - p));
-    ps_i = over(rc * p_m + rc_l * p + rc_l * rc * (u_m - ua));
+    us_i = over(fmadd(rc_l, u_m, rc * ua) + (p_m - p));
+    ps_i = over(fmadd(rc_l * rc, u_m - ua, fmadd(rc, p_m, rc_l * p)));
   }
   const T e_u = us_i - u_m, e_p = ps_i - p_m;
   const T d_u = ua - us_i, d_p = p - ps_i;
   T theta = T(0);
   if (riemann == 1) {
     if (FAST) {
-      theta = T(0.5) * (T(1) - rc_sum * D::divc(dt, dm_l + dm));
+      theta = T(0.5) * fmadd(-rc_sum, D::divc(dt, fmadd(rho_m, dx, dm)), T(1));
     } else {
-      const T Dm = (dm_l + dm) / T(2);
-      theta = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
+      const T Dm = fmadd(rho_m, dx, dm) / T(2);
+      theta = T(0.5) * fmadd(-(fmadd(rho_m, c_m, rc) / T(2)), D::divc(dt, Dm), T(1));
     }
   }
   if (SHIFT) {
@@ -335,8 +342,8 @@ __device__ __forceinline__ void sweep_body(
     const T r_pm = limiter(lim, D::divc(nb(5, tp, e_p, 1), e_p + eps));
     const T r_up = limiter(lim, D::divc(nb(6, tm, d_u, -1), d_u + eps));
     const T r_pp = limiter(lim, D::divc(nb(7, tm, d_p, -1), d_p + eps));
-    ustar = us_i + theta * (r_up * d_u - r_um * e_u);
-    pstar = ps_i + theta * (r_pp * d_p - r_pm * e_p);
+    ustar = fmadd(theta, fmadd(r_up, d_u, -(r_um * e_u)), us_i);
+    pstar = fmadd(theta, fmadd(r_pp, d_p, -(r_pm * e_p)), ps_i);
   }
   if (SHIFT) {
     sv(0, tid) = ustar;
@@ -346,14 +353,14 @@ __device__ __forceinline__ void sweep_body(
 
   // ---- stage 4: Lagrangian cell update (src/kernels.jl:58-68)
   const T us_p = nb(0, tp, ustar, 1), ps_p = nb(1, tp, pstar, 1);
-  const T dX = dx + dt * (us_p - ustar);
+  const T dX = fmadd(dt, us_p - ustar, dx);
   const T rho1 = D::div(dm, dX);
   const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * rr : D::div(dt, dm);
-  const T ua1 = ua + dt_dm * (pstar - ps_p);
-  const T E1 = E + dt_dm * (pstar * ustar - ps_p * us_p);
+  const T ua1 = fmadd(dt_dm, pstar - ps_p, ua);
+  const T E1 = fmadd(dt_dm, fmadd(pstar, ustar, -(ps_p * us_p)), E);
   const T disp = dt * ustar;
   const bool up = disp > T(0);
-  const T dxe = up ? (dt * nb(0, tm, ustar, -1) - dx) : (dx + dt * nb(0, tp, ustar, 1));
+  const T dxe = up ? -fmadd(-dt, nb(0, tm, ustar, -1), dx) : fmadd(dt, nb(0, tp, ustar, 1), dx);
   T q[4] = {rho1, rho1 * ua1, rho1 * uo, rho1 * E1};
   if (SHIFT) {
     sv(4, tid) = dX;
@@ -379,42 +386,48 @@ __device__ __forceinline__ void sweep_body(
     }
   }
   // S[0..3] were last read in stage 4, before its barrier.
-  T s5[4];  // what S[0..3] hold (read from registers only without SHIFT)
-  for (int j = 0; j < 4; ++j) s5[j] = second ? q[j] : disp * qi[j];
-  if (SHIFT) {
-    for (int j = 0; j < 4; ++j) sv(j, tid) = s5[j];
+  if (SHIFT && second) {
+    for (int j = 0; j < 4; ++j) sv(j, tid) = q[j];
   }
   sync();
 
-  // ---- stage 6: advection fluxes (src/projection_schemes.jl:62-124)
-  T adv[4];
+  // ---- stage 6: advection fluxes disp * Q (src/projection_schemes.jl:
+  // 62-124). Shared: the rho flux, the other fluxes' Q, and disp.
+  T Q[4];
   if (second) {
     const T lf = D::divc(dxe, T(2) * dxl);
     for (int j = 0; j < 4; ++j) {
-      const T sl = up ? nb(j, tm, s5[j], -1) : (SHIFT ? sv(j, tid) : s5[j]);
-      adv[j] = disp * (qi[j] - sl * lf);
+      const T sl = up ? nb(j, tm, q[j], -1) : (SHIFT ? sv(j, tid) : q[j]);
+      Q[j] = fmadd(-sl, lf, qi[j]);
     }
   } else {
-    for (int j = 0; j < 4; ++j) adv[j] = SHIFT ? sv(j, tid) : s5[j];
+    for (int j = 0; j < 4; ++j) Q[j] = qi[j];
   }
+  const T adv0 = disp * Q[0];
   // S[4..8] were last read in stage 5, before its barrier.
   if (SHIFT) {
-    for (int j = 0; j < 4; ++j) sv(4 + j, tid) = adv[j];
+    sv(4, tid) = adv0;
+    for (int j = 1; j < 4; ++j) sv(4 + j, tid) = Q[j];
+    sv(8, tid) = disp;
   }
   sync();
 
-  // ---- stage 7: projection (src/projection_schemes.jl:23-41). S[0..3]
-  // were last read in stage 6, so a caller may reuse them right after.
+  // ---- stage 7: projection (src/projection_schemes.jl:23-41), `/ dx` a
+  // multiply by inv_dx. The flux differences: rho's contracts the cell's
+  // flux, the others the next cell's. S[0..3] were last read in stage 6,
+  // so a caller may reuse them right after.
   T tmp[4];
   {
+    const T disp_p = nb(8, tp, disp, 1);
+    T d[4];
+    d[0] = fmadd(-disp, Q[0], nb(4, tp, adv0, 1));
+    for (int j = 1; j < 4; ++j) d[j] = fmadd(disp_p, nb(4 + j, tp, Q[j], 1), -(disp * Q[j]));
     const T dXr = dX * rho1;
-    const T num[4] = {dXr, dXr * ua1, dXr * uo, dXr * E1};
-    for (int j = 0; j < 4; ++j) {
-      const T v = num[j] - (nb(4 + j, tp, adv[j], 1) - adv[j]);
-      tmp[j] = FAST ? v * inv_dx : v / dx;
-    }
+    const T x[4] = {T(0), ua1, uo, E1};
+    rho_o = fmadd(dX, rho1, -d[0]) * inv_dx;
+    tmp[0] = (dXr - d[0]) * inv_dx;
+    for (int j = 1; j < 4; ++j) tmp[j] = fmadd(dXr, x[j], -d[j]) * inv_dx;
   }
-  rho_o = tmp[0];
   {
     typename D::Over over_rho(tmp[0]);
     ua_o = over_rho(tmp[1]);
@@ -471,9 +484,9 @@ template <typename T> __device__ __forceinline__ T limiter_x(int name, T r) {
 // in `sweep_body`. Its min/max are `limiter_x`, `clamp0` and `xmin`.
 template <typename T, bool FAST, bool BIZ, int P, bool SHIFT = true>
 __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim, int projection,
-                                         T dt, T dx, T inv_dx, bool need_c, T (&rho)[P],
-                                         T (&ua)[P], T (&uo)[P], T (&E)[P], T (&p)[P],
-                                         T (&c)[P]) {
+                                         T dt, T dx, T inv_dx, bool need_c, bool along_y,
+                                         T (&rho)[P], T (&ua)[P], T (&uo)[P], T (&E)[P],
+                                         T (&p)[P], T (&c)[P]) {
   typedef Div<T, FAST> D;
   constexpr unsigned FULL = 0xffffffffu;
   // The neighbouring lanes' values at the run's ends.
@@ -493,34 +506,40 @@ __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim,
   for (int j = 0; j < P; ++j) {
     rr[j] = T(0);
     c[j] = T(0);
-    eos_prc<T, FAST, BIZ>(kk, rho[j], ua[j], uo[j], E[j], need_c, p[j], rc[j], c[j], rr[j]);
+    eos_prc<T, FAST, BIZ>(kk, rho[j], ua[j], uo[j], E[j], need_c, along_y, p[j], rc[j], c[j],
+                          rr[j]);
     dm[j] = rho[j] * dx;
   }
 
-  // ---- stage 2: Godunov solve at the k-1/2 interface
+  // ---- stage 2: Godunov solve at the k-1/2 interface. The neighbour's
+  // rho and c (its rc in fast mode): the blend contracts them into its sums.
   T us_i[P], ps_i[P], e_u[P], e_p[P], d_u[P], d_p[P], theta[P];
   {
-    const T dm_e = lo(dm[P - 1]), ua_e = lo(ua[P - 1]), p_e = lo(p[P - 1]),
-            rc_e = lo(rc[P - 1]);
+    T cs[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) cs[j] = FAST ? rc[j] : c[j];
+    const T rho_e = lo(rho[P - 1]), ua_e = lo(ua[P - 1]), p_e = lo(p[P - 1]),
+            cs_e = lo(cs[P - 1]);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      const T dm_l = km(dm, dm_e, j), u_m = km(ua, ua_e, j), p_m = km(p, p_e, j),
-              rc_l = km(rc, rc_e, j);
+      const T rho_m = km(rho, rho_e, j), u_m = km(ua, ua_e, j), p_m = km(p, p_e, j),
+              c_m = km(cs, cs_e, j);
+      const T rc_l = FAST ? c_m : rho_m * c_m;
       const T rc_sum = rc_l + rc[j];
       {
         typename D::Over over(rc_sum);
-        us_i[j] = over(rc_l * u_m + rc[j] * ua[j] + (p_m - p[j]));
-        ps_i[j] = over(rc[j] * p_m + rc_l * p[j] + rc_l * rc[j] * (u_m - ua[j]));
+        us_i[j] = over(fmadd(rc_l, u_m, rc[j] * ua[j]) + (p_m - p[j]));
+        ps_i[j] = over(fmadd(rc_l * rc[j], u_m - ua[j], fmadd(rc[j], p_m, rc_l * p[j])));
       }
       e_u[j] = us_i[j] - u_m, e_p[j] = ps_i[j] - p_m;
       d_u[j] = ua[j] - us_i[j], d_p[j] = p[j] - ps_i[j];
       theta[j] = T(0);
       if (riemann == 1) {
         if (FAST) {
-          theta[j] = T(0.5) * (T(1) - rc_sum * D::divc(dt, dm_l + dm[j]));
+          theta[j] = T(0.5) * fmadd(-rc_sum, D::divc(dt, fmadd(rho_m, dx, dm[j])), T(1));
         } else {
-          const T Dm = (dm_l + dm[j]) / T(2);
-          theta[j] = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
+          const T Dm = fmadd(rho_m, dx, dm[j]) / T(2);
+          theta[j] = T(0.5) * fmadd(-(fmadd(rho_m, c_m, rc[j]) / T(2)), D::divc(dt, Dm), T(1));
         }
       }
     }
@@ -539,8 +558,8 @@ __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim,
       const T r_pm = limiter_x(lim, D::divc(kp(e_p, ep_e, j), e_p[j] + eps));
       const T r_up = limiter_x(lim, D::divc(km(d_u, du_e, j), d_u[j] + eps));
       const T r_pp = limiter_x(lim, D::divc(km(d_p, dp_e, j), d_p[j] + eps));
-      ustar[j] = us_i[j] + theta[j] * (r_up * d_u[j] - r_um * e_u[j]);
-      pstar[j] = ps_i[j] + theta[j] * (r_pp * d_p[j] - r_pm * e_p[j]);
+      ustar[j] = fmadd(theta[j], fmadd(r_up, d_u[j], -(r_um * e_u[j])), us_i[j]);
+      pstar[j] = fmadd(theta[j], fmadd(r_pp, d_p[j], -(r_pm * e_p[j])), ps_i[j]);
     }
   }
 
@@ -552,23 +571,24 @@ __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim,
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const T us_p = kp(ustar, us_e, j), ps_p = kp(pstar, ps_e, j);
-      dX[j] = dx + dt * (us_p - ustar[j]);
+      dX[j] = fmadd(dt, us_p - ustar[j], dx);
       rho1[j] = D::div(dm[j], dX[j]);
       const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * rr[j] : D::div(dt, dm[j]);
-      ua1[j] = ua[j] + dt_dm * (pstar[j] - ps_p);
-      E1[j] = E[j] + dt_dm * (pstar[j] * ustar[j] - ps_p * us_p);
+      ua1[j] = fmadd(dt_dm, pstar[j] - ps_p, ua[j]);
+      E1[j] = fmadd(dt_dm, fmadd(pstar[j], ustar[j], -(ps_p * us_p)), E[j]);
       disp[j] = dt * ustar[j];
       up[j] = disp[j] > T(0);
-      dxe[j] = up[j] ? (dt * km(ustar, usm_e, j) - dx) : (dx + dt * us_p);
+      dxe[j] = up[j] ? -fmadd(-dt, km(ustar, usm_e, j), dx) : fmadd(dt, us_p, dx);
     }
   }
 
   // ---- stages 5-7, one conserved variable q at a time (each position's
   // operations as in `sweep_body`, their order across variables free):
-  // upwind values and limited slopes (slope_shift form), advection fluxes,
-  // projection. Per variable only its fluxes' result stays live.
+  // upwind values and limited slopes (slope_shift form), advection fluxes
+  // disp * Q, projection. Per variable only its result stays live.
   const bool second = projection == 1;
   T dxl[P], r_m[P], r_p[P], lf[P], dXr[P];
+  const T disp_e = hi(disp[0]);
   {
     const T dXm_e = lo(dX[P - 1]), dXp_e = hi(dX[0]);
 #pragma unroll
@@ -589,7 +609,7 @@ __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim,
     for (int j = 0; j < P; ++j)
       q[j] = f == 0 ? rho1[j] : rho1[j] * (f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]));
     const T qm_e = lo(q[P - 1]), qp_e = hi(q[0]);
-    T qi[P], s5[P], adv[P];
+    T qi[P], s5[P], Q[P];
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const T qm = km(q, qm_e, j), qp = kp(q, qp_e, j);
@@ -597,31 +617,48 @@ __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim,
       const T du_p = r_p[j] * (qp - q[j]);
       const T du_m = r_m[j] * (q[j] - qm);
       const T sgn = jsign(du_p);
-      const T slope = sgn * clamp0(xmin(fabs(du_p), sgn * du_m));
-      s5[j] = second ? slope : disp[j] * qi[j];
+      s5[j] = sgn * clamp0(xmin(fabs(du_p), sgn * du_m));
     }
     if (second) {
       const T s5_e = lo(s5[P - 1]);
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         const T sl = up[j] ? km(s5, s5_e, j) : s5[j];
-        adv[j] = disp[j] * (qi[j] - sl * lf[j]);
+        Q[j] = fmadd(-sl, lf[j], qi[j]);
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < P; ++j) adv[j] = s5[j];
+      for (int j = 0; j < P; ++j) Q[j] = qi[j];
     }
-    const T adv_e = hi(adv[0]);
+    // The flux differences: rho's contracts the cell's flux, the others
+    // the next cell's (`ops/sweep.py` `sweep_math_plain`).
+    T d[P];
+    if (f == 0) {
+      T adv[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) adv[j] = disp[j] * Q[j];
+      const T adv_e = hi(adv[0]);
+#pragma unroll
+      for (int j = 0; j < P; ++j) d[j] = fmadd(-disp[j], Q[j], kp(adv, adv_e, j));
+    } else {
+      const T Q_e = hi(Q[0]);
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        d[j] = fmadd(kp(disp, disp_e, j), kp(Q, Q_e, j), -(disp[j] * Q[j]));
+    }
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      const T num = f == 0 ? dXr[j] : dXr[j] * (f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]));
-      const T v = num - (kp(adv, adv_e, j) - adv[j]);
-      tmp[f][j] = FAST ? v * inv_dx : v / dx;
+      if (f == 0) {
+        rho[j] = fmadd(dX[j], rho1[j], -d[j]) * inv_dx;
+        tmp[0][j] = (dXr[j] - d[j]) * inv_dx;
+      } else {
+        const T x = f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]);
+        tmp[f][j] = fmadd(dXr[j], x, -d[j]) * inv_dx;
+      }
     }
   }
 #pragma unroll
   for (int j = 0; j < P; ++j) {
-    rho[j] = tmp[0][j];
     typename D::Over over_rho(tmp[0][j]);
     ua[j] = over_rho(tmp[1][j]);
     uo[j] = over_rho(tmp[2][j]);
@@ -862,7 +899,7 @@ __device__ __forceinline__ void x_sweep_body(const SweepArgs& a, const FinishArg
     }
     if (i + 1 < wpw && fast_window(window(i + 1))) issue(window(i + 1));
     run_body<T, FAST, BIZ, PX>(a.k, a.riemann, a.limiter, a.projection, dt, T(a.dx),
-                               T(a.inv_dx), emit, rho, u, v, E, p, c);
+                               T(a.inv_dx), emit, false, rho, u, v, E, p, c);
     const bool row_real = row >= g && row < g + ny;
     const long long base = row * cols + c0 + off;
     if (fast) {  // lanes 1-30 hold whole runs of outputs, every column real
@@ -922,7 +959,7 @@ x_sweep_finish_kernel(const SweepArgs a, __grid_constant__ const FinishArgs f) {
 
 // K2's register pipeline (see the file note): what a row holds after
 // stage 1 (S1), stage 2 (S2) and stage 4 (S4).
-template <typename T> struct S1 { T dm, ua, uo, E, p, rc, c, rr; };
+template <typename T> struct S1 { T rho, ua, uo, E, p, rc, c, rr; };
 template <typename T> struct S2 { T us, ps, eu, ep, du, dp, th; };
 template <typename T> struct S4 { T dX, rho1, ua1, E1, disp, dxe, q[4]; bool up; };
 
@@ -972,7 +1009,7 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
   S2<T> s2[3] = {};
   T us3[4] = {}, ps3[4] = {};  // stage 3: ustar, pstar
   S4<T> s4[5] = {};
-  T s5[5][4] = {}, adv[5][4] = {};  // stages 5 and 6: slopes, fluxes
+  T s5[5][4] = {}, Q[5][4] = {};  // stages 5 and 6: slopes, fluxes' Q
   T mx = T(0), my = T(0);  // the TPU's zero-initialised max block
 
   T raw[4];  // the next row's fields, in flight
@@ -1002,29 +1039,32 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
       n.rr = T(0);
       n.c = T(0);
       n.ua = in[2], n.uo = in[1], n.E = in[3];
-      eos_prc<T, FAST, BIZ>(a.k, in[0], n.ua, n.uo, n.E, emit, n.p, n.rc, n.c, n.rr);
-      n.dm = in[0] * dx;
+      eos_prc<T, FAST, BIZ>(a.k, in[0], n.ua, n.uo, n.E, emit, true, n.p, n.rc, n.c, n.rr);
+      n.rho = in[0];
     }
     // ---- stage 2 at row i: Godunov solve at the i-1/2 interface
     {
       const S1<T>& m = s1[1];
       const S1<T>& k = s1[0];
       S2<T>& n = s2[0];
-      const T rc_sum = m.rc + k.rc;
+      // the neighbour's rho * c formed from its rho and c, as run_body
+      const T rc_l = FAST ? m.rc : m.rho * m.c;
+      const T rc_sum = rc_l + k.rc;
       {
         typename D::Over over(rc_sum);
-        n.us = over(m.rc * m.ua + k.rc * k.ua + (m.p - k.p));
-        n.ps = over(k.rc * m.p + m.rc * k.p + m.rc * k.rc * (m.ua - k.ua));
+        n.us = over(fmadd(rc_l, m.ua, k.rc * k.ua) + (m.p - k.p));
+        n.ps = over(fmadd(rc_l * k.rc, m.ua - k.ua, fmadd(k.rc, m.p, rc_l * k.p)));
       }
       n.eu = n.us - m.ua, n.ep = n.ps - m.p;
       n.du = k.ua - n.us, n.dp = k.p - n.ps;
       n.th = T(0);
       if (riemann == 1) {
+        const T dm = k.rho * dx;
         if (FAST) {
-          n.th = T(0.5) * (T(1) - rc_sum * D::divc(dt, m.dm + k.dm));
+          n.th = T(0.5) * fmadd(-rc_sum, D::divc(dt, fmadd(m.rho, dx, dm)), T(1));
         } else {
-          const T Dm = (m.dm + k.dm) / T(2);
-          n.th = T(0.5) * (T(1) - rc_sum / T(2) * D::divc(dt, Dm));
+          const T Dm = fmadd(m.rho, dx, dm) / T(2);
+          n.th = T(0.5) * fmadd(-(fmadd(m.rho, m.c, k.rc) / T(2)), D::divc(dt, Dm), T(1));
         }
       }
     }
@@ -1038,8 +1078,8 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
         const T r_pm = limiter_x(lim, D::divc(s2[0].ep, k.ep + eps));
         const T r_up = limiter_x(lim, D::divc(s2[2].du, k.du + eps));
         const T r_pp = limiter_x(lim, D::divc(s2[2].dp, k.dp + eps));
-        us3[1] = k.us + k.th * (r_up * k.du - r_um * k.eu);
-        ps3[1] = k.ps + k.th * (r_pp * k.dp - r_pm * k.ep);
+        us3[1] = fmadd(k.th, fmadd(r_up, k.du, -(r_um * k.eu)), k.us);
+        ps3[1] = fmadd(k.th, fmadd(r_pp, k.dp, -(r_pm * k.ep)), k.ps);
       }
     }
     // ---- stage 4 at row i-2: Lagrangian cell update
@@ -1047,14 +1087,15 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
       const S1<T>& k = s1[2];
       S4<T>& n = s4[2];
       const T ustar = us3[2], pstar = ps3[2], us_p = us3[1], ps_p = ps3[1];
-      n.dX = dx + dt * (us_p - ustar);
-      n.rho1 = D::div(k.dm, n.dX);
-      const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * k.rr : D::div(dt, k.dm);
-      n.ua1 = k.ua + dt_dm * (pstar - ps_p);
-      n.E1 = k.E + dt_dm * (pstar * ustar - ps_p * us_p);
+      const T dm = k.rho * dx;
+      n.dX = fmadd(dt, us_p - ustar, dx);
+      n.rho1 = D::div(dm, n.dX);
+      const T dt_dm = (FAST && BIZ) ? (dt * inv_dx) * k.rr : D::div(dt, dm);
+      n.ua1 = fmadd(dt_dm, pstar - ps_p, k.ua);
+      n.E1 = fmadd(dt_dm, fmadd(pstar, ustar, -(ps_p * us_p)), k.E);
       n.disp = dt * ustar;
       n.up = n.disp > T(0);
-      n.dxe = n.up ? (dt * us3[3] - dx) : (dx + dt * us_p);
+      n.dxe = n.up ? -fmadd(-dt, us3[3], dx) : fmadd(dt, us_p, dx);
       n.q[0] = n.rho1, n.q[1] = n.rho1 * n.ua1;
       n.q[2] = n.rho1 * k.uo, n.q[3] = n.rho1 * n.E1;
     }
@@ -1074,38 +1115,43 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
         const T du_p = r_p * (qp - q);
         const T du_m = r_m * (q - qm);
         const T sgn = jsign(du_p);
-        const T slope = sgn * clamp0(xmin(fabs(du_p), sgn * du_m));
-        s5[3][j] = second ? slope : k.disp * qi[j];
+        s5[3][j] = sgn * clamp0(xmin(fabs(du_p), sgn * du_m));
       }
       if (second) {
         const T lf = D::divc(k.dxe, T(2) * dxl);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const T sl = k.up ? s5[4][j] : s5[3][j];
-          adv[3][j] = k.disp * (qi[j] - sl * lf);
+          Q[3][j] = fmadd(-sl, lf, qi[j]);
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) adv[3][j] = s5[3][j];
+        for (int j = 0; j < 4; ++j) Q[3][j] = qi[j];
       }
     }
     // ---- stage 7 at row i-4: projection and output
     const long long r = i - HALO;
     if (r >= r0) {
       const S4<T>& k = s4[4];
+      const T dp_ = s4[3].disp;  // the next row's
       const T dXr = k.dX * k.rho1;
-      const T num[4] = {dXr, dXr * k.ua1, dXr * s1[4].uo, dXr * k.E1};
+      // the flux differences: rho's contracts the row's flux, the others
+      // the next row's; `/ dx` a multiply by inv_dx
+      const T d0 = fmadd(-k.disp, Q[4][0], dp_ * Q[3][0]);
+      const T rho_o = fmadd(k.dX, k.rho1, -d0) * inv_dx;
+      const T x[4] = {T(0), k.ua1, s1[4].uo, k.E1};
       T tmp[4];
+      tmp[0] = (dXr - d0) * inv_dx;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const T v = num[j] - (adv[3][j] - adv[4][j]);
-        tmp[j] = FAST ? v * inv_dx : v / dx;
+      for (int j = 1; j < 4; ++j) {
+        const T dj = fmadd(dp_, Q[3][j], -(k.disp * Q[4][j]));
+        tmp[j] = fmadd(dXr, x[j], -dj) * inv_dx;
       }
       typename D::Over over_rho(tmp[0]);
       const T ua_o = over_rho(tmp[1]), uo_o = over_rho(tmp[2]), E_o = over_rho(tmp[3]);
       if (live) {
         const long long o = r * cols + col;
-        dst[0][o] = tmp[0];
+        dst[0][o] = rho_o;
         dst[1][o] = uo_o;
         dst[2][o] = ua_o;
         dst[3][o] = E_o;
@@ -1125,7 +1171,7 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
       s1[d] = s1[d - 1];
       s4[d] = s4[d - 1];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s5[d][j] = s5[d - 1][j], adv[d][j] = adv[d - 1][j];
+      for (int j = 0; j < 4; ++j) s5[d][j] = s5[d - 1][j], Q[d][j] = Q[d - 1][j];
     }
 #pragma unroll
     for (int d = 3; d > 0; --d) us3[d] = us3[d - 1], ps3[d] = ps3[d - 1];

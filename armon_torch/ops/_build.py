@@ -17,12 +17,15 @@ root of the checkout, under a name that hashes the sources and flags, so
 a changed source rebuilds and an unchanged one loads. A failed build or
 launch raises `SolverException`; nothing falls back to another path.
 
-`-fmad=false` keeps every multiply and add separately rounded, which is
-what makes exact mode bit-comparable with the plain PyTorch versions.
+`-fmad=false` keeps every multiply and add separately rounded, except
+the explicit fused multiply-adds (`fmadd`, `csrc/common.cuh`) at the sites
+where the plain PyTorch versions contract (`ops/fma.py`): that is what
+makes exact mode bit-comparable with them.
 
-The native I/O library (`armon_torch/native/armon_io.cc`, host code, no
-kernel) is built the same way by the host C++ compiler (`load_io`), on
-first use, into the same directory.
+The native host libraries (`armon_torch/native/`: `armon_io.cc`, the I/O;
+`armon_fma.cc`, the CPU tensors' fused multiply-add; no kernel) are built
+the same way by the host C++ compiler (`load_io`, `load_fma`), on first
+use, into the same directory.
 """
 
 import ctypes
@@ -55,6 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 IO_SOURCE = os.path.join(_PKG, "native", "armon_io.cc")
+FMA_SOURCE = os.path.join(_PKG, "native", "armon_fma.cc")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
 
 # Filled by `load()`: build seconds (0 when every library was cached) and
@@ -64,6 +68,7 @@ BUILD_INFO = {"seconds": None, "logs": {}}
 _LOCK = threading.Lock()
 _LIBS = None
 _IO_LIB = None
+_FMA_LIB = None
 
 # Must match `armon::EosConst` in csrc/sweep.cuh.
 EOS_KEYS = ("GM", "GM1", "RHO0", "S", "SK", "Q", "R", "2Q", "3R", "6R",
@@ -331,49 +336,67 @@ def load():
 def _cxx():
     path = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
     if path is None:
-        solver_error("cpp", "no host C++ compiler (c++) found: the native I/O "
+        solver_error("cpp", "no host C++ compiler (c++) found: the native "
                             "library is built from armon_torch/native on "
                             "first use")
     return path
 
 
+def _load_native(source, stem, functions):
+    """Build (if needed) and load a native host library from `source` with
+    the host C++ compiler, into ``build/armon_torch/`` under a name that
+    hashes the source and flags, and declare `functions` ((name, restype,
+    argtypes), ...). A failed build raises with the compiler's message."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(source, "rb") as f:
+        h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, source],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            solver_error("cpp", f"native {stem} build failed (exit "
+                                f"{proc.returncode}):\n"
+                                f"{(proc.stdout + proc.stderr)[-4000:]}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(out)
+    for name, res, args in functions:
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
 def load_io():
-    """Build (if needed) and load the native I/O library
-    (`armon_torch/native/armon_io.cc`) with the host C++ compiler, into
-    ``build/armon_torch/`` under a name that hashes the source and flags.
-    A failed build raises with the compiler's message."""
+    """The native I/O library (`armon_torch/native/armon_io.cc`), built on
+    first use (`_load_native`)."""
     global _IO_LIB
     with _LOCK:
-        if _IO_LIB is not None:
-            return _IO_LIB
-        h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-        with open(IO_SOURCE, "rb") as f:
-            h.update(f.read())
-        out = os.path.join(BUILD_DIR, f"libarmon_io_{h.hexdigest()[:16]}.so")
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, IO_SOURCE],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                solver_error("cpp", f"native I/O build failed (exit "
-                                    f"{proc.returncode}):\n"
-                                    f"{(proc.stdout + proc.stderr)[-4000:]}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        vp, cl, ci, dp = (ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
-                          ctypes.POINTER(ctypes.c_double))
-        for name, res, args in (
+        if _IO_LIB is None:
+            vp, cl, ci, dp = (ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_double))
+            _IO_LIB = _load_native(IO_SOURCE, "armon_io", (
                 ("armon_write_cells", ci, [ctypes.c_char_p, ctypes.POINTER(vp),
                                            cl, cl, cl, ci, ci, ctypes.c_char_p]),
                 ("armon_read_cells", cl, [ctypes.c_char_p, dp, cl, cl]),
                 ("armon_read_window", cl, [ctypes.c_char_p, dp] + [cl] * 7),
                 ("armon_count_differences", cl,
-                 [dp, dp, cl, ctypes.c_double, ctypes.c_double, dp])):
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = res, args
-        _IO_LIB = lib
-        return lib
+                 [dp, dp, cl, ctypes.c_double, ctypes.c_double, dp])))
+        return _IO_LIB
+
+
+def load_fma():
+    """The native FMA library (`armon_torch/native/armon_fma.cc`): one
+    exactly rounded fma per element for CPU arrays, built on first use."""
+    global _FMA_LIB
+    with _LOCK:
+        if _FMA_LIB is None:
+            vp, cl = ctypes.c_void_p, ctypes.c_long
+            _FMA_LIB = _load_native(FMA_SOURCE, "armon_fma", tuple(
+                (name, None, [vp] * 4 + [cl])
+                for name in ("armon_fma_f64", "armon_fma_f32")))
+        return _FMA_LIB
 
 
 def eos_constants(cfg):

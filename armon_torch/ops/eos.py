@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..models.cases import Bizarrium
+from .fma import fma
 
 
 def ieee_sqrt(x):
@@ -36,7 +37,7 @@ def perfect_gas_eos(gamma, rho, u, v, E, dtype):
     (`src/kernels.jl:4-13`). Returns (p, c, g)."""
     T = np.dtype(dtype).type
     gm = T(gamma)
-    e = E - 0.5 * (u * u + v * v)
+    e = fma(fma(u, u, v * v), -0.5, E)
     p = float(gm - T(1.0)) * rho * e
     c = ieee_sqrt(float(gm) * p / rho)
     g = torch.full_like(rho, float((T(1.0) + gm) / T(2.0)))
@@ -79,9 +80,9 @@ def bizarrium_eos(rho, u, v, E, dtype):
         12 * (1 + 2 * x) * f0 + 6 * (1 + 6 * x + 6 * x2) * f1
         + 6 * x * xp1 * (1 + 2 * x) * f2 + x2 * xp12 * f3)
 
-    e = E - 0.5 * (u * u + v * v)
-    p = pk0 + f(G0 * rho0) * (e - epsk0)
-    c = ieee_sqrt(f(G0 * rho0) * (p - pk0) - pk0prime) / rho
+    e = fma(fma(u, u, v * v), -0.5, E)
+    p = fma(f(G0 * rho0), e - epsk0, pk0)
+    c = ieee_sqrt(fma(f(G0 * rho0), p - pk0, -pk0prime)) / rho
     g = scalar_like(rho, 0.5) / (rho * (rho * rho) * (c * c)) * (
         pk0second + f((G0 * rho0) ** 2) * (p - pk0))
     return p, c, g

@@ -16,6 +16,7 @@ import torch
 
 from ..utils.enums import Axis
 from .eos import scalar_like
+from .fma import fma
 from .limiters import maximum
 from .shifts import sh
 
@@ -39,9 +40,18 @@ def _dx(cfg, like, axis):
     return scalar_like(like, np.dtype(cfg.dtype).type(cfg.cell_size(axis)))
 
 
+def inv_dx(cfg, like, axis):
+    """1/dx rounded to T: XLA turns the division by the constant dx into a
+    multiply by its reciprocal."""
+    T = np.dtype(cfg.dtype).type
+    return scalar_like(like, T(1.0) / T(cfg.cell_size(axis)))
+
+
 def advection_first_order(cfg, state, axis: Axis, dt):
-    """Upwind advection fluxes (`src/projection_schemes.jl:62-78`).
-    Returns (adv_rho, adv_urho, adv_vrho, adv_Erho)."""
+    """Upwind advection fluxes (`src/projection_schemes.jl:62-78`), each
+    as its factors (disp, upwind value), whose product is the JAX
+    package's flux: `euler_projection` contracts it as XLA's fused remap
+    does. Returns the pairs of (rho, urho, vrho, Erho)."""
     disp = dt * state.ustar
     up = disp > 0  # upwind: read the left cell
 
@@ -52,12 +62,13 @@ def advection_first_order(cfg, state, axis: Axis, dt):
     ru = pick(state.rho * state.u)
     rv = pick(state.rho * state.v)
     rE = pick(state.rho * state.E)
-    return disp * rho, disp * ru, disp * rv, disp * rE
+    return tuple((disp, q) for q in (rho, ru, rv, rE))
 
 
 def advection_second_order(cfg, state, axis: Axis, dt):
     """Slope-limited advection fluxes over the ustar-deformed cells
-    (`src/projection_schemes.jl:92-124`)."""
+    (`src/projection_schemes.jl:92-124`), as factor pairs
+    (`advection_first_order`)."""
     dx = _dx(cfg, state.rho, axis)
     us = state.ustar
     disp = dt * us
@@ -68,11 +79,12 @@ def advection_second_order(cfg, state, axis: Axis, dt):
         return torch.where(up, sh(a, o - 1, axis), sh(a, o, axis))
 
     # src/projection_schemes.jl:100-105
-    dxe = torch.where(up, -(dx - dt * sh(us, -1, axis)), dx + dt * sh(us, 1, axis))
+    dxe = torch.where(up, -fma(-dt, sh(us, -1, axis), dx),
+                      fma(dt, sh(us, 1, axis), dx))
 
-    dxl_m = dx + dt * (rd(us, 0) - rd(us, -1))
-    dxl = dx + dt * (rd(us, 1) - rd(us, 0))
-    dxl_p = dx + dt * (rd(us, 2) - rd(us, 1))
+    dxl_m = fma(dt, rd(us, 0) - rd(us, -1), dx)
+    dxl = fma(dt, rd(us, 1) - rd(us, 0), dx)
+    dxl_p = fma(dt, rd(us, 2) - rd(us, 1), dx)
 
     r_m = (2 * dxl) / (dxl + dxl_m)
     r_p = (2 * dxl) / (dxl + dxl_p)
@@ -93,31 +105,46 @@ def advection_second_order(cfg, state, axis: Axis, dt):
     sl_Er = _slope_minmod(rE_m, rE_i, rE_p, r_m, r_p)
 
     length_factor = dxe / (2 * dxl)
-    adv_rho = disp * (rho_i - sl_rho * length_factor)
-    adv_ur = disp * (ru_i - sl_ur * length_factor)
-    adv_vr = disp * (rv_i - sl_vr * length_factor)
-    adv_Er = disp * (rE_i - sl_Er * length_factor)
-    return adv_rho, adv_ur, adv_vr, adv_Er
+    return tuple((disp, fma(-sl, length_factor, q_i)) for sl, q_i in
+                 ((sl_rho, rho_i), (sl_ur, ru_i), (sl_vr, rv_i), (sl_Er, rE_i)))
 
 
 def euler_projection(cfg, state, axis: Axis, dt, fluxes):
-    """Conservative remap (`src/projection_schemes.jl:23-41`)."""
+    """Conservative remap (`src/projection_schemes.jl:23-41`) from the
+    fluxes' (disp, value) factors, each flux contracted into the
+    difference of the fluxes as in XLA's fused remap. `/ dx` is a
+    multiply by `inv_dx`, and the new rho is contracted where it is a
+    result and not where it divides the conserved sums (there dX * rho
+    has other uses in XLA's program)."""
     dx = _dx(cfg, state.rho, axis)
+    rdx = inv_dx(cfg, state.rho, axis)
     us = state.ustar
-    adv_rho, adv_ur, adv_vr, adv_Er = fluxes
 
-    dX = dx + dt * (sh(us, 1, axis) - us)
+    def diff(f, shifted_first):
+        disp, q = f
+        if shifted_first:
+            return fma(sh(disp, 1, axis), sh(q, 1, axis), -(disp * q))
+        return fma(-disp, q, sh(disp * q, 1, axis))
 
-    tmp_rho = (dX * state.rho - (sh(adv_rho, 1, axis) - adv_rho)) / dx
-    tmp_ur = (dX * state.rho * state.u - (sh(adv_ur, 1, axis) - adv_ur)) / dx
-    tmp_vr = (dX * state.rho * state.v - (sh(adv_vr, 1, axis) - adv_vr)) / dx
-    tmp_Er = (dX * state.rho * state.E - (sh(adv_Er, 1, axis) - adv_Er)) / dx
+    # XLA's program stores the rho fluxes and reads them back shifted, so
+    # only the flux of the cell is contracted; the other three are formed
+    # in place, and the shifted product, the first operand, is contracted.
+    d_rho = diff(fluxes[0], False)
+    d_ur, d_vr, d_Er = (diff(f, True) for f in fluxes[1:])
+    dX = fma(dt, sh(us, 1, axis) - us, dx)
+    dX_rho = dX * state.rho
+
+    tmp_rho = fma(dX, state.rho, -d_rho) * rdx
+    den = (dX_rho - d_rho) * rdx
+    tmp_ur = fma(dX_rho, state.u, -d_ur) * rdx
+    tmp_vr = fma(dX_rho, state.v, -d_vr) * rdx
+    tmp_Er = fma(dX_rho, state.E, -d_Er) * rdx
 
     return state._replace(
         rho=tmp_rho,
-        u=tmp_ur / tmp_rho,
-        v=tmp_vr / tmp_rho,
-        E=tmp_Er / tmp_rho,
+        u=tmp_ur / den,
+        v=tmp_vr / den,
+        E=tmp_Er / den,
     )
 
 

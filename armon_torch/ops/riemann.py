@@ -15,6 +15,7 @@ import numpy as np
 
 from ..utils.enums import Axis
 from .eos import scalar_like
+from .fma import fma
 from .shifts import sh
 from .limiters import limiter_from_name
 
@@ -24,8 +25,9 @@ def acoustic_godunov(rho_i, rho_im, c_i, c_im, u_i, u_im, p_i, p_im):
     Returns (ustar, pstar) at the i-1/2 interface."""
     rc_l = rho_im * c_im
     rc_r = rho_i * c_i
-    ustar = (rc_l * u_im + rc_r * u_i + (p_im - p_i)) / (rc_l + rc_r)
-    pstar = (rc_r * p_im + rc_l * p_i + rc_l * rc_r * (u_im - u_i)) / (rc_l + rc_r)
+    rc_sum = rc_l + rc_r
+    ustar = (fma(rc_l, u_im, rc_r * u_i) + (p_im - p_i)) / rc_sum
+    pstar = fma(rc_l * rc_r, u_im - u_i, fma(rc_r, p_im, rc_l * p_i)) / rc_sum
     return ustar, pstar
 
 
@@ -63,17 +65,16 @@ def acoustic_gad(axis: Axis, dt, dx, rho, uax, p, c, limiter_name, dtype):
     r_up = lim((u_m - us_im) / (uax - us_i + eps))
     r_pp = lim((p_m - ps_im) / (p - ps_i + eps))
 
+    # Here XLA's program contracts both products of each sum: rc_l and
+    # dm_l have no other use in it (the Godunov solve's rc_l + rc_r above
+    # is a separate sum, whose products have).
     two = scalar_like(rho, 2.0)
-    dm_l = rho_m * dx
-    dm_r = rho * dx
-    Dm = (dm_l + dm_r) / two
+    Dm = fma(rho_m, dx, rho * dx) / two
+    half_rc = fma(rho_m, c_m, rho * c) / two
+    theta = float(T(0.5)) * fma(-half_rc, dt / Dm, 1.0)
 
-    rc_l = rho_m * c_m
-    rc_r = rho * c
-    theta = float(T(0.5)) * (1 - (rc_l + rc_r) / two * (dt / Dm))
-
-    ustar = us_i + theta * (r_up * (uax - us_i) - r_um * (us_i - u_m))
-    pstar = ps_i + theta * (r_pp * (p - ps_i) - r_pm * (ps_i - p_m))
+    ustar = fma(theta, fma(r_up, uax - us_i, -(r_um * (us_i - u_m))), us_i)
+    pstar = fma(theta, fma(r_pp, p - ps_i, -(r_pm * (ps_i - p_m))), ps_i)
     return ustar, pstar
 
 

@@ -54,6 +54,7 @@ from ..utils.errors import solver_error
 from ..core.timestep import dt_update_host
 from ..core.state import torch_dtype
 from .eos import ieee_sqrt, scalar_like
+from .fma import fma
 from .projection import sign as _sign
 
 # Scalar slots of the device state (see module doc).
@@ -264,42 +265,52 @@ def eos_prc_plain(cfg, rho, u, v, E):
         pk0prime = f(-0.5 * K0) * (xp1 * (xp1 * xp1)) * f(rho0) * (
             2 * (1 + 3 * x) * f0 + 2 * x * (2 + 3 * x) * f1
             + x2 * xp1 * ((f(2 * q) + f(6 * r) * x + f(2 * s) * f1) / den))
-        e = E - 0.5 * (u * u + v * v)
-        p = pk0 + f(G0 * rho0) * (e - epsk0)
-        sq = ieee_sqrt(f(G0 * rho0) * (p - pk0) - pk0prime)
+        e = fma(fma(u, u, v * v), -0.5, E)
+        p = fma(f(G0 * rho0), e - epsk0, pk0)
+        sq = ieee_sqrt(fma(f(G0 * rho0), p - pk0, -pk0prime))
         c = sq / rho
         return p, rho * c, c
     gm = T(cfg.gamma)
-    e = E - 0.5 * (u * u + v * v)
+    e = fma(fma(u, u, v * v), -0.5, E)
     p = f(gm - T(1.0)) * rho * e
     c = ieee_sqrt(f(gm) * p / rho)
     return p, rho * c, c
 
 
 def _godunov(rc_l, rc_r, u_i, u_im, p_i, p_im):
-    # src/riemann_schemes.jl:21-30 (rc = rho*c acoustic impedances)
+    # src/riemann_schemes.jl:21-30 (rc = rho*c acoustic impedances), with
+    # the op path's contractions (`ops/riemann.py` `acoustic_godunov`)
     rc_sum = rc_l + rc_r
-    ustar = (rc_l * u_im + rc_r * u_i + (p_im - p_i)) / rc_sum
-    pstar = (rc_r * p_im + rc_l * p_i + rc_l * rc_r * (u_im - u_i)) / rc_sum
-    return ustar, pstar, rc_sum
+    ustar = (fma(rc_l, u_im, rc_r * u_i) + (p_im - p_i)) / rc_sum
+    pstar = fma(rc_l * rc_r, u_im - u_i, fma(rc_r, p_im, rc_l * p_i)) / rc_sum
+    return ustar, pstar
 
 
-def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E):
+def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E, along_y=False):
     """Line-for-line port of `_sweep_math` (`sweep.py:297-550`) in exact
-    IEEE arithmetic with the `slope_shift=True` euler_2nd form. `sh(a, k)`
-    reads at offset +k along the sweep axis; `dt` and `dx` are 0-dim
-    tensors of dtype T. Returns (rho', uax', uot', E', p_stale, c_stale)."""
+    IEEE arithmetic with the `slope_shift=True` euler_2nd form, contracting
+    the products that the op path contracts (`ops/fma.py`) and
+    multiplying by `inv_dx` where it divides by the constant dx. `sh(a,
+    k)` reads at offset +k along the sweep axis; `dt` and `dx` are 0-dim
+    tensors of dtype T, `inv_dx` is T(1) / T(dx). `along_y`: the axis
+    velocity is v (the EOS contracts u*u + v*v as fma(u, u, v*v) whatever
+    the axis). Returns (rho', uax', uot', E', p_stale, c_stale)."""
     T = np.dtype(cfg.dtype).type
-    p, rc, c = eos_prc_plain(cfg, rho, uax, uot, E)
+    inv_dx = torch.ones_like(dx) / dx
+    p, rc, c = eos_prc_plain(cfg, rho, *((uot, uax) if along_y else (uax, uot)),
+                             E)
     dm = rho * dx
 
+    # the neighbour's rho * c, formed from its rho and c as the kernels
+    # form it (the same bits as sh(rc, -1) for a true shift)
+    rho_m, c_m = sh(rho, -1), sh(c, -1)
+    rc_l = rho_m * c_m
     if cfg.riemann == "Godunov":
-        ustar, pstar, _ = _godunov(sh(rc, -1), rc, uax, sh(uax, -1), p, sh(p, -1))
+        ustar, pstar = _godunov(rc_l, rc, uax, sh(uax, -1), p, sh(p, -1))
     else:  # GAD (src/riemann_schemes.jl:55-104)
-        rc_l = sh(rc, -1)
         u_m = sh(uax, -1)
         p_m = sh(p, -1)
-        us_i, ps_i, rc_sum = _godunov(rc_l, rc, uax, u_m, p, p_m)
+        us_i, ps_i = _godunov(rc_l, rc, uax, u_m, p, p_m)
         e_u = us_i - u_m
         e_p = ps_i - p_m
         d_u = uax - us_i
@@ -309,19 +320,19 @@ def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E):
         r_pm = _limiter(cfg.limiter, sh(e_p, 1) / (e_p + eps))
         r_up = _limiter(cfg.limiter, sh(d_u, -1) / (d_u + eps))
         r_pp = _limiter(cfg.limiter, sh(d_p, -1) / (d_p + eps))
-        Dm = (sh(dm, -1) + dm) / 2
-        theta = float(T(0.5)) * (1 - rc_sum / 2 * (dt / Dm))
-        ustar = us_i + theta * (r_up * d_u - r_um * e_u)
-        pstar = ps_i + theta * (r_pp * d_p - r_pm * e_p)
+        Dm = fma(rho_m, dx, dm) / 2
+        theta = float(T(0.5)) * fma(-(fma(rho_m, c_m, rc) / 2), dt / Dm, 1.0)
+        ustar = fma(theta, fma(r_up, d_u, -(r_um * e_u)), us_i)
+        pstar = fma(theta, fma(r_pp, d_p, -(r_pm * e_p)), ps_i)
 
     # Lagrangian cell update (src/kernels.jl:58-68)
     us_p = sh(ustar, 1)
     ps_p = sh(pstar, 1)
-    dX = dx + dt * (us_p - ustar)
+    dX = fma(dt, us_p - ustar, dx)
     rho1 = dm / dX
     dt_dm = dt / dm
-    uax1 = uax + dt_dm * (pstar - ps_p)
-    E1 = E + dt_dm * (pstar * ustar - ps_p * us_p)
+    uax1 = fma(dt_dm, pstar - ps_p, uax)
+    E1 = fma(dt_dm, fma(pstar, ustar, -(ps_p * us_p)), E)
 
     # Advection fluxes (src/projection_schemes.jl:62-124)
     disp = dt * ustar
@@ -330,15 +341,13 @@ def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E):
     def rd(a):  # upwind read: a[k-1] where the flux goes up, else a[k]
         return torch.where(up, sh(a, -1), a)
 
-    ru1, rv1, rE1 = rho1 * uax1, rho1 * uot, rho1 * E1
+    fields = (rho1, rho1 * uax1, rho1 * uot, rho1 * E1)
     if cfg.projection == "euler":
-        adv_rho = disp * rd(rho1)
-        adv_ur = disp * rd(ru1)
-        adv_vr = disp * rd(rv1)
-        adv_Er = disp * rd(rE1)
+        q = [rd(a) for a in fields]
     else:
         dxl = rd(dX)
-        dxe = torch.where(up, sh(disp, -1) - dx, dx + sh(disp, 1))
+        dxe = torch.where(up, -fma(-dt, sh(ustar, -1), dx),
+                          fma(dt, sh(ustar, 1), dx))
         r_m = (2 * dX) / (dX + sh(dX, -1))
         r_p = (2 * dX) / (dX + sh(dX, 1))
         zero = torch.zeros_like(dX)
@@ -350,17 +359,20 @@ def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E):
             return sgn * torch.maximum(zero, torch.minimum(torch.abs(du_p), sgn * du_m))
 
         lf = dxe / (2 * dxl)
-        adv_rho = disp * (rd(rho1) - rd(slope_base(rho1)) * lf)
-        adv_ur = disp * (rd(ru1) - rd(slope_base(ru1)) * lf)
-        adv_vr = disp * (rd(rv1) - rd(slope_base(rv1)) * lf)
-        adv_Er = disp * (rd(rE1) - rd(slope_base(rE1)) * lf)
+        q = [fma(-rd(slope_base(a)), lf, rd(a)) for a in fields]
 
-    # Projection (src/projection_schemes.jl:23-41)
-    tmp_rho = (dX * rho1 - (sh(adv_rho, 1) - adv_rho)) / dx
-    tmp_ur = (dX * rho1 * uax1 - (sh(adv_ur, 1) - adv_ur)) / dx
-    tmp_vr = (dX * rho1 * uot - (sh(adv_vr, 1) - adv_vr)) / dx
-    tmp_Er = (dX * rho1 * E1 - (sh(adv_Er, 1) - adv_Er)) / dx
-    return tmp_rho, tmp_ur / tmp_rho, tmp_vr / tmp_rho, tmp_Er / tmp_rho, p, c
+    # Projection (src/projection_schemes.jl:23-41); the fluxes are disp *
+    # q, contracted into their differences as `ops/projection.py`
+    # `euler_projection` does: the rho flux of the cell, the others' of
+    # the next cell
+    d_rho = fma(-disp, q[0], sh(disp * q[0], 1))
+    d_ur, d_vr, d_Er = (fma(sh(disp, 1), sh(a, 1), -(disp * a)) for a in q[1:])
+    dX_rho = dX * rho1
+    den = (dX_rho - d_rho) * inv_dx
+    return (fma(dX, rho1, -d_rho) * inv_dx,
+            fma(dX_rho, uax1, -d_ur) * inv_dx / den,
+            fma(dX_rho, uot, -d_vr) * inv_dx / den,
+            fma(dX_rho, E1, -d_Er) * inv_dx / den, p, c)
 
 
 def mirror_factors(cfg, axis):
@@ -439,7 +451,8 @@ def sweep_plain(cfg, axis, rho, u, v, E, dt, ghosts=MIRRORED, n_real=None):
     if axis is Axis.X:
         rho2, u2, v2, E2, p, c = sweep_math_plain(cfg, sh, dt, dx, rho, u, v, E)
     else:
-        rho2, v2, u2, E2, p, c = sweep_math_plain(cfg, sh, dt, dx, rho, v, u, E)
+        rho2, v2, u2, E2, p, c = sweep_math_plain(cfg, sh, dt, dx, rho, v, u, E,
+                                                  along_y=True)
     return rho2, u2, v2, E2, p, c
 
 

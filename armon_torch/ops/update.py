@@ -5,6 +5,7 @@ import numpy as np
 
 from ..utils.enums import Axis
 from .eos import scalar_like
+from .fma import fma
 from .shifts import sh
 
 
@@ -20,10 +21,10 @@ def cell_update(cfg, state, axis: Axis, dt):
     ps_p = sh(ps, 1, axis)
 
     dm = state.rho * dx
-    rho_new = dm / (dx + dt * (us_p - us))
+    rho_new = dm / fma(dt, us_p - us, dx)
     dt_dm = dt / dm
-    uax_new = uax + dt_dm * (ps - ps_p)
-    E_new = state.E + dt_dm * (ps * us - ps_p * us_p)
+    uax_new = fma(dt_dm, ps - ps_p, uax)
+    E_new = fma(dt_dm, fma(ps, us, -(ps_p * us_p)), state.E)
 
     if axis is Axis.X:
         return state._replace(rho=rho_new, u=uax_new, E=E_new)

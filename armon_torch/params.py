@@ -49,9 +49,11 @@ _DTYPE_NAMES = {
 # `torch.cuda.max_memory_allocated` over the allocation before, in arrays
 # of 8200^2 x 4 B, rounded up (NVIDIA H100 80GB HBM3, 700.00 W;
 # `chip_smoke.py` phases 3, 9 and 11):
-# - the op path's run, 20 cycles: 69.25 (18,625,504,768 B), the 11-field
-#   State, its successor and a sweep's temporaries;
-OP_PATH_PEAK_FIELDS = 70
+# - the op path's run, 20 cycles: 70.50 (18,962,072,064 B), the 11-field
+#   State, its successor and a sweep's temporaries (its fused
+#   multiply-adds are formed there in f64, `ops/fma.CHUNK` elements at a
+#   time);
+OP_PATH_PEAK_FIELDS = 71
 # - a kernel run's initialisation (`make_init_fused`: init_state, the
 #   cycle-0 EOS, the CFL maxima): 11.996 (3,226,473,984 B), over the time
 #   loop's 9;

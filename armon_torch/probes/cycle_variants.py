@@ -102,7 +102,8 @@ def variant_plain(name, cfg, src, dt):
         r1, u1, v1, E1, _, _ = sweep_math_plain(
             cfg, sh, dt, scalar_like(src[0], T(cfg.dx)), *f)
         r2, v2, u2, E2, p, c = sweep_math_plain(
-            cfg, sh, dt, scalar_like(src[0], T(cfg.dy)), r1, v1, u1, E1)
+            cfg, sh, dt, scalar_like(src[0], T(cfg.dy)), r1, v1, u1, E1,
+            along_y=True)
         return r2, u2, v2, E2, p, cfl_partial_plain(cfg, u2, v2, c)
     out = cycle_plain(cfg, True, *src, dt, dt)
     return out[:4] + (out[4] if WRITES_P[name] else None,

@@ -60,7 +60,8 @@ for _cls, _names in (("add", ("__add__", "__radd__", "__iadd__", "add")),
                      ("min", ("minimum",)), ("select_n", ("where",)),
                      ("abs", ("abs", "__abs__")), ("neg", ("__neg__", "neg")),
                      ("gt", ("__gt__", "gt")), ("lt", ("__lt__", "lt")),
-                     ("ge", ("__ge__", "ge")), ("le", ("__le__", "le"))):
+                     ("ge", ("__ge__", "ge")), ("le", ("__le__", "le")),
+                     ("fma", ("addcmul",))):
     for _n in _names:
         _CLASS_OF[_n] = _cls
 
@@ -308,7 +309,7 @@ def _net(rates):
     t = {"add": r["add"], "sub": r["add"], "mul": r["mul"],
          "min": max(r["min"] - r["mul"], 0.0), "select_n": max(r["select"] - 2 * r["mul"], 0.0),
          "abs": max(r["abs_add"] - r["add"], 0.0), "sqrt": max(r["sqrt"] - r["add"], 0.0),
-         "div": r["div"], "neg": 0.0}
+         "div": r["div"], "fma": r["fma"], "neg": 0.0}
     t["max"] = t["min"]
     for c in ("gt", "lt", "ge", "le"):
         t[c] = r["add"]

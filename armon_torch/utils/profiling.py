@@ -8,9 +8,9 @@
   clock; with ``time_async=False`` it synchronizes the device of
   `sync_args` before it stops the clock;
 - `trace(log_dir)`: a `torch.profiler.profile` of the run (CPU activity,
-  and CUDA activity on the card, after a few warm-up launches whose
-  records the trace may lose) written under `log_dir` as a Chrome
-  trace;
+  and CUDA activity on the card, after a warm-up step of small launches
+  that takes the records the card's tracing loses when it starts)
+  written under `log_dir` as a Chrome trace;
 - `kernel_times(prof)`: the per-kernel table of such a profile, the
   counterpart of the JAX package's `utils/xplane.parse_kernel_times`.
 """
@@ -83,36 +83,38 @@ def section(name, timer: Timer = None, sync_args=None, time_async=True):
             timer.pop()
 
 
-# Small launches made on the card under a new trace before the traced
-# work. On an H100 (torch 2.11, CUDA 12.8) a trace held no device record
-# of its first three launches, whatever the card's idle time before them
-# (0-100 ms): the per-cycle driver's K3 and first cycle, when its loop
-# was built before the trace. Four or more small launches first took
-# that loss (`tools/trace_whole.py --driver`).
-WARM_LAUNCHES = 16
+# Small launches made on the card in the profiler's warm-up step, which
+# turns the card's tracing on but records nothing. On an H100 (torch
+# 2.11, CUDA 12.8) a trace held no device record of the first launches
+# after the card's tracing started, whatever the card's idle time before
+# them: three in a fresh process (`tools/trace_whole.py --driver`), 14
+# after a profile of about 4e5 kernels earlier in the process (the op
+# path at 8192^2, `tools/trace_whole.py --after-op-profile`).
+WARM_LAUNCHES = 256
 
 
 @contextlib.contextmanager
 def trace(log_dir, device="cpu", warm=WARM_LAUNCHES):
     """Profile of the enclosed work, CPU activity and, when `device` is a
-    CUDA device, the card's kernels and copies, after `warm` small
-    launches on the card under the profile (in a `trace_warm_up`
-    section; their kernels stay in the trace); yields the
-    `torch.profiler.profile`, and on exit writes it as a Chrome trace
-    (``trace_<pid>_<ns>.json``) under `log_dir`."""
-    from torch.profiler import profile, ProfilerActivity
+    CUDA device, the card's kernels and copies; on the card the profile
+    first takes one warm-up step of `warm` small launches, which the
+    trace does not record; yields the `torch.profiler.profile`, and on
+    exit writes it as a Chrome trace (``trace_<pid>_<ns>.json``) under
+    `log_dir`."""
+    from torch.profiler import profile, ProfilerActivity, schedule
     activities = [ProfilerActivity.CPU]
     cuda = torch.device(device).type == "cuda"
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         if cuda and warm:
-            with torch.profiler.record_function("trace_warm_up"):
-                x = torch.zeros(1, device=device)
-                for _ in range(warm):
-                    x.add_(1)
-                torch.cuda.synchronize(device)
+            x = torch.zeros(1, device=device)
+            for _ in range(warm):
+                x.add_(1)
+            torch.cuda.synchronize(device)
+        prof.step()
         yield prof
     prof.export_chrome_trace(os.path.join(
         str(log_dir), f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -28,6 +28,8 @@ from armon_torch.utils.enums import Axis
 
 # `tests/test_fuzz.py:87`'s tolerance (jnp against the fused kernel)
 RTOL, ATOL = 1e-12, 1e-14
+# The plain version against the jitted jnp tier, in ulps of each cell
+JNP_ULPS = 8
 # Two seeds in tier-1; the JAX file's others are slow, as that whole file is.
 SLOW_SEEDS = (2, 3, 12, 13)
 
@@ -60,8 +62,12 @@ def test_random_state_sweep_matches_jax(seed):
     random state through `sweep_plain`, against `fused_sweep` in
     interpret mode and the jnp tier (EOS, mirror fill, fluxes, update,
     remap) on the same state, within the JAX file's rtol 1e-12, atol
-    1e-14 on real cells; the jnp tier, run op by op, gives the same bits
-    (no multiply-add is contracted)."""
+    1e-14 on real cells; against the jnp tier jitted as one program,
+    whose multiply-adds XLA contracts where the plain version does,
+    within JNP_ULPS of each cell (measured: 4 ulps at most, in under 0.2%
+    of the cells, where XLA's vectorized and scalar loop bodies contract
+    differently; ROADMAP C2)."""
+    import jax
     from armon_tpu import Axis as JAxis
     from armon_tpu.ops.boundary import boundary_conditions
     from armon_tpu.ops.eos import update_eos
@@ -77,10 +83,12 @@ def test_random_state_sweep_matches_jax(seed):
     r = (slice(4, -4), slice(4, -4))
     for axis in (Axis.X, Axis.Y):
         ja = JAxis[axis.name]
-        s1 = boundary_conditions(jcfg, update_eos(jcfg, state), ja)
-        s2 = numerical_fluxes(jcfg, s1, ja, dt)
-        s2 = cell_update(jcfg, s2, ja, dt)
-        s2 = projection_remap(jcfg, s2, ja, dt)
+
+        def jnp_sweep(st, d):
+            st = boundary_conditions(jcfg, update_eos(jcfg, st), ja)
+            st = cell_update(jcfg, numerical_fluxes(jcfg, st, ja, d), ja, d)
+            return projection_remap(jcfg, st, ja, d)
+        s2 = jax.jit(jnp_sweep)(state, dt)
         sbc = boundary_conditions(jcfg, state, ja, KF.FIELDS)
         fused = fused_sweep(jcfg, ja, sbc.rho, sbc.u, sbc.v, sbc.E, dt,
                             interpret=True)
@@ -93,7 +101,9 @@ def test_random_state_sweep_matches_jax(seed):
                                atol=ATOL), (seed, axis, name)
             assert np.allclose(ours, jnp_tier, rtol=RTOL, atol=ATOL), \
                 (seed, axis, name)
-            assert np.array_equal(ours, jnp_tier), (seed, axis, name)
+            assert np.all(np.abs(ours - jnp_tier) <=
+                          JNP_ULPS * np.spacing(np.abs(jnp_tier))), \
+                (seed, axis, name)
 
 
 @pytest.mark.parametrize("seed", KF.PAIR_SEEDS)

@@ -1,15 +1,16 @@
 """The port's op path (``kernel_tier="torch"``, the JAX package's jnp tier in
 plain PyTorch ops) on the CPU.
 
-- Each op against its JAX jnp-tier counterpart run eagerly (one XLA
-  computation per op, so no multiply-add is contracted), in f64 and f32,
-  bit for bit: signed zeros and NaN positions included.
+- Each op against its JAX jnp-tier counterpart jitted, as the JAX
+  package's loop runs it (XLA contracts multiply-adds and multiplies by
+  the reciprocal of a constant divisor, and so does the op path), in f64
+  and f32, bit for bit: signed zeros and NaN positions included; the
+  Bizarrium EOS within stated ulps (`BIZ_ULPS`).
 - Whole runs through `armon_torch.armon(kernel_tier="torch")`: the Julia
-  goldens (zero differences for the Sod family; Sedov and Bizarrium in
-  bands measured here, see `BANDS`); JAX's `armon(kernel_tier="jnp")`,
-  whose loop is one jitted program in which XLA contracts multiply-adds,
-  so the fields agree within 1e-13 of their scale in f64 and 1e-5 in f32
-  (measured: a few ulps, see `test_run_matches_jax_jnp_tier`); the
+  goldens at the JAX package's gates (`GATES`; Sedov f64 at what it
+  measures); JAX's `armon(kernel_tier="jnp")`, whose loop is one jitted
+  program, within 1e-13 of their scale in f64 and 1e-5 in f32 (see
+  `test_run_matches_jax_jnp_tier`); the
   kernels' plain versions, bit for bit, on random states and whole runs;
   the X/Y transpose oracle; the stop-check interval; meshes against one
   device.
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from conftest import ref_file, abs_tol, rel_tol, reference_params
@@ -93,6 +95,13 @@ def _dt(cfg, value=1e-4):
     return np.dtype(cfg.dtype).type(value)
 
 
+def _jit(fn, cfg, state, axis, dt):
+    """`fn(cfg, state, axis, dt)` as one jitted XLA program, the form in
+    which the JAX package's loop runs it: XLA contracts its multiply-adds
+    and multiplies by the reciprocal of a constant divisor."""
+    return jax.jit(lambda s, d: fn(cfg, s, axis, d))(state, dt)
+
+
 # ------------------------------------------------------------ ops, one by one
 
 @DTYPES
@@ -121,7 +130,8 @@ def test_acoustic_godunov(axis, dtype):
     jc, tc = _configs(dtype=dtype, scheme="Godunov")
     js, ts = _states(tc, 2)
     a = _jaxis(axis)
-    jo = jriemann.acoustic(a, js.rho, js.u if axis == "X" else js.v, js.p, js.c)
+    jo = jax.jit(lambda r, u, p, c: jriemann.acoustic(a, r, u, p, c))(
+        js.rho, js.u if axis == "X" else js.v, js.p, js.c)
     to = riemann.acoustic(Axis[axis], ts.rho, ts.u if axis == "X" else ts.v,
                           ts.p, ts.c)
     assert all(_same(x, y) for x, y in zip(jo, to))
@@ -134,7 +144,7 @@ def test_acoustic_gad(axis, limiter, dtype):
     jc, tc = _configs(dtype=dtype, riemann_limiter=limiter)
     js, ts = _states(tc, 3)
     dt = _dt(tc)
-    jo = jriemann.numerical_fluxes(jc, js, _jaxis(axis), dt)
+    jo = _jit(jriemann.numerical_fluxes, jc, js, _jaxis(axis), dt)
     to = riemann.numerical_fluxes(tc, ts, Axis[axis], torch.tensor(dt))
     _same_states(jo, to, ("ustar", "pstar"))
 
@@ -145,7 +155,7 @@ def test_cell_update(axis, dtype):
     jc, tc = _configs(dtype=dtype)
     js, ts = _states(tc, 4)
     dt = _dt(tc)
-    _same_states(jupdate.cell_update(jc, js, _jaxis(axis), dt),
+    _same_states(_jit(jupdate.cell_update, jc, js, _jaxis(axis), dt),
                  update.cell_update(tc, ts, Axis[axis], torch.tensor(dt)))
 
 
@@ -160,9 +170,9 @@ def test_advection(axis, order, dtype):
           else jprojection.advection_second_order)
     tf = (projection.advection_first_order if order == "euler"
           else projection.advection_second_order)
-    jo = jf(jc, js, _jaxis(axis), dt)
+    jo = _jit(jf, jc, js, _jaxis(axis), dt)
     to = tf(tc, ts, Axis[axis], torch.tensor(dt))
-    assert all(_same(x, y) for x, y in zip(jo, to))
+    assert all(_same(x, d * q) for x, (d, q) in zip(jo, to))
 
 
 @DTYPES
@@ -172,12 +182,16 @@ def test_euler_projection(axis, dtype):
     js, ts = _states(tc, 6)
     dt = _dt(tc, 3e-3)
     a = _jaxis(axis)
-    jf = jprojection.advection_second_order(jc, js, a, dt)
-    tf = tuple(torch.from_numpy(np.asarray(x).copy()) for x in jf)
-    _same_states(jprojection.euler_projection(jc, js, a, dt, jf),
+    jf = _jit(jprojection.advection_second_order, jc, js, a, dt)
+    # the fluxes as factor pairs (flux, 1): the differences of given fluxes,
+    # which neither side contracts
+    tf = tuple((f, torch.ones_like(f))
+               for f in (torch.from_numpy(np.asarray(x).copy()) for x in jf))
+    _same_states(jax.jit(lambda s, f: jprojection.euler_projection(
+                     jc, s, a, dt, f))(js, jf),
                  projection.euler_projection(tc, ts, Axis[axis],
                                              torch.tensor(dt), tf))
-    _same_states(jprojection.projection_remap(jc, js, a, dt),
+    _same_states(_jit(jprojection.projection_remap, jc, js, a, dt),
                  projection.projection_remap(tc, ts, Axis[axis],
                                              torch.tensor(dt)))
 
@@ -206,20 +220,40 @@ def test_boundary_conditions(test, axis):
                for n in State._fields), "the input was written"
 
 
+# The Bizarrium EOS against its jitted JAX counterpart, in ulps: XLA also
+# reassociates the constants of its polynomials (`1 + x` of `x = rho/rho0
+# - 1` becomes rho * (1/rho0)) and contracts them differently in each
+# fusion, which plain tensor operations do not copy (ROADMAP C2). Measured
+# over 32 seeds: p 8 and c 24 ulps of the cell's value, g 141 of the
+# field's largest (its sum cancels).
+BIZ_ULPS = {"p": (16, None), "c": (48, None), "g": (None, 512)}
+
+
 @DTYPES
 @pytest.mark.parametrize("test", ["Sod_circ", "Bizarrium"])
 def test_update_eos(test, dtype):
     jc, tc = _configs(test, dtype)
     js, ts = _states(tc, 8)
-    _same_states(jeos.update_eos(jc, js), eos.update_eos(tc, ts),
-                 ("p", "c", "g"))
+    jo = jax.jit(lambda s: jeos.update_eos(jc, s))(js)
+    to = eos.update_eos(tc, ts)
+    if test != "Bizarrium":
+        _same_states(jo, to, ("p", "c", "g"))
+        return
+    for name, (cell, field) in BIZ_ULPS.items():
+        a = np.asarray(getattr(jo, name))
+        err = np.abs(a.astype(np.float64) - getattr(to, name).numpy())
+        if cell is not None:
+            assert np.all(err <= cell * np.spacing(np.abs(a))), name
+        if field is not None:
+            assert err.max() <= field * np.spacing(np.abs(a).max()), name
 
 
 @DTYPES
 def test_dt_cfl_min(dtype):
     jc, tc = _configs(dtype=dtype)
     js, ts = _states(tc, 9)
-    assert _same(jreductions.dt_cfl_min(jc, js), reductions.dt_cfl_min(tc, ts))
+    assert _same(jax.jit(lambda s: jreductions.dt_cfl_min(jc, s))(js),
+                 reductions.dt_cfl_min(tc, ts))
 
 
 DT_OPTS = [dict(), dict(dt_on_even_cycles=True), dict(cst_dt=True, Dt=1e-3)]
@@ -276,27 +310,29 @@ def _op_params(test, dtype, **overrides):
     return armon_torch.ArmonParameters(**options)
 
 
-# The Sedov and Bizarrium gates of `tests/test_convergence.py:50-86` were
-# measured on the JAX package's jitted arithmetic, where XLA contracts
-# multiply-adds. The op path rounds every operation (as do the kernels'
-# plain versions, bit for bit: `test_run_matches_kernels_plain`) and lands
-# just outside them: Sedov f64 247 diffs, all rho, max 1.122e-13 against
-# the ladder's 1e-13; Sedov f32 2386 diffs, max 2.27e-4; Bizarrium f64
-# 22200 diffs (non-p 2.04e-13, p 9.83e-6), f32 12900 (non-p 2.63e-4). These
-# bands hold the op path to those counts; ROADMAP queue C item 2.
-BANDS = {("Sedov", "f64"): (300, 2e-13, None),
-         ("Sedov", "f32"): (3000, 5e-4, None),
-         ("Bizarrium", "f64"): (25000, 1e-5, 1e-12),
-         ("Bizarrium", "f32"): (15000, None, 5e-3)}
+# The JAX package's golden gates (`tests/test_convergence.py:50-86`): a
+# diff count, a largest difference and a largest non-p difference (None:
+# no gate). The op path contracts the multiply-adds that the JAX package's
+# jitted program contracts (`ops/fma.py`) and meets them, except Sedov f64,
+# whose gate is zero differences: the port measures 56 (all rho, largest
+# 6.87e-14), from what XLA does across the sweeps of a cycle that plain
+# operations do not copy (ROADMAP C2). That case is held to what it
+# measures.
+GATES = {("Sod", "f64"): (0, 0.0, None), ("Sod", "f32"): (0, 0.0, None),
+         ("Sedov", "f64"): (0, 0.0, None),
+         ("Sedov", "f32"): (1500, 1e-4, None),
+         ("Bizarrium", "f64"): (16000, 1e-5, 1e-12),
+         ("Bizarrium", "f32"): (6000, None, 5e-3)}
+SEDOV_F64_MEASURED = (60, 1e-13, None)
 
 
 @DTYPES
 @pytest.mark.parametrize("test", ["Sod", "Sod_y", "Sod_circ", "Sedov",
                                   "Bizarrium"])
 def test_golden(test, dtype):
-    """The goldens at `tests/test_convergence.py`'s ladder: zero
-    differences for the Sod family; Sedov and Bizarrium in `BANDS` (a
-    diff count, a largest difference, a largest non-p difference)."""
+    """The goldens at `tests/test_convergence.py`'s ladder and gates
+    (`GATES`; the Sod family's zero gate for Sod_y and Sod_circ too), Sedov
+    f64 at `SEDOV_F64_MEASURED`."""
     stats = armon_torch.armon(_op_params(test, dtype))
     jcfg = reference_params(test, dtype).config
     ref_dt, ref_cycles, ref = read_reference_csv(jcfg, ref_file(test, dtype))
@@ -305,14 +341,16 @@ def test_golden(test, dtype):
     assert abs(float(ref_dt) - stats.last_dt) <= max(atol, rtol * abs(float(ref_dt)))
     cnt, max_diff, details = compare_states(jcfg, to_numpy(stats.data), ref,
                                             atol=atol, rtol=rtol)
-    if test in ("Sod", "Sod_y", "Sod_circ"):
-        assert cnt == 0 and max_diff == 0, details
-        return
     bits = "f64" if np.dtype(dtype).itemsize == 8 else "f32"
-    most, largest, non_p_largest = BANDS[test, bits]
+    key = ("Sod" if test.startswith("Sod") else test, bits)
+    most, largest, non_p_largest = \
+        SEDOV_F64_MEASURED if key == ("Sedov", "f64") else GATES[key]
     non_p = max((m for v, (c, m) in details.items() if v != "p"), default=0.0)
     assert cnt <= most, details
-    assert largest is None or max_diff < largest, details
+    if largest == 0.0:
+        assert max_diff == 0, details
+    else:
+        assert largest is None or max_diff < largest, details
     assert non_p_largest is None or non_p < non_p_largest, details
 
 
@@ -333,35 +371,48 @@ JNP_RUNS = [
 ]
 
 
+# JNP_RUNS whose fields, t and dt the op path gives bit for bit; the rest
+# (measured in ulps of the scale: Bizarrium c 19, g 59, t 6.2, dt 5.2;
+# the grids thinner than the ghost band 0.03-3.5; Sedov f32 under 0.01,
+# the tiny velocities at its blast front, which XLA flushes to zero
+# below the smallest normal) stay within the scale tolerance below.
+JNP_EXACT = {0, 1, 2, 3, 6, 9}
+
+
 @pytest.mark.parametrize(
-    "test,extra", JNP_RUNS,
+    "case", range(len(JNP_RUNS)),
     ids=[f"{t}-" + "-".join(f"{k}={getattr(v, '__name__', v)}"
                             for k, v in e.items()) for t, e in JNP_RUNS])
-def test_run_matches_jax_jnp_tier(test, extra):
+def test_run_matches_jax_jnp_tier(case):
     """12 cycles at 32^2 (or a degenerate grid thinner than the ghost
-    band) against JAX's `armon(kernel_tier="jnp")`: the same cycle count,
-    t, dt and every field on real cells within 1e-13 (f64) or 1e-5 (f32)
-    of their scale, max(1, max|ref|) for a field. XLA's contracted
-    multiply-adds are the only difference; measured in ulps of the scale:
-    fields at most 6 (f64) and 8 (f32), except Bizarrium's c (12) and g
-    (77), whose EOS chain XLA contracts most; t and dt at most 7."""
+    band) against JAX's `armon(kernel_tier="jnp")`, one jitted program:
+    the same cycle count, and t, dt and every field on real cells bit for
+    bit for the runs in `JNP_EXACT`, else within 1e-13 (f64) or 1e-5
+    (f32) of their scale, max(1, max|ref|) for a field: XLA also
+    reassociates the Bizarrium EOS's constants, fuses the thin grids'
+    ghost fills differently and flushes subnormal results (ROADMAP C2)."""
+    test, extra = JNP_RUNS[case]
     opts = dict(test=test, N=(32, 32), data_type=np.float64, maxcycle=12,
                 silent=5, measure_time=False, return_data=True)
     opts.update(extra)
     js = armon_tpu.armon(armon_tpu.ArmonParameters(kernel_tier="jnp", **opts))
     ts = armon_torch.armon(armon_torch.ArmonParameters(
         device="cpu", kernel_tier="torch", **opts))
-    tol = 1e-13 if opts["data_type"] is np.float64 else 1e-5
+    exact = case in JNP_EXACT
+    tol = 0.0 if exact else 1e-13 if opts["data_type"] is np.float64 else 1e-5
     assert ts.cycles == js.cycles
     assert abs(ts.final_time - js.final_time) <= tol * abs(js.final_time)
     assert abs(ts.last_dt - js.last_dt) <= tol * abs(js.last_dt)
     g = 4
     data = to_numpy(ts.data)
     for name in ("rho", "u", "v", "E", "p", "c", "g", "ustar", "pstar"):
-        a = np.asarray(getattr(js.data, name))[g:-g, g:-g].astype(np.float64)
+        a = np.asarray(getattr(js.data, name))[g:-g, g:-g]
         b = getattr(data, name)[g:-g, g:-g]
+        if exact:
+            assert _same(a, b), name
+            continue
         scale = max(1.0, float(np.max(np.abs(a))))
-        assert np.max(np.abs(a - b)) <= tol * scale, name
+        assert np.max(np.abs(a.astype(np.float64) - b)) <= tol * scale, name
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
@@ -369,8 +420,9 @@ def test_sweep_matches_kernels_plain(seed):
     """One X and one Y sweep of random states (`tests/test_fuzz.py`'s
     scheme draw) through the op path and through the kernels' plain
     version: within `tests/test_fuzz.py:87`'s tolerance, and in fact bit
-    for bit (both round every operation in IEEE arithmetic; the plain
-    version's reordered second-order slopes give the same bits)."""
+    for bit (both round in IEEE arithmetic and contract the same products,
+    `ops/fma.py`; the plain version's reordered second-order slopes give
+    the same bits)."""
     from armon_torch.core.step import sweep
     rng = np.random.default_rng(seed)
     opts = dict(scheme=str(rng.choice(["Godunov", "GAD"])),

@@ -5,6 +5,8 @@ lean loop, the per-cycle driver's loop and a whole-run CUDA graph
 
     python3 tools/trace_whole.py --fresh   # in a fresh process
     python3 tools/trace_whole.py --driver  # the per-cycle driver's loop
+    python3 tools/trace_whole.py --after-op-profile  # phase 11 (b)'s run
+                                           # after phase 9's op profile
     python3 tools/trace_whole.py           # after chip_smoke.py's phases
                                            # 0-4 and 7-10 (~4 min)
 
@@ -19,10 +21,17 @@ fast math, per-sweep at 1024^2 (500 cycles), 8192^2 (20) and 256^2
 `--driver` traces Sod 8192^2 for 20 cycles: the lean loop eagerly, then
 three runs each of the per-cycle driver's loop (`KernelCycles`, a host
 read a cycle) eagerly and with one-cycle window graphs, and of the
-whole-run graph, after 0, 4, 16 and 64 warm-up launches. Without either
-the process first runs `chip_smoke.py`'s phases 0-4 and 7-10, as the
-full smoke does before phase 11, then traces Sod 8192^2 for 20 cycles,
-three runs each: `armon()` with `profiling=["trace"]` (which replays
+whole-run graph, after 0, 4, 16 and 64 warm-up launches.
+`--after-op-profile` traces `chip_smoke.py` phase 11 (b)'s run (the
+per-cycle driver through `armon()` with `log_blocks`, Sod 8192^2, 20
+cycles), eight runs with the warm-up launches in the profiler's warm-up
+step (`profiling.trace`) and eight with 16 of them inside the recorded
+step (the trace's form before), alternated, after phase 9's profile of
+the op path's launches at 8192^2 (`chip_smoke._launches_per_cycle`,
+about 4e5 kernels), and two runs of each form before it. Without any
+of these flags the process first runs `chip_smoke.py`'s phases 0-4 and
+7-10, as the full smoke does before phase 11, then traces Sod 8192^2
+for 20 cycles, three runs each: `armon()` with `profiling=["trace"]` (which replays
 window graphs); the lean loop's whole-run graph; its window graphs; the
 whole-run graph with a sync and one more op before the trace ends; the
 whole-run graph after `torch.cuda.empty_cache()`; then, with a card
@@ -37,6 +46,7 @@ Times are not measured.
 
 import argparse
 import collections
+import contextlib
 import glob
 import json
 import os
@@ -176,6 +186,65 @@ def _per_cycle_run(torch, opts, graphs):
     return run
 
 
+@contextlib.contextmanager
+def _trace_in_step(log_dir, device="cpu", warm=16):
+    """`profiling.trace` as it was before its warm-up step: the warm-up
+    launches inside the recorded step, in a `trace_warm_up` section."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("trace_warm_up"):
+            x = torch.zeros(1, device=device)
+            for _ in range(warm):
+                x.add_(1)
+            torch.cuda.synchronize(device)
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        str(log_dir), f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def after_op_profile(torch, tmp, reps=8):
+    """Phase 11 (b)'s traced run in both forms of the trace, before and
+    after phase 9's op-path profile; one JSON line a run, as `traced`."""
+    import armon_torch.core.solver as S
+    import chip_smoke as cs
+    from armon_torch import ArmonParameters, armon
+    from armon_torch.core.solver import clear_cache
+    from armon_torch.utils import profiling
+    opts = dict(MAIN, N=(cs.MAIN_N, cs.MAIN_N), maxcycle=cs.OBS_CYCLES,
+                log_blocks=True, profiling=["trace"])
+    forms = (("warm-up step", profiling.trace),
+             ("16 launches in the recorded step", _trace_in_step))
+
+    def through_armon(form):
+        def run(d):
+            S.trace = form
+            try:
+                st = armon(ArmonParameters(**opts, output_dir=d))
+            finally:
+                S.trace = profiling.trace
+            for f in glob.glob(os.path.join(d, "profile", "trace_*.json")):
+                os.replace(f, os.path.join(d, os.path.basename(f)))
+            return st.cycles
+        return run
+    for i in range(2):
+        for label, form in forms:
+            traced(torch, f"{label}, before the op profile",
+                   through_armon(form), tmp, i)
+    t = time.perf_counter()
+    r = cs._launches_per_cycle(torch, cs.MAIN_N)
+    print(json.dumps({"op_profile_kernels_per_cycle":
+                      r["cuda_kernels_per_cycle"],
+                      "s": time.perf_counter() - t}), flush=True)
+    clear_cache()
+    for i in range(reps):
+        for label, form in forms:
+            traced(torch, f"{label}, after the op profile",
+                   through_armon(form), tmp, i)
+
+
 def after_smoke(torch, tmp):
     import armon_torch as a
     import chip_smoke as cs
@@ -275,6 +344,9 @@ def main():
     ap.add_argument("--driver", action="store_true",
                     help="only the per-cycle driver's cases, in a fresh "
                          "process")
+    ap.add_argument("--after-op-profile", action="store_true",
+                    help="phase 11 (b)'s traced run in both forms of the "
+                         "trace, before and after phase 9's op profile")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -284,6 +356,7 @@ def main():
     print(card_line(), flush=True)
     with tempfile.TemporaryDirectory(prefix="armon_trace_") as tmp:
         (driver if args.driver else fresh if args.fresh
+         else after_op_profile if args.after_op_profile
          else after_smoke)(torch, tmp)
     return 0
 
