@@ -62,7 +62,6 @@ from ..params import ArmonParameters
 from ..ops import sweep as K
 from ..ops.init import init_state
 from ..ops.eos import update_eos, scalar_like
-from ..ops.projection import projection_remap
 from ..ops.reductions import (FfScratch, cfl_maxima, cfl_limit,
                               conservation_values)
 from ..ops.riemann import numerical_fluxes
@@ -75,7 +74,8 @@ from ..parallel.mesh import Mesh
 from .splitting import split_schedules
 from .state import State, FusedCarry, torch_dtype
 from .step import (STOP_CHECK_EVERY, LoopResult, make_time_loop_lean,
-                   make_time_loop, solver_cycle)
+                   make_time_loop, eos_fold, remap_fold,
+                   solver_cycle)
 from .timestep import next_time_step, dt_update
 
 
@@ -402,15 +402,19 @@ def make_step_fns(params):
 
     fns = {}
     for axis in (Axis.X, Axis.Y):
-        fns[("eos", axis)] = lambda states: [update_eos(cfg, st)
-                                             for st in states]
+        # `fold`: the previous sweep of the cycle's (X, K) a shard, or
+        # None (`core/step.sweep`)
+        fns[("eos", axis)] = lambda states, fold=None: eos_fold(cfg, states,
+                                                                fold)
         fns[("bc", axis)] = lambda states, a=axis: halo_exchange_state(
             cfg, mesh, states, a)
-        for name, op in (("fluxes", numerical_fluxes), ("update", cell_update),
-                         ("remap", projection_remap)):
+        for name, op in (("fluxes", numerical_fluxes), ("update", cell_update)):
             fns[(name, axis)] = (lambda states, dt, a=axis, op=op:
                                  [op(cfg, st, a, dt.to(s.device))
                                   for s, st in zip(mesh.local, states)])
+        # The States, and the fold the next sweep of the cycle takes.
+        fns[("remap", axis)] = lambda states, dt, a=axis: remap_fold(
+            cfg, mesh, states, a, dt)
     fns["dt"] = lambda states, dtp, cyc, seeded: next_time_step(
         cfg, mesh, states, dtp, cyc, seeded)
     fns["dt_resume"] = lambda dtp, cyc, lm: dt_update(cfg, lm, dtp, cyc)
@@ -526,6 +530,7 @@ def _checkpointed_cycle(params, fns, states, dt_prev, cycle_idx, checkpoint,
         return states, dt_use, dt_next, ok, True
     schedule = even if cycle_idx % 2 == 0 else odd
     seen = {}  # sweeps per axis within this cycle (Strang repeats one)
+    fold = None  # the previous sweep's, within this cycle (`core/step.sweep`)
     for axis, factor in schedule:
         rep = seen[axis] = seen.get(axis, 0) + 1
         # `rep` rides a keyword only for a repeated axis (Strang's third
@@ -534,7 +539,7 @@ def _checkpointed_cycle(params, fns, states, dt_prev, cycle_idx, checkpoint,
         rkw = {"rep": rep} if rep > 1 else {}
         dt = dt_use * float(T(factor))
         dtf = float(dt)
-        states = fns[("eos", axis)](states)
+        states = fns[("eos", axis)](states, fold)
         if checkpoint("EOS", states, axis, dtf, cycle_idx, **rkw):
             return states, dt_use, dt_next, ok, True
         states = fns[("bc", axis)](states)
@@ -545,6 +550,8 @@ def _checkpointed_cycle(params, fns, states, dt_prev, cycle_idx, checkpoint,
                            ("cell_update", "update"),
                            ("projection_remap", "remap")):
             states = fns[(key, axis)](states, dt)
+            if key == "remap":
+                states, fold = states
             if checkpoint(label, states, axis, dtf, cycle_idx, **rkw):
                 return states, dt_use, dt_next, ok, True
     return states, dt_use, dt_next, ok, False

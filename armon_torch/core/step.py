@@ -22,6 +22,16 @@ launches per-sweep and one on the pair route. The loop carries only
 rho/u/v/E/p, plus a second rho/u/v/E set that the out-of-place kernels
 write into (ping-pong).
 
+The cross-sweep EOS fold (`ops/eos.folds`; the perfect gas in exact
+arithmetic, `ops/sweep.fold_on`). Between two launches of one cycle the
+rho buffer holds the earlier launch's unscaled new density X, which the
+next launch rebuilds into rho = X * RN(1/d) (the value the earlier one
+would have stored) and folds into its pressure, (X * K) * e; the mirror
+fills, the slab packs and the exchanges over processes carry X as they
+carry rho, and every cycle's last launch stores rho. Each launch's part
+is its `ops/sweep.Fold`; K4 and K5 fold between their own sweeps. No X
+crosses a cycle's end, so the carry between cycles is as before.
+
 Sequencing. One K3 `cfl_finish` (step, no fold) starts the run: the
 first cycle's run predicate and dt. Then cycle k's last launch folds
 cycle k's partials (if iscal[run] says cycle k ran) and steps for cycle
@@ -112,7 +122,7 @@ from ..utils.enums import Axis
 from ..utils.errors import solver_error
 from ..ops import sweep as K
 from ..ops import cycle as C
-from ..ops.eos import update_eos, scalar_like
+from ..ops.eos import fold_const, folds, update_eos, scalar_like
 from ..ops.projection import projection_remap
 from ..ops.reductions import dt_cfl_min, pmin_dt
 from ..ops.riemann import numerical_fluxes
@@ -165,10 +175,19 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
     ops = next(iter(parts.values()))  # a launch that does not emit ignores them
     nb = 0
     groups = launch_groups(schedule, pair)
+    folding = K.fold_on(cfg, device)
+    prev = None  # the axis of the cycle's sweep before this launch
     for j, group in enumerate(groups):
         is_pair = len(group) == 2
         last = j + 1 == len(groups)
         axis = Axis.Y if is_pair else group[0][0]
+        # The cross-sweep EOS fold: a launch after the cycle's first reads
+        # the unscaled density the one before left in the rho buffer (and,
+        # through them, the slabs and mirror fills), every launch but the
+        # last leaves it so. A pair is a cycle's first launch (K4 folds
+        # between its own sweeps) and takes only the last part.
+        fold = K.Fold(prev, not last) if folding else None
+        prev = group[-1][0]
         if last:
             nb = C.n_partials(shape, device, cfg.dtype) if is_pair \
                 else K.n_partials(axis, shape, device)
@@ -186,11 +205,12 @@ def run_schedule_fused(cfg, mesh, cur, nxt, p, parts, scalars, schedule,
                 x_first = a0 is Axis.X
                 C.cycle(cfg, x_first, f0 if x_first else f1,
                         f1 if x_first else f0, cur[k], nxt[k], p[k], ops[k],
-                        *scalars[k], last, ghosts[k], s.n_real, fin, c)
+                        *scalars[k], last, ghosts[k], s.n_real, fin, c,
+                        folding and not last)
             else:
                 sweep = K.x_sweep if axis is Axis.X else K.y_sweep
                 sweep(cfg, cur[k], nxt[k], p[k], ops[k], *scalars[k],
-                      group[0][1], last, ghosts[k], s.n_real, fin, c)
+                      group[0][1], last, ghosts[k], s.n_real, fin, c, fold)
         cur, nxt = nxt, cur
     return cur, nxt, nb
 
@@ -624,33 +644,56 @@ class MultiCycles(_Windows):
 # exchange and the CFL minimum look across shards (and processes), and a
 # process's shards run one after another.
 
-def sweep(cfg, mesh, states, axis: Axis, dt):
+def sweep(cfg, mesh, states, axis: Axis, dt, fold=None):
     """One dimensional sweep (`:52`): EOS, ghost exchange (`ghost_exchange`,
     `:43`, is `halo_exchange_state`: the mirror at the global borders, the
     neighbours' lines between shards), Riemann fluxes, cell update, remap.
-    `dt` is the schedule-scaled step, a 0-dim tensor of dtype T.
+    `dt` is the schedule-scaled step, a 0-dim tensor of dtype T. `fold`
+    is the cross-sweep EOS fold (`ops/eos.folds`, `eos_fold`): for a later
+    sweep of a cycle the previous sweep's (X, K) a shard, None for the
+    first. The EOS runs on ghost cells too, before the exchange, so a
+    ghost takes the folded p of the cell it mirrors. Returns (States, the
+    fold this sweep hands to the next sweep of its cycle, or None).
 
     Compare mode runs these sub-steps, and `solver_cycle`'s dt choice, a
     second time in `core/solver._checkpointed_cycle` (over
     `make_step_fns`), with a hook after each: a change to the order here
     is made there too."""
-    states = halo_exchange_state(cfg, mesh,
-                                 [update_eos(cfg, st) for st in states], axis)
+    states = halo_exchange_state(cfg, mesh, eos_fold(cfg, states, fold), axis)
     out = []
     for s, st in zip(mesh.local, states):
         d = dt.to(s.device)
-        st = numerical_fluxes(cfg, st, axis, d)
-        st = cell_update(cfg, st, axis, d)
-        out.append(projection_remap(cfg, st, axis, d))
-    return out
+        out.append(cell_update(cfg, numerical_fluxes(cfg, st, axis, d), axis, d))
+    return remap_fold(cfg, mesh, out, axis, dt)
+
+
+def eos_fold(cfg, states, fold=None):
+    """`update_eos` of every shard, with its part of `fold` (`sweep`)."""
+    if fold is None:
+        return [update_eos(cfg, st) for st in states]
+    return [update_eos(cfg, st, f) for st, f in zip(states, fold)]
+
+
+def remap_fold(cfg, mesh, states, axis: Axis, dt):
+    """The remap of every shard (`projection_remap`): (States, the fold
+    the next sweep of the cycle takes, as `sweep` returns it)."""
+    out = [projection_remap(cfg, st, axis, dt.to(s.device))
+           for s, st in zip(mesh.local, states)]
+    K = fold_const(cfg, axis)[1]
+    return [st for st, _ in out], \
+        ([(x, K) for _, x in out] if folds(cfg) else None)
 
 
 def run_schedule(cfg, mesh, states, schedule, dt):
-    """The sweeps of one cycle (`:62`), each with dt times its factor."""
+    """The sweeps of one cycle (`:62`), each with dt times its factor. Each
+    sweep after the first takes the fold of the one before (`sweep`);
+    none crosses into the next cycle."""
     T = np.dtype(cfg.dtype).type
+    fold = None
     for axis, factor in schedule:
         # state.dt = current_dt * dt_factor (src/solver_state.jl:342)
-        states = sweep(cfg, mesh, states, axis, dt * float(T(factor)))
+        states, fold = sweep(cfg, mesh, states, axis, dt * float(T(factor)),
+                             fold)
     return states
 
 

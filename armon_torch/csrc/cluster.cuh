@@ -51,6 +51,10 @@
 //   writes. The positions beyond the real cells read their mirror, the
 //   ghost fill of the swept axis, in the load. The first sweep reads A and
 //   writes B, the second reads B and writes A, and p in its own layout.
+// - The cross-sweep EOS fold (`SweepFold`, sweep.cuh), as K5's: in the
+//   instances that fold (`FOLDS`), the first sweep writes its new density
+//   unscaled into B, and the second rebuilds rho from it and folds its
+//   pressure.
 // - Filling before each sweep equals the plain version's fill of both
 //   bands from the pre-cycle state bit for bit: the first sweep is
 //   line-local and exactly odd in the other velocity, so it commutes with
@@ -93,6 +97,7 @@ struct McArgs {
   double fx_lo[4], fx_hi[4];  // X-side mirror factors of (rho, u, v, E)
   double fy_lo[4], fy_hi[4];  // Y-side mirror factors
   double k[K_COUNT];
+  double kf_x, kf_y;      // the EOS fold's K after an X sweep, after a Y sweep (`SweepFold`)
   DtParams dt;
 };
 
@@ -176,6 +181,15 @@ __device__ __forceinline__ void mc_sweep(const McArgs& a, cooperative_groups::cl
   const double* f_lo = along_x ? a.fx_lo : a.fy_lo;
   const double* f_hi = along_x ? a.fx_hi : a.fy_hi;
   const T dx = T(along_x ? a.dx : a.dy), inv = T(along_x ? a.inv_dx : a.inv_dy);
+  // The cross-sweep EOS fold, as K5's (`cycle_fold`): the first sweep
+  // stores X, the second (LAST) rebuilds rho from it.
+  SweepFold<T> fold;
+  if (FOLDS<FAST, BIZ>) {
+    fold.in = LAST;
+    fold.out = !LAST;
+    fold.rdx = T(along_x ? a.inv_dy : a.inv_dx);
+    fold.k = T(along_x ? a.kf_y : a.kf_x);
+  }
 #pragma unroll 1
   for (int first = warp * gpw; first < items; first += G::NW * gpw) {
     const int item = first + group;
@@ -195,7 +209,7 @@ __device__ __forceinline__ void mc_sweep(const McArgs& a, cooperative_groups::cl
       E[j] = q[3 * V.plane] * fac[3];
     }
     run_body<T, FAST, BIZ, P>(a.k, a.riemann, a.limiter, a.projection, dt, dx, inv, LAST,
-                              !along_x, rho, ua, uo, E, p, c);
+                              !along_x, rho, ua, uo, E, p, c, fold);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const int lp = pos0 + j, k = k0 + j;

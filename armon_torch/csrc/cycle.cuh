@@ -56,6 +56,16 @@
 // 1) and a warp reading a row (lane t at columns PX t ... PX t + PX - 1,
 // PX odd) both hit 32 distinct banks.
 //
+// The cross-sweep EOS fold (`SweepFold`, sweep.cuh): in the instances
+// that fold (`FOLDS`: exact, perfect gas), K4's and K5's first sweep
+// leaves its new density unscaled (X) in shared memory and the second
+// rebuilds rho = X * 1/d of the first sweep's axis and takes p = (X * K)
+// * e (`CycleArgs.kf_x`, `kf_y`); a K4 or K5 cycle always starts its
+// cycle, so it always folds. K4 stores the second sweep's density scaled
+// unless `x_out` asks for X (Strang's pair, a K1 follows), K5 always
+// scaled. The per-position tile body below (the probe's `base_l32`) does
+// not fold.
+//
 // The per-position tile body (`cycle_tile`, run by the cycle probe's
 // `base_l32`; it was K5's before K5's redesign): a block owns an R x R
 // output tile (R = L - 2 HALO) and works on the L x L window around it.
@@ -177,6 +187,8 @@ struct CycleArgs {
   double fx_lo[4], fx_hi[4];  // X-side mirror factors of (rho, u, v, E)
   double fy_lo[4], fy_hi[4];  // Y-side mirror factors
   double k[K_COUNT];
+  int x_out;              // K4 (FOLDS): the second sweep stores its new density unscaled
+  double kf_x, kf_y;      // the EOS fold's K after an X sweep, after a Y sweep (`SweepFold`)
 };
 
 struct MultiArgs {
@@ -433,20 +445,38 @@ __device__ __forceinline__ void window_cell(const CycleArgs& a, const Fields<con
   for (int f = 0; f < 4; ++f) out[f] = __ldg(ptr[f]) * fac[f];
 }
 
+// The EOS fold (`SweepFold`) of a cycle's first sweep (`second` false:
+// it stores its new density unscaled) or second (it rebuilds rho from the
+// first's X, along the other axis, and stores it unscaled only where
+// `x_out` asks); none in the instances that do not fold (`FOLDS`).
+template <typename T, bool FAST, bool BIZ>
+__device__ __forceinline__ SweepFold<T> cycle_fold(const CycleArgs& a, bool along_x,
+                                                   bool second) {
+  SweepFold<T> f;
+  if (!FOLDS<FAST, BIZ>) return f;
+  f.in = second;
+  f.out = !second || a.x_out != 0;
+  f.rdx = T(along_x ? a.inv_dy : a.inv_dx);  // the first sweep's axis
+  f.k = T(along_x ? a.kf_y : a.kf_x);
+  return f;
+}
+
 // One line of P positions through `run_body` (or the STREAM variant's
-// copy), the velocities swapped for a Y line.
+// copy), the velocities swapped for a Y line; `second`: the cycle's
+// second sweep (`cycle_fold`).
 template <typename T, bool FAST, bool BIZ, int P, int V>
 __device__ __forceinline__ void line(const CycleArgs& a, bool along_x, T dt, bool need_c,
                                      T (&rho)[P], T (&u)[P], T (&v)[P], T (&E)[P], T (&p)[P],
-                                     T (&c)[P]) {
+                                     T (&c)[P], bool second) {
   if (V == CV_STREAM) return;
   const T dx = T(along_x ? a.dx : a.dy), inv = T(along_x ? a.inv_dx : a.inv_dy);
+  const SweepFold<T> fold = cycle_fold<T, FAST, BIZ>(a, along_x, second);
   if (along_x)
     run_body<T, FAST, BIZ, P, V != CV_NO_ROLL>(a.k, a.riemann, a.limiter, a.projection, dt, dx,
-                                               inv, need_c, false, rho, u, v, E, p, c);
+                                               inv, need_c, false, rho, u, v, E, p, c, fold);
   else
     run_body<T, FAST, BIZ, P, V != CV_NO_ROLL>(a.k, a.riemann, a.limiter, a.projection, dt, dx,
-                                               inv, need_c, true, rho, v, u, E, p, c);
+                                               inv, need_c, true, rho, v, u, E, p, c, fold);
 }
 
 // A CFL sample of an output cell (`_dt_tile_min`: post-sweep velocities,
@@ -497,7 +527,7 @@ __device__ __forceinline__ void k4_x_first(const CycleArgs& a, Fields<const T> s
       v[j] = raw[2][j] * fac[2], E[j] = raw[3][j] * fac[3];
     }
     if (i + G::NW < G::WY) issue(i + G::NW);
-    line<T, FAST, BIZ, PX, V>(a, true, dtx, false, rho, u, v, E, p, c);
+    line<T, FAST, BIZ, PX, V>(a, true, dtx, false, rho, u, v, E, p, c, false);
 #pragma unroll
     for (int j = 0; j < PX; ++j) {
       const int cc = PX * lane + j - HALO;
@@ -518,7 +548,7 @@ __device__ __forceinline__ void k4_x_first(const CycleArgs& a, Fields<const T> s
       rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
       if (V == CV_STREAM) p[j] = ((rho[j] + u[j]) + v[j]) + E[j];
     }
-    line<T, FAST, BIZ, PY, V>(a, false, dty, emit && cv_dt(V), rho, u, v, E, p, c);
+    line<T, FAST, BIZ, PY, V>(a, false, dty, emit && cv_dt(V), rho, u, v, E, p, c, true);
 #pragma unroll
     for (int j = 0; j < PY; ++j) {
       const int i = PY * lane + j;
@@ -565,7 +595,7 @@ __device__ __forceinline__ void k4_y_first(const CycleArgs& a, Fields<const T> s
       const int o = G::at(PY * lane + j, cw, WX);
       rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
     }
-    line<T, FAST, BIZ, PY, V>(a, false, dty, false, rho, u, v, E, p, c);
+    line<T, FAST, BIZ, PY, V>(a, false, dty, false, rho, u, v, E, p, c, false);
 #pragma unroll
     for (int j = 0; j < PY; ++j) {
       const int i = PY * lane + j;
@@ -586,7 +616,7 @@ __device__ __forceinline__ void k4_y_first(const CycleArgs& a, Fields<const T> s
       rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
       if (V == CV_STREAM) p[j] = ((rho[j] + u[j]) + v[j]) + E[j];
     }
-    line<T, FAST, BIZ, PX, V>(a, true, dtx, emit && cv_dt(V), rho, u, v, E, p, c);
+    line<T, FAST, BIZ, PX, V>(a, true, dtx, emit && cv_dt(V), rho, u, v, E, p, c, true);
 #pragma unroll
     for (int j = 0; j < PX; ++j) {
       const int cw = PX * lane + j;
@@ -851,7 +881,7 @@ __device__ __forceinline__ void multi_tile_cycle(const MultiArgs& m, bool odd, T
   if (threadIdx.x == 0) part[0] = part[a.n_partials] = T(0);
 
   if (x_first) {
-    line<T, FAST, BIZ, P, CV_BASE>(a, true, dtx, false, rho, u, v, E, p, c);
+    line<T, FAST, BIZ, P, CV_BASE>(a, true, dtx, false, rho, u, v, E, p, c, false);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const int cw = P * lane + j;
@@ -874,7 +904,7 @@ __device__ __forceinline__ void multi_tile_cycle(const MultiArgs& m, bool odd, T
       const int o = G::at(P * lane + j, seg);
       rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
     }
-    line<T, FAST, BIZ, P, CV_BASE>(a, false, dty, false, rho, u, v, E, p, c);
+    line<T, FAST, BIZ, P, CV_BASE>(a, false, dty, false, rho, u, v, E, p, c, false);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const int i = P * lane + j;
@@ -893,7 +923,8 @@ __device__ __forceinline__ void multi_tile_cycle(const MultiArgs& m, bool odd, T
       const int o = x_first ? G::at(P * lane + j, seg) : G::at(seg, P * lane + j);
       rho[j] = pl[0][o], u[j] = pl[1][o], v[j] = pl[2][o], E[j] = pl[3][o];
     }
-    line<T, FAST, BIZ, P, CV_BASE>(a, !x_first, x_first ? dty : dtx, true, rho, u, v, E, p, c);
+    line<T, FAST, BIZ, P, CV_BASE>(a, !x_first, x_first ? dty : dtx, true, rho, u, v, E, p, c,
+                                   true);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const int k = P * lane + j;  // the position along the line

@@ -106,7 +106,25 @@ struct SweepArgs {
   double inv_dx;          // T(1) / T(dx)
   double f_lo[4], f_hi[4];  // mirror factors of (rho, u, v, E)
   double k[K_COUNT];
+  int fold_in;            // rho holds the previous sweep's unscaled density (`SweepFold`)
+  int x_out;              // store the unscaled new density
+  double fold_rdx, fold_k;  // with fold_in: T(1/d), K of the previous sweep's axis
 };
+
+// The cross-sweep EOS fold of one sweep (ROADMAP C2: XLA folds the
+// previous sweep's (X * (1/d)) * (gamma-1) into X * K across the sweeps
+// of one cycle of the JAX package's jnp tier; `ops/eos.folds`). `in`: the
+// rho operand holds the previous sweep of the cycle's unscaled new
+// density X; the sweep takes rho = X * rdx, the value that sweep would
+// have stored, and the perfect gas's p = (X * k) * e. `out`: the sweep
+// stores its new density unscaled (no multiply by inv_dx). Exact
+// perfect-gas instances only: the fast-math and Bizarrium instances
+// compile it away (`FOLDS`).
+template <typename T> struct SweepFold {
+  bool in = false, out = false;
+  T rdx = T(0), k = T(0);
+};
+template <bool FAST, bool BIZ> constexpr bool FOLDS = !FAST && !BIZ;
 
 // Division primitives (`_make_div`, `_make_div_correction`, `_div_shared`).
 template <typename T, bool FAST> struct Div {
@@ -150,11 +168,12 @@ template <typename T> __device__ __forceinline__ T limiter(int name, T r) {
 // needed: always in exact mode), and the refined 1/rho of the fast
 // Bizarrium chain (rr, reused by the Lagrangian update). The internal
 // energy contracts u*u + v*v as fma(u, u, v*v) whatever the axis
-// (`along_y`: ua is v).
+// (`along_y`: ua is v). `folded` (`SweepFold`): the perfect gas's p is
+// xk * e, xk = X * K.
 template <typename T, bool FAST, bool BIZ>
 __device__ __forceinline__ void eos_prc(const double* kk, T rho, T ua, T uo, T E,
                                         bool need_c, bool along_y, T& p, T& rc, T& c,
-                                        T& rr) {
+                                        T& rr, bool folded = false, T xk = T(0)) {
   typedef Div<T, FAST> D;
   const T half = T(0.5);
   const T uu = along_y ? uo : ua, vv = along_y ? ua : uo;
@@ -207,7 +226,7 @@ __device__ __forceinline__ void eos_prc(const double* kk, T rho, T ua, T uo, T E
     return;
   }
   const T gm = T(kk[K_GM]);
-  p = T(kk[K_GM1]) * rho * e;
+  p = (FOLDS<FAST, BIZ> && folded) ? xk * e : T(kk[K_GM1]) * rho * e;
   if (FAST && !need_c) {
     rc = sqrt(gm * p * rho);
     return;
@@ -482,11 +501,13 @@ template <typename T> __device__ __forceinline__ T limiter_x(int name, T r) {
 // with the axis velocity `ua`, the other one `uo`; out: the swept state in
 // place, the pre-sweep p and c. SHIFT = false is the no_roll variant, as
 // in `sweep_body`. Its min/max are `limiter_x`, `clamp0` and `xmin`.
+// `fold`: the sweep's place in its cycle's EOS fold (`SweepFold`).
 template <typename T, bool FAST, bool BIZ, int P, bool SHIFT = true>
 __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim, int projection,
                                          T dt, T dx, T inv_dx, bool need_c, bool along_y,
                                          T (&rho)[P], T (&ua)[P], T (&uo)[P], T (&E)[P],
-                                         T (&p)[P], T (&c)[P]) {
+                                         T (&p)[P], T (&c)[P],
+                                         const SweepFold<T> fold = SweepFold<T>()) {
   typedef Div<T, FAST> D;
   constexpr unsigned FULL = 0xffffffffu;
   // The neighbouring lanes' values at the run's ends.
@@ -500,14 +521,20 @@ __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim,
     return SHIFT ? (j < P - 1 ? a[j + 1] : edge) : a[j] * T(1 + 1e-7 * 1);
   };
 
-  // ---- stage 1: EOS of the input state
+  // ---- stage 1: EOS of the input state (rho rebuilt from X when folded)
+  constexpr bool FOLD = FOLDS<FAST, BIZ>;
   T rc[P], rr[P], dm[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     rr[j] = T(0);
     c[j] = T(0);
+    T xk = T(0);
+    if (FOLD && fold.in) {
+      xk = rho[j] * fold.k;
+      rho[j] = rho[j] * fold.rdx;
+    }
     eos_prc<T, FAST, BIZ>(kk, rho[j], ua[j], uo[j], E[j], need_c, along_y, p[j], rc[j], c[j],
-                          rr[j]);
+                          rr[j], FOLD && fold.in, xk);
     dm[j] = rho[j] * dx;
   }
 
@@ -649,7 +676,8 @@ __device__ __forceinline__ void run_body(const double* kk, int riemann, int lim,
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       if (f == 0) {
-        rho[j] = fmadd(dX[j], rho1[j], -d[j]) * inv_dx;
+        const T X = fmadd(dX[j], rho1[j], -d[j]);
+        rho[j] = (FOLD && fold.out) ? X : X * inv_dx;
         tmp[0][j] = (dXr[j] - d[j]) * inv_dx;
       } else {
         const T x = f == 1 ? ua1[j] : (f == 2 ? uo[j] : E1[j]);
@@ -819,6 +847,17 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// A K1 / K2 launch's `SweepFold`.
+template <typename T>
+__device__ __forceinline__ SweepFold<T> sweep_fold(const SweepArgs& a) {
+  SweepFold<T> f;
+  f.in = a.fold_in != 0;
+  f.out = a.x_out != 0;
+  f.rdx = T(a.fold_rdx);
+  f.k = T(a.fold_k);
+  return f;
+}
+
 // K1: one X sweep (see the file note). Warp w of block b takes windows
 // (b P + i) NW + w, i < P = `x_windows_per_warp`, so at each step the
 // block's warps sweep NW
@@ -860,6 +899,7 @@ __device__ __forceinline__ void x_sweep_body(const SweepArgs& a, const FinishArg
     return;
   }
   const T dt = reinterpret_cast<const T*>(a.scal)[3] * T(a.dt_factor);
+  const SweepFold<T> fold = sweep_fold<T>(a);
   bool vec = cols % VEC == 0 && (!emit || aligned16(p_out));
   for (int f = 0; f < 4; ++f) vec = vec && aligned16(src[f]) && aligned16(dst[f]);
   // Every column of the window real: no ghost fill, no array edge.
@@ -899,7 +939,7 @@ __device__ __forceinline__ void x_sweep_body(const SweepArgs& a, const FinishArg
     }
     if (i + 1 < wpw && fast_window(window(i + 1))) issue(window(i + 1));
     run_body<T, FAST, BIZ, PX>(a.k, a.riemann, a.limiter, a.projection, dt, T(a.dx),
-                               T(a.inv_dx), emit, false, rho, u, v, E, p, c);
+                               T(a.inv_dx), emit, false, rho, u, v, E, p, c, fold);
     const bool row_real = row >= g && row < g + ny;
     const long long base = row * cols + c0 + off;
     if (fast) {  // lanes 1-30 hold whole runs of outputs, every column real
@@ -1003,6 +1043,8 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
   const int riemann = a.riemann, lim = a.limiter;
   const bool second = a.projection == 1;
   const bool col_real = live && col >= g && col < g + a.nx;
+  constexpr bool FOLD = FOLDS<FAST, BIZ>;
+  const SweepFold<T> fold = sweep_fold<T>(a);
 
   // Each stage's outputs by row, indexed by the distance to row i.
   S1<T> s1[5] = {};
@@ -1033,14 +1075,21 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
     }
     if (i + 1 < r_end + HALO) issue(i + 1);
 
-    // ---- stage 1 at row i: EOS of the input state (ua = v, uo = u)
+    // ---- stage 1 at row i: EOS of the input state (ua = v, uo = u; rho
+    // rebuilt from X when folded)
     {
       S1<T>& n = s1[0];
       n.rr = T(0);
       n.c = T(0);
       n.ua = in[2], n.uo = in[1], n.E = in[3];
-      eos_prc<T, FAST, BIZ>(a.k, in[0], n.ua, n.uo, n.E, emit, true, n.p, n.rc, n.c, n.rr);
+      T xk = T(0);
       n.rho = in[0];
+      if (FOLD && fold.in) {
+        xk = in[0] * fold.k;
+        n.rho = in[0] * fold.rdx;
+      }
+      eos_prc<T, FAST, BIZ>(a.k, n.rho, n.ua, n.uo, n.E, emit, true, n.p, n.rc, n.c, n.rr,
+                            FOLD && fold.in, xk);
     }
     // ---- stage 2 at row i: Godunov solve at the i-1/2 interface
     {
@@ -1138,7 +1187,8 @@ __device__ __forceinline__ void y_sweep_body(const SweepArgs& a, const FinishArg
       // the flux differences: rho's contracts the row's flux, the others
       // the next row's; `/ dx` a multiply by inv_dx
       const T d0 = fmadd(-k.disp, Q[4][0], dp_ * Q[3][0]);
-      const T rho_o = fmadd(k.dX, k.rho1, -d0) * inv_dx;
+      const T X = fmadd(k.dX, k.rho1, -d0);
+      const T rho_o = (FOLD && fold.out) ? X : X * inv_dx;
       const T x[4] = {T(0), k.ua1, s1[4].uo, k.E1};
       T tmp[4];
       tmp[0] = (dXr - d0) * inv_dx;

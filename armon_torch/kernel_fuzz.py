@@ -207,9 +207,10 @@ def _scalars(cfg, device, dt):
     return scal, iscal
 
 
-def launch_sweep(cfg, axis, src, dt, ghosts=K.MIRRORED):
+def launch_sweep(cfg, axis, src, dt, ghosts=K.MIRRORED, fold=None):
     """One emitting K1 / K2 launch on `src` (the plain version on the
-    CPU): (rho, u, v, E, p, partials)."""
+    CPU), with its part in a cycle's cross-sweep EOS fold (`fold`, an
+    `ops/sweep.Fold`): (rho, u, v, E, p, partials)."""
     device = src[0].device
     dst = tuple(torch.empty_like(a) for a in src)
     p = torch.empty_like(src[0])
@@ -217,7 +218,7 @@ def launch_sweep(cfg, axis, src, dt, ghosts=K.MIRRORED):
     part = torch.zeros((2, nb), dtype=src[0].dtype, device=device)
     scal, iscal = _scalars(cfg, device, dt)
     (K.x_sweep if axis is Axis.X else K.y_sweep)(
-        cfg, src, dst, p, part, scal, iscal, 1.0, True, ghosts)
+        cfg, src, dst, p, part, scal, iscal, 1.0, True, ghosts, fold=fold)
     return dst + (p, part[:, :nb])
 
 
@@ -320,14 +321,26 @@ def check_multicycle(device, seed, dtype):
     return 0.0
 
 
+def pair_folds(cfg, device, first=Axis.X):
+    """The folds (`ops/sweep.Fold`) of two launches, along `first` then
+    the other axis, that make one cycle, as K4's two sweeps: (None, None)
+    where the mode takes none."""
+    if not K.fold_on(cfg, device):
+        return None, None
+    return K.Fold(None, True), K.Fold(first, False)
+
+
 def check_pair(device, seed):
     """`tests/test_fuzz.py:158`'s case on the kernels: K4 (X first) against
-    K1 then K2, and both against the plain versions."""
+    K1 then K2, these two with the cycle's cross-sweep EOS fold where the
+    mode takes it (as K4 between its sweeps), and both against the plain
+    versions."""
     p, f = pair_draw(seed)
     cfg, r = p.config, _real(p.config)
     src = tensors(f, "float64", device)
-    x = launch_sweep(cfg, Axis.X, src, DT)
-    y = launch_sweep(cfg, Axis.Y, x[:4], DT)
+    f1, f2 = pair_folds(cfg, device)
+    x = launch_sweep(cfg, Axis.X, src, DT, fold=f1)
+    y = launch_sweep(cfg, Axis.Y, x[:4], DT, fold=f2)
     pair = launch_cycle(cfg, True, src, DT)
     d = _scalar(src[0], DT)
     ref = C.cycle_plain(cfg, True, *src, d, d)

@@ -95,6 +95,8 @@ class SweepArgs(ctypes.Structure):
         ("inv_dx", ctypes.c_double),
         ("f_lo", ctypes.c_double * 4), ("f_hi", ctypes.c_double * 4),
         ("k", ctypes.c_double * len(EOS_KEYS)),
+        ("fold_in", ctypes.c_int), ("x_out", ctypes.c_int),
+        ("fold_rdx", ctypes.c_double), ("fold_k", ctypes.c_double),
     ]
 
 
@@ -154,6 +156,8 @@ class CycleArgs(ctypes.Structure):
         ("fx_lo", ctypes.c_double * 4), ("fx_hi", ctypes.c_double * 4),
         ("fy_lo", ctypes.c_double * 4), ("fy_hi", ctypes.c_double * 4),
         ("k", ctypes.c_double * len(EOS_KEYS)),
+        ("x_out", ctypes.c_int),
+        ("kf_x", ctypes.c_double), ("kf_y", ctypes.c_double),
     ]
 
 
@@ -189,6 +193,7 @@ class McArgs(ctypes.Structure):
         ("fx_lo", ctypes.c_double * 4), ("fx_hi", ctypes.c_double * 4),
         ("fy_lo", ctypes.c_double * 4), ("fy_hi", ctypes.c_double * 4),
         ("k", ctypes.c_double * len(EOS_KEYS)),
+        ("kf_x", ctypes.c_double), ("kf_y", ctypes.c_double),
         ("dt", DtParams),
     ]
 
@@ -600,10 +605,12 @@ def _set_common(a, cfg, src, dst, scal, iscal, grid, n_real):
 
 
 def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
-                 emit, ghosts, n_real, finish=None, cond=None):
+                 emit, ghosts, n_real, finish=None, cond=None, fold=None):
     """Launch K1 (axis X) or K2 (axis Y) on the current stream; with
     `finish` (`ops/sweep.Finish`), its finishing kernel, which with `cond`
-    (`ops/sweep.Cond`) also sets a WHILE condition."""
+    (`ops/sweep.Cond`) also sets a WHILE condition; `fold`, an
+    `ops/sweep.Fold`, its place in the cycle's cross-sweep EOS fold."""
+    from .eos import fold_const
     from .sweep import grid_dims, mirror_factors
     libs = load()
     T = np.dtype(cfg.dtype).type
@@ -624,6 +631,11 @@ def launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor,
     a.inv_dx = float(T(1.0) / dx)
     a.f_lo[:] = list(f_lo)
     a.f_hi[:] = list(f_hi)
+    if fold is not None:
+        a.x_out = int(fold.keep)
+        if fold.prev is not None:
+            a.fold_in = 1
+            a.fold_rdx, a.fold_k = (float(k) for k in fold_const(cfg, fold.prev))
     fin = _finish_args(cfg, finish, partials, gx * gy, scal, iscal, cond)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"sweep_f{bits}"], f"armon_sweep_f{bits}")
@@ -723,7 +735,10 @@ def _cycle_args(cfg, window, src, dst, p, partials, scal, iscal, n_partials,
 
 def _set_axes(a, cfg):
     """The per-axis fields `CycleArgs` and `McArgs` share: cell sizes and
-    their inverses in T, and the mirror factors of both axes."""
+    their inverses in T, the mirror factors of both axes, and the
+    cross-sweep EOS fold's constants K after an X and after a Y sweep
+    (`ops/eos.fold_const`; the instances that fold read them)."""
+    from .eos import fold_const, folds
     from .sweep import mirror_factors
     T = np.dtype(cfg.dtype).type
     dx, dy = T(cfg.dx), T(cfg.dy)
@@ -733,13 +748,17 @@ def _set_axes(a, cfg):
     a.fx_lo[:], a.fx_hi[:] = list(f_lo), list(f_hi)
     f_lo, f_hi = mirror_factors(cfg, Axis.Y)
     a.fy_lo[:], a.fy_hi[:] = list(f_lo), list(f_hi)
+    if folds(cfg):
+        a.kf_x = float(fold_const(cfg, Axis.X)[1])
+        a.kf_y = float(fold_const(cfg, Axis.Y)[1])
 
 
 def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
-                 emit, y_ghosts, n_real, finish=None, cond=None):
+                 emit, y_ghosts, n_real, finish=None, cond=None, keep=False):
     """Launch K4 on the current stream; with `finish` (`ops/sweep.Finish`),
     its finishing kernel, which with `cond` also sets a WHILE condition
-    (as `launch_sweep`)."""
+    (as `launch_sweep`); with `keep` its second sweep stores its new
+    density unscaled (`ops/sweep.Fold`)."""
     from .cycle import cycle_window, tile_grid
     libs = load()
     T = np.dtype(cfg.dtype).type
@@ -751,6 +770,7 @@ def launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal,
                     stride, y_ghosts, n_real)
     a.emit, a.x_first = int(emit), int(x_first)
     a.fx, a.fy = float(T(fx)), float(T(fy))
+    a.x_out = int(keep)
     fin = _finish_args(cfg, finish, partials, gx * gy, scal, iscal, cond)
     bits = 8 * np.dtype(cfg.dtype).itemsize
     fn = getattr(libs[f"cycle_f{bits}"], f"armon_cycle_f{bits}")

@@ -29,7 +29,7 @@ from ..utils.errors import solver_error
 from ..core.state import torch_dtype
 from . import sweep as S
 from .sweep import (LAUNCHES, IS_RUN, IS_CYCLE, SC_DTUSE, HALO, MIRRORED,
-                    fill_ghosts_plain, sweep_plain, cfl_partial_plain,
+                    Fold, fill_ghosts_plain, sweep_plain, cfl_partial_plain,
                     cfl_finish_plain, check_ghosts)
 
 # K4's window (columns, rows) by itemsize, shared with csrc/cycle.cuh
@@ -106,27 +106,38 @@ def parity_pairs(pairs):
 
 # ---------------------------------------------------------- plain versions
 
+def _check_keep(cfg, keep, device):
+    if keep and not S.fold_on(cfg, device):
+        solver_error("config", "an unscaled density is kept only where the "
+                               "cycle folds (`ops/sweep.fold_on`)")
+
+
 def cycle_plain(cfg, x_first, rho, u, v, E, dtx, dty, y_ghosts=MIRRORED,
-                n_real=None):
+                n_real=None, keep=False):
     """One cycle in plain PyTorch: both ghost fills of the pre-cycle state,
     Y from `y_ghosts` (mirror or a neighbour's slab per side) then the X
     mirror over every row, slab rows included; then the two sweeps without
     fills, then the CFL maxima of the `n_real` real cells of the result.
-    `dtx`, `dty` are 0-dim tensors. Returns (rho, u, v, E, p_stale,
-    max |u|+c, max |v|+c)."""
+    `dtx`, `dty` are 0-dim tensors. Where the cycle folds
+    (`ops/sweep.fold_on`) the second sweep takes the first's cross-sweep
+    EOS fold, and `keep` leaves its new density unscaled. Returns (rho, u,
+    v, E, p_stale, max |u|+c, max |v|+c)."""
+    _check_keep(cfg, keep, rho.device)
     fields = fill_ghosts_plain(
         cfg, Axis.X, fill_ghosts_plain(cfg, Axis.Y, (rho, u, v, E), n_real,
                                        y_ghosts), n_real)
     a1, d1, a2, d2 = ((Axis.X, dtx, Axis.Y, dty) if x_first
                       else (Axis.Y, dty, Axis.X, dtx))
-    out = sweep_plain(cfg, a1, *fields, d1, (None, None))
-    out = sweep_plain(cfg, a2, *out[:4], d2, (None, None))
+    f1, f2 = (Fold(None, True), Fold(a1, keep)) \
+        if S.fold_on(cfg, rho.device) else (None, None)
+    out = sweep_plain(cfg, a1, *fields, d1, (None, None), fold=f1)
+    out = sweep_plain(cfg, a2, *out[:4], d2, (None, None), fold=f2)
     mx, my = cfl_partial_plain(cfg, out[1], out[2], out[5], n_real)
     return out[:5] + (mx, my)
 
 
 def _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
-                      iscal, emit, y_ghosts=MIRRORED, n_real=None):
+                      iscal, emit, y_ghosts=MIRRORED, n_real=None, keep=False):
     if not int(iscal[IS_RUN]):
         for s, d in zip(src, dst):
             d.copy_(s)
@@ -134,7 +145,7 @@ def _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
     T = np.dtype(cfg.dtype).type
     dt = scal[SC_DTUSE]
     out = cycle_plain(cfg, x_first, *src, dt * float(T(fx)),
-                      dt * float(T(fy)), y_ghosts, n_real)
+                      dt * float(T(fy)), y_ghosts, n_real, keep)
     for d, o in zip(dst, out[:4]):
         d.copy_(o)
     if emit:
@@ -146,10 +157,11 @@ def _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
 def multicycle_plain(cfg, pairs, ncycles, src, dst, p, scal, iscal):
     """Plain version of K5: `ncycles` cycles, each K3's step (the fold of
     the previous cycle's maxima, the run predicate, the dt recurrence)
-    then `cycle_plain` with the (x_first, fx, fy) of the cycle's parity,
-    or a copy when the cycle does not run; the fields ping-pong between
-    `src` and `dst`, and a final fold leaves lm the CFL minimum of the
-    last state."""
+    then `cycle_plain` with the (x_first, fx, fy) of the cycle's parity
+    (the second sweep folding as there), or a copy when the cycle does not
+    run;
+    the fields ping-pong between `src` and `dst`, and a final fold leaves
+    lm the CFL minimum of the last state."""
     part = torch.zeros((2, 1), dtype=src[0].dtype, device=src[0].device)
     even_odd = parity_pairs(pairs)
     for k in range(ncycles):
@@ -164,7 +176,7 @@ def multicycle_plain(cfg, pairs, ncycles, src, dst, p, scal, iscal):
 # ---------------------------------------------------------------- wrappers
 
 def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
-          y_ghosts=MIRRORED, n_real=None, finish=None, cond=None):
+          y_ghosts=MIRRORED, n_real=None, finish=None, cond=None, keep=False):
     """K4: one X/Y pair of sweeps of (rho, u, v, E) `src` into `dst`, X
     first when `x_first`, with dt = scal[dt_use] * fx along X and * fy
     along Y; copied through when iscal[run] is 0. Y ghost rows come from
@@ -172,7 +184,9 @@ def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
     X ghost columns from the mirror. With `emit` (the cycle's last launch)
     it also writes the stale p and the CFL partial maxima of the `n_real`
     real cells (`partials`, `finish`, K3's tail, and `cond`, the WHILE
-    condition, as in `ops/sweep.x_sweep`). Replaces `_cycle_kernel` (`sweep.py:1571`), its
+    condition, as in `ops/sweep.x_sweep`). The second sweep folds as in
+    `cycle_plain`, and `keep` leaves its new density unscaled (Strang's
+    pair, a K1 follows in the cycle). Replaces `_cycle_kernel` (`sweep.py:1571`), its
     `slab_y` variant included."""
     device = src[0].device
     S._check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
@@ -180,17 +194,18 @@ def cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, emit,
     slab = check_ghosts(cfg, Axis.Y, y_ghosts, src[0].shape, device)
     S.check_finish(finish, emit, cond)
     S.check_cond(cond, device)
+    _check_keep(cfg, keep, device)
     if device.type == "cuda":
         from . import _build
         _build.launch_cycle(cfg, x_first, fx, fy, src, dst, p, partials,
                             scal, iscal, emit, y_ghosts, n_real or cfg.n_local,
-                            finish, cond)
+                            finish, cond, keep)
         LAUNCHES["cycle_slab" if slab else "cycle"] += 1
         if finish is not None:
             S.TAILS["cfl_tail"] += 1
         return
     _cycle_plain_into(cfg, x_first, fx, fy, src, dst, p, partials, scal,
-                      iscal, emit, y_ghosts, n_real)
+                      iscal, emit, y_ghosts, n_real, keep)
     S.finish_plain(cfg, finish, scal, iscal)
     S.cond_plain(cond)
 
@@ -220,7 +235,8 @@ def multicycle(cfg, pairs, src, dst, p, partials, scal, iscal, cond=None):
     for an odd one, whatever number of cycles ran. `partials` is
     `new_multicycle_partials`' scratch. With `cond` (`ops/sweep.Cond`: the
     last launch of a whole-run graph's body) it sets that WHILE condition
-    from iscal[next]. Replaces `_multicycle_kernel` (`sweep.py:1905`)."""
+    from iscal[next]. Each cycle's second sweep folds as in `cycle_plain`.
+    Replaces `_multicycle_kernel` (`sweep.py:1905`)."""
     device = src[0].device
     if not pairs:
         solver_error("config", "multicycle needs at least one cycle")

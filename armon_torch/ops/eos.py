@@ -1,7 +1,8 @@
 """Equations of state (`armon_tpu/ops/eos.py`, `src/kernels.jl:4-55`).
 
 Plain tensor code, used by the cycle-0 EOS of the initial state and by
-every sweep of the op path (`update_eos`). Constants
+every sweep of the op path (`update_eos`), with the cross-sweep fold of
+a cycle's later sweeps (`folds`). Constants
 are rounded to the working dtype T before any arithmetic, and every
 operation runs in the order the JAX package writes it, so the two agree
 bit for bit. Divisions by a constant go through a tensor of dtype T:
@@ -32,13 +33,18 @@ def scalar_like(like, value):
     return torch.full((), float(value), dtype=like.dtype, device=like.device)
 
 
-def perfect_gas_eos(gamma, rho, u, v, E, dtype):
+def perfect_gas_eos(gamma, rho, u, v, E, dtype, fold=None):
     """p = (gamma-1)*rho*e, c = sqrt(gamma*p/rho), g = (1+gamma)/2
-    (`src/kernels.jl:4-13`). Returns (p, c, g)."""
+    (`src/kernels.jl:4-13`). With `fold` (X, K), a later sweep of a cycle
+    (`folds`): p = (X*K)*e, c from the scaled rho. Returns (p, c, g)."""
     T = np.dtype(dtype).type
     gm = T(gamma)
     e = fma(fma(u, u, v * v), -0.5, E)
-    p = float(gm - T(1.0)) * rho * e
+    if fold is None:
+        p = float(gm - T(1.0)) * rho * e
+    else:
+        X, K = fold
+        p = (X * float(K)) * e
     c = ieee_sqrt(float(gm) * p / rho)
     g = torch.full_like(rho, float((T(1.0) + gm) / T(2.0)))
     return p, c, g
@@ -88,17 +94,43 @@ def bizarrium_eos(rho, u, v, E, dtype):
     return p, c, g
 
 
-def eos(cfg, rho, u, v, E):
+def eos(cfg, rho, u, v, E, fold=None):
     """Dispatch by test case (`src/kernels.jl:151-166`) over the whole
-    padded array. Returns (p, c, g)."""
+    padded array, with the perfect gas's `fold` (`perfect_gas_eos`).
+    Returns (p, c, g)."""
     if isinstance(cfg.test, Bizarrium):
         return bizarrium_eos(rho, u, v, E, cfg.dtype)
-    return perfect_gas_eos(cfg.gamma, rho, u, v, E, cfg.dtype)
+    return perfect_gas_eos(cfg.gamma, rho, u, v, E, cfg.dtype, fold)
 
 
-def update_eos(cfg, state):
+def folds(cfg) -> bool:
+    """Whether a later sweep of a cycle takes the cross-sweep EOS fold.
+
+    Across the sweeps of one cycle, XLA folds the previous sweep's
+    (X * (1/d)) * (gamma-1), X the unscaled new density fma(dX, rho, -d)
+    of the remap (`ops/projection.py`) and d the cell size along that
+    sweep's axis, into X * K with one constant K = RN(RN(1/d) *
+    RN(gamma-1)) (`fold_const`); the first sweep of a cycle, whose rho
+    comes through the loop's carry, is not folded. The port copies it on
+    every route: the perfect gas only (the Bizarrium EOS takes its
+    scaled rho)."""
+    return not isinstance(cfg.test, Bizarrium)
+
+
+def fold_const(cfg, axis):
+    """(RN(1/d), K = RN(RN(1/d) * RN(gamma-1))) in T for a previous sweep
+    along `axis`, as numpy scalars of dtype T: the rebuilt density is X *
+    RN(1/d), the folded pressure (X * K) * e."""
+    T = np.dtype(cfg.dtype).type
+    rdx = T(1.0) / T(cfg.cell_size(axis))
+    return rdx, rdx * (T(cfg.gamma) - T(1.0))
+
+
+def update_eos(cfg, state, fold=None):
     """The State with the p, c and g of its rho/u/v/E
     (`armon_tpu/ops/eos.py:70`), ghost cells included: the boundary
-    exchange overwrites their values before any stencil reads them."""
-    p, c, g = eos(cfg, state.rho, state.u, state.v, state.E)
+    exchange overwrites their values before any stencil reads them, so a
+    ghost takes the p of the cell it mirrors. `fold`: (X, K) of the
+    previous sweep of this cycle (`folds`), or None."""
+    p, c, g = eos(cfg, state.rho, state.u, state.v, state.E, fold)
     return state._replace(p=p, c=c, g=g)

@@ -43,11 +43,12 @@ the plain versions in `sweep.py` and the kernels' `eos_prc`, `sweep_body`,
 - No site: `reductions.py:60` (|u| + c, dx / max), `reductions.py:108-130`
   (the products are stored before the scan), `core/timestep.py:36`.
 
-Not copied (ROADMAP C2): across the sweeps of a cycle XLA folds the
-previous sweep's (rho*(1/dx))*(gamma-1) into one constant, and reassociates
-the Bizarrium EOS's constants (`1 + x` of `x = rho*(1/rho0) - 1` becomes
-rho*(1/rho0)), contracting its polynomials differently in each fusion; and
-it flushes subnormal results to zero.
+Also copied, on every route: across the sweeps of a cycle XLA folds the
+previous sweep's (X*(1/dx))*(gamma-1) into X*K, K one constant, X the
+unscaled new density fma(dX, rho, -d) (`ops/eos.folds`). Not copied
+(ROADMAP C2): XLA reassociates the Bizarrium EOS's constants (`1 + x` of
+`x = rho*(1/rho0) - 1` becomes rho*(1/rho0)), contracting its polynomials
+differently in each fusion; and it flushes subnormal results to zero.
 
 How: f32, the f64 product of two f32 values is exact; a TwoSum with c
 gives the exact sum as two f64 values; rounding the high part to odd with

@@ -115,7 +115,9 @@ def euler_projection(cfg, state, axis: Axis, dt, fluxes):
     difference of the fluxes as in XLA's fused remap. `/ dx` is a
     multiply by `inv_dx`, and the new rho is contracted where it is a
     result and not where it divides the conserved sums (there dX * rho
-    has other uses in XLA's program)."""
+    has other uses in XLA's program). Returns (State, X): X = fma(dX, rho, -d_rho) is the new density before
+    its scaling, rho = X * inv_dx, which the next sweep of the cycle folds
+    into its EOS (`ops/eos.folds`)."""
     dx = _dx(cfg, state.rho, axis)
     rdx = inv_dx(cfg, state.rho, axis)
     us = state.ustar
@@ -134,23 +136,24 @@ def euler_projection(cfg, state, axis: Axis, dt, fluxes):
     dX = fma(dt, sh(us, 1, axis) - us, dx)
     dX_rho = dX * state.rho
 
-    tmp_rho = fma(dX, state.rho, -d_rho) * rdx
+    X = fma(dX, state.rho, -d_rho)
     den = (dX_rho - d_rho) * rdx
     tmp_ur = fma(dX_rho, state.u, -d_ur) * rdx
     tmp_vr = fma(dX_rho, state.v, -d_vr) * rdx
     tmp_Er = fma(dX_rho, state.E, -d_Er) * rdx
 
     return state._replace(
-        rho=tmp_rho,
+        rho=X * rdx,
         u=tmp_ur / den,
         v=tmp_vr / den,
         E=tmp_Er / den,
-    )
+    ), X
 
 
 def projection_remap(cfg, state, axis: Axis, dt):
     """Advection fluxes, then the conservative remap
-    (`src/projection_schemes.jl:148-157`)."""
+    (`src/projection_schemes.jl:148-157`). Returns (State, X) as
+    `euler_projection`."""
     if cfg.projection == "euler":
         fluxes = advection_first_order(cfg, state, axis, dt)
     elif cfg.projection == "euler_2nd":

@@ -45,6 +45,8 @@ the plain version below (exact IEEE arithmetic); on a CUDA tensor it
 launches its kernel or raises. It never falls back.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -53,7 +55,7 @@ from ..utils.enums import Axis, sides_along
 from ..utils.errors import solver_error
 from ..core.timestep import dt_update_host
 from ..core.state import torch_dtype
-from .eos import ieee_sqrt, scalar_like
+from .eos import fold_const, folds, ieee_sqrt, scalar_like
 from .fma import fma
 from .projection import sign as _sign
 
@@ -88,6 +90,22 @@ TAILS = {"cfl_tail": 0}
 # Ghost sources of a side (see module doc).
 MIRROR = "mirror"
 MIRRORED = (MIRROR, MIRROR)
+
+
+class Fold(NamedTuple):
+    """The cross-sweep EOS fold (`ops/eos.folds`) of one launch inside a
+    cycle's schedule, on a route that takes it (`fold_on`). `prev`: the
+    axis of the sweep before the launch's first sweep in the same cycle;
+    the launch's rho operand then holds that sweep's unscaled new density
+    X, from which the sweep takes rho = X * RN(1/d) (the value that sweep
+    would have stored, bit for bit) and p = (X * K) * e (`fold_const`).
+    None: the cycle's first launch, scaled rho. `keep`: the launch's last
+    sweep stores its new density unscaled, for the next launch of the
+    cycle. A K1 or K2 launch without a Fold (None) folds nothing: a sweep
+    on its own. K4 and K5 take no Fold: each of their cycles starts its
+    cycle, and folds between its own two sweeps wherever `fold_on`."""
+    prev: object = None
+    keep: bool = False
 
 
 class Finish:
@@ -231,6 +249,20 @@ def fast_math_on(cfg, device) -> bool:
             and torch.device(device).type == "cuda")
 
 
+def fold_on(cfg, device) -> bool:
+    """Whether the launches of a cycle take the cross-sweep EOS fold
+    (`Fold`): the perfect gas (`ops/eos.folds`) in exact arithmetic. The
+    fast-math instances keep their dataflow: they are not bit for bit with
+    the plain versions in any case."""
+    return folds(cfg) and not fast_math_on(cfg, device)
+
+
+def check_fold(cfg, fold, device):
+    if fold is not None and not fold_on(cfg, device):
+        solver_error("config", "the cross-sweep EOS fold is for the perfect "
+                               "gas in exact arithmetic (`fold_on`)")
+
+
 # ---------------------------------------------------------- plain versions
 
 def _limiter(name, r):
@@ -244,9 +276,10 @@ def _limiter(name, r):
                          torch.minimum(r, 2.0 * torch.ones_like(r)))
 
 
-def eos_prc_plain(cfg, rho, u, v, E):
+def eos_prc_plain(cfg, rho, u, v, E, xk=None):
     """Exact-IEEE branch of `_eos_prc` (`sweep.py:117-251`): returns
-    (p, rho*c, c) of the pre-sweep state."""
+    (p, rho*c, c) of the pre-sweep state. `xk`: X * K of a folded sweep
+    (`Fold`), the perfect gas's p = xk * e."""
     T = np.dtype(cfg.dtype).type
     f = float
     if isinstance(cfg.test, Bizarrium):
@@ -272,7 +305,7 @@ def eos_prc_plain(cfg, rho, u, v, E):
         return p, rho * c, c
     gm = T(cfg.gamma)
     e = fma(fma(u, u, v * v), -0.5, E)
-    p = f(gm - T(1.0)) * rho * e
+    p = f(gm - T(1.0)) * rho * e if xk is None else xk * e
     c = ieee_sqrt(f(gm) * p / rho)
     return p, rho * c, c
 
@@ -286,7 +319,8 @@ def _godunov(rc_l, rc_r, u_i, u_im, p_i, p_im):
     return ustar, pstar
 
 
-def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E, along_y=False):
+def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E, along_y=False,
+                     fold_in=None, keep=False):
     """Line-for-line port of `_sweep_math` (`sweep.py:297-550`) in exact
     IEEE arithmetic with the `slope_shift=True` euler_2nd form, contracting
     the products that the op path contracts (`ops/fma.py`) and
@@ -294,11 +328,19 @@ def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E, along_y=False):
     k)` reads at offset +k along the sweep axis; `dt` and `dx` are 0-dim
     tensors of dtype T, `inv_dx` is T(1) / T(dx). `along_y`: the axis
     velocity is v (the EOS contracts u*u + v*v as fma(u, u, v*v) whatever
-    the axis). Returns (rho', uax', uot', E', p_stale, c_stale)."""
+    the axis). `fold_in`: (RN(1/d), K) of the previous sweep of the
+    cycle (`Fold`), rho then holding its unscaled new density X; `keep`:
+    return the new density unscaled. Returns (rho', uax', uot', E',
+    p_stale, c_stale)."""
     T = np.dtype(cfg.dtype).type
     inv_dx = torch.ones_like(dx) / dx
+    xk = None
+    if fold_in is not None:
+        rdx, K = (scalar_like(rho, k) for k in fold_in)
+        xk = rho * K
+        rho = rho * rdx
     p, rc, c = eos_prc_plain(cfg, rho, *((uot, uax) if along_y else (uax, uot)),
-                             E)
+                             E, xk)
     dm = rho * dx
 
     # the neighbour's rho * c, formed from its rho and c as the kernels
@@ -369,7 +411,8 @@ def sweep_math_plain(cfg, sh, dt, dx, rho, uax, uot, E, along_y=False):
     d_ur, d_vr, d_Er = (fma(sh(disp, 1), sh(a, 1), -(disp * a)) for a in q[1:])
     dX_rho = dX * rho1
     den = (dX_rho - d_rho) * inv_dx
-    return (fma(dX, rho1, -d_rho) * inv_dx,
+    X = fma(dX, rho1, -d_rho)
+    return (X if keep else X * inv_dx,
             fma(dX_rho, uax1, -d_ur) * inv_dx / den,
             fma(dX_rho, uot, -d_vr) * inv_dx / den,
             fma(dX_rho, E1, -d_Er) * inv_dx / den, p, c)
@@ -432,12 +475,14 @@ def cfl_partial_plain(cfg, u, v, c, n_real=None):
     return mx, my
 
 
-def sweep_plain(cfg, axis, rho, u, v, E, dt, ghosts=MIRRORED, n_real=None):
+def sweep_plain(cfg, axis, rho, u, v, E, dt, ghosts=MIRRORED, n_real=None,
+                fold=None):
     """One sweep in plain PyTorch. `dt` is a 0-dim tensor (already scaled
     by the schedule's factor). The ghost bands along the axis are filled
     first from `ghosts` (the in-kernel fills of the TPU's `fused_sweep_ip`:
     mirror or slab splice; None for a band filled already, as `fused_sweep`
-    takes them). Returns (rho, u, v, E, p_stale, c_stale)."""
+    takes them); with a `fold` (`Fold`) whose `prev` is set, the bands,
+    and rho, hold X. Returns (rho, u, v, E, p_stale, c_stale)."""
     T = np.dtype(cfg.dtype).type
     if any(ghost_mode(s) for s in ghosts):
         rho, u, v, E = fill_ghosts_plain(cfg, axis, (rho, u, v, E), n_real,
@@ -448,11 +493,15 @@ def sweep_plain(cfg, axis, rho, u, v, E, dt, ghosts=MIRRORED, n_real=None):
     def sh(a, k):
         return torch.roll(a, -k, d) if k else a
 
+    fold = fold or Fold()
+    kw = dict(fold_in=None if fold.prev is None else fold_const(cfg, fold.prev),
+              keep=fold.keep)
     if axis is Axis.X:
-        rho2, u2, v2, E2, p, c = sweep_math_plain(cfg, sh, dt, dx, rho, u, v, E)
+        rho2, u2, v2, E2, p, c = sweep_math_plain(cfg, sh, dt, dx, rho, u, v, E,
+                                                  **kw)
     else:
         rho2, v2, u2, E2, p, c = sweep_math_plain(cfg, sh, dt, dx, rho, v, u, E,
-                                                  along_y=True)
+                                                  along_y=True, **kw)
     return rho2, u2, v2, E2, p, c
 
 
@@ -529,7 +578,7 @@ def finish_plain(cfg, finish, scal, iscal):
 
 
 def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real, finish, cond):
+           ghosts, n_real, finish, cond, fold):
     rho = src[0]
     device = rho.device
     _check(cfg, tuple(src) + tuple(dst) + ((p,) if emit else ()),
@@ -537,11 +586,12 @@ def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
     slab = check_ghosts(cfg, axis, ghosts, rho.shape, device)
     check_finish(finish, emit, cond)
     check_cond(cond, device)
+    check_fold(cfg, fold, device)
     if device.type == "cuda":
         from . import _build
         _build.launch_sweep(cfg, axis, src, dst, p, partials, scal, iscal,
                             factor, emit, ghosts, n_real or cfg.n_local,
-                            finish, cond)
+                            finish, cond, fold)
         name = "x_sweep" if axis is Axis.X else "y_sweep"
         LAUNCHES[name + "_slab" if slab else name] += 1
         if finish is not None:
@@ -550,7 +600,7 @@ def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
     if int(iscal[IS_RUN]):
         T = np.dtype(cfg.dtype).type
         dt = scal[SC_DTUSE] * float(T(factor))
-        out = sweep_plain(cfg, axis, *src, dt, ghosts, n_real)
+        out = sweep_plain(cfg, axis, *src, dt, ghosts, n_real, fold)
         for d, o in zip(dst, out[:4]):
             d.copy_(o)
         if emit:
@@ -566,7 +616,7 @@ def _sweep(cfg, axis, src, dst, p, partials, scal, iscal, factor, emit,
 
 
 def x_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
-            ghosts=MIRRORED, n_real=None, finish=None, cond=None):
+            ghosts=MIRRORED, n_real=None, finish=None, cond=None, fold=None):
     """K1: one X sweep of (rho, u, v, E) `src` into `dst` with dt =
     scal[dt_use] * factor, skipped (copied through) when iscal[run] is 0,
     ghost columns from `ghosts` (see module doc). With `emit` (the cycle's
@@ -575,19 +625,20 @@ def x_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
     slice of a wider one; with `finish` (a `Finish` whose columns hold
     `partials`) it then runs K3's fold and dt step in its tail, and with
     `cond` (a `Cond`: the last launch of a whole-run graph's body) sets
-    that WHILE condition from the predicate the tail wrote. Replaces
-    `_x_sweep_kernel` (`sweep.py:978`, with `_dt_tile_min` :924), its X
-    slab variant (`_bc_x_apply_slab` :849) included."""
+    that WHILE condition from the predicate the tail wrote. `fold` (a
+    `Fold`): the launch's place in its cycle's cross-sweep EOS fold.
+    Replaces `_x_sweep_kernel` (`sweep.py:978`, with `_dt_tile_min`
+    :924), its X slab variant (`_bc_x_apply_slab` :849) included."""
     _sweep(cfg, Axis.X, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real, finish, cond)
+           ghosts, n_real, finish, cond, fold)
 
 
 def y_sweep(cfg, src, dst, p, partials, scal, iscal, factor, emit,
-            ghosts=MIRRORED, n_real=None, finish=None, cond=None):
+            ghosts=MIRRORED, n_real=None, finish=None, cond=None, fold=None):
     """K2: the same along Y. Replaces `_y_sweep_kernel` (`sweep.py:1092`),
     its Y slab variant (`_halo_cat_slab` :590) included."""
     _sweep(cfg, Axis.Y, src, dst, p, partials, scal, iscal, factor, emit,
-           ghosts, n_real, finish, cond)
+           ghosts, n_real, finish, cond, fold)
 
 
 def cfl_finish(cfg, partials, nblocks, scal, iscal, fold=True, step=True):

@@ -39,10 +39,11 @@ import torch
 from . import LAUNCHES, count
 from .._card import (bound, card_line, device_of, emit, kernel_entry, shown,
                      time_ms)
-from ..ops.sweep import (fill_ghosts_plain, sweep_math_plain, cfl_partial_plain,
-                         new_scalars, SC_DTUSE, IS_RUN)
+from ..ops.sweep import (fill_ghosts_plain, fold_on, sweep_math_plain,
+                         sweep_plain, cfl_partial_plain, new_scalars, SC_DTUSE,
+                         IS_RUN)
 from ..ops.cycle import cycle_plain, tile_grid, CYCLE_WINDOW, BASE_TILE
-from ..ops.eos import scalar_like
+from ..ops.eos import fold_const, scalar_like
 from ..ops.reductions import real_slice
 from ..utils.enums import Axis
 
@@ -89,9 +90,17 @@ def random_fields(cfg, seed, device):
 
 def variant_plain(name, cfg, src, dt):
     """The variant's function in plain PyTorch (X first, dt on both
-    sweeps): (rho, u, v, E, p or None, (max |u|+c, max |v|+c) or None)."""
-    if name in ("no_roll", "stream"):
+    sweeps): (rho, u, v, E, p or None, (max |u|+c, max |v|+c) or None).
+    K4's variants take the cross-sweep EOS fold between their sweeps
+    where the mode does (`ops/sweep.fold_on`); the per-position tile body
+    (`base_l32`) takes none."""
+    fold = fold_on(cfg, src[0].device)
+    if name in ("no_roll", "stream", "base_l32"):
         f = fill_ghosts_plain(cfg, Axis.X, fill_ghosts_plain(cfg, Axis.Y, src))
+        if name == "base_l32":
+            o = sweep_plain(cfg, Axis.X, *f, dt, (None, None))
+            o = sweep_plain(cfg, Axis.Y, *o[:4], dt, (None, None))
+            return o[:5] + (cfl_partial_plain(cfg, o[1], o[2], o[5]),)
         if name == "stream":
             return tuple(f) + (((f[0] + f[1]) + f[2]) + f[3], None)
         T = np.float32
@@ -100,10 +109,10 @@ def variant_plain(name, cfg, src, dt):
             return a * (1 + 1e-7 * k) if k else a
 
         r1, u1, v1, E1, _, _ = sweep_math_plain(
-            cfg, sh, dt, scalar_like(src[0], T(cfg.dx)), *f)
+            cfg, sh, dt, scalar_like(src[0], T(cfg.dx)), *f, keep=fold)
         r2, v2, u2, E2, p, c = sweep_math_plain(
             cfg, sh, dt, scalar_like(src[0], T(cfg.dy)), r1, v1, u1, E1,
-            along_y=True)
+            along_y=True, fold_in=fold_const(cfg, Axis.X) if fold else None)
         return r2, u2, v2, E2, p, cfl_partial_plain(cfg, u2, v2, c)
     out = cycle_plain(cfg, True, *src, dt, dt)
     return out[:4] + (out[4] if WRITES_P[name] else None,

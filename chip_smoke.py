@@ -58,9 +58,10 @@ Phases, each printing one JSON line:
      resets; the last past the run's end), and with a NaN in u;
   2. the Julia goldens (Sod, Sod_y, Sod_circ, Sedov, Bizarrium at 100^2)
      through the per-sweep kernels at the JAX package's gates
-     (`GOLDEN_GATES`: zero differences for the Sod family; Sedov f64 at
-     the count the CPU measures) in f64 and f32 exact; the f32 fast-math
-     counts are reported;
+     (`GOLDEN_GATES`: zero differences for the Sod family and Sedov f64)
+     in f64 and f32 exact; the f32 fast-math counts are reported, and
+     Sedov's counts on a line of their own for each route (phases 2, 4,
+     7, 9);
   3. the main path: Sod 8192^2 f32 fast math (GAD/minmod/euler_2nd, nghost
      4, Sequential), one warm-up run then 100 timed cycles through
      `armon()`, with launch counts (K4/K5 must stay at 0; two launches a
@@ -878,8 +879,76 @@ def phase1(torch, n=1024, cycles=3):
     # bit for bit in f32 exact.
     results.append(_phase1_case(torch, "Sod_circ", STRIP_N, "float32", False,
                                 cycles, bitwise=True))
-    emit({"phase": 1, "checks": results})
+    emit({"phase": 1, "checks": results, "fold_checks": _fold_checks(torch)})
     return results
+
+
+def _fold_checks(torch, cycles=3):
+    """The cross-sweep EOS fold (`armon_torch/ops/eos.folds`) in every form
+    the routes launch, against the plain versions with the same folds, bit
+    for bit on real cells (exact mode, f64 and f32): Strang's three sweeps
+    (X leaves the unscaled density, the middle Y reads and leaves it, the
+    last X reads it and emits) and a Y-first pair, with mirror fills and
+    with slabs packed from the launch's own input (a mesh's middle
+    shard); K4 X first and Y first, leaving the scaled or the unscaled
+    density. On Sedov 1000 x 900 (1/dx = 500, 1/dy = 450: the fold
+    changes bits, and a constant taken from the wrong axis would show)
+    and Sod_circ 1024^2 (1/dx a power of two), after `cycles` cycles."""
+    from armon_torch.ops import sweep as K
+    from armon_torch.utils.enums import Axis
+    X, Y = Axis.X, Axis.Y
+    seqs = {"strang": ((X, K.Fold(None, True)), (Y, K.Fold(X, True)),
+                       (X, K.Fold(Y, False))),
+            "yx": ((Y, K.Fold(None, True)), (X, K.Fold(Y, False)))}
+    out = []
+    for test, n in (("Sedov", (1000, 900)), ("Sod_circ", 1024)):
+        for dtype in ("float64", "float32"):
+            params, fs, dt = _state_after(torch, test, n, dtype, False, cycles)
+            cfg = params.config
+            g = cfg.nghost
+            src = tuple(fs[:4])
+            dev, shape = src[0].device, src[0].shape
+            scal, iscal = K.new_scalars(cfg.dtype, dev)
+            scal[K.SC_DTUSE] = dt
+            iscal[K.IS_RUN] = 1
+            dt_t = scal[K.SC_DTUSE] * 1.0
+            part = torch.zeros((2, max(K.n_partials(a, shape, dev) for a in (X, Y))),
+                               dtype=src[0].dtype, device=dev)
+            err = 0.0
+            for name, seq in seqs.items():
+                for slab in (False, True):
+                    cur = src
+                    for j, (axis, fold) in enumerate(seq):
+                        last = j + 1 == len(seq)
+                        ghosts = K.MIRRORED
+                        if slab:
+                            lo, hi = ((slice(None), slice(g, 2 * g)),
+                                      (slice(None), slice(-2 * g, -g)))
+                            if axis is Y:
+                                lo, hi = lo[::-1], hi[::-1]
+                            ghosts = tuple(torch.stack([a[s] for a in cur]).contiguous()
+                                           for s in (lo, hi))
+                        dst = tuple(torch.empty_like(a) for a in src)
+                        p = torch.empty_like(src[0])
+                        (K.x_sweep if axis is X else K.y_sweep)(
+                            cfg, cur, dst, p, part, scal, iscal, 1.0, last,
+                            ghosts, fold=fold)
+                        ref = K.sweep_plain(cfg, axis, *cur, dt_t, ghosts,
+                                            fold=fold)
+                        torch.cuda.synchronize()
+                        what = f"fold {test} {n} {dtype} {name} slab={slab} sweep {j}"
+                        err = max(err, _gate_fields(
+                            torch, dst + ((p,) if last else ()),
+                            ref[:5 if last else 4], g, False, what))
+                        cur = dst
+            for x_first in (True, False):
+                for keep in (False, True):
+                    err = max(err, _k4_vs_plain(
+                        torch, cfg, src, dt, x_first, False,
+                        f"fold K4 {test} {n} {dtype} x_first={x_first} keep={keep}",
+                        keep=keep))
+            out.append({"test": test, "n": n, "dtype": dtype, "max_abs_err": err})
+    return out
 
 
 def _phase1_case(torch, test, n, dtype, fast, cycles, bitwise=False):
@@ -914,11 +983,11 @@ GOLDEN_MODES = (("float64", False), ("float32", False), ("float32", True))
 GOLDEN_TESTS = ("Sod", "Sod_y", "Sod_circ", "Sedov", "Bizarrium")
 # The JAX package's golden gates (`tests/test_convergence.py:50-86`): most
 # differing cells, largest relative difference, largest non-p one (None: no
-# gate), as `tests/test_torch_op_path.py` `GATES`. Sedov f64's gate is
-# zero differences, which the port misses (ROADMAP C2): it is held to what
-# the CPU measures (`SEDOV_F64_MEASURED`, 56 cells).
+# gate), as `tests/test_torch_op_path.py` `GATES`. Sedov f64's gate is zero
+# differences, which every route meets with the cross-sweep EOS fold
+# (`armon_torch/ops/eos.folds`, ROADMAP C2).
 GOLDEN_GATES = {("Sod", 64): (0, 0.0, None), ("Sod", 32): (0, 0.0, None),
-                ("Sedov", 64): (60, 1e-13, None), ("Sedov", 32): (1500, 1e-4, None),
+                ("Sedov", 64): (0, 0.0, None), ("Sedov", 32): (1500, 1e-4, None),
                 ("Bizarrium", 64): (16000, 1e-5, 1e-12),
                 ("Bizarrium", 32): (6000, None, 5e-3)}
 
@@ -975,6 +1044,10 @@ def _goldens(torch, route, modes=GOLDEN_MODES):
                       or (top_non_p is not None and non_p >= top_non_p))
             if not fast and missed:
                 raise AssertionError(f"golden {test} {dtype} {route}: {rows[-1]}")
+    # Sedov's counts on this route, a line of their own (ROADMAP C2).
+    emit({"sedov_golden": route, "counts": {
+        f"{r['dtype']}{'_fast' if r['fast'] else ''}": [r["diffs"], r["max_rel"]]
+        for r in rows if r["test"] == "Sedov"}})
     return rows
 
 
@@ -1120,6 +1193,27 @@ def phase3(torch):
     k4_err = _k4_vs_plain(torch, cfg, fs_src, stats.last_dt, True, True,
                           f"K4 at Sod {MAIN_N}^2 fast math", factors=(1.0, 1.0))
     del part4
+    # The exact instances (f32, IEEE divides) on the same state, as a
+    # Sequential cycle launches them with the cross-sweep EOS fold: K1
+    # leaves the unscaled new density, K2 rebuilds rho from it. Timed
+    # beside the fast-math launches above, and held bit for bit against
+    # the plain versions with the same folds.
+    ecfg = dataclasses.replace(cfg, fast_math=False)
+    f1, f2 = K.Fold(None, True), K.Fold(Axis.X, False)
+    emid = tuple(torch.empty_like(a) for a in fs_src)
+    eout = tuple(torch.empty_like(a) for a in fs_src)
+    ep = torch.empty_like(st.rho)
+    xe_ms = time_ms(lambda i: K.x_sweep(ecfg, fs_src, emid, ep, partials, scal,
+                                       iscal, 1.0, False, fold=f1), k=20)
+    ye_ms = time_ms(lambda i: K.y_sweep(ecfg, emid, eout, ep, partials, scal,
+                                       iscal, 1.0, True, fold=f2), k=20)
+    ref1 = K.sweep_plain(ecfg, Axis.X, *fs_src, dt_t, fold=f1)[:4]
+    ref2 = K.sweep_plain(ecfg, Axis.Y, *ref1, dt_t, fold=f2)[:5]
+    torch.cuda.synchronize()
+    exact_err = _gate_fields(torch, emid + eout + (ep,), ref1 + ref2,
+                             cfg.nghost, False,
+                             f"K1 -> K2 f32 exact, folded, at Sod {MAIN_N}^2")
+    del emid, eout, ep, ref1, ref2
 
     # Against the plain version at these shapes (f32 fast math vs exact).
     checks = check_sweeps(torch, params, FusedCarry(st.rho, st.u, st.v, st.E, st.p),
@@ -1170,6 +1264,8 @@ def phase3(torch):
     main["kernel_ms"] = {"x_sweep": x_ms, "y_sweep": y_ms, "cfl_finish": k3_ms,
                          "cycle_8200": k4_ms,
                          "with_and_without_tail_from_reset": tails_ms}
+    main["kernel_ms_exact"] = {"x_sweep": xe_ms, "y_sweep": ye_ms,
+                               "folded_max_abs_err": exact_err}
     main["checks"] = checks
     main["cycle_8200_fast_math_max_abs_err"] = k4_err
     emit(main)
@@ -1222,11 +1318,13 @@ def _gate_fields(torch, got, ref, g, fast, what):
 
 
 def _k4_vs_plain(torch, cfg, src, dt, x_first, fast, what,
-                 factors=(0.5, 1.0)):
+                 factors=(0.5, 1.0), keep=False):
     """One emitting K4 launch against `cycle_plain` on the same inputs, and
     K3 on its partials against K3's plain version. `factors` are the dt
-    factors of the first and the second sweep (Strang's pair by default).
-    Returns the max abs difference of the fields."""
+    factors of the first and the second sweep (Strang's pair by default);
+    `keep`, the second sweep leaves its new density unscaled (the
+    cross-sweep EOS fold, `ops/sweep.Fold`). Returns the max abs
+    difference of the fields."""
     from armon_torch.ops import sweep as K
     from armon_torch.ops import cycle as C
     dev = src[0].device
@@ -1238,9 +1336,10 @@ def _k4_vs_plain(torch, cfg, src, dt, x_first, fast, what,
     scal[K.SC_DTUSE] = dt
     iscal[K.IS_RUN] = 1
     fx, fy = factors if x_first else factors[::-1]
-    C.cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, True)
+    C.cycle(cfg, x_first, fx, fy, src, dst, p, partials, scal, iscal, True,
+            keep=keep)
     dt_t = scal[K.SC_DTUSE]
-    ref = C.cycle_plain(cfg, x_first, *src, dt_t * fx, dt_t * fy)
+    ref = C.cycle_plain(cfg, x_first, *src, dt_t * fx, dt_t * fy, keep=keep)
     torch.cuda.synchronize()
     err = _gate_fields(torch, dst + (p,), ref[:5], cfg.nghost, fast, what)
     for got, want in ((partials[0].max(), ref[5]), (partials[1].max(), ref[6])):
@@ -1256,12 +1355,16 @@ def _k4_vs_plain(torch, cfg, src, dt, x_first, fast, what,
 
 def _k4_vs_sweeps(torch, cfg, src, dt):
     """One emitting K4 launch (X first, the full dt on both sweeps)
-    against K1 then K2 on the same state and mode: (max abs difference of
-    rho/u/v/E/p on real cells, the largest over each field's scale)."""
+    against K1 then K2 on the same state and mode, each in the cross-sweep
+    EOS fold of a Sequential cycle where the mode takes it: (max abs
+    difference of rho/u/v/E/p on real cells, the largest over each
+    field's scale)."""
     from armon_torch.ops import sweep as K
     from armon_torch.ops import cycle as C
     from armon_torch.utils.enums import Axis
     dev, shape = src[0].device, src[0].shape
+    on = K.fold_on(cfg, dev)
+    f1, f2 = (K.Fold(None, True), K.Fold(Axis.X, False)) if on else (None, None)
     scal, iscal = K.new_scalars(cfg.dtype, dev)
     scal[K.SC_DTUSE] = dt
     iscal[K.IS_RUN] = 1
@@ -1270,8 +1373,8 @@ def _k4_vs_sweeps(torch, cfg, src, dt):
                        dtype=src[0].dtype, device=dev)
     mid, out, out4 = ([torch.empty_like(a) for a in src] for _ in range(3))
     p, p4 = torch.empty_like(src[0]), torch.empty_like(src[0])
-    K.x_sweep(cfg, src, mid, p, part, scal, iscal, 1.0, False)
-    K.y_sweep(cfg, mid, out, p, part, scal, iscal, 1.0, True)
+    K.x_sweep(cfg, src, mid, p, part, scal, iscal, 1.0, False, fold=f1)
+    K.y_sweep(cfg, mid, out, p, part, scal, iscal, 1.0, True, fold=f2)
     C.cycle(cfg, True, 1.0, 1.0, src, out4, p4, part, scal, iscal, True)
     torch.cuda.synchronize()
     g = cfg.nghost
@@ -1295,8 +1398,9 @@ def _k5_inputs(torch, cfg, src, p, sc):
 
 def _k5_check(torch, cfg, pairs, src, p, sc, fast, what):
     """One K5 launch against `multicycle_plain` on copies of the same
-    inputs: fields, p and every loop scalar, bit for bit in exact mode.
-    Returns (max abs diff, the cycle counter after the launch)."""
+    inputs (each with the cross-sweep EOS fold where the mode takes it):
+    fields, p and every loop scalar, bit for bit in exact mode. Returns
+    (max abs diff, the cycle counter after the launch)."""
     from armon_torch.ops import sweep as K
     from armon_torch.ops import cycle as C
     a, b = _k5_inputs(torch, cfg, src, p, sc), _k5_inputs(torch, cfg, src, p, sc)
@@ -1342,12 +1446,14 @@ def _k5_vs_plain(torch, params, warm, what):
 
 def _routes_bitwise(torch, test, n, dtype, routes, cycles=20):
     """The same run on each route: equal bits on real cells and equal t,
-    cycles, dt and lm (exact mode)."""
+    cycles, dt and lm (exact mode). `n`: the side of a square grid, or
+    N."""
     from armon_torch import ArmonParameters
     from armon_torch.ops.routing import route as route_of
     out, names = [], []
     for route in routes:
-        params = ArmonParameters(test=test, N=(n, n), data_type=dtype,
+        N = tuple(n) if isinstance(n, tuple) else (n, n)
+        params = ArmonParameters(test=test, N=N, data_type=dtype,
                                  use_fast_math=False, maxcycle=cycles,
                                  silent=5, device="cuda", **route)
         names.append(route_of(params.config))
@@ -1361,7 +1467,7 @@ def _routes_bitwise(torch, test, n, dtype, routes, cycles=20):
                 for a, b in zip(res.carry, base.carry))
         if not same:
             raise AssertionError(f"route {name} differs from {names[0]} at "
-                                 f"{test} {n}^2 {dtype}")
+                                 f"{test} {N} {dtype} {routes[0]}")
     return names
 
 
@@ -1459,11 +1565,20 @@ def phase4(torch):
                         "cycles_run": ran, "max_abs_err": err})
     out["k5_extremes_vs_plain"] = k5x
 
-    # (b) the routes against each other, exact mode
+    # (b) the routes against each other, exact mode; Sedov on a grid
+    # where dx != dy (the cross-sweep EOS fold's constant per axis), with
+    # its splitting and with Strang's (the middle sweep reads and leaves
+    # the unscaled density)
+    strang = {"axis_splitting": "Strang"}
     out["routes_bitwise"] = [
-        {"N": n, "dtype": dtype,
-         "routes": _routes_bitwise(torch, "Sod_circ", n, dtype, routes)}
-        for n, routes in ((100, (PER_SWEEP, PAIR, {})), (1024, (PER_SWEEP, PAIR)))
+        {"test": test, "N": n, "dtype": dtype, "options": routes[0],
+         "routes": _routes_bitwise(torch, test, n, dtype, routes)}
+        for test, n, routes in (("Sod_circ", 100, (PER_SWEEP, PAIR, {})),
+                                ("Sod_circ", 1024, (PER_SWEEP, PAIR)),
+                                ("Sedov", 100, (PER_SWEEP, PAIR, {})),
+                                ("Sedov", (131, 77), (PER_SWEEP, PAIR, {})),
+                                ("Sedov", (131, 77), ({**PER_SWEEP, **strang},
+                                                      {**PAIR, **strang})))
         for dtype in ("float64", "float32")]
 
     # (c) the goldens through the two new routes (per-sweep: phase 2)
@@ -1512,10 +1627,12 @@ def phase4(torch):
     dev = st.rho.device
     k4_err = 0.0
     for dtype, ecfg in _exact_cfgs("Sedov", (SEDOV_N, SEDOV_N)):
-        k4_err = max(k4_err, _k4_vs_plain(
-            torch, ecfg, tuple(a.to(getattr(torch, dtype)) for a in src),
-            sedov_stats.last_dt, True, False,
-            f"K4 at Sedov {SEDOV_N}^2 {dtype} exact", factors=(1.0, 1.0)))
+        for keep in (False, True):  # the cycle's last launch, Strang's pair
+            k4_err = max(k4_err, _k4_vs_plain(
+                torch, ecfg, tuple(a.to(getattr(torch, dtype)) for a in src),
+                sedov_stats.last_dt, True, False,
+                f"K4 at Sedov {SEDOV_N}^2 {dtype} exact keep={keep}",
+                factors=(1.0, 1.0), keep=keep))
     k4_fast = _k4_vs_plain(torch, cfg, src, sedov_stats.last_dt, True, True,
                            f"K4 at Sedov {SEDOV_N}^2 fast math",
                            factors=(1.0, 1.0))
@@ -1559,6 +1676,23 @@ def phase4(torch):
     dt_t = scal[K.SC_DTUSE]
     k4p_ms = time_ms(lambda i: C.cycle_plain(cfg, True, *src, dt_t, dt_t),
                      k=3)
+    # The exact instances on the same state, as the pair route launches
+    # them (the cross-sweep EOS fold between the sweeps), beside the
+    # fast-math time.
+    k4_exact_ms = {}
+    for dtype, ecfg in _exact_cfgs("Sedov", (SEDOV_N, SEDOV_N)):
+        tdt = getattr(torch, dtype)
+        esrc = tuple(a.to(tdt) for a in src)
+        edst = tuple(torch.empty_like(a) for a in esrc)
+        ep = torch.empty_like(esrc[0])
+        epart = torch.zeros((2, C.n_partials(st.rho.shape, dev, ecfg.dtype)),
+                            dtype=tdt, device=dev)
+        es, ei = K.new_scalars(ecfg.dtype, dev)
+        es[K.SC_DTUSE] = sedov_stats.last_dt
+        ei[K.IS_RUN] = 1
+        k4_exact_ms[dtype] = time_ms(lambda i: C.cycle(
+            ecfg, True, 1.0, 1.0, esrc, edst, ep, epart, es, ei, True), k=20)
+        del esrc, edst, ep
     fb = st.rho.numel() * st.rho.element_size()
     b_ms, b_by = bound_f32(9 * fb + 2 * nb * st.rho.element_size(),
                           2 * SWEEP_OPS_PER_CELL * st.rho.numel())
@@ -1598,6 +1732,17 @@ def phase4(torch):
                                                 part, a[3], a[4]), k=20)
     k5p_ms = time_ms(lambda i: C.multicycle_plain(cfg, pairs, len(pairs),
                                                        *b), k=2)
+    # The exact instances, as the multicycle route launches them (with the
+    # cross-sweep EOS fold), each call from the state the one before left.
+    k5_exact_ms = {}
+    for dtype, ecfg in _exact_cfgs("Sod", (SOD_N, SOD_N), maxcycle=1 << 23):
+        tdt = getattr(torch, dtype)
+        e = _k5_inputs(torch, ecfg, tuple(a.to(tdt) for a in fs[:4]),
+                       fs.p.to(tdt), sc)
+        epart = C.new_multicycle_partials(st.rho.shape, ecfg.dtype, dev)
+        k5_exact_ms[dtype] = time_ms(lambda i: C.multicycle(
+            ecfg, temporal_pairs(ecfg), e[0], e[1], e[2], epart, e[3], e[4]),
+            k=20)
     fb = st.rho.numel() * st.rho.element_size()
     b_ms, b_by = bound_f32(10 * fb, 2 * SWEEP_OPS_PER_CELL * st.rho.numel()
                           * len(pairs))
@@ -1611,6 +1756,7 @@ def phase4(torch):
     restore_counts(K, saved)
     out["kernel_ms"] = {"cycle": k4_ms, "multicycle": k5_ms,
                         "multicycle_per_cycle": k5_ms / len(pairs)}
+    out["kernel_ms_exact"] = {"cycle": k4_exact_ms, "multicycle": k5_exact_ms}
     emit(out)
     return kernels + [{"sedov_pair_cells_per_s": sedov["cells_per_s"],
                        "sedov_pair_cycle_ms": sedov["solve_s"] / sedov["cycles"] * 1e3,

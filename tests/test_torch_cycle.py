@@ -21,6 +21,7 @@ from armon_tpu.core import step as jstep
 from armon_tpu.io.output import read_reference_csv, compare_states
 import armon_torch
 from armon_torch.interop import to_numpy
+from armon_torch.kernel_fuzz import pair_folds
 from armon_torch.core.solver import make_init_fused, make_mesh
 from armon_torch.core.step import make_time_loop_lean
 from armon_torch.ops import routing
@@ -118,8 +119,9 @@ def test_pair_route_matches_jax(test, extra):
     ids=["circ", "biz", "circ-f32", "40x3", "3x40"])
 def test_cycle_plain_equals_two_sweeps(test, N, dtype, x_first):
     """K4's plain version (both fills from the pre-cycle state, then two
-    sweeps) equals two per-sweep sweeps with their own fills, bit for bit
-    on real cells, also on grids thinner than the ghost band."""
+    sweeps) equals two per-sweep sweeps with their own fills (and the
+    cycle's cross-sweep EOS fold, as K4 takes it), bit for bit on real
+    cells, also on grids thinner than the ghost band."""
     params = armon_torch.ArmonParameters(device="cpu", test=test, N=N,
                                          data_type=dtype, maxcycle=3,
                                          silent=5, **PER_SWEEP)
@@ -130,8 +132,9 @@ def test_cycle_plain_equals_two_sweeps(test, N, dtype, x_first):
     src = tuple(res.carry[:4])
     a1, a2 = (Axis.X, Axis.Y) if x_first else (Axis.Y, Axis.X)
     d1, d2 = (dt * 0.5, dt) if x_first else (dt, dt * 0.5)
-    out = K.sweep_plain(cfg, a1, *src, d1)
-    out = K.sweep_plain(cfg, a2, *out[:4], d2)
+    f1, f2 = pair_folds(cfg, "cpu", a1)
+    out = K.sweep_plain(cfg, a1, *src, d1, fold=f1)
+    out = K.sweep_plain(cfg, a2, *out[:4], d2, fold=f2)
     ref = cycle_plain(cfg, x_first, *src, *((d1, d2) if x_first else (d2, d1)))
     for a, b in zip(ref[:5], out[:5]):
         assert torch.equal(a[G:-G, G:-G], b[G:-G, G:-G])
@@ -144,8 +147,9 @@ def _k4_windows(cfg, x_first, src, dtx, dty, y_ghosts=K.MIRRORED, n_real=None):
     and grid): the pre-cycle state with both ghost fills, read at each
     block's window rows and columns (clamped to the array, as the
     kernel's loads are), the two plain sweeps on the window alone without
-    refilling, and the tile at the window's centre written back. Returns
-    (rho, u, v, E, p); cells no tile covers stay NaN."""
+    refilling (with the cycle's cross-sweep EOS fold), and the tile at
+    the window's centre written back. Returns (rho, u, v, E, p); cells no
+    tile covers stay NaN."""
     H = K.HALO
     wx, wy = C.cycle_window(cfg.dtype)
     rx, ry = wx - 2 * H, wy - 2 * H
@@ -156,14 +160,15 @@ def _k4_windows(cfg, x_first, src, dtx, dty, y_ghosts=K.MIRRORED, n_real=None):
     out = [torch.full_like(f[0], float("nan")) for _ in range(5)]
     a1, d1, a2, d2 = ((Axis.X, dtx, Axis.Y, dty) if x_first
                       else (Axis.Y, dty, Axis.X, dtx))
+    f1, f2 = pair_folds(cfg, "cpu", a1)
     for by in range(gy):
         for bx in range(gx):
             r0, c0 = by * ry, bx * rx
             ri = (torch.arange(wy) + r0 - H).clamp(0, rows - 1)
             ci = (torch.arange(wx) + c0 - H).clamp(0, cols - 1)
             win = [a[ri][:, ci] for a in f]
-            o = K.sweep_plain(cfg, a1, *win, d1, (None, None))
-            o = K.sweep_plain(cfg, a2, *o[:4], d2, (None, None))
+            o = K.sweep_plain(cfg, a1, *win, d1, (None, None), fold=f1)
+            o = K.sweep_plain(cfg, a2, *o[:4], d2, (None, None), fold=f2)
             h, w = min(ry, rows - r0), min(rx, cols - c0)
             for k in range(5):
                 out[k][r0:r0 + h, c0:c0 + w] = o[k][H:H + h, H:H + w]
@@ -213,8 +218,8 @@ def _k5_windows(cfg, x_first, src, dtx, dty, window):
     windows and `tile_grid`): the pre-cycle state with both ghost fills,
     read at every tile's `window` x `window` rows and columns (clamped to
     the array, as the kernel's loads are), the two plain sweeps on each
-    window alone without refilling, and the tile at the window's centre
-    written back. The windows go through each sweep side by side, a
+    window alone without refilling (with the cycle's cross-sweep EOS
+    fold), and the tile at the window's centre written back. The windows go through each sweep side by side, a
     window's rows (X) or columns (Y) beside the others': a sweep is local
     to its lines. Returns (rho, u, v, E, p, c); cells no tile covers stay
     NaN."""
@@ -231,19 +236,20 @@ def _k5_windows(cfg, x_first, src, dtx, dty, window):
     n = len(by)
     win = [a[ri[:, :, None], ci[:, None, :]] for a in f]  # (n, w, w)
 
-    def sweep(axis, fields, dt):
+    def sweep(axis, fields, dt, fold):
         if axis is Axis.X:   # n windows' rows, one below the other
             flat = [a.reshape(n * w, w) for a in fields]
         else:                # n windows' columns, side by side
             flat = [a.permute(1, 0, 2).reshape(w, n * w) for a in fields]
-        out = K.sweep_plain(cfg, axis, *flat, dt, (None, None))
+        out = K.sweep_plain(cfg, axis, *flat, dt, (None, None), fold=fold)
         if axis is Axis.X:
             return [a.reshape(n, w, w) for a in out]
         return [a.reshape(w, n, w).permute(1, 0, 2) for a in out]
 
     a1, d1, a2, d2 = ((Axis.X, dtx, Axis.Y, dty) if x_first
                       else (Axis.Y, dty, Axis.X, dtx))
-    o = sweep(a2, sweep(a1, win, d1)[:4], d2)
+    f1, f2 = pair_folds(cfg, "cpu", a1)
+    o = sweep(a2, sweep(a1, win, d1, f1)[:4], d2, f2)
     out = [torch.full_like(f[0], float("nan")) for _ in range(6)]
     for t in range(n):
         r0, c0 = int(by[t]) * r, int(bx[t]) * r
@@ -396,6 +402,32 @@ def test_pair_route_goldens(test, dtype):
     cnt, max_diff, details = compare_states(jcfg, to_numpy(stats.data), ref,
                                             atol=atol, rtol=rtol)
     assert cnt == 0 and max_diff == 0, details
+
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_pair_route_golden_sedov(dtype):
+    """Sedov at the golden ladder through the pair route, at the JAX
+    package's gates (`tests/test_convergence.py:50-75`): zero differences
+    in f64, which the cross-sweep EOS fold gives (`ops/eos.folds`, ROADMAP
+    C2); in f32 at most 1500, each under 1e-4."""
+    params = armon_torch.ArmonParameters(
+        data_type=dtype, test="Sedov", scheme="GAD", projection="euler_2nd",
+        riemann_limiter="minmod", nghost=4, N=(100, 100), maxcycle=1000,
+        silent=5, measure_time=False, device="cpu", return_data=True, **PAIR)
+    assert routing.route(params.config) == "pair"
+    stats = armon_torch.armon(params)
+    jcfg = reference_params("Sedov", dtype).config
+    ref_dt, ref_cycles, ref = read_reference_csv(jcfg, ref_file("Sedov", dtype))
+    atol, rtol = abs_tol(dtype), rel_tol(dtype)
+    assert stats.cycles == ref_cycles
+    assert abs(float(ref_dt) - stats.last_dt) <= max(atol, rtol * abs(float(ref_dt)))
+    cnt, max_diff, details = compare_states(jcfg, to_numpy(stats.data), ref,
+                                            atol=atol, rtol=rtol)
+    if np.dtype(dtype).itemsize == 8:
+        assert cnt == 0 and max_diff == 0, details
+    else:
+        assert cnt <= 1500 and max_diff < 1e-4, details
 
 
 def test_pair_route_stop_check_interval_is_bitwise_neutral():

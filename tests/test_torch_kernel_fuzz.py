@@ -111,7 +111,8 @@ def test_pair_cycle_matches_per_sweep(seed):
     """`tests/test_fuzz.py:158-197`: one cycle of the pair route's plain
     version (`cycle_plain`: both ghost bands filled from the pre-cycle
     state, then both sweeps) against the per-sweep route's (an X then a Y
-    `sweep_plain`, each filling its own band) on uniform random states:
+    `sweep_plain`, each filling its own band, the two in the cycle's
+    cross-sweep EOS fold as K4's sweeps are) on uniform random states:
     bit for bit on real cells, the CFL maxima too. The JAX file's 1e-12
     exists only for XLA's contractions (its docstring); the port's
     result is held within it against the JAX package's
@@ -122,8 +123,9 @@ def test_pair_cycle_matches_per_sweep(seed):
     params, fields = KF.pair_draw(seed)
     cfg = params.config
     dt = torch.tensor(KF.DT, dtype=torch.float64)
-    x = K.sweep_plain(cfg, Axis.X, *_t(fields), dt)
-    y = K.sweep_plain(cfg, Axis.Y, *x[:4], dt)
+    f1, f2 = KF.pair_folds(cfg, "cpu")
+    x = K.sweep_plain(cfg, Axis.X, *_t(fields), dt, fold=f1)
+    y = K.sweep_plain(cfg, Axis.Y, *x[:4], dt, fold=f2)
     mx, my = K.cfl_partial_plain(cfg, y[1], y[2], y[5])
     pair = C.cycle_plain(cfg, True, *_t(fields), dt, dt)
     r = (slice(4, -4), slice(4, -4))

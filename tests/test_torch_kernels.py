@@ -205,6 +205,98 @@ def test_card_run_matches_cpu_run(card, dtype, N, route):
         assert torch.equal(x, y), name
 
 
+# Sedov on 40 x 36 cells: 1/dx and 1/dy differ and neither is a power of
+# two, so the cross-sweep EOS fold changes bits and an axis mixed up shows.
+FOLD_ROUTES = {"per_sweep": PER_SWEEP, "pair": PAIR, "multicycle": {},
+               "mesh_per_sweep": dict(P=(2, 2), devices=["cuda:0"] * 4,
+                                      **PER_SWEEP),
+               "mesh_pair": dict(P=(1, 2), devices=["cuda:0"] * 2, **PAIR)}
+FOLD_CASES = [(s, r) for s in ("Strang", "SequentialSym") for r in FOLD_ROUTES
+              if r != "multicycle"] + [("Godunov", r) for r in FOLD_ROUTES]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("splitting,route", FOLD_CASES,
+                         ids=[f"{s}-{r}" for s, r in FOLD_CASES])
+def test_folded_routes_match_cpu_op_path(card, splitting, route, dtype):
+    """Sedov through each kernel route on the card, exact mode, with the
+    cross-sweep EOS fold between the launches of a cycle (K1 -> K2 and
+    Strang's middle sweep, K4's and K5's own sweeps, the slabs of a
+    one-card mesh), against the op path on the CPU: bit for bit."""
+    opts = dict(test="Sedov", N=(40, 36), data_type=dtype, maxcycle=16,
+                use_fast_math=False, silent=5, return_data=True,
+                axis_splitting=splitting)
+    a = armon_torch.armon(armon_torch.ArmonParameters(
+        device="cuda", **opts, **FOLD_ROUTES[route]))
+    b = armon_torch.armon(armon_torch.ArmonParameters(
+        device="cpu", kernel_tier="torch", **opts))
+    assert (a.cycles, a.final_time, a.last_dt) == (b.cycles, b.final_time, b.last_dt)
+    g = 4
+    shards = a.data if isinstance(a.data, list) else [a.data]
+    assert len(shards) == 1, "a mesh run returns the gathered state"
+    for name in ("rho", "u", "v", "E", "p"):
+        x = getattr(shards[0], name).cpu()[g:-g, g:-g]
+        y = getattr(b.data, name)[g:-g, g:-g]
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_folded_launches_match_plain(card, dtype):
+    """Every form of the fold a route launches against the plain versions
+    with the same folds, bit for bit on real cells: Strang's X (leaves X),
+    Y (reads and leaves it), X (reads it, emits), with mirror fills and
+    with slabs packed from the launch's input; K4 X first and Y first,
+    leaving rho or X."""
+    X, Y = armon_torch.Axis.X, armon_torch.Axis.Y
+    cfg, res = _advanced("Sedov", dtype, False, N=(131, 77))
+    g = cfg.nghost
+    r = (slice(g, -g), slice(g, -g))
+    src = tuple(res.carry[:4])
+    dt = 0.5 * res.dt_last
+    shape = src[0].shape
+    part = torch.zeros((2, max(K.n_partials(a, shape, card) for a in (X, Y))),
+                       dtype=src[0].dtype, device=card)
+    scal, iscal = K.new_scalars(cfg.dtype, card)
+    scal[K.SC_DTUSE] = dt
+    iscal[K.IS_RUN] = 1
+    seq = ((X, K.Fold(None, True)), (Y, K.Fold(X, True)), (X, K.Fold(Y, False)))
+    for slab in (False, True):
+        cur = src
+        for j, (axis, fold) in enumerate(seq):
+            last = j + 1 == len(seq)
+            ghosts = K.MIRRORED
+            if slab:
+                cut = [(slice(None), slice(g, 2 * g)),
+                       (slice(None), slice(-2 * g, -g))]
+                if axis is Y:
+                    cut = [c[::-1] for c in cut]
+                ghosts = tuple(torch.stack([a[c] for a in cur]).contiguous()
+                               for c in cut)
+            dst = tuple(torch.empty_like(a) for a in src)
+            p = torch.empty_like(src[0])
+            (K.x_sweep if axis is X else K.y_sweep)(
+                cfg, cur, dst, p, part, scal, iscal, 1.0, last, ghosts,
+                fold=fold)
+            ref = K.sweep_plain(cfg, axis, *cur, scal[K.SC_DTUSE] * 1.0,
+                                ghosts, fold=fold)
+            got = dst + ((p,) if last else ())
+            for a, b in zip(got, ref[:len(got)]):
+                assert torch.equal(a[r], b[r]), (slab, j)
+            cur = dst
+    nb = C.n_partials(shape, card, cfg.dtype)
+    part4 = torch.zeros((2, nb), dtype=src[0].dtype, device=card)
+    for x_first in (True, False):
+        for keep in (False, True):
+            dst = tuple(torch.empty_like(a) for a in src)
+            p = torch.empty_like(src[0])
+            C.cycle(cfg, x_first, 1.0, 1.0, src, dst, p, part4, scal, iscal,
+                    True, keep=keep)
+            d = scal[K.SC_DTUSE]
+            ref = C.cycle_plain(cfg, x_first, *src, d, d, keep=keep)
+            for a, b in zip(dst + (p,), ref[:5]):
+                assert torch.equal(a[r], b[r]), (x_first, keep)
+
+
 def test_launch_counts(card):
     K.reset_launches()
     G.reset_launches()

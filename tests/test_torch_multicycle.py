@@ -122,6 +122,31 @@ def test_multicycle_route_goldens(test, dtype):
     assert cnt == 0 and max_diff == 0, details
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_multicycle_route_golden_sedov(dtype):
+    """Sedov at the golden ladder through the multicycle route, at the JAX
+    package's gates (`tests/test_convergence.py:50-75`): zero differences
+    in f64, which the cross-sweep EOS fold gives (`ops/eos.folds`, ROADMAP
+    C2); in f32 at most 1500, each under 1e-4."""
+    params = armon_torch.ArmonParameters(
+        data_type=dtype, test="Sedov", scheme="GAD", projection="euler_2nd",
+        riemann_limiter="minmod", nghost=4, N=(100, 100), maxcycle=1000,
+        silent=5, measure_time=False, device="cpu", return_data=True)
+    assert routing.route(params.config) == "multicycle"
+    stats = armon_torch.armon(params)
+    jcfg = reference_params("Sedov", dtype).config
+    ref_dt, ref_cycles, ref = read_reference_csv(jcfg, ref_file("Sedov", dtype))
+    atol, rtol = abs_tol(dtype), rel_tol(dtype)
+    assert stats.cycles == ref_cycles
+    assert abs(float(ref_dt) - stats.last_dt) <= max(atol, rtol * abs(float(ref_dt)))
+    cnt, max_diff, details = compare_states(jcfg, to_numpy(stats.data), ref,
+                                            atol=atol, rtol=rtol)
+    if np.dtype(dtype).itemsize == 8:
+        assert cnt == 0 and max_diff == 0, details
+    else:
+        assert cnt <= 1500 and max_diff < 1e-4, details
+
+
 @pytest.mark.parametrize("splitting", ["Sequential", "Godunov"])
 def test_multicycle_stop_check_interval_is_bitwise_neutral(splitting):
     """Reading the stop flag after every launch (check_every 1 or 8) or

@@ -47,6 +47,28 @@ def test_golden_zero_diff(test, dtype):
     assert cnt == 0 and max_diff == 0, details
 
 
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_golden_sedov(dtype):
+    """Sedov at the golden ladder through the per-sweep route, at the JAX
+    package's gates (`tests/test_convergence.py:50-75`): zero differences
+    in f64, which the cross-sweep EOS fold gives (`ops/eos.folds`, ROADMAP
+    C2); in f32 at most 1500, each under 1e-4."""
+    stats = armon_torch.armon(_torch_reference_params("Sedov", dtype,
+                                                      return_data=True))
+    jcfg = reference_params("Sedov", dtype).config
+    ref_dt, ref_cycles, ref = read_reference_csv(jcfg, ref_file("Sedov", dtype))
+    atol, rtol = abs_tol(dtype), rel_tol(dtype)
+    assert stats.cycles == ref_cycles
+    assert abs(float(ref_dt) - stats.last_dt) <= max(atol, rtol * abs(float(ref_dt)))
+    cnt, max_diff, details = compare_states(jcfg, to_numpy(stats.data), ref,
+                                            atol=atol, rtol=rtol)
+    if np.dtype(dtype).itemsize == 8:
+        assert cnt == 0 and max_diff == 0, details
+    else:
+        assert cnt <= 1500 and max_diff < 1e-4, details
+
+
 RUNS = [
     ("Sod_circ", dict(axis_splitting="Sequential")),
     ("Sod_circ", dict(axis_splitting="Godunov")),

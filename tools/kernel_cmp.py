@@ -41,6 +41,14 @@ euler_2nd, nghost 4):
   every cycle only copies and waits at the grid barrier) and, in f32,
   the per-position tile body alone (`<cell>_body_ms`: one cycle of the
   cycle probe's `base_l32`, 24 x 24 tiles, with no grid barrier);
+- the exact instances (`--only exact` runs this part alone): on Sod
+  8192^2 after 10 fast-math cycles, Sedov 2000^2 after 1000 and Sod 100^2
+  after 50 (8200^2, 2008^2 and 108^2 padded), cast to f32 and f64, K1
+  (not emitting) and K2 (emitting, on K1's output) as a Sequential cycle
+  launches them, K4 X first and, at 108^2, K5 (8 cycles, each call from
+  the state the one before left), each with the cross-sweep EOS fold
+  where the tree has it (`ops/sweep.Fold`): `<state>_<dtype>_exact_
+  <kernel>_ms`;
 - K3's tail (`--only tail` runs this part alone; not in the default
   groups): on the Sedov 2008^2 and Sod 8200^2 states, an emitting K1, K2
   and K4 launch as the cycle's last: with K3's fold and dt step in its
@@ -213,6 +221,66 @@ for name, test, n, cycles in (("sedov_2008", "Sedov", 2000, 1000),
                 reset=reset)
     del src, dst, p, part, fs, res
 
+# The exact instances (f64 and f32 without fast math) as the routes launch
+# them: where the tree has the cross-sweep EOS fold (`ops/sweep.Fold`), K1
+# leaving the unscaled density and K2 reading it (a Sequential cycle), K4
+# and K5 folding between their sweeps; else the launches as they are. The
+# states come from the fast-math per-sweep kernels, whose arithmetic no
+# tree changes, cast to each type, so every root times the same inputs.
+FOLDS = hasattr(K, "Fold")
+for name, test, n, cycles in (("sod_8200", "Sod", 8192, 10),
+                              ("sedov_2008", "Sedov", 2000, 1000),
+                              ("sod_108", "Sod", 100, 50)):
+    if "exact" not in groups:
+        break
+    params = ArmonParameters(test=test, N=(n, n), maxcycle=cycles, **OPTS)
+    [fs], seed = make_init_fused(params)()
+    res = make_time_loop_lean(params.config)(fs, 0.0, 0, 0.0, float(seed))
+    T = np.float32
+    dt = float(min(T(params.config.cfl) * T(res.lm), T(1.05) * T(res.dt_last)))
+    for dtype in ("float32", "float64"):
+        cfg = ArmonParameters(test=test, N=(n, n), maxcycle=1 << 23,
+                              **{**OPTS, "data_type": dtype,
+                                 "use_fast_math": False}).config
+        tdt = getattr(torch, dtype)
+        src = tuple(a.to(tdt) for a in res.carry[:4])
+        dev, shape = src[0].device, src[0].shape
+        scal, iscal = K.new_scalars(cfg.dtype, dev)
+        scal[K.SC_DTUSE] = dt
+        iscal[K.IS_RUN] = 1
+        part = torch.zeros((2, max(K.n_partials(Axis.X, shape, dev),
+                                   K.n_partials(Axis.Y, shape, dev),
+                                   C.n_partials(shape, dev, cfg.dtype))),
+                           dtype=tdt, device=dev)
+        mid, got = ([torch.empty_like(a) for a in src] for _ in range(2))
+        p = torch.empty_like(src[0])
+        f1, f2 = ({"fold": K.Fold(None, True)}, {"fold": K.Fold(Axis.X, False)}) \
+            if FOLDS else ({}, {})
+        key = f"{name}_{dtype}_exact"
+        out[key + "_x_sweep_ms"] = time_ms(lambda i: K.x_sweep(
+            cfg, src, mid, p, part, scal, iscal, 1.0, False, **f1), k=20)
+        out[key + "_y_sweep_ms"] = time_ms(lambda i: K.y_sweep(
+            cfg, mid, got, p, part, scal, iscal, 1.0, True, **f2), k=20)
+        out[key + "_cycle_ms"] = time_ms(lambda i: C.cycle(
+            cfg, True, 1.0, 1.0, src, got, p, part, scal, iscal, True), k=20)
+        if n == 100:
+            from armon_torch.ops.routing import temporal_pairs
+            mcfg = ArmonParameters(
+                test=test, N=(n, n), maxcycle=1 << 23,
+                **{**{k: v for k, v in OPTS.items()
+                      if k not in ("pair_threshold", "temporal_blocking")},
+                   "data_type": dtype, "use_fast_math": False}).config
+            cur = tuple(a.clone() for a in src)
+            nxt = tuple(torch.empty_like(a) for a in src)
+            ms, mi = K.new_scalars(mcfg.dtype, dev, t=res.t, cycle=res.cycles,
+                                   dt_prev=res.dt_last, lm=res.lm)
+            mpart = C.new_multicycle_partials(shape, mcfg.dtype, dev)
+            out[key + "_multicycle_ms"] = time_ms(lambda i: C.multicycle(
+                mcfg, temporal_pairs(mcfg), cur, nxt, p, mpart, ms, mi), k=20)
+            del cur, nxt, mpart
+        del src, mid, got, p, part
+    del fs, res
+
 from armon_torch.ops.routing import temporal_pairs
 MC = {k: v for k, v in OPTS.items() if k not in ("pair_threshold", "temporal_blocking")}
 for name, n, dtype in (("k5_108", 100, "float32"), ("k5_168", 160, "float32"),
@@ -295,7 +363,7 @@ print(json.dumps(out), flush=True)
 
 def main(argv=None):
     args = list(argv or sys.argv[1:])
-    groups = "sweeps,k5"
+    groups = "sweeps,k5,exact"
     if args[:1] == ["--only"]:
         groups, args = args[1], args[2:]
     roots = [os.path.abspath(r) for r in args]
